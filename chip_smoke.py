@@ -10,27 +10,36 @@ nonzero:
    power limit as ``nvidia-smi`` reports them.
 1. builds the CUDA kernels from ``qbot_tpu_torch/csrc/`` (timed).
 2. holds every kernel against its plain PyTorch version on the card, at the
-   26-qubit shapes of the ``--compile`` path, with fused flips and phases:
-   relative L2 error <= 1e-5 (float32 sums of up to 128 products, or of
-   row partials, taken in another order).  Times both.
+   26-qubit shapes of the ``--compile`` and density paths, with fused flips
+   and phases: relative L2 error <= 1e-5 (float32 sums of up to 128
+   products, two such sums for a pair, or row partials, taken in another
+   order).  Times both, and each pair also as the two window launches it
+   replaces.
 3. runs the example programs through the port's CLI and holds the readout
    to the dense host interpreter's within 1e-6; then a generated 24-qubit
    program (Hadamards and a CX chain; qubit 0 reads [0.5, 0.5]).
-4. Grover at 26 qubits, 512 iterations of the reflection loop: the marked
-   probability within 1e-4 of sin²((2R+1)·asin(2^-n/2)), the norm of 1.
-5. a 26-qubit random brickwork of 16 layers: the norm within 1e-4 of 1 and
-   the state within relative L2 1e-5 of the same plan run through the
-   kernels' plain versions on the card.
+4. Grover at 26 qubits, 512 iterations of the reflection loop after a
+   paired Hadamard init: the marked probability within 1e-4 of
+   sin²((2R+1)·asin(2^-n/2)), the norm of 1.
+5. a 26-qubit random brickwork of 16 layers, paired (the default) and
+   unpaired: each norm within 1e-4 of 1, each state within relative L2
+   1e-5 of the same plan run through the kernels' plain versions on the
+   card, and the two states within relative L2 1e-5 of each other.
+6. a 13-qubit density matrix: ``bench.py``'s brickwork of 8 layers run 16
+   times through the density runner.  The trace within 1e-4 of 1, one body
+   within relative L2 1e-5 of the plain versions, and the final ρ within
+   relative Frobenius 1e-4 of ψψ† of the statevector path (float32 over 16
+   bodies).
 
-Launch counts are reset before phase 3 and read after phase 5: every kernel
+Launch counts are reset before phase 3 and read after phase 6: every kernel
 must have launched on that path.  The line before the last is one JSON
 object of per-kernel results; the last is the run's verdict.
 
     python3 chip_smoke.py --profile chiprun_out
 
-runs phases 0 and 1, then profiles phases 4 and 5 with torch.profiler
-(device busy share, the table of device time per kernel, Chrome traces
-written to the directory) and nothing else.
+runs phases 0 and 1, then profiles phases 4, 5 (paired and unpaired) and 6
+with torch.profiler (device busy share, the table of device time per
+kernel, Chrome traces written to the directory) and nothing else.
 """
 from __future__ import annotations
 
@@ -57,11 +66,14 @@ from qbot_tpu_torch import compile_circuit
 from qbot_tpu_torch.cli import main as cli_main
 from qbot_tpu_torch.tpu import kernels
 from qbot_tpu_torch.tpu.planar import (
+    apply_plan_density_planar_ref,
     apply_plan_planar,
     apply_plan_planar_ref,
+    make_planar_density_runner,
     make_scanned_planar_runner,
     planar_norm,
     product_state_planar,
+    zero_density_planar,
     zero_state_planar,
 )
 
@@ -72,9 +84,14 @@ BRICKWORK_LAYERS = 16
 KERNEL_TOL = 1e-5          # relative L2, kernel vs plain version
 READOUT_TOL = 1e-6         # probability units
 NORM_TOL = 1e-4
+DENSITY_N = 13             # bench.py's density workload
+DENSITY_LAYERS = 8
+DENSITY_REPEATS = 16
+DENSITY_TOL = 1e-4         # relative Frobenius, ρ vs ψψ† after 16 bodies
 
-# launch count name -> (source, TPU kernel it replaces); window_apply is one
-# CUDA kernel serving both TPU window kernels, counted apart by geometry
+# launch count name -> (source, TPU kernel it replaces); window_apply and
+# pair_apply are one CUDA kernel each serving two TPU kernels, counted apart
+# by geometry
 KERNEL_SOURCES = {
     "window_apply": ("qbot_tpu_torch/csrc/window_apply.cu",
                      "qbot_tpu/tpu/kernels.py:208"),
@@ -84,6 +101,10 @@ KERNEL_SOURCES = {
                     "qbot_tpu/tpu/kernels.py:551"),
     "reflect_update": ("qbot_tpu_torch/csrc/reflect.cu",
                        "qbot_tpu/tpu/kernels.py:500"),
+    "pair_apply": ("qbot_tpu_torch/csrc/pair_apply.cu",
+                   "qbot_tpu/tpu/kernels.py:419"),
+    "pair_apply_trailing": ("qbot_tpu_torch/csrc/pair_apply.cu",
+                            "qbot_tpu/tpu/kernels.py:351"),
 }
 
 
@@ -118,11 +139,17 @@ def timed_ms(fn, device, iters: int = 10) -> float:
 
 def kernel_and_plain_ms(kernel, plain, device) -> tuple[float, float]:
     """(kernel ms, plain ms), timed in turns: plain, kernel, kernel, plain."""
-    p1 = timed_ms(plain, device)
-    k1 = timed_ms(kernel, device)
-    k2 = timed_ms(kernel, device)
-    p2 = timed_ms(plain, device)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    return tuple(timed_in_turns([plain, kernel], device)[::-1])
+
+
+def timed_in_turns(fns, device) -> list[float]:
+    """Mean ms of each of ``fns``, timed forward then backward (plain,
+    kernel, kernel, plain for two)."""
+    order = list(range(len(fns)))
+    ms = [0.0] * len(fns)
+    for i in order + order[::-1]:
+        ms[i] += timed_ms(fns[i], device) / 2
+    return ms
 
 
 def compare(name: str, got, want) -> tuple[float, float]:
@@ -149,6 +176,12 @@ def _random_state(n: int, gen: torch.Generator, device) -> torch.Tensor:
 def _random_unitary(d: int, rng: np.random.Generator) -> np.ndarray:
     q, r = np.linalg.qr(rng.normal(size=(d, d)) + 1j * rng.normal(size=(d, d)))
     return q * (np.diag(r) / np.abs(np.diag(r)))
+
+
+def _planar_unitary(d: int, rng, device) -> torch.Tensor:
+    u = _random_unitary(d, rng)
+    return torch.from_numpy(np.stack([u.real, u.imag]).astype(
+        np.float32)).to(device)
 
 
 def check_window(n: int, device, rng, gen) -> tuple[dict, dict]:
@@ -178,9 +211,7 @@ def check_window(n: int, device, rng, gen) -> tuple[dict, dict]:
                   (tuple(qa + qb) or (start,), complex(np.exp(-1.3j)), -1))
         flips = tuple(int(m) for m in rng.integers(0, 2**n, size=3))
         diag = kernels.fused_diagonals(n, flips, phases, device)
-        u = _random_unitary(2**w, rng)
-        wt = torch.from_numpy(np.stack([u.real, u.imag]).astype(
-            np.float32)).to(device)
+        wt = _planar_unitary(2**w, rng, device)
 
         got = kernels.window_apply(psi, n, start, w, wt, diag)
         want = kernels.window_apply_ref(psi, n, start, w, wt, diag)
@@ -205,6 +236,76 @@ def check_window(n: int, device, rng, gen) -> tuple[dict, dict]:
     wide = [s for s in shapes if s["B"] > 1]
     middle = next(s for s in wide if s["window"] == "middle")
     return summary(wide, middle), summary(trailing, trailing[0])
+
+
+def check_pair(n: int, device, rng, gen) -> tuple[dict, dict]:
+    """pair_apply vs pair_apply_ref at the paths' 26-qubit pairs: the
+    middle pair (0,5)+(5,7) of the brickwork and Grover's init (A = 1, B =
+    2^14), their trailing pair (12,7)+(19,7), and the 13-qubit density's
+    column pair (13,6)+(19,7).  Each is timed as the kernel, its plain
+    version and the two window_apply launches it replaces.  Returns the
+    results of the middle pair and of the trailing pairs (timed at
+    (128, 128))."""
+    geoms = {"middle": (0, 5, 7), "trailing": (n - 14, 7, 7),
+             "density_columns": (n - 13, 6, 7)}
+    psi = _random_state(n, gen, device)
+    none = kernels.fused_diagonals(n, device=device)
+    shapes = []
+    for label, (start, width1, width2) in geoms.items():
+        end = start + width1 + width2
+        A, B = 2**start, 2 ** (n - end)
+        # qubits on the a-, j-, m- and b-bits, wants that include 0
+        qa = [start - 1] if start else []
+        qj = [start, start + width1 - 1]
+        qm = [start + width1, end - 1]
+        qb = [n - 1] if B > 1 else []
+        qs = qa + qj + qm + qb
+        phases = ((tuple(qs), complex(np.exp(0.7j)),
+                   int(rng.integers(0, 2 ** len(qs)))),
+                  (tuple(qj + qm), complex(-1.0), 0b0100),
+                  (tuple(qa + qb) or (start + width1,),
+                   complex(np.exp(-1.3j)), -1))
+        flips = tuple(int(m) for m in rng.integers(0, 2**n, size=3))
+        diag = kernels.fused_diagonals(n, flips, phases, device)
+        w1 = _planar_unitary(2**width1, rng, device)
+        w2 = _planar_unitary(2**width2, rng, device)
+
+        def kernel():
+            return kernels.pair_apply(psi, n, start, width1, width2, w1, w2,
+                                      diag)
+
+        def plain():
+            return kernels.pair_apply_ref(psi, n, start, width1, width2, w1,
+                                          w2, diag)
+
+        def windows():
+            out = kernels.window_apply(psi, n, start, width1, w1, diag)
+            return kernels.window_apply(out, n, start + width1, width2, w2,
+                                        none)
+
+        want = plain()
+        rel, max_abs = compare(f"pair_apply {label}", kernel(), want)
+        compare(f"two windows {label}", windows(), want)
+        plain_ms, ms, windows_ms = timed_in_turns([plain, kernel, windows],
+                                                  device)
+        shapes.append({"pair": label, "A": A, "D1": 2**width1,
+                       "D2": 2**width2, "B": B, "rel_l2": rel,
+                       "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+                       "two_window_ms": windows_ms})
+        say(f"pair_apply {label}: (A, D1, D2, B) = ({A}, {2**width1}, "
+            f"{2**width2}, {B}), rel L2 {rel:.3e}, max abs {max_abs:.3e}, "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, two windows "
+            f"{windows_ms:.4f} ms")
+
+    def summary(group):
+        return {"shapes": group,
+                "rel_l2": max(s["rel_l2"] for s in group),
+                "max_abs_err": max(s["max_abs_err"] for s in group),
+                "ms": group[0]["ms"], "plain_ms": group[0]["plain_ms"],
+                "two_window_ms": group[0]["two_window_ms"]}
+
+    return (summary([s for s in shapes if s["B"] > 1]),
+            summary([s for s in shapes if s["B"] == 1]))
 
 
 def check_reflect(n: int, device, rng, gen) -> tuple[dict, dict]:
@@ -399,25 +500,88 @@ def grover(n: int, repeats: int, device) -> float:
     return gates_s
 
 
-def brickwork(n: int, layers: int, device) -> float:
+def brickwork(n: int, layers: int, device) -> dict:
+    """Gates/s of the brickwork, paired (the default plan) and unpaired."""
     c = brickwork_circuit(n, layers)
-    plan = compile_circuit(c)
     psi0 = product_state_planar([np.array([1.0, 0.0])] * n, device)
-    apply_plan_planar(psi0, plan)
+    rates, outs = {}, {}
+    for label, pair in (("paired", True), ("unpaired", False)):
+        plan = compile_circuit(c, pair=pair)
+        apply_plan_planar(psi0, plan)
+        sync(device)
+        t0 = time.perf_counter()
+        out = apply_plan_planar(psi0, plan)
+        sync(device)
+        elapsed = time.perf_counter() - t0
+        norm = float(planar_norm(out))
+        if abs(norm - 1.0) > NORM_TOL:
+            raise AssertionError(f"brickwork {label}: norm {norm}")
+        rel, _ = compare(f"brickwork {label} state", out,
+                         apply_plan_planar_ref(psi0, plan))
+        rates[label] = c.gate_count / elapsed
+        outs[label] = out
+        say(f"brickwork {n}q x {layers} layers, {label}: "
+            f"{len(plan.steps)} steps, {plan.num_passes} passes, norm "
+            f"{norm:.8f}, rel L2 vs plain {rel:.3e}, {elapsed:.4f} s, "
+            f"{rates[label]:.1f} gates/s")
+    rel, _ = compare("brickwork paired vs unpaired", outs["paired"],
+                     outs["unpaired"])
+    say(f"brickwork paired vs unpaired: rel L2 {rel:.3e}")
+    return rates
+
+
+def pure_density(psi: torch.Tensor) -> torch.Tensor:
+    """Planar ψψ† of a planar state."""
+    pr, pi = psi[0], psi[1]
+    return torch.stack([torch.outer(pr, pr) + torch.outer(pi, pi),
+                        torch.outer(pi, pr) - torch.outer(pr, pi)])
+
+
+def density_runner(device):
+    """(gate count, plan, runner of ``rho0 -> rho`` over the repeated
+    bodies, rho0) of ``bench.py``'s density workload."""
+    c = brickwork_circuit(DENSITY_N, DENSITY_LAYERS, seed=7)
+    plan = compile_circuit(c)
+    body = make_planar_density_runner(plan)
+
+    def run(rho):
+        for _ in range(DENSITY_REPEATS):
+            rho = body(rho)
+        return rho
+    return (c.gate_count * DENSITY_REPEATS, plan, run,
+            zero_density_planar(DENSITY_N, device))
+
+
+def density(device) -> float:
+    gates, plan, run, rho0 = density_runner(device)
+    one = make_planar_density_runner(plan)(rho0)
+    rel_one, _ = compare("density one body", one,
+                         apply_plan_density_planar_ref(rho0, plan))
+    del one
+    run(rho0)
     sync(device)
     t0 = time.perf_counter()
-    out = apply_plan_planar(psi0, plan)
+    rho = run(rho0)
     sync(device)
     elapsed = time.perf_counter() - t0
-    norm = float(planar_norm(out))
-    if abs(norm - 1.0) > NORM_TOL:
-        raise AssertionError(f"brickwork: norm {norm}")
-    rel, _ = compare("brickwork state", out,
-                     apply_plan_planar_ref(psi0, plan))
-    gates_s = c.gate_count / elapsed
-    say(f"brickwork {n}q x {layers} layers: {len(plan.steps)} steps, "
-        f"{plan.num_passes} passes, norm {norm:.8f}, rel L2 vs plain "
-        f"{rel:.3e}, {elapsed:.4f} s, {gates_s:.1f} gates/s")
+    trace = float(torch.sum(torch.diagonal(rho[0])))
+    if abs(trace - 1.0) > NORM_TOL:
+        raise AssertionError(f"density: trace {trace}")
+    psi = zero_state_planar(DENSITY_N, device)
+    for _ in range(DENSITY_REPEATS):
+        psi = apply_plan_planar(psi, plan)
+    pure = pure_density(psi)
+    frob = float(torch.linalg.vector_norm((rho - pure).double())
+                 / torch.linalg.vector_norm(pure.double()))
+    if not frob <= DENSITY_TOL:
+        raise AssertionError(f"density: relative Frobenius {frob:.3e} from "
+                             f"ψψ† > {DENSITY_TOL:g}")
+    gates_s = gates / elapsed
+    say(f"density {DENSITY_N}q x {DENSITY_LAYERS} layers x "
+        f"{DENSITY_REPEATS}: {len(plan.steps)} steps a body, trace "
+        f"{trace:.8f}, one body rel L2 vs plain {rel_one:.3e}, rel "
+        f"Frobenius vs ψψ† {frob:.3e}, {elapsed:.4f} s, {gates_s:.1f} "
+        f"gates/s")
     return gates_s
 
 
@@ -440,11 +604,12 @@ def _device_busy_ms(prof) -> float:
 
 
 def profile(n: int, device, out_dir: Path) -> None:
-    """Runs Grover (phase 4) and the brickwork (phase 5) once untimed, once
-    timed on the host clock, and once under torch.profiler.  Prints each
-    run's wall times, its device busy share (device-busy time over the
-    traced wall time) and the profiler's table by device time, and writes
-    the Chrome traces to ``out_dir``."""
+    """Runs Grover (phase 4), the brickwork paired and unpaired (phase 5)
+    and the density run (phase 6) once untimed, once timed on the host
+    clock, and once under torch.profiler.  Prints each run's wall times,
+    its device busy share (device-busy time over the traced wall time) and
+    the profiler's table by device time, and writes the Chrome traces to
+    ``out_dir``."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -453,10 +618,16 @@ def profile(n: int, device, out_dir: Path) -> None:
         activities.append(ProfilerActivity.CUDA)
     out_dir.mkdir(parents=True, exist_ok=True)
     _, _, run, grover_psi0 = grover_runner(n, GROVER_REPEATS, device)
-    brick_plan = compile_circuit(brickwork_circuit(n, BRICKWORK_LAYERS))
+    brick = brickwork_circuit(n, BRICKWORK_LAYERS)
+    paired = compile_circuit(brick)
+    unpaired = compile_circuit(brick, pair=False)
     brick_psi0 = product_state_planar([np.array([1.0, 0.0])] * n, device)
+    _, _, run_density, rho0 = density_runner(device)
     cases = {"grover": lambda: run(grover_psi0),
-             "brickwork": lambda: apply_plan_planar(brick_psi0, brick_plan)}
+             "brickwork": lambda: apply_plan_planar(brick_psi0, paired),
+             "brickwork_unpaired": lambda: apply_plan_planar(brick_psi0,
+                                                             unpaired),
+             "density": lambda: run_density(rho0)}
     for name, fn in cases.items():
         fn()
         sync(device)
@@ -484,8 +655,9 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR", type=Path,
-                        help="after the build, profile Grover and the "
-                             "brickwork with torch.profiler, write their "
+                        help="after the build, profile Grover, the "
+                             "brickwork (paired and unpaired) and the "
+                             "density run with torch.profiler, write their "
                              "traces to DIR, and run no other phase")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -516,6 +688,8 @@ def main(argv=None) -> int:
         check_window(N, device, rng, gen)
     results["reflect_dot"], results["reflect_update"] = check_reflect(
         N, device, rng, gen)
+    results["pair_apply"], results["pair_apply_trailing"] = check_pair(
+        N, device, rng, gen)
     say("phase 2: every kernel agrees with its plain version")
 
     kernels.reset_launch_counts()
@@ -523,8 +697,12 @@ def main(argv=None) -> int:
     say("phase 3: programs agree with the dense interpreter")
     grover_rate = grover(N, GROVER_REPEATS, device)
     say("phase 4: Grover agrees with its closed form")
-    brick_rate = brickwork(N, BRICKWORK_LAYERS, device)
-    say("phase 5: brickwork agrees with the plain versions")
+    brick_rates = brickwork(N, BRICKWORK_LAYERS, device)
+    say("phase 5: brickwork, paired and unpaired, agrees with the plain "
+        "versions and with itself")
+    density_rate = density(device)
+    say("phase 6: the density matrix agrees with the plain versions and "
+        "with ψψ†")
     counts = kernels.launch_counts()
     say(f"launches on the main path: {counts}")
     missing = [k for k, v in counts.items() if v <= 0]
@@ -534,7 +712,9 @@ def main(argv=None) -> int:
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     say(f"Grover {N}q: {grover_rate:.1f} gates/s; brickwork {N}q: "
-        f"{brick_rate:.1f} gates/s ({card})")
+        f"{brick_rates['paired']:.1f} gates/s paired, "
+        f"{brick_rates['unpaired']:.1f} unpaired; density {DENSITY_N}q: "
+        f"{density_rate:.1f} gates/s ({card})")
 
     print(smi)
     print(json.dumps({"kernels": [
@@ -543,6 +723,7 @@ def main(argv=None) -> int:
          "max_abs_err": results[name]["max_abs_err"],
          "rel_l2": results[name]["rel_l2"], "ms": results[name]["ms"],
          "plain_ms": results[name]["plain_ms"],
+         "two_window_ms": results[name].get("two_window_ms"),
          "shapes": results[name]["shapes"]}
         for name, (src, rep) in KERNEL_SOURCES.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -30,9 +30,6 @@ from qbot_tpu_torch.tpu.planar import (
 
 __all__ = ["run_lowered"]
 
-_PRECISION_TODO = ("precision {!r} is not ported yet (ROADMAP queue 1, "
-                   "item 5: precision modes); only 'f32' runs")
-
 
 def _is_computational(basis) -> bool:
     return basis.numQubits == 1 and all(
@@ -41,17 +38,15 @@ def _is_computational(basis) -> bool:
 
 
 def run_lowered(lp: LoweredProgram, window: int = 7, device="cuda",
-                precision: str = "f32", plan: Optional[Plan] = None):
+                plan: Optional[Plan] = None):
     """Execute a lowered program on ``device``.
 
-    ``plan`` is ``compile_circuit(lp.circuit, window)`` when the caller has
-    compiled it already; it is compiled here when None.
+    ``plan`` is ``compile_circuit(lp.circuit, window)`` (paired) when the
+    caller has compiled it already; it is compiled here when None.
 
     Returns (outcome probabilities as numpy, or None without a final
     measurement; final planar state tensor on ``device``).
     """
-    if precision != "f32":
-        raise NotImplementedError(_PRECISION_TODO.format(precision))
     device = torch.device(device)
     if plan is None:
         plan = compile_circuit(lp.circuit, window=window)

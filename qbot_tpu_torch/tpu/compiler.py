@@ -7,9 +7,11 @@ fold comes from :mod:`qbot_tpu_torch.tpu.planar`.  The plan dataclasses
 and every other pass are imported from :mod:`qbot_tpu.tpu.compiler`, so a
 plan from either compiler runs on either executor.
 
-Windows are never paired: the pair kernels are not ported yet, and the
-plans equal ``qbot_tpu``'s ``compile_circuit(circ, window, pair=False)``
-step for step.  There is no ``window="auto"``: ranking widths needs cost
+Windows are paired by default, as in ``qbot_tpu``: adjacent windows that
+``qbot_tpu.tpu.compiler._pairable`` accepts become one ``PairStep`` (one
+pass of the pair kernel).  Plans equal ``qbot_tpu``'s
+``compile_circuit(circ, window, pair)`` step for step, for both values of
+``pair``.  There is no ``window="auto"``: ranking widths needs cost
 constants measured on the card.
 """
 from __future__ import annotations
@@ -32,6 +34,7 @@ from qbot_tpu.tpu.compiler import (
     WindowStep,
     _fuse_flips,
     _fuse_phases,
+    _pair_windows,
     decompose_spanning_swap,
     eigen_decompose_controlled,
     gate_as_diag,
@@ -44,9 +47,11 @@ __all__ = ["compile_circuit"]
 _LANE_LOG2 = 7     # width of the trailing window
 
 
-def compile_circuit(circ: Circuit, window: int = 7) -> Plan:
+def compile_circuit(circ: Circuit, window: int = 7,
+                    pair: bool = True) -> Plan:
     """Compile to a window-fused plan of windows of up to ``window``
-    qubits (``qbot_tpu/tpu/compiler.py:536-692``, unpaired)."""
+    qubits (``qbot_tpu/tpu/compiler.py:536-694``), with adjacent windows
+    paired when ``pair``."""
     if not isinstance(window, int):
         raise ValueError(f"window must be an integer width, got {window!r}")
     n = circ.n
@@ -160,6 +165,8 @@ def compile_circuit(circ: Circuit, window: int = 7) -> Plan:
     plan.steps = _detect_reflections(plan.steps, n)
     plan.steps = _fuse_phases(plan.steps)
     plan.steps = _fuse_flips(plan.steps)
+    if pair:
+        plan.steps = _pair_windows(plan.steps, n)
     return plan
 
 

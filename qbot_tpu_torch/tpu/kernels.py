@@ -1,22 +1,23 @@
 """Hand-written CUDA kernels of the planar statevector path, and their plain
 PyTorch versions.
 
-Port of :mod:`qbot_tpu.tpu.kernels` (the forward window and reflection
-kernels).  Each wrapper dispatches on the device of the state it is given:
-a CPU tensor goes through the plain PyTorch version beside it, a CUDA
-tensor launches the kernel from ``qbot_tpu_torch/csrc/`` or raises.  There
-is no fallback and no mode switch.
+Port of :mod:`qbot_tpu.tpu.kernels` (the forward window, pair and
+reflection kernels).  Each wrapper dispatches on the device of the state it
+is given: a CPU tensor goes through the plain PyTorch version beside it, a
+CUDA tensor launches the kernel from ``qbot_tpu_torch/csrc/`` or raises.
+There is no fallback and no mode switch.
 
 The kernels are CUDA C++ for ``sm_90a`` with a plain C interface, compiled
-by ``nvcc`` at first use into ``qbot_tpu_torch/_build/<hash of the
-sources>/`` and loaded with :mod:`ctypes`.  They launch on PyTorch's current
-stream, never synchronise, and allocate nothing: the wrappers allocate
-outputs and scratch with ``torch.empty``.
+by ``nvcc`` at first use (one process per source, all at once, then one
+link) into ``qbot_tpu_torch/_build/<hash of the sources>/`` and loaded with
+:mod:`ctypes`.  They launch on PyTorch's current stream, never synchronise,
+and allocate nothing: the wrappers allocate outputs and scratch with
+``torch.empty``.
 
 Every wrapper counts its launches in an integer attribute (``launches``)
-so a run can show that it went through the kernel.  ``window_apply``
-counts its trailing-window launches (B = 1, the role of the TPU's
-``_right_multiply``) apart, in ``trailing_launches``.
+so a run can show that it went through the kernel.  ``window_apply`` and
+``pair_apply`` count their trailing launches (B = 1, the role of the TPU's
+``_right_multiply`` and ``_pair_b1``) apart, in ``trailing_launches``.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import torch
 
 __all__ = ["FusedDiagonals", "fused_diagonals", "phase_bits",
            "window_apply", "window_apply_ref",
+           "pair_apply", "pair_apply_ref", "pair_route",
            "reflect_dot", "reflect_dot_ref",
            "reflect_update", "reflect_update_ref",
            "build_kernels", "reset_launch_counts", "launch_counts"]
@@ -43,7 +45,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+               "-O3", "-Xcompiler", "-fPIC"]
 
 _lib = None
 
@@ -66,7 +68,8 @@ def _nvcc() -> str:
 
 def build_kernels() -> Path:
     """Compile ``csrc/*.cu`` into one shared library (once per source hash)
-    and return its path.  A failed build raises with nvcc's stderr."""
+    and return its path.  The sources compile in parallel, one nvcc each.
+    A failed build raises with nvcc's stderr."""
     sources = sorted(_CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     for src in sources:
@@ -79,16 +82,31 @@ def build_kernels() -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     # build under a private name, then rename: concurrent builders never
     # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, lib_path)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources]
+        _run_nvcc([[_nvcc(), *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                   for src, obj in zip(sources, objs)])
+        lib_tmp = Path(tmp) / lib_path.name
+        _run_nvcc([[_nvcc(), *_NVCC_FLAGS, "-shared", "-o", str(lib_tmp),
+                    *map(str, objs)]])
+        os.replace(lib_tmp, lib_path)
     return lib_path
+
+
+def _run_nvcc(cmds) -> None:
+    """Run the nvcc commands at once; raise with the stderr of the first
+    that fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    errors = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{err}")
+    if errors:
+        raise RuntimeError(errors[0])
 
 
 def _library():
@@ -100,6 +118,9 @@ def _library():
     lib.qbot_window_apply.argtypes = [p, p, p, i64, i32, i32, p, i32,
                                       p, p, p, i32, p]
     lib.qbot_window_apply.restype = i32
+    lib.qbot_pair_apply.argtypes = [p, p, p, p, i64, i32, i32, i32,
+                                    p, i32, p, p, p, i32, p]
+    lib.qbot_pair_apply.restype = i32
     lib.qbot_reflect_dot.argtypes = [p, p, i64, i64, i64, i32, p, p, p]
     lib.qbot_reflect_dot.restype = i32
     lib.qbot_reflect_update.argtypes = [p, p, p, p, p, p, i32, i64, i64,
@@ -135,18 +156,22 @@ def _fp32_matmul():
 
 
 def reset_launch_counts() -> None:
-    for fn in (window_apply, reflect_dot, reflect_update):
+    for fn in (window_apply, pair_apply, reflect_dot, reflect_update):
         fn.launches = 0
     window_apply.trailing_launches = 0
+    pair_apply.trailing_launches = 0
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, one count per TPU kernel
-    replaced: window_apply with B > 1 and with B = 1 count apart."""
+    replaced: window_apply and pair_apply with B > 1 and with B = 1 count
+    apart."""
     return {"window_apply": window_apply.launches,
             "window_apply_trailing": window_apply.trailing_launches,
             "reflect_dot": reflect_dot.launches,
-            "reflect_update": reflect_update.launches}
+            "reflect_update": reflect_update.launches,
+            "pair_apply": pair_apply.launches,
+            "pair_apply_trailing": pair_apply.trailing_launches}
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -301,6 +326,85 @@ def window_apply(psi, n: int, start: int, width: int, w,
         window_apply.trailing_launches += 1
     else:
         window_apply.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# pair: out[a, i, l, b] = Σ_{j,m} W1[i, j]·W2[l, m]·(Φ F p)[a, j, m, b]
+# ---------------------------------------------------------------------------
+
+def pair_apply_ref(psi, n: int, start: int, width1: int, width2: int, w1, w2,
+                   diag: FusedDiagonals):
+    """Plain version of :func:`pair_apply`, for every geometry."""
+    A, D1, D2 = 2**start, 2**width1, 2**width2
+    x = _apply_diagonals_ref(psi, diag).reshape(2, A, D1, D2, -1)
+    with _fp32_matmul():
+        def cmm(spec, w, xr, xi):
+            def mm(a, b):
+                return torch.einsum(spec, a, b)
+
+            return (mm(w[0], xr) - mm(w[1], xi), mm(w[0], xi) + mm(w[1], xr))
+
+        yr, yi = cmm("ij,ajmb->aimb", w1, x[0], x[1])
+        out_r, out_i = cmm("lm,aimb->ailb", w2, yr, yi)
+    return torch.stack([out_r, out_i]).reshape(psi.shape)
+
+
+def pair_route(n: int, start: int, width1: int, width2: int) -> str:
+    """How :func:`pair_apply` runs a pair on a CUDA tensor, as ``qbot_tpu``'s
+    ``_pair_apply_impl`` (``qbot_tpu/tpu/kernels.py:652-706``) does:
+    ``"trailing"`` (B = 1), ``"middle"`` (B >= 128 and D1 <= 32) or
+    ``"two_windows"``."""
+    B = 2 ** (n - start - width1 - width2)
+    if B == 1:
+        return "trailing"
+    if B >= 128 and width1 <= 5:
+        return "middle"
+    return "two_windows"
+
+
+def pair_apply(psi, n: int, start: int, width1: int, width2: int, w1, w2,
+               diag: FusedDiagonals):
+    """Apply (2, D1, D1) and (2, D2, D2) planar window unitaries to the
+    adjacent windows [start, start + width1) and [start + width1,
+    start + width1 + width2) of a (2, 2^n) planar float32 state, in one
+    pass, after the fused flips and phases of ``diag``.  Out of place.
+
+    On a CUDA tensor, :func:`pair_route` picks the trailing or the middle
+    pair kernel, or two :func:`window_apply` launches with the diagonals
+    fused into the first (counted as window launches).
+    """
+    _require(1 <= width1 <= 7 and 1 <= width2 <= 7 and 0 <= start
+             and start + width1 + width2 <= n,
+             f"windows [{start}, {start + width1}) and [{start + width1}, "
+             f"{start + width1 + width2}) do not fit 1..7 qubits each of a "
+             f"{n}-qubit register")
+    D1, D2 = 2**width1, 2**width2
+    _check_f32("psi", psi, (2, 2**n), psi.device)
+    _check_f32("w1", w1, (2, D1, D1), psi.device)
+    _check_f32("w2", w2, (2, D2, D2), psi.device)
+    _check_diag(diag, psi.device)
+    if not _dispatch(psi):
+        return pair_apply_ref(psi, n, start, width1, width2, w1, w2, diag)
+    route = pair_route(n, start, width1, width2)
+    if route == "two_windows":
+        psi = window_apply(psi, n, start, width1, w1, diag)
+        return window_apply(psi, n, start + width1, width2, w2,
+                            fused_diagonals(n, device=psi.device))
+    lib = _library()
+    out = torch.empty_like(psi)
+    with torch.cuda.device(psi.device):
+        rc = lib.qbot_pair_apply(
+            psi.data_ptr(), out.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+            2**n, width1, width2, n - start - width1 - width2,
+            diag.flips.data_ptr(), diag.flips.numel(), diag.mask.data_ptr(),
+            diag.want.data_ptr(), diag.phase.data_ptr(), diag.mask.numel(),
+            _stream(psi))
+    _check_launch(lib, rc, "pair_apply")
+    if route == "trailing":
+        pair_apply.trailing_launches += 1
+    else:
+        pair_apply.launches += 1
     return out
 
 

@@ -1,16 +1,19 @@
-"""Planar statevector executor on PyTorch.
+"""Planar statevector and density-matrix executors on PyTorch.
 
-Port of the statevector half of :mod:`qbot_tpu.tpu.planar`.  The state is a
-float32 tensor of shape ``(2, 2^n)`` holding (real, imag) planes, on any
-device; every entry point takes or returns tensors on the caller's device.
-Window steps and reflections go through the kernels of
-:mod:`qbot_tpu_torch.tpu.kernels`; diagonal, phase, flip and contraction
-steps are plain PyTorch, as they are XLA outside Pallas in the JAX package.
-Every step is out of place: the caller's state is never written.
+Port of :mod:`qbot_tpu.tpu.planar`.  A state is a float32 tensor of shape
+``(2, 2^n)`` holding (real, imag) planes, a density matrix one of shape
+``(2, 2^n, 2^n)``, on any device; every entry point takes or returns
+tensors on the caller's device.  Window, pair and reflection steps go
+through the kernels of :mod:`qbot_tpu_torch.tpu.kernels`; diagonal, phase,
+flip and contraction steps are plain PyTorch, as they are XLA outside
+Pallas in the JAX package.  Every step is out of place: the caller's state
+is never written.
 
-Not ported yet (they raise ``NotImplementedError`` naming the ROADMAP item
-that brings them): parameterised gates, ``PairStep``, ``renorm_every``, and
-matrix precisions other than full float32.
+Not ported yet: parameterised gates and ``renorm_every`` (they raise
+``NotImplementedError`` naming the ROADMAP item that brings them), the
+precision modes (every product is full float32), and the dot engine
+(``plan.engine``, which the port's compiler never sets, is not read: every
+plan runs on the window and pair kernels).
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from qbot_tpu.tpu.compiler import (
     Plan,
     ReflectStep,
     WindowStep,
+    expand_phases,
+    expand_reflections,
     phase_as_diag,
 )
 from qbot_tpu_torch.tpu import kernels
@@ -36,15 +41,15 @@ from qbot_tpu_torch.tpu.kernels import _fp32_matmul
 __all__ = ["zero_state_planar", "to_planar", "from_planar",
            "product_state_planar", "fold_window_static",
            "apply_plan_planar", "apply_plan_planar_ref",
-           "make_scanned_planar_runner", "planar_probs", "planar_norm"]
+           "make_scanned_planar_runner", "planar_probs", "planar_norm",
+           "zero_density_planar", "apply_plan_density_planar",
+           "apply_plan_density_planar_ref", "make_planar_density_runner",
+           "planar_density_probs"]
 
 REAL_DTYPE = torch.float32
 
 _PARAM_TODO = ("parameterised gates are not ported yet "
                "(ROADMAP queue 1, item 8: inference and the kernels' backward)")
-_PAIR_TODO = ("PairStep is not ported yet (ROADMAP queue 2, items 5-6: "
-              "_pair_bt and _pair_b1); compile with "
-              "qbot_tpu_torch.compile_circuit, which never pairs")
 _RENORM_TODO = ("renorm_every is not ported yet (ROADMAP queue 1, item 5: "
                 "precision modes and renormalisation)")
 
@@ -147,24 +152,48 @@ def _grouped_view(n: int, qubits):
 
 class _Ops(NamedTuple):
     window: Callable
+    pair: Callable
     reflect_dot: Callable
     reflect_update: Callable
 
 
-_KERNELS = _Ops(kernels.window_apply, kernels.reflect_dot,
-                kernels.reflect_update)
-_PLAIN = _Ops(kernels.window_apply_ref, kernels.reflect_dot_ref,
-              kernels.reflect_update_ref)
+_KERNELS = _Ops(kernels.window_apply, kernels.pair_apply,
+                kernels.reflect_dot, kernels.reflect_update)
+_PLAIN = _Ops(kernels.window_apply_ref, kernels.pair_apply_ref,
+              kernels.reflect_dot_ref, kernels.reflect_update_ref)
 
 
-def _window_fn(n: int, step: WindowStep, device, ops: _Ops):
+def _window_matrix(step: WindowStep) -> np.ndarray:
     static = fold_window_static(step)
     if static is None:
         raise NotImplementedError(_PARAM_TODO)
-    w = _planar_tensor(static, device)
+    return static
+
+
+def _window_fn(n: int, step: WindowStep, device, ops: _Ops):
+    w = _planar_tensor(_window_matrix(step), device)
     diag = kernels.fused_diagonals(n, step.pre_flips, step.pre_phases,
                                    device)
     return lambda psi: ops.window(psi, n, step.start, step.width, w, diag)
+
+
+def _pair_parts(step: PairStep):
+    """(start, width1, width2, W1, W2) of a pair of adjacent windows."""
+    first, second = step.first, step.second
+    if first.start + first.width != second.start:
+        raise ValueError("pair windows must be qubit-contiguous")
+    return (first.start, first.width, second.width, _window_matrix(first),
+            _window_matrix(second))
+
+
+def _pair_fn(n: int, step: PairStep, device, ops: _Ops):
+    """Both windows of a PairStep in one pass, after the first window's
+    fused flips and phases."""
+    start, width1, width2, m1, m2 = _pair_parts(step)
+    w1, w2 = _planar_tensor(m1, device), _planar_tensor(m2, device)
+    diag = kernels.fused_diagonals(n, step.first.pre_flips,
+                                   step.first.pre_phases, device)
+    return lambda psi: ops.pair(psi, n, start, width1, width2, w1, w2, diag)
 
 
 def reflect_component(factors, index: int) -> complex:
@@ -295,7 +324,7 @@ def _step_fns(plan: Plan, device, ops: _Ops) -> list:
         if isinstance(step, WindowStep):
             fns.append(_window_fn(n, step, device, ops))
         elif isinstance(step, PairStep):
-            raise NotImplementedError(_PAIR_TODO)
+            fns.append(_pair_fn(n, step, device, ops))
         elif isinstance(step, ReflectStep):
             fns.append(_reflect_fn(step, device, ops))
         elif isinstance(step, DiagStep):
@@ -319,8 +348,8 @@ def _run(psi, fns):
 def apply_plan_planar(psi: torch.Tensor, plan: Plan) -> torch.Tensor:
     """Run a compiled plan over a planar (2, 2^n) float32 statevector.
 
-    On a CUDA tensor every window and reflection runs its CUDA kernel; on
-    a CPU tensor, the kernels' plain versions.
+    On a CUDA tensor every window, pair and reflection runs its CUDA
+    kernel; on a CPU tensor, the kernels' plain versions.
     """
     return _run(psi, _step_fns(plan, psi.device, _KERNELS))
 
@@ -377,7 +406,11 @@ def planar_probs(psi: torch.Tensor, targets=None,
     whole register, as a tensor on the state's device."""
     if n is None:
         n = psi.shape[-1].bit_length() - 1
-    p = psi[0] ** 2 + psi[1] ** 2
+    return _marginal(psi[0] ** 2 + psi[1] ** 2, targets, n)
+
+
+def _marginal(p: torch.Tensor, targets, n: int) -> torch.Tensor:
+    """Marginal of the 2^n outcome probabilities ``p`` on ``targets``."""
     if targets is None:
         return p
     shape, _, rest = _grouped_view(n, targets)
@@ -389,3 +422,148 @@ def planar_probs(psi: torch.Tensor, targets=None,
 
 def planar_norm(psi: torch.Tensor) -> torch.Tensor:
     return torch.sum(psi[0] ** 2 + psi[1] ** 2)
+
+
+# ---------------------------------------------------------------------------
+# density matrices (``qbot_tpu/tpu/planar.py:521-657``)
+#
+# ρ is a planar (2, 2^n, 2^n) float32 tensor.  Viewed flat as a planar
+# (2, 4^n) state of 2n qubits, the row index is qubits [0, n) and the column
+# index qubits [n, 2n): every step acts on the rows at q and, conjugated, on
+# the columns at n + q, through the same window and pair kernels, so a
+# density plan costs twice the statevector plan's passes.
+# ---------------------------------------------------------------------------
+
+def zero_density_planar(n: int, device) -> torch.Tensor:
+    rho = torch.zeros((2, 2**n, 2**n), dtype=REAL_DTYPE, device=device)
+    rho[0, 0, 0] = 1.0
+    return rho
+
+
+def _density_flip_phases(n: int, flips) -> tuple:
+    """Fused phases of the 2n-qubit view for ρ → FρF: each flipped basis
+    state m negates row m and column m (and so leaves ρ[m, m])."""
+    rows, cols = tuple(range(n)), tuple(range(n, 2 * n))
+    return tuple(p for m in flips for p in ((rows, -1.0, m), (cols, -1.0, m)))
+
+
+def _density_window_fn(n: int, step: WindowStep, device, ops: _Ops):
+    """W at s on the rows (after the step's flips on rows and columns,
+    fused into the row pass), conj(W) at n + s on the columns."""
+    m = _window_matrix(step)
+    w, wc = _planar_tensor(m, device), _planar_tensor(m.conj(), device)
+    diag = kernels.fused_diagonals(
+        2 * n, pre_phases=_density_flip_phases(n, step.pre_flips),
+        device=device)
+    none = kernels.fused_diagonals(2 * n, device=device)
+    start, width = step.start, step.width
+
+    def apply(flat):
+        flat = ops.window(flat, 2 * n, start, width, w, diag)
+        return ops.window(flat, 2 * n, n + start, width, wc, none)
+    return apply
+
+
+def _density_pair_fn(n: int, step: PairStep, device, ops: _Ops):
+    """(W1, W2) at s on the rows, conjugated at n + s on the columns."""
+    start, width1, width2, m1, m2 = _pair_parts(step)
+    w1, w2 = _planar_tensor(m1, device), _planar_tensor(m2, device)
+    w1c = _planar_tensor(m1.conj(), device)
+    w2c = _planar_tensor(m2.conj(), device)
+    diag = kernels.fused_diagonals(
+        2 * n, pre_phases=_density_flip_phases(n, step.first.pre_flips),
+        device=device)
+    none = kernels.fused_diagonals(2 * n, device=device)
+
+    def apply(flat):
+        flat = ops.pair(flat, 2 * n, start, width1, width2, w1, w2, diag)
+        return ops.pair(flat, 2 * n, n + start, width1, width2, w1c, w2c,
+                        none)
+    return apply
+
+
+def _density_flip_fn(n: int, index: int):
+    def apply(flat):
+        rho = flat.reshape(2, 2**n, 2**n).clone()
+        rho[:, index, :] = -rho[:, index, :]
+        rho[:, :, index] = -rho[:, :, index]
+        return rho.reshape(flat.shape)
+    return apply
+
+
+def _both_sides(row, col):
+    return lambda flat: col(row(flat))
+
+
+def _density_step_fns(plan: Plan, device, ops: _Ops) -> list:
+    """Steps over the flat (2, 4^n) view: reflections expand to their
+    windows and flips, fused phases to diagonal passes
+    (``qbot_tpu/tpu/planar.py:589-628``)."""
+    n = plan.n
+    fns = []
+    for step in expand_phases(expand_reflections(plan.steps)):
+        if isinstance(step, WindowStep):
+            fns.append(_density_window_fn(n, step, device, ops))
+        elif isinstance(step, PairStep):
+            fns.append(_density_pair_fn(n, step, device, ops))
+        elif isinstance(step, DiagStep):
+            cols = tuple(n + q for q in step.targets)
+            fns.append(_both_sides(
+                _diag_fn(2 * n, step.targets, step.diag, device),
+                _diag_fn(2 * n, cols, np.conj(np.asarray(step.diag)),
+                         device)))
+        elif isinstance(step, FlipStep):
+            fns.append(_density_flip_fn(n, step.index))
+        else:
+            if step.matrix is None:
+                raise NotImplementedError(_PARAM_TODO)
+            col = ContractStep(tuple(n + q for q in step.targets),
+                               np.conj(np.asarray(step.matrix)))
+            fns.append(_both_sides(_contract_fn(2 * n, step, device),
+                                   _contract_fn(2 * n, col, device)))
+    return fns
+
+
+def _run_density(rho, fns):
+    return _run(rho.reshape(2, -1), fns).reshape(rho.shape)
+
+
+def apply_plan_density_planar(rho: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """Run a compiled plan over a planar (2, 2^n, 2^n) float32 density
+    matrix: ρ → UρU†.
+
+    On a CUDA tensor every window and pair runs its CUDA kernel, on the
+    rows and on the columns; on a CPU tensor, the kernels' plain versions.
+    """
+    return _run_density(rho, _density_step_fns(plan, rho.device, _KERNELS))
+
+
+def apply_plan_density_planar_ref(rho: torch.Tensor,
+                                  plan: Plan) -> torch.Tensor:
+    """:func:`apply_plan_density_planar` through the kernels' plain
+    PyTorch versions on any device: the reference a kernel run is checked
+    against on the card."""
+    return _run_density(rho, _density_step_fns(plan, rho.device, _PLAIN))
+
+
+def make_planar_density_runner(plan: Plan):
+    """``run(rho)``: :func:`apply_plan_density_planar` with the step tables
+    (folded matrices, fused diagonals) prepared once per device."""
+    prepared: dict = {}
+
+    def run(rho: torch.Tensor) -> torch.Tensor:
+        if rho.device not in prepared:
+            prepared[rho.device] = _density_step_fns(plan, rho.device,
+                                                     _KERNELS)
+        return _run_density(rho, prepared[rho.device])
+    return run
+
+
+def planar_density_probs(rho: torch.Tensor, targets=None,
+                         n: Optional[int] = None) -> torch.Tensor:
+    """Computation-basis outcome probabilities, the diagonal of ρ, of
+    ``targets`` (sorted qubit order) or of the whole register, as a tensor
+    on the state's device."""
+    if n is None:
+        n = rho.shape[-1].bit_length() - 1
+    return _marginal(torch.diagonal(rho[0]).clone(), targets, n)

@@ -1,5 +1,6 @@
 """The port's JAX-free compiler vs ``qbot_tpu``'s ``compile_circuit(circ,
-window, pair=False)``: plans equal step for step, field for field.
+window, pair)``: plans equal step for step, field for field, paired (the
+default of both) and unpaired.
 
 Tolerance: none.  Both fold window matrices with the same numpy code, so
 every matrix and reflection factor must be bit-identical.
@@ -67,10 +68,27 @@ def assert_same(a, b, where="plan"):
 @pytest.mark.parametrize("name", list(CIRCUITS))
 def test_plan_equals_unpaired_jax_plan(name, window):
     circ = CIRCUITS[name]()
-    got = compile_circuit(circ, window=window)
+    got = compile_circuit(circ, window=window, pair=False)
     want = jc.compile_circuit(circ, window=window, pair=False)
     assert_same(got, want)
     assert got.num_passes == want.num_passes
+
+
+@pytest.mark.parametrize("window", [4, 5, 7])
+@pytest.mark.parametrize("name", list(CIRCUITS))
+def test_plan_equals_paired_jax_plan(name, window):
+    circ = CIRCUITS[name]()
+    got = compile_circuit(circ, window=window, pair=True)
+    want = jc.compile_circuit(circ, window=window, pair=True)
+    assert_same(got, want)
+    assert got.num_passes == want.num_passes
+
+
+@pytest.mark.parametrize("window", [2, 7])
+def test_default_plan_equals_jax_default(window):
+    circ = brickwork(9, 4)
+    assert_same(compile_circuit(circ, window),
+                jc.compile_circuit(circ, window))
 
 
 def test_grover_body_is_one_reflection():
@@ -80,11 +98,33 @@ def test_grover_body_is_one_reflection():
 
 
 def test_never_pairs():
+    """The default pairs where ``qbot_tpu``'s does; ``pair=False`` never
+    pairs."""
     circ = brickwork(12, 2)
-    assert any(isinstance(s, jc.PairStep)
-               for s in jc.compile_circuit(circ).steps)
+    pairs = [s for s in compile_circuit(circ).steps
+             if isinstance(s, jc.PairStep)]
+    assert pairs
+    assert_same(pairs, [s for s in jc.compile_circuit(circ).steps
+                        if isinstance(s, jc.PairStep)])
     assert not any(isinstance(s, jc.PairStep)
-                   for s in compile_circuit(circ).steps)
+                   for s in compile_circuit(circ, pair=False).steps)
+
+
+def test_headline_plans_pass_counts():
+    """The 26-qubit brickwork of 16 layers makes 34 passes paired (9
+    trailing and 8 middle pairs, 17 windows) and 51 unpaired; Grover's
+    Hadamard init makes one pair of each kind."""
+    circ = brickwork(26, 16)
+    plan = compile_circuit(circ)
+    assert plan.num_passes == 34
+    assert compile_circuit(circ, pair=False).num_passes == 51
+    geoms = {(s.first.start, s.first.width, s.second.start, s.second.width)
+             for s in plan.steps if isinstance(s, jc.PairStep)}
+    assert geoms == {(0, 5, 5, 7), (12, 7, 19, 7)}
+    init = Circuit(26)
+    for q in range(26):
+        init.h(q)
+    assert [type(s) for s in compile_circuit(init).steps] == [jc.PairStep] * 2
 
 
 @pytest.mark.parametrize("window", ["auto", 7.0])

@@ -2,8 +2,9 @@
 the JAX package's Pallas kernels in interpret mode, on the same numpy-seeded
 inputs.
 
-Tolerance: 1e-5 absolute on amplitudes of a normalised 10-qubit state (float32
-products and sums over at most 128 terms, taken in another order).
+Tolerance: 1e-5 absolute on amplitudes of a normalised 10- to 14-qubit state
+(float32 products and sums over at most 128 terms, or two such sums for a
+pair, taken in another order).
 """
 import numpy as np
 import pytest
@@ -78,6 +79,81 @@ def test_window_apply_matches_pallas(geometry, fused, interpret_kernels):
     diag = tk.fused_diagonals(n, flips, phases)
     got = tk.window_apply(torch.from_numpy(psi), n, start, width, w, diag)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
+
+
+# (n, start, width1, width2) of a pair, one per route of
+# qbot_tpu/tpu/kernels.py:652-706: trailing pair (B = 1, _pair_b1), middle
+# pair (B = 128, D1 <= 32, _pair_bt), and two windows for D1 > 32 with
+# B = 128 and for 1 < B < 128
+PAIR_GEOMETRIES = {"trailing": (10, 2, 4, 4), "middle": (12, 0, 2, 3),
+                   "two_windows_wide": (14, 0, 6, 1),
+                   "two_windows_small_b": (12, 2, 3, 3)}
+
+
+def _pair_diagonals(n, start, width1, width2, rng):
+    """Flips, and phases on a-, j-, m- and b-bits whose want bits include
+    0."""
+    qa = list(range(start))[-1:]
+    qj = [start, start + width1 - 1]
+    qm = [start + width1 + width2 - 1]
+    qb = list(range(start + width1 + width2, n))[:1]
+    phases = ((tuple(qa + qj + qm + qb), complex(np.exp(0.9j)), 0b0100),
+              (tuple(qj + qm), complex(np.exp(-0.4j)), 0),
+              (tuple(qa + qb) or (qm[0],), -1.0 + 0j, -1))
+    flips = tuple(int(m) for m in rng.integers(0, 2**n, size=3))
+    return flips, phases
+
+
+@pytest.mark.parametrize("fused", ["flips", "phases"])
+@pytest.mark.parametrize("geometry", list(PAIR_GEOMETRIES))
+def test_pair_apply_matches_pallas(geometry, fused, interpret_kernels):
+    n, start, width1, width2 = PAIR_GEOMETRIES[geometry]
+    rng = np.random.default_rng(n + start + width1 + 10 * (fused == "flips"))
+    psi = _rand_state(n, rng)
+    W1 = _rand_unitary(2**width1, rng)
+    W2 = _rand_unitary(2**width2, rng)
+    flips, phases = _pair_diagonals(n, start, width1, width2, rng)
+    if fused == "flips":
+        phases = ()
+    else:
+        flips = ()
+
+    want = jk.planar_pair_window_apply(
+        jnp.asarray(psi), n, start, width1, start + width1, width2,
+        *(jnp.asarray(x, jnp.float32) for x in (W1.real, W1.imag, W2.real,
+                                               W2.imag)),
+        flips, phases)
+    w1, w2 = (torch.from_numpy(np.stack([W.real, W.imag]).astype(np.float32))
+              for W in (W1, W2))
+    diag = tk.fused_diagonals(n, flips, phases)
+    got = tk.pair_apply(torch.from_numpy(psi), n, start, width1, width2, w1,
+                        w2, diag)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
+
+
+@pytest.mark.parametrize("geometry,route", [
+    ("trailing", "trailing"), ("middle", "middle"),
+    ("two_windows_wide", "two_windows"),
+    ("two_windows_small_b", "two_windows")])
+def test_pair_route_matches_pallas_dispatch(geometry, route):
+    assert tk.pair_route(*PAIR_GEOMETRIES[geometry]) == route
+
+
+def test_pair_apply_is_two_windows():
+    """The pair equals its first window (with the diagonals) then its
+    second, on the CPU."""
+    rng = np.random.default_rng(4)
+    n, start, width1, width2 = 9, 1, 3, 2
+    psi = torch.from_numpy(_rand_state(n, rng))
+    w1, w2 = (torch.from_numpy(np.stack([U.real, U.imag]).astype(np.float32))
+              for U in (_rand_unitary(8, rng), _rand_unitary(4, rng)))
+    flips, phases = _pair_diagonals(n, start, width1, width2, rng)
+    diag = tk.fused_diagonals(n, flips, phases)
+    got = tk.pair_apply(psi, n, start, width1, width2, w1, w2, diag)
+    want = tk.window_apply(tk.window_apply(psi, n, start, width1, w1, diag),
+                           n, start + width1, width2, w2,
+                           tk.fused_diagonals(n))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL)
 
 
 @pytest.mark.parametrize("H,T", [(8, 128), (16, 256)])
@@ -167,6 +243,16 @@ class TestWrapperChecks:
         with pytest.raises(ValueError, match="unsupported device"):
             tk.window_apply(psi, 4, 0, 2, w, diag)
 
+    def test_pair_rejects_windows_outside_register(self):
+        psi, w, diag = self._window_args()
+        with pytest.raises(ValueError, match="do not fit"):
+            tk.pair_apply(psi, 4, 1, 2, 2, w, w, diag)
+
+    def test_pair_rejects_matrix_shape(self):
+        psi, w, diag = self._window_args()
+        with pytest.raises(ValueError, match="w2 must have shape"):
+            tk.pair_apply(psi, 4, 0, 2, 1, w, w, diag)
+
     def test_reflect_rejects_mismatched_tables(self):
         p3 = torch.zeros(2, 8, 16)
         with pytest.raises(ValueError, match="shape"):
@@ -176,9 +262,12 @@ class TestWrapperChecks:
         tk.reset_launch_counts()
         psi, w, diag = self._window_args()
         tk.window_apply(psi, 4, 0, 2, w, diag)
+        tk.pair_apply(psi, 4, 0, 2, 2, w, w, diag)
         assert tk.launch_counts() == {"window_apply": 0,
                                       "window_apply_trailing": 0,
-                                      "reflect_dot": 0, "reflect_update": 0}
+                                      "reflect_dot": 0, "reflect_update": 0,
+                                      "pair_apply": 0,
+                                      "pair_apply_trailing": 0}
 
 
 def test_failed_build_raises_with_nvcc_stderr(monkeypatch, tmp_path):

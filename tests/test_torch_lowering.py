@@ -104,12 +104,6 @@ def test_outside_the_fragment_raises_like_jax():
                                atol=TOL)
 
 
-def test_unported_precision_raises():
-    lp = lower_program(PROGRAMS["subset"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        run_lowered(lp, device="cpu", precision="bf16")
-
-
 _NUM = re.compile(r"-?\d+(?:\.\d+)?(?:e[-+]?\d+)?%?")
 
 

@@ -1,6 +1,6 @@
 """The port's planar executor on the CPU vs ``qbot_tpu.tpu.planar`` on
-CPU-JAX, on the same plans (the port's compiler, equal to ``qbot_tpu``'s
-unpaired plans) and the same numpy-seeded states.
+CPU-JAX, on the same plans (the port's compiler, equal to ``qbot_tpu``'s,
+paired by default) and the same numpy-seeded states.
 
 Tolerance: 1e-5 absolute on amplitudes and probabilities (float32 state,
 up to a few tens of passes, sums taken in another order); 1e-6 for state
@@ -12,6 +12,7 @@ import torch
 
 import jax.numpy as jnp
 
+from qbot_tpu.tpu import kernels as jk
 from qbot_tpu.tpu import planar as jp
 from qbot_tpu.tpu.circuit import (
     Circuit,
@@ -24,11 +25,11 @@ from qbot_tpu.tpu.compiler import (
     ContractStep,
     DiagStep,
     FlipStep,
+    PairStep,
     PhaseStep,
     ReflectStep,
     WindowStep,
 )
-from qbot_tpu.tpu.compiler import compile_circuit as jax_compile
 from qbot_tpu_torch.tpu import planar as tp
 from qbot_tpu_torch.tpu.compiler import compile_circuit
 
@@ -47,6 +48,31 @@ def _rand_state(n, seed):
 def _rand_unitary(d, rng):
     q, r = np.linalg.qr(rng.normal(size=(d, d)) + 1j * rng.normal(size=(d, d)))
     return q * (np.diag(r) / np.abs(np.diag(r)))
+
+
+def brickwork(n, layers, seed=0):
+    """``bench.py``'s random brickwork: Haar 1-qubit gates, then CX on
+    alternating neighbour pairs, per layer."""
+    rng = np.random.default_rng(seed)
+    c = Circuit(n)
+    X = np.array([[0, 1], [1, 0]], dtype=complex)
+    for layer in range(layers):
+        for q in range(n):
+            z = rng.normal(size=(2, 2)) + 1j * rng.normal(size=(2, 2))
+            qm, r = np.linalg.qr(z)
+            c.gate(qm * np.conj(r.diagonal() / np.abs(r.diagonal())), [q])
+        for q in range(layer % 2, n - 1, 2):
+            c.gate(X, [q + 1], controls=[q])
+    return c
+
+
+@pytest.fixture
+def interpret_kernels():
+    jk.set_kernel_mode("interpret")
+    try:
+        yield
+    finally:
+        jk.set_kernel_mode("auto")
 
 
 def every_step_kind(n=10, seed=3):
@@ -95,6 +121,35 @@ def test_apply_plan_matches_jax(name):
     np.testing.assert_array_equal(
         tp.apply_plan_planar_ref(torch.from_numpy(psi), plan).numpy(),
         got.numpy())
+
+
+# circuits whose plans hold pairs: trailing pairs (B = 1) at window 7 and 2,
+# a middle pair (B = 512, D1 = 2) at window 2 on 12 qubits, and the
+# random circuit that ``qbot_tpu`` pairs at window 7
+PAIRED = {
+    "brickwork_w7": (lambda: brickwork(10, 4), 7),
+    "brickwork_w2": (lambda: brickwork(9, 4, seed=1), 2),
+    "middle_pair": (lambda: brickwork(12, 3, seed=2), 2),
+    "random": (lambda: random_circuit(10, 2, seed=1), 7),
+}
+
+
+@pytest.mark.parametrize("name", list(PAIRED))
+def test_pair_step(name, interpret_kernels):
+    """Paired plans vs ``qbot_tpu``'s apply_plan_planar with its pair
+    kernels in interpret mode, and vs the same circuit unpaired."""
+    make, window = PAIRED[name]
+    circ = make()
+    plan = compile_circuit(circ, window=window)
+    assert any(isinstance(s, PairStep) for s in plan.steps)
+    psi = _rand_state(circ.n, 12)
+    want = np.asarray(jp.apply_plan_planar(jnp.asarray(psi), plan))
+    got = tp.apply_plan_planar(torch.from_numpy(psi), plan)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL)
+    unpaired = tp.apply_plan_planar(
+        torch.from_numpy(psi), compile_circuit(circ, window=window,
+                                               pair=False))
+    np.testing.assert_allclose(got.numpy(), unpaired.numpy(), atol=TOL)
 
 
 def test_every_step_kind_is_exercised():
@@ -198,11 +253,6 @@ def test_state_round_trip():
 
 class TestNotPortedYet:
     """What the port does not run yet raises, naming its ROADMAP item."""
-
-    def test_pair_step(self):
-        plan = jax_compile(random_circuit(10, 2, seed=1), window=7)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-            tp.apply_plan_planar(tp.zero_state_planar(10, "cpu"), plan)
 
     def test_parameterised_gate(self):
         plan = compile_circuit(parameterized_layers(4, 1))
