@@ -13,8 +13,15 @@ nonzero:
    26-qubit shapes of the ``--compile`` and density paths, with fused flips
    and phases: relative L2 error <= 1e-5 (float32 sums of up to 128
    products, two such sums for a pair, or row partials, taken in another
-   order).  Times both, and each pair also as the two window launches it
-   replaces.
+   order).  ``window_apply`` is also held within relative L2 2e-6 of a
+   float64 product of the same inputs (3xTF32 products with FP32
+   accumulation; the plain float32 version's own float64 error is printed
+   beside it).  Times each kernel in turns with its plain version and with
+   one PyTorch call of the same function (``library_ms``, empty diagonals,
+   TF32 off: an einsum over the real block form of W for the windows and
+   pairs; none for the reflections), the window also without diagonals,
+   each pair also as the two window launches it replaces; and states each
+   kernel's bound (section ``bound``).
 3. runs the example programs through the port's CLI and holds the readout
    to the dense host interpreter's within 1e-6; then a generated 24-qubit
    program (Hadamards and a CX chain; qubit 0 reads [0.5, 0.5]).
@@ -24,7 +31,10 @@ nonzero:
 5. a 26-qubit random brickwork of 16 layers, paired (the default) and
    unpaired: each norm within 1e-4 of 1, each state within relative L2
    1e-5 of the same plan run through the kernels' plain versions on the
-   card, and the two states within relative L2 1e-5 of each other.
+   card, and the two states within relative L2 1e-5 of each other.  Then
+   the drift check: ``bench.py``'s full 256 layers unpaired (771 window
+   passes), its norm within 1e-5 of the plain versions' (a kernel whose
+   sums round with a bias drifts the norm pass after pass).
 6. a 13-qubit density matrix: ``bench.py``'s brickwork of 8 layers run 16
    times through the density runner.  The trace within 1e-4 of 1, one body
    within relative L2 1e-5 of the plain versions, and the final ρ within
@@ -32,8 +42,16 @@ nonzero:
    bodies).
 
 Launch counts are reset before phase 3 and read after phase 6: every kernel
-must have launched on that path.  The line before the last is one JSON
-object of per-kernel results; the last is the run's verdict.
+must have launched on that path.  The timed run of Grover, of each
+brickwork plan and of the density bodies also reports its own launches.
+The line before the last is one JSON object of per-kernel results; the
+last is the run's verdict.
+
+Bound: the least time the card could take for a kernel's work, the larger
+of its bytes (each input read once, each output written once) over 3.35
+TB/s and its operations over their peak rate: the complex products of a
+window or pair as 3xTF32 products (FP32-grade) on the 495 TFLOP/s TF32
+tensor cores, the reflections' arithmetic at the 67 TFLOP/s FP32 rate.
 
     python3 chip_smoke.py --profile chiprun_out
 
@@ -57,14 +75,11 @@ import numpy as np
 import torch
 
 import qbot_tpu_torch
-# qbot_tpu's JAX-free host layer: the DSL front end and circuit IR the port
-# shares, and the dense host interpreter that phase 3 takes as reference
-from qbot_tpu.frontend.interpreter import executeTxt
-from qbot_tpu.frontend.lowering import lower_program
-from qbot_tpu.tpu.circuit import Circuit
-from qbot_tpu_torch import compile_circuit
+# the port's dense host interpreter is phase 3's reference
+from qbot_tpu_torch import compile_circuit, executeTxt, lower_program
 from qbot_tpu_torch.cli import main as cli_main
 from qbot_tpu_torch.tpu import kernels
+from qbot_tpu_torch.tpu.circuit import Circuit
 from qbot_tpu_torch.tpu.planar import (
     apply_plan_density_planar_ref,
     apply_plan_planar,
@@ -81,9 +96,15 @@ ROOT = Path(__file__).resolve().parent
 N = 26
 GROVER_REPEATS = 512
 BRICKWORK_LAYERS = 16
+DRIFT_LAYERS = 256         # bench.py's brickwork depth
+DRIFT_TOL = 1e-5           # norm after DRIFT_LAYERS, kernels vs plain
 KERNEL_TOL = 1e-5          # relative L2, kernel vs plain version
 READOUT_TOL = 1e-6         # probability units
 NORM_TOL = 1e-4
+F64_TOL = 2e-6             # relative L2, window_apply vs a float64 product
+HBM_BYTES_S = 3.35e12      # H100 SXM data sheet: memory rate
+TF32_FLOPS_S = 495e12      # dense TF32 tensor-core peak
+FP32_FLOPS_S = 67e12       # FP32 outside the tensor cores
 DENSITY_N = 13             # bench.py's density workload
 DENSITY_LAYERS = 8
 DENSITY_REPEATS = 16
@@ -152,16 +173,42 @@ def timed_in_turns(fns, device) -> list[float]:
     return ms
 
 
+def rel_l2(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
 def compare(name: str, got, want) -> tuple[float, float]:
     """(relative L2 error, max abs error); raises above KERNEL_TOL."""
-    got, want = got.double(), want.double()
-    rel = float(torch.linalg.vector_norm(got - want)
-                / torch.linalg.vector_norm(want))
-    max_abs = float(torch.max(torch.abs(got - want)))
+    rel = rel_l2(got, want)
+    max_abs = float(torch.max(torch.abs(got.double() - want.double())))
     if not rel <= KERNEL_TOL:
         raise AssertionError(f"{name}: relative L2 error {rel:.3e} > "
                              f"{KERNEL_TOL:g} (max abs {max_abs:.3e})")
     return rel, max_abs
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores")
+
+
+def ptxas_report(log: Path) -> list[tuple[str, int, int]]:
+    """(kernel, registers, spill-store bytes) of each window kernel variant
+    in the build's ptxas log."""
+    rows, kernel, spills = [], None, 0
+    for line in log.read_text().splitlines():
+        if m := _PTXAS_ENTRY.search(line):
+            k = re.search(r"(window_[a-z]+_kernel)I(\w*?)EEv", m.group(1))
+            kernel = k and (f"{k.group(1)}<"
+                            f"{','.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>")
+        elif kernel and (m := _PTXAS_SPILL.search(line)):
+            spills = int(m.group(1))
+        elif kernel and (m := _PTXAS_REGS.search(line)):
+            rows.append((kernel, int(m.group(1)), spills))
+            kernel = None
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -184,21 +231,51 @@ def _planar_unitary(d: int, rng, device) -> torch.Tensor:
         np.float32)).to(device)
 
 
+def bound(nbytes: float, tf32_flops: float = 0.0,
+          fp32_flops: float = 0.0) -> tuple[float, str]:
+    """(bound ms, what bounds it): bytes over the memory rate against
+    3xTF32 products (3 TF32 FLOPs each) plus FP32 arithmetic over their
+    peak rates."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = 3 * tf32_flops / TF32_FLOPS_S + fp32_flops / FP32_FLOPS_S
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def real_block(w: torch.Tensor) -> torch.Tensor:
+    """(2, 2, D, D) real block form [[Wr, -Wi], [Wi, Wr]] of a planar
+    (2, D, D) matrix."""
+    return torch.stack([torch.stack([w[0], -w[1]]), torch.stack([w[1], w[0]])])
+
+
+def library_window(psi, A, D, w):
+    """One PyTorch call for window_apply with empty diagonals."""
+    m, view = real_block(w), psi.view(2, A, D, -1)
+
+    def run():
+        with kernels._fp32_matmul():
+            return torch.einsum("xyij,yajb->xaib", m, view)
+    return run
+
+
 def check_window(n: int, device, rng, gen) -> tuple[dict, dict]:
     """window_apply vs window_apply_ref at the --compile path's geometries:
     the first and middle windows of the 26-qubit partition (B >= 128), the
-    trailing window (B = 1), and a window with small B.  Returns the
-    results of the B > 1 shapes (timed at the middle window) and of the
-    trailing window."""
-    D = 128 if n >= 8 else 2 ** (n - 1)
-    width = D.bit_length() - 1
-    geoms = {"first": (0, min(5, n - width)),
-             "middle": (n - 3 * width, width) if n >= 3 * width + 1
-             else (0, width),
+    trailing window (B = 1), a window with small B, and the density path's
+    D = 64 row window, with 3 flips and 3 phases.  Also vs a float64
+    product of the same inputs, and timed with and without the diagonals,
+    beside the plain version and one einsum.  Returns the results of the
+    B > 1 shapes (timed at the middle window) and of the trailing window."""
+    width = 7
+    geoms = {"first": (0, 5),
+             "middle": (n - 3 * width, width),
              "trailing": (n - width, width),
-             "small_b": (n - width - 3, width)}
+             "small_b": (n - width - 3, width),
+             "density_rows": (0, 6)}
     shapes = []
     psi = _random_state(n, gen, device)
+    none = kernels.fused_diagonals(n, device=device)
     for label, (start, w) in geoms.items():
         A, B = 2**start, 2 ** (n - start - w)
         # qubits on the a-, j- and b-bits, wants that include 0
@@ -216,21 +293,40 @@ def check_window(n: int, device, rng, gen) -> tuple[dict, dict]:
         got = kernels.window_apply(psi, n, start, w, wt, diag)
         want = kernels.window_apply_ref(psi, n, start, w, wt, diag)
         rel, max_abs = compare(f"window_apply {label}", got, want)
-        ms, plain_ms = kernel_and_plain_ms(
-            lambda: kernels.window_apply(psi, n, start, w, wt, diag),
+        exact = kernels.window_apply_ref(psi.double(), n, start, w,
+                                         wt.double(), diag)
+        f64, plain_f64 = rel_l2(got, exact), rel_l2(want, exact)
+        del exact
+        if not f64 <= F64_TOL:
+            raise AssertionError(f"window_apply {label}: relative L2 "
+                                 f"{f64:.3e} from float64 > {F64_TOL:g}")
+        plain_ms, ms, library_ms, no_diag_ms = timed_in_turns([
             lambda: kernels.window_apply_ref(psi, n, start, w, wt, diag),
+            lambda: kernels.window_apply(psi, n, start, w, wt, diag),
+            library_window(psi, A, 2**w, wt),
+            lambda: kernels.window_apply(psi, n, start, w, wt, none)],
             device)
+        bound_ms, bound_by = bound(2 * psi.nbytes + wt.nbytes,
+                                   tf32_flops=8 * 2**w * 2**n)
         shapes.append({"window": label, "A": A, "D": 2**w, "B": B,
-                       "rel_l2": rel, "max_abs_err": max_abs, "ms": ms,
-                       "plain_ms": plain_ms})
+                       "rel_l2": rel, "max_abs_err": max_abs,
+                       "rel_l2_f64": f64, "plain_rel_l2_f64": plain_f64,
+                       "ms": ms, "ms_no_diagonals": no_diag_ms,
+                       "plain_ms": plain_ms, "library_ms": library_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by})
         say(f"window_apply {label}: (A, D, B) = ({A}, {2**w}, {B}), "
-            f"rel L2 {rel:.3e}, max abs {max_abs:.3e}, "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"rel L2 {rel:.3e}, max abs {max_abs:.3e}; vs float64 "
+            f"{f64:.3e} (plain float32 {plain_f64:.3e}); kernel {ms:.4f} ms "
+            f"(no diagonals {no_diag_ms:.4f}), plain {plain_ms:.4f} ms, "
+            f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}, share {bound_ms / ms:.3f})")
+
     def summary(group, timed):
         return {"shapes": group,
                 "rel_l2": max(s["rel_l2"] for s in group),
                 "max_abs_err": max(s["max_abs_err"] for s in group),
-                "ms": timed["ms"], "plain_ms": timed["plain_ms"]}
+                **{k: timed[k] for k in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")}}
 
     trailing = [s for s in shapes if s["B"] == 1]
     wide = [s for s in shapes if s["B"] > 1]
@@ -243,9 +339,9 @@ def check_pair(n: int, device, rng, gen) -> tuple[dict, dict]:
     middle pair (0,5)+(5,7) of the brickwork and Grover's init (A = 1, B =
     2^14), their trailing pair (12,7)+(19,7), and the 13-qubit density's
     column pair (13,6)+(19,7).  Each is timed as the kernel, its plain
-    version and the two window_apply launches it replaces.  Returns the
-    results of the middle pair and of the trailing pairs (timed at
-    (128, 128))."""
+    version, one einsum (empty diagonals) and the two window_apply launches
+    it replaces.  Returns the results of the middle pair and of the
+    trailing pairs (timed at (128, 128))."""
     geoms = {"middle": (0, 5, 7), "trailing": (n - 14, 7, 7),
              "density_columns": (n - 13, 6, 7)}
     psi = _random_state(n, gen, device)
@@ -269,6 +365,8 @@ def check_pair(n: int, device, rng, gen) -> tuple[dict, dict]:
         diag = kernels.fused_diagonals(n, flips, phases, device)
         w1 = _planar_unitary(2**width1, rng, device)
         w2 = _planar_unitary(2**width2, rng, device)
+        m1, m2 = real_block(w1), real_block(w2)
+        view = psi.view(2, A, 2**width1, 2**width2, B)
 
         def kernel():
             return kernels.pair_apply(psi, n, start, width1, width2, w1, w2,
@@ -283,26 +381,36 @@ def check_pair(n: int, device, rng, gen) -> tuple[dict, dict]:
             return kernels.window_apply(out, n, start + width1, width2, w2,
                                         none)
 
+        def library():
+            with kernels._fp32_matmul():
+                return torch.einsum("xyij,yzlm,zajmb->xailb", m1, m2, view)
+
         want = plain()
         rel, max_abs = compare(f"pair_apply {label}", kernel(), want)
         compare(f"two windows {label}", windows(), want)
-        plain_ms, ms, windows_ms = timed_in_turns([plain, kernel, windows],
-                                                  device)
+        plain_ms, ms, library_ms, windows_ms = timed_in_turns(
+            [plain, kernel, library, windows], device)
+        bound_ms, bound_by = bound(
+            2 * psi.nbytes + w1.nbytes + w2.nbytes,
+            tf32_flops=8 * (2**width1 + 2**width2) * 2**n)
         shapes.append({"pair": label, "A": A, "D1": 2**width1,
                        "D2": 2**width2, "B": B, "rel_l2": rel,
                        "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-                       "two_window_ms": windows_ms})
+                       "library_ms": library_ms, "two_window_ms": windows_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by})
         say(f"pair_apply {label}: (A, D1, D2, B) = ({A}, {2**width1}, "
             f"{2**width2}, {B}), rel L2 {rel:.3e}, max abs {max_abs:.3e}, "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, two windows "
-            f"{windows_ms:.4f} ms")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{library_ms:.4f} ms, two windows {windows_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}, share {bound_ms / ms:.3f})")
 
     def summary(group):
         return {"shapes": group,
                 "rel_l2": max(s["rel_l2"] for s in group),
                 "max_abs_err": max(s["max_abs_err"] for s in group),
-                "ms": group[0]["ms"], "plain_ms": group[0]["plain_ms"],
-                "two_window_ms": group[0]["two_window_ms"]}
+                **{k: group[0][k] for k in ("ms", "plain_ms", "library_ms",
+                                            "two_window_ms", "bound_ms",
+                                            "bound_by")}}
 
     return (summary([s for s in shapes if s["B"] > 1]),
             summary([s for s in shapes if s["B"] == 1]))
@@ -332,10 +440,16 @@ def check_reflect(n: int, device, rng, gen) -> tuple[dict, dict]:
     ms, plain_ms = kernel_and_plain_ms(
         lambda: kernels.reflect_dot(psi, a, b),
         lambda: kernels.reflect_dot_ref(psi, a, b), device)
+    # reads ψ and A (not B), writes the float64 (2, 1, T) D
+    bound_ms, bound_by = bound(psi.nbytes + a.nbytes + 16 * T,
+                               fp32_flops=8 * H * T)
     dot = {"rel_l2": rel, "max_abs_err": max_abs, "ms": ms,
-           "plain_ms": plain_ms, "shapes": [{"H": H, "T": T}]}
+           "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+           "bound_by": bound_by, "shapes": [{"H": H, "T": T}]}
     say(f"reflect_dot: (H, T) = ({H}, {T}), rel L2 {rel:.3e}, max abs "
-        f"{max_abs:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        f"{max_abs:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library none, bound {bound_ms:.4f} ms ({bound_by}, share "
+        f"{bound_ms / ms:.3f})")
 
     out, d = kernels.reflect_update(psi, c, a, b, flips)
     out_ref, d_ref = kernels.reflect_update_ref(psi, c, a, b, flips)
@@ -344,10 +458,16 @@ def check_reflect(n: int, device, rng, gen) -> tuple[dict, dict]:
     ms, plain_ms = kernel_and_plain_ms(
         lambda: kernels.reflect_update(psi, c, a, b, flips),
         lambda: kernels.reflect_update_ref(psi, c, a, b, flips), device)
+    bound_ms, bound_by = bound(2 * psi.nbytes + a.nbytes + b.nbytes
+                               + 16 * T, fp32_flops=16 * H * T)
     upd = {"rel_l2": max(rel_o, rel_d), "max_abs_err": max(abs_o, abs_d),
-           "ms": ms, "plain_ms": plain_ms, "shapes": [{"H": H, "T": T}]}
+           "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "shapes": [{"H": H, "T": T}]}
     say(f"reflect_update: (H, T) = ({H}, {T}), rel L2 out {rel_o:.3e} D "
-        f"{rel_d:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        f"{rel_d:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"none, bound {bound_ms:.4f} ms ({bound_by}, share "
+        f"{bound_ms / ms:.3f})")
     return dot, upd
 
 
@@ -479,14 +599,23 @@ def brickwork_circuit(n: int, layers: int, seed: int = 0) -> Circuit:
     return c
 
 
-def grover(n: int, repeats: int, device) -> float:
-    marked, gates, run, psi0 = grover_runner(n, repeats, device)
-    run(psi0)
+def timed_run(fn, device):
+    """(result, host seconds, kernel launches) of one run of ``fn`` after a
+    warm-up run, ended by a synchronise."""
+    fn()
     sync(device)
+    before = kernels.launch_counts()
     t0 = time.perf_counter()
-    out = run(psi0)
+    out = fn()
     sync(device)
     elapsed = time.perf_counter() - t0
+    after = kernels.launch_counts()
+    return out, elapsed, {k: after[k] - before[k] for k in after}
+
+
+def grover(n: int, repeats: int, device) -> tuple[float, dict]:
+    marked, gates, run, psi0 = grover_runner(n, repeats, device)
+    out, elapsed, launches = timed_run(lambda: run(psi0), device)
     p_marked = float(out[0, marked] ** 2 + out[1, marked] ** 2)
     p_want = math.sin((2 * repeats + 1) * math.asin(2 ** (-n / 2))) ** 2
     norm = float(planar_norm(out))
@@ -496,23 +625,20 @@ def grover(n: int, repeats: int, device) -> float:
     gates_s = gates / elapsed
     say(f"Grover {n}q x {repeats}: marked {p_marked:.8f} (closed form "
         f"{p_want:.8f}), norm {norm:.8f}, {elapsed:.4f} s, "
-        f"{gates_s:.1f} gates/s")
-    return gates_s
+        f"{gates_s:.1f} gates/s; launches {launches}")
+    return gates_s, launches
 
 
-def brickwork(n: int, layers: int, device) -> dict:
-    """Gates/s of the brickwork, paired (the default plan) and unpaired."""
+def brickwork(n: int, layers: int, device) -> tuple[dict, dict]:
+    """Gates/s and launches of the brickwork, paired (the default plan) and
+    unpaired."""
     c = brickwork_circuit(n, layers)
     psi0 = product_state_planar([np.array([1.0, 0.0])] * n, device)
-    rates, outs = {}, {}
+    rates, outs, launches = {}, {}, {}
     for label, pair in (("paired", True), ("unpaired", False)):
         plan = compile_circuit(c, pair=pair)
-        apply_plan_planar(psi0, plan)
-        sync(device)
-        t0 = time.perf_counter()
-        out = apply_plan_planar(psi0, plan)
-        sync(device)
-        elapsed = time.perf_counter() - t0
+        out, elapsed, launches[label] = timed_run(
+            lambda: apply_plan_planar(psi0, plan), device)
         norm = float(planar_norm(out))
         if abs(norm - 1.0) > NORM_TOL:
             raise AssertionError(f"brickwork {label}: norm {norm}")
@@ -523,11 +649,31 @@ def brickwork(n: int, layers: int, device) -> dict:
         say(f"brickwork {n}q x {layers} layers, {label}: "
             f"{len(plan.steps)} steps, {plan.num_passes} passes, norm "
             f"{norm:.8f}, rel L2 vs plain {rel:.3e}, {elapsed:.4f} s, "
-            f"{rates[label]:.1f} gates/s")
+            f"{rates[label]:.1f} gates/s; launches {launches[label]}")
     rel, _ = compare("brickwork paired vs unpaired", outs["paired"],
                      outs["unpaired"])
     say(f"brickwork paired vs unpaired: rel L2 {rel:.3e}")
-    return rates
+    return rates, launches
+
+
+def brickwork_drift(n: int, layers: int, device) -> None:
+    """The unpaired brickwork at ``bench.py``'s depth: the norm after
+    every window pass of it within DRIFT_TOL of the plain versions'."""
+    plan = compile_circuit(brickwork_circuit(n, layers), pair=False)
+    psi0 = product_state_planar([np.array([1.0, 0.0])] * n, device)
+    t0 = time.perf_counter()
+    out = apply_plan_planar(psi0, plan)
+    norm = float(planar_norm(out))
+    elapsed = time.perf_counter() - t0
+    ref = apply_plan_planar_ref(psi0, plan)
+    norm_ref = float(planar_norm(ref))
+    rel = rel_l2(out, ref)
+    if not abs(norm - norm_ref) <= DRIFT_TOL:
+        raise AssertionError(f"brickwork x {layers} unpaired: norm {norm} "
+                             f"against {norm_ref} of the plain versions")
+    say(f"brickwork {n}q x {layers} layers, unpaired: {plan.num_passes} "
+        f"passes, norm {norm:.8f} (plain versions {norm_ref:.8f}), rel L2 "
+        f"vs plain {rel:.3e}, {elapsed:.4f} s")
 
 
 def pure_density(psi: torch.Tensor) -> torch.Tensor:
@@ -552,18 +698,13 @@ def density_runner(device):
             zero_density_planar(DENSITY_N, device))
 
 
-def density(device) -> float:
+def density(device) -> tuple[float, dict]:
     gates, plan, run, rho0 = density_runner(device)
     one = make_planar_density_runner(plan)(rho0)
     rel_one, _ = compare("density one body", one,
                          apply_plan_density_planar_ref(rho0, plan))
     del one
-    run(rho0)
-    sync(device)
-    t0 = time.perf_counter()
-    rho = run(rho0)
-    sync(device)
-    elapsed = time.perf_counter() - t0
+    rho, elapsed, launches = timed_run(lambda: run(rho0), device)
     trace = float(torch.sum(torch.diagonal(rho[0])))
     if abs(trace - 1.0) > NORM_TOL:
         raise AssertionError(f"density: trace {trace}")
@@ -581,8 +722,8 @@ def density(device) -> float:
         f"{DENSITY_REPEATS}: {len(plan.steps)} steps a body, trace "
         f"{trace:.8f}, one body rel L2 vs plain {rel_one:.3e}, rel "
         f"Frobenius vs ψψ† {frob:.3e}, {elapsed:.4f} s, {gates_s:.1f} "
-        f"gates/s")
-    return gates_s
+        f"gates/s; launches {launches}")
+    return gates_s, launches
 
 
 # ---------------------------------------------------------------------------
@@ -677,6 +818,9 @@ def main(argv=None) -> int:
     kernels._library()
     say(f"phase 1: kernels built and loaded in "
         f"{time.perf_counter() - t0:.2f} s ({lib.relative_to(ROOT)})")
+    for kernel, regs, spills in ptxas_report(lib.parent / "ptxas.log"):
+        say(f"ptxas {kernel}: {regs} registers, {spills} bytes spill "
+            f"stores")
     if args.profile is not None:
         profile(N, device, args.profile)
         return 0
@@ -695,22 +839,27 @@ def main(argv=None) -> int:
     kernels.reset_launch_counts()
     run_examples(device)
     say("phase 3: programs agree with the dense interpreter")
-    grover_rate = grover(N, GROVER_REPEATS, device)
+    grover_rate, per_run = grover(N, GROVER_REPEATS, device)
     say("phase 4: Grover agrees with its closed form")
-    brick_rates = brickwork(N, BRICKWORK_LAYERS, device)
+    brick_rates, brick_launches = brickwork(N, BRICKWORK_LAYERS, device)
+    brickwork_drift(N, DRIFT_LAYERS, device)
     say("phase 5: brickwork, paired and unpaired, agrees with the plain "
-        "versions and with itself")
-    density_rate = density(device)
+        "versions and with itself; no norm drift over 256 layers")
+    density_rate, density_launches = density(device)
     say("phase 6: the density matrix agrees with the plain versions and "
         "with ψψ†")
     counts = kernels.launch_counts()
+    runs = {"grover": per_run, "brickwork": brick_launches["paired"],
+            "brickwork_unpaired": brick_launches["unpaired"],
+            "density": density_launches}
     say(f"launches on the main path: {counts}")
     missing = [k for k, v in counts.items() if v <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    imported = [m for m in ("jax", "qbot_tpu") if m in sys.modules]
+    if imported:
+        raise AssertionError(f"the port imported {imported}")
     say(f"Grover {N}q: {grover_rate:.1f} gates/s; brickwork {N}q: "
         f"{brick_rates['paired']:.1f} gates/s paired, "
         f"{brick_rates['unpaired']:.1f} unpaired; density {DENSITY_N}q: "
@@ -720,9 +869,13 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name],
+         "launches_per_run": {k: v[name] for k, v in runs.items()},
          "max_abs_err": results[name]["max_abs_err"],
          "rel_l2": results[name]["rel_l2"], "ms": results[name]["ms"],
          "plain_ms": results[name]["plain_ms"],
+         "bound_ms": results[name]["bound_ms"],
+         "bound_by": results[name]["bound_by"],
+         "library_ms": results[name]["library_ms"],
          "two_window_ms": results[name].get("two_window_ms"),
          "shapes": results[name]["shapes"]}
         for name, (src, rep) in KERNEL_SOURCES.items()]}))

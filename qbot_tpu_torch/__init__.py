@@ -1,11 +1,14 @@
 """qbot_tpu_torch — the qbot DSL's planar engine on PyTorch and CUDA.
 
 A port of :mod:`qbot_tpu`'s ``--compile`` path from JAX on a TPU to PyTorch
-on an NVIDIA Hopper card.  It imports ``torch`` and never ``jax``; the
-JAX-free host layer of :mod:`qbot_tpu` (DSL front end, circuit IR, plan
-dataclasses) is shared, not copied.
+on an NVIDIA Hopper card.  It imports ``torch`` and never ``jax``, and
+nothing of :mod:`qbot_tpu`: it keeps its own copy of the host layer (DSL
+front end and dense interpreter, circuit IR, plan dataclasses and compiler
+passes) under the same module names.
 
-Entry points: :func:`run_lowered` (a lowered .qb program),
+Entry points: :func:`executeTxt` / :func:`executeFile` (the dense host
+interpreter), :func:`lower_program` and :func:`run_lowered` (a .qb program
+on the planar executor),
 :func:`compile_circuit` (circuit IR to a plan, paired by default), and the
 statevector and density-matrix executors in
 :mod:`qbot_tpu_torch.tpu.planar`.  :func:`planar_from_numpy` and
@@ -15,7 +18,8 @@ statevector and density-matrix executors in
 import numpy as np
 import torch
 
-from qbot_tpu_torch.frontend.lowering import run_lowered
+from qbot_tpu_torch.frontend.interpreter import executeFile, executeTxt
+from qbot_tpu_torch.frontend.lowering import lower_program, run_lowered
 from qbot_tpu_torch.tpu.compiler import compile_circuit
 
 __version__ = "0.1.0"
@@ -39,5 +43,6 @@ def main():
     sys.exit(_cli_main())
 
 
-__all__ = ["run_lowered", "compile_circuit", "planar_from_numpy",
+__all__ = ["executeTxt", "executeFile", "lower_program", "run_lowered",
+           "compile_circuit", "planar_from_numpy",
            "planar_to_numpy", "main", "__version__"]

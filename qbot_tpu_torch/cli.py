@@ -3,7 +3,7 @@
 ``python -m qbot_tpu_torch FILE --compile [--device cuda|cpu]`` runs a .qb
 program's unitary fragment on the planar executor, with the same output as
 ``python -m qbot_tpu FILE --compile`` (``qbot_tpu/cli.py:193-247``).
-Without ``--compile`` the program runs on the shared dense host
+Without ``--compile`` the program runs on the port's copy of the dense host
 interpreter, as it does under ``qbot_tpu``.
 """
 from __future__ import annotations
@@ -57,8 +57,8 @@ def main(argv=None) -> int:
         print(f"File Not Found at Path: \n{path}")
         return 1
 
-    from qbot_tpu.errors import QbotScriptError
-    from qbot_tpu.frontend.interpreter import executeFile
+    from qbot_tpu_torch.errors import QbotScriptError
+    from qbot_tpu_torch.frontend.interpreter import executeFile
 
     try:
         if not args.compile_mode:
@@ -68,8 +68,7 @@ def main(argv=None) -> int:
 
         import torch
 
-        from qbot_tpu.frontend.lowering import lower_program
-        from qbot_tpu_torch.frontend.lowering import run_lowered
+        from qbot_tpu_torch.frontend.lowering import lower_program, run_lowered
         from qbot_tpu_torch.tpu.compiler import compile_circuit
 
         if args.device == "cuda" and not torch.cuda.is_available():

@@ -1,34 +1,611 @@
-"""Run a lowered .qb program on the PyTorch planar executor.
+"""Lowering: compile .qb programs to circuit IR, and run them on the
+PyTorch planar executor.
 
-Port of :func:`qbot_tpu.frontend.lowering.run_lowered` on its planar route
-(``qbot_tpu/frontend/lowering.py:1702-1767``).  The DSL front end is shared:
-:func:`qbot_tpu.frontend.lowering.lower_program` turns the program into
-circuit IR and :func:`~qbot_tpu.frontend.lowering.finish_lowered` binds the
-result and runs the classical epilogue; neither imports JAX.
+A copy of the host part of :mod:`qbot_tpu.frontend.lowering`
+(``qbot_tpu/frontend/lowering.py:40-574, 850-882``): the program runs
+through the normal front end (expressions, marks, classical control flow;
+loops simply unroll) but *records* the unitary schedule into a
+:class:`~qbot_tpu_torch.tpu.circuit.Circuit` instead of mutating a dense
+host-side density matrix.  :func:`run_lowered` is the port of
+``qbot_tpu.frontend.lowering.run_lowered`` on its planar route
+(``qbot_tpu/frontend/lowering.py:1702-1767``); the ensemble and sharded
+runners are not ported yet.
+
+Lowerable surface: an initial pure-product ``qset``, then ``gate``/``swap``
+with concrete (non-ProbVal) operands, classical ops (``cdef``, ``pydo``,
+``cout``, ``jump``/``cjmp``/``retr``/``halt`` on classical conditions), and
+a final ``meas``/``peek`` in any product basis.  Mixing ops (``disc``,
+mid-circuit ``meas``, ProbVal operands) are outside the unitary fragment
+and raise a lowering error naming the line.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 import torch
 
-from qbot_tpu.frontend.lowering import (
-    _DENSE_REPLAY_LIMIT,
-    LoweredProgram,
-    _too_large_provider,
-    finish_lowered,
-)
-from qbot_tpu.tpu.circuit import Circuit
-from qbot_tpu.tpu.compiler import Plan
-from qbot_tpu_torch.tpu.compiler import compile_circuit
+import qbot_tpu_torch.errors as err
+from qbot_tpu_torch.basis import Basis
+from qbot_tpu_torch.frontend import operations as ops
+from qbot_tpu_torch.frontend.evaluation import evaluate_expr
+from qbot_tpu_torch.frontend.interpreter import record_marks, tokenize_line
+from qbot_tpu_torch.helpers import int_log2
+from qbot_tpu_torch.ops.measurement import MeasurementResult
+from qbot_tpu_torch.probval import ProbVal
+from qbot_tpu_torch.tpu.circuit import Circuit
+from qbot_tpu_torch.tpu.compiler import Plan, compile_circuit
 from qbot_tpu_torch.tpu.planar import (
     apply_plan_planar,
     planar_probs,
     product_state_planar,
 )
 
-__all__ = ["run_lowered"]
+__all__ = ["LoweredProgram", "LoweringError", "lower_program",
+           "run_lowered", "finish_lowered", "MeasSpec"]
+
+
+class LoweringError(err.QbotScriptError):
+    """The program steps outside the unitary fragment."""
+
+
+class _PendingOutcomeUse(Exception):
+    """A classical expression touched a not-yet-available outcome."""
+
+
+class PendingOutcome:
+    """Placeholder bound for a mid-circuit measurement result during
+    segmented lowering: any use before the end of the quantum program
+    signals the lowering loop (which either starts the epilogue there or
+    rejects the program)."""
+
+    def __init__(self, name: str):
+        object.__setattr__(self, "_name", name)
+
+    def _blow(self):
+        raise _PendingOutcomeUse(object.__getattribute__(self, "_name"))
+
+    def __getattr__(self, item):
+        self._blow()
+
+    def __getitem__(self, item):
+        self._blow()
+
+    def __bool__(self):
+        self._blow()
+
+    def __repr__(self):
+        self._blow()
+
+
+@dataclass(frozen=True)
+class MeasSpec:
+    """A mid-circuit measurement: where in the op stream, what, and how."""
+    name: str
+    basis: Basis
+    targets: tuple[int, ...]
+    collapse: bool                       # meas collapses; peek does not
+    at_op: int                           # circuit op index it sits before
+
+
+@dataclass(frozen=True)
+class QSetSpec:
+    """A mid-circuit TARGETED ``qset``: replace the ``targets`` qubits
+    with a new state (reference semantics
+    qbot/operators.py:133-166 via
+    ``density.replaceArbitrary``; new-state qubit j lands on
+    ``targets[j]``, order preserved).  The register width is unchanged.
+
+    ``new_states``: ((weight, planar 2×2^t ket), …) — the eigen-branches
+    of the (possibly mixed / ProbVal-folded) new state.
+
+    ``branches``: for ProbVal target sets (all the same size), the
+    (probability, target-list) fan-out; empty for plain targets.
+    """
+    targets: tuple[int, ...]
+    new_states: tuple
+    at_op: int
+    branches: tuple = ()
+
+
+@dataclass(frozen=True)
+class DiscSpec:
+    """A mid-circuit ``disc``: trace the targets out; the register shrinks.
+
+    Later ops in the stream use post-discard qubit numbering (reference
+    semantics: qbot/operators.py:169-188).
+
+    ``branches``: for ProbVal target sets (all the SAME size, so the
+    shrunk register width is well-defined on the lowered plan), the
+    (probability, target-set) fan-out — executed as a weighted mixture of
+    per-branch discards.  Empty for plain targets.
+    """
+    targets: tuple[int, ...]
+    at_op: int
+    branches: tuple = ()
+
+
+@dataclass
+class LoweredProgram:
+    circuit: Circuit
+    initial_kets: list[np.ndarray]          # tensor factors of |ψ₀⟩
+    measure_basis: Optional[Basis] = None
+    measure_targets: Optional[list[int]] = None
+    measure_name: Optional[str] = None
+    namespace: dict = field(default_factory=dict)
+    lines: list[str] = field(default_factory=list)
+    resume_line: int = -1                   # first line after the final meas
+    # segmented (mid_measure) mode: every measurement/discard in op-stream
+    # order (a chronological list of MeasSpec | DiscSpec)
+    mid_measurements: list = field(default_factory=list)
+    # mixed-state preparation (mid_measure mode): the full initial ρ, run
+    # as its eigendecomposition ensemble (initial_kets is empty then)
+    initial_density: Optional[np.ndarray] = None
+
+    @property
+    def n(self) -> int:
+        return self.circuit.n
+
+    @property
+    def has_epilogue(self) -> bool:
+        """True when classical ops follow the final measurement."""
+        from qbot_tpu_torch.frontend.interpreter import peek_opcode
+        if self.resume_line < 0:
+            return False
+        return any(peek_opcode(l) not in ("", "note", "mark")
+                   for l in self.lines[self.resume_line:])
+
+
+def _unsupported(lines, line_num, what):
+    return LoweringError(err.format_script_error(
+        lines, line_num, "LoweringError",
+        f"{what} is outside the unitary fragment - run this program with "
+        f"the dense interpreter instead"), line_num, "LoweringError")
+
+
+def _as_product_kets(lines, line_num, val) -> list[np.ndarray]:
+    """Decompose a state-prep operand into 1-or-more pure tensor factors."""
+    if isinstance(val, ProbVal):
+        raise _unsupported(lines, line_num, "ProbVal state preparation")
+    arr = np.asarray(val)
+    if arr.ndim == 1:
+        return [arr.astype(complex)]
+    # density matrix: accept only pure states (rank-1)
+    vals, vecs = np.linalg.eigh(arr)
+    top = int(np.argmax(vals))
+    if not np.isclose(vals[top], np.trace(arr).real, atol=1e-9):
+        raise _unsupported(lines, line_num, "mixed-state preparation")
+    return [vecs[:, top].astype(complex)]
+
+
+def _new_state_branches(lines, line_num, val, t: int):
+    """((weight, planar 2×2^t ket), …) eigen-branches of a qset value.
+
+    Accepts a ket, a density matrix, or a ProbVal of either (folded to
+    one mixture first — reference funcWrapper fan-out then
+    densityEnsambleToDensity, operators.py:160-166)."""
+    from qbot_tpu_torch.tpu.planar import to_planar
+
+    if isinstance(val, ProbVal):
+        try:
+            val = val.to_density_matrix()
+        except Exception:
+            raise _unsupported(lines, line_num,
+                               "ProbVal qset value") from None
+    arr = np.asarray(val, complex)
+    dim = 2 ** t
+    if arr.ndim == 1:
+        if arr.shape[0] != dim:
+            raise err.size_error(
+                lines, line_num,
+                f"qset state has dim {arr.shape[0]}, expected 2^{t} "
+                f"= {dim} for {t} targets")
+        return ((1.0, to_planar(arr / np.linalg.norm(arr))),)
+    if arr.shape != (dim, dim):
+        raise err.size_error(
+            lines, line_num,
+            f"qset state has shape {arr.shape}, expected ({dim}, {dim}) "
+            f"for {t} targets")
+    arr = arr / np.trace(arr).real
+    vals, vecs = np.linalg.eigh(arr)
+    return tuple((float(v), to_planar(vecs[:, i]))
+                 for i, v in enumerate(vals) if v > 1e-12)
+
+
+def lower_program(text: str, mid_measure: bool = False) -> LoweredProgram:
+    """Lower a .qb program to circuit IR.
+
+    Default mode: lowering stops at the first ``meas``/``peek`` (single
+    final measurement; classical epilogue deferred to execution).
+
+    ``mid_measure=True``: measurements become :class:`MeasSpec` markers in
+    the op stream and lowering continues — for the device ensemble
+    executor, which fans particles out at each collapse.  Classical uses of
+    an outcome are only legal once no quantum ops remain (they start the
+    epilogue); using one earlier raises, since outcome-dependent classical
+    control flow needs the dense interpreter.
+    """
+    lines = text.splitlines()
+    ns: dict = {"state": None, "__marks": {}, "__prev_jump": -1}
+    record_marks(ns, lines)
+
+    circuit: Optional[Circuit] = None
+    initial_kets: list[np.ndarray] = []
+    initial_density: Optional[np.ndarray] = None
+    measured: Optional[tuple] = None
+    mid_specs: list = []
+    resume_line = -1
+    n = 0          # initial register width
+    cur_n = 0      # current width (shrinks at disc in mid_measure mode)
+
+    line_num = -1
+    while line_num < len(lines) - 1:
+        line_num += 1
+        tokens = tokenize_line(lines[line_num])
+        if not tokens:
+            continue
+        op_name = tokens[0]
+        if op_name in ("note", "mark"):
+            continue
+        if op_name not in ops.OPERATIONS:
+            raise err.unknown_operation(lines, line_num, op_name)
+        n_args = len(tokens) - 1
+        _, lo, hi = ops.OPERATIONS[op_name]
+        if n_args < lo or n_args > hi:
+            raise err.num_arguments_error(lines, line_num, op_name, n_args,
+                                          lo, hi)
+
+        if op_name == "qset":
+            if circuit is not None:
+                # TARGETED qset mid-program: replace a qubit subset
+                # (register width unchanged) — a QSetSpec collapse event
+                # on the ensemble runners
+                if not mid_measure or len(tokens) < 3:
+                    raise _unsupported(lines, line_num, "mid-circuit qset")
+                val = evaluate_expr(lines, line_num, tokens[1], ns)
+                tgts = evaluate_expr(lines, line_num, tokens[2], ns)
+
+                def _qset_targets(tv):
+                    tl = [int(q) for q in ops._ensure_container(
+                        lines, line_num, tv)]
+                    for q in tl:
+                        if q < 0 or q >= cur_n:
+                            raise err.index_error(lines, line_num,
+                                                  "target", q, cur_n - 1)
+                    if len(set(tl)) != len(tl):
+                        raise _unsupported(lines, line_num,
+                                           "duplicate qset targets")
+                    return tuple(tl)
+
+                if isinstance(tgts, ProbVal):
+                    branches = []
+                    sizes = set()
+                    for p, tv in zip(tgts.probs, tgts.values):
+                        tl = _qset_targets(tv)
+                        sizes.add(len(tl))
+                        branches.append((float(p), tl))
+                    if len(sizes) != 1:
+                        raise _unsupported(
+                            lines, line_num,
+                            "ProbVal qset targets with differing sizes")
+                    t = sizes.pop()
+                    mid_specs.append(QSetSpec(
+                        branches[0][1],
+                        _new_state_branches(lines, line_num, val, t),
+                        len(circuit.ops), tuple(branches)))
+                else:
+                    tl = _qset_targets(tgts)
+                    mid_specs.append(QSetSpec(
+                        tl, _new_state_branches(lines, line_num, val,
+                                                len(tl)),
+                        len(circuit.ops)))
+                continue
+            val = evaluate_expr(lines, line_num, tokens[1], ns)
+            if len(tokens) > 2:
+                raise _unsupported(lines, line_num,
+                                   "targeted qset before the register "
+                                   "exists")
+            if mid_measure:
+                # the ensemble executor preps ANY ρ (ProbVal branches fold
+                # to a mixture, mixed states run as their eigenensemble)
+                if isinstance(val, ProbVal):
+                    try:
+                        val = val.to_density_matrix()
+                    except Exception:
+                        raise _unsupported(lines, line_num,
+                                           "ProbVal state preparation") \
+                            from None
+                try:
+                    initial_kets = _as_product_kets(lines, line_num, val)
+                except LoweringError:
+                    arr = np.asarray(val, complex)
+                    initial_kets = []
+                    initial_density = arr
+                    n = cur_n = int_log2(arr.shape[0])
+                    circuit = Circuit(n)
+                    continue
+            else:
+                initial_kets = _as_product_kets(lines, line_num, val)
+            n = cur_n = sum(int_log2(k.shape[0]) for k in initial_kets)
+            circuit = Circuit(n)
+            continue
+
+        if op_name == "gate":
+            if circuit is None:
+                raise _unsupported(lines, line_num, "gate before qset")
+            g = evaluate_expr(lines, line_num, tokens[1], ns)
+            if isinstance(g, ProbVal):
+                raise _unsupported(lines, line_num, "ProbVal gate")
+            first = 0
+            if len(tokens) > 2:
+                first = evaluate_expr(lines, line_num, tokens[2], ns)
+                if not isinstance(first, (int, np.integer)):
+                    raise _unsupported(lines, line_num, "non-int target")
+            controls = []
+            if len(tokens) > 3:
+                controls = ops._ensure_container(
+                    lines, line_num,
+                    evaluate_expr(lines, line_num, tokens[3], ns))
+                if isinstance(controls, ProbVal):
+                    raise _unsupported(lines, line_num, "ProbVal controls")
+            if len(tokens) > 4:
+                cond = evaluate_expr(lines, line_num, tokens[4], ns)
+                if isinstance(cond, ProbVal):
+                    raise _unsupported(lines, line_num, "ProbVal conditional")
+                if not cond:
+                    continue
+            g = np.asarray(g)
+            k = int_log2(g.shape[0])
+            targets = list(range(int(first), int(first) + k))
+            for q in targets + list(controls):
+                if q < 0 or q >= cur_n:
+                    raise err.index_error(lines, line_num, "target", q,
+                                          cur_n - 1)
+            circuit.gate(g, targets, list(controls))
+            continue
+
+        if op_name == "swap":
+            if circuit is None:
+                raise _unsupported(lines, line_num, "swap before qset")
+            a = evaluate_expr(lines, line_num, tokens[1], ns)
+            b = evaluate_expr(lines, line_num, tokens[2], ns)
+            if isinstance(a, ProbVal) or isinstance(b, ProbVal):
+                raise _unsupported(lines, line_num, "ProbVal swap targets")
+            if a != b:
+                circuit.swap(int(a), int(b))
+            continue
+
+        if op_name in ("meas", "peek"):
+            if circuit is None:
+                raise _unsupported(lines, line_num, "measurement before qset")
+            basis = evaluate_expr(lines, line_num, tokens[2], ns)
+            if not isinstance(basis, Basis):
+                raise err.type_error(lines, line_num, ["Basis"],
+                                     type(basis).__name__)
+            targets = list(range(cur_n))
+            if len(tokens) > 3:
+                targets = ops._ensure_container(
+                    lines, line_num,
+                    evaluate_expr(lines, line_num, tokens[3], ns))
+                if isinstance(targets, ProbVal):
+                    raise _unsupported(lines, line_num, "ProbVal targets")
+                targets = sorted(set(targets))
+            if len(targets) % basis.numQubits:
+                raise LoweringError(err.format_script_error(
+                    lines, line_num, "MeasurementIndexError",
+                    f"{len(targets)} measurement targets do not divide "
+                    f"into {basis.numQubits}-qubit basis blocks"),
+                    line_num, "MeasurementIndexError")
+            if mid_measure:
+                mid_specs.append(MeasSpec(tokens[1], basis, tuple(targets),
+                                          op_name == "meas",
+                                          len(circuit.ops)))
+                ns[tokens[1]] = PendingOutcome(tokens[1])
+                continue
+            measured = (basis, targets, tokens[1])
+            # lowering stops here: the classical epilogue runs AFTER device
+            # execution, with the measurement result bound (finish_lowered)
+            resume_line = line_num + 1
+            break
+
+        if op_name == "disc":
+            if not mid_measure:
+                raise _unsupported(lines, line_num, "disc (non-unitary)")
+            if circuit is None:
+                raise _unsupported(lines, line_num, "disc before qset")
+            targets = ops._ensure_container(
+                lines, line_num,
+                evaluate_expr(lines, line_num, tokens[1], ns))
+            if isinstance(targets, ProbVal):
+                # ProbVal target sets fan into weighted particles at
+                # execution — lowerable iff every branch discards the
+                # SAME number of qubits (the shrunk register must have
+                # one width on a compiled plan; differing sizes need the
+                # dense interpreter or the device-ensemble runner)
+                branches = []
+                sizes = set()
+                for p, tv in zip(targets.probs, targets.values):
+                    tset = sorted(set(int(q) for q in ops._ensure_container(
+                        lines, line_num, tv)))
+                    for q in tset:
+                        if q < 0 or q >= cur_n:
+                            raise err.index_error(lines, line_num,
+                                                  "target", q, cur_n - 1)
+                    sizes.add(len(tset))
+                    branches.append((float(p), tuple(tset)))
+                if len(sizes) != 1:
+                    raise _unsupported(
+                        lines, line_num,
+                        "ProbVal disc targets with differing sizes")
+                mid_specs.append(DiscSpec(branches[0][1],
+                                          len(circuit.ops),
+                                          tuple(branches)))
+                cur_n -= sizes.pop()
+                continue
+            targets = sorted(set(int(q) for q in targets))
+            for q in targets:
+                if q < 0 or q >= cur_n:
+                    raise err.index_error(lines, line_num, "target", q,
+                                          cur_n - 1)
+            mid_specs.append(DiscSpec(tuple(targets), len(circuit.ops)))
+            cur_n -= len(targets)
+            continue
+
+        # classical ops run normally (control flow unrolls)
+        op, _, _ = ops.OPERATIONS[op_name]
+        try:
+            result = op(ns, lines, line_num, tokens)
+        except (_PendingOutcomeUse, err.QbotScriptError) as e:
+            pending = (e if isinstance(e, _PendingOutcomeUse)
+                       else getattr(e, "__cause__", None))
+            if not isinstance(pending, _PendingOutcomeUse):
+                raise
+            # a classical op touched a measurement outcome: legal only if
+            # the rest of the program is classical — it becomes the
+            # epilogue, executed after device measurement results bind
+            for ln in range(line_num, len(lines)):
+                from qbot_tpu_torch.frontend.interpreter import peek_opcode
+                if peek_opcode(lines[ln]) in _EPILOGUE_FORBIDDEN:
+                    raise _unsupported(
+                        lines, line_num,
+                        "classical use of a measurement outcome before "
+                        "later quantum operations") from None
+            resume_line = line_num
+            break
+        if result is None:
+            continue
+        if result.halt:
+            break
+        if result.jump_line is not None:
+            line_num = result.jump_line - 1
+
+    if circuit is None:
+        circuit = Circuit(0)
+    lp = LoweredProgram(circuit, initial_kets, namespace=ns, lines=lines,
+                        resume_line=resume_line,
+                        mid_measurements=mid_specs,
+                        initial_density=initial_density)
+    if measured is not None:
+        lp.measure_basis, lp.measure_targets = measured[0], measured[1]
+        lp.measure_name = measured[2]
+    return lp
+
+
+_EPILOGUE_FORBIDDEN = ("qset", "gate", "swap", "meas", "peek", "disc")
+
+
+_DENSE_REPLAY_LIMIT = 12      # max qubits gathered to replay dense fields
+
+
+def _make_result(basis: Basis, targets, probs, provider=None):
+    """MeasurementResult from an outcome distribution (interpreter-format).
+
+    ``provider`` (no-arg callable returning the dense pre-measurement ρ,
+    or raising) upgrades the result to a :class:`DeviceMeasurementResult`
+    whose state fields materialise lazily (VERDICT r3 weak #6)."""
+    from qbot_tpu_torch.ops.measurement import MeasurementResult, _digits_big_endian
+
+    m = len(targets) // basis.numQubits
+    symbols = ["".join(basis.ketSymbols[d]
+                       for d in _digits_big_endian(i, len(basis), m))
+               for i in range(len(probs))]
+    if provider is not None:
+        return DeviceMeasurementResult([float(p) for p in probs], symbols,
+                                       basis, list(targets), provider)
+    return MeasurementResult(None, [float(p) for p in probs], None, symbols)
+
+
+class DeviceMeasurementResult(MeasurementResult):
+    """Device-path result: outcome ``probs`` are exact; the dense state
+    fields (``newState`` / ``unMeasuredDensity`` / ``basisDensity``)
+    materialise on FIRST ACCESS by replaying the dense measurement
+    engine (:func:`qbot_tpu_torch.ops.measurement.measure` — the reference
+    math, measurement.py:107-165) on the gathered pre-measurement state.
+    When the register is too large to gather (> %d qubits) the access
+    raises a clear error naming the limitation instead of silently
+    binding ``None``; touched from a program epilogue, the interpreter
+    renders it with the 5-line source-context window.
+    """ % _DENSE_REPLAY_LIMIT
+
+    __slots__ = ("_dense_basis", "_dense_targets", "_dense_provider",
+                 "_dense_collapse")
+
+    def __init__(self, probs, basis_symbols, basis, targets, provider,
+                 collapse: bool = True):
+        super().__init__(None, probs, None, basis_symbols, None)
+        self._dense_basis = basis
+        self._dense_targets = targets
+        self._dense_provider = provider
+        self._dense_collapse = collapse
+        # unset the state slots so attribute access falls to __getattr__
+        del self.newState, self.unMeasuredDensity, self.basisDensity
+
+    def __getattr__(self, item):
+        if item in ("newState", "unMeasuredDensity", "basisDensity"):
+            from qbot_tpu_torch.ops.measurement import measure
+
+            rho = self._dense_provider()
+            dense = measure(rho, self._dense_basis, self._dense_targets,
+                            collapse=self._dense_collapse)
+            self.newState = dense.newState
+            self.unMeasuredDensity = dense.unMeasuredDensity
+            self.basisDensity = dense.basisDensity
+            return getattr(self, item)
+        raise AttributeError(item)
+
+
+def _too_large_provider(cur_n: int):
+    def provider():
+        raise RuntimeError(
+            f"MeasurementResult state fields (newState/unMeasuredDensity/"
+            f"basisDensity) are not materialised on the device path at "
+            f"{cur_n} qubits (> {_DENSE_REPLAY_LIMIT}): the register "
+            f"lives as a (possibly sharded) particle ensemble.  Read "
+            f".probs, or run the dense interpreter for dense "
+            f"post-measurement states")
+    return provider
+
+
+def _run_epilogue(lp: LoweredProgram) -> None:
+    """Validate and drive the classical lines after the quantum program."""
+    from qbot_tpu_torch.frontend.interpreter import peek_opcode, run_lines
+
+    if lp.resume_line < 0 or not lp.has_epilogue:
+        return
+    for ln in range(lp.resume_line, len(lp.lines)):
+        if peek_opcode(lp.lines[ln]) in _EPILOGUE_FORBIDDEN:
+            raise _unsupported(lp.lines, ln,
+                               "quantum operations after the final "
+                               "measurement")
+    run_lines(lp.namespace, lp.lines, start_line=lp.resume_line)
+
+
+
+
+def finish_lowered(lp: LoweredProgram, probs,
+                   provider=None) -> Optional[object]:
+    """Bind the measurement result and run the classical epilogue.
+
+    Called by the run_lowered* executors after device execution: builds a
+    :class:`MeasurementResult` from the outcome distribution (same readout
+    format as the dense interpreter), binds it under the measured name, and
+    drives the interpreter over the lines after the measurement (``cout``,
+    ``pydo``, classical control flow).  Quantum ops there — or jumps back
+    into the circuit region — are outside the unitary fragment and raise.
+
+    ``provider`` (no-arg callable returning the dense pre-measurement ρ)
+    makes the bound result a :class:`DeviceMeasurementResult` whose state
+    fields materialise lazily (or raise a clear limitation error).
+    """
+    if lp.measure_basis is None or probs is None:
+        return None
+    result = _make_result(lp.measure_basis, list(lp.measure_targets),
+                          [float(p) for p in probs], provider=provider)
+    lp.namespace[lp.measure_name] = result
+    _run_epilogue(lp)
+    return result
+
 
 
 def _is_computational(basis) -> bool:

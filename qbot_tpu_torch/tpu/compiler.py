@@ -1,50 +1,291 @@
-"""Window-fusion circuit compiler without JAX.
+"""Window-fusion circuit compiler.
 
-The integer-window branch of :func:`qbot_tpu.tpu.compiler.compile_circuit`
-and its reflection detection, which in the JAX package folds window
-matrices through :mod:`qbot_tpu.tpu.planar` and so imports JAX.  Here the
-fold comes from :mod:`qbot_tpu_torch.tpu.planar`.  The plan dataclasses
-and every other pass are imported from :mod:`qbot_tpu.tpu.compiler`, so a
-plan from either compiler runs on either executor.
+Turns a :class:`~qbot_tpu_torch.tpu.circuit.Circuit` into a static plan of
+window, pair, reflection, diagonal, phase, flip and contraction steps.  A
+copy of the integer-window branch of ``qbot_tpu.tpu.compiler`` with its plan
+dataclasses and passes (``qbot_tpu/tpu/compiler.py:45-182, 271-368,
+698-971``); reflection detection folds window matrices with
+:func:`fold_window_static`.
 
 Windows are paired by default, as in ``qbot_tpu``: adjacent windows that
-``qbot_tpu.tpu.compiler._pairable`` accepts become one ``PairStep`` (one
-pass of the pair kernel).  Plans equal ``qbot_tpu``'s
-``compile_circuit(circ, window, pair)`` step for step, for both values of
-``pair``.  There is no ``window="auto"``: ranking widths needs cost
-constants measured on the card.
+:func:`_pairable` accepts become one ``PairStep`` (one pass of the pair
+kernel).  Plans equal ``qbot_tpu``'s ``compile_circuit(circ, window, pair)``
+step for step, field for field, for both values of ``pair``.  There is no
+``window="auto"``: ranking widths needs cost constants measured on the card,
+and the JAX package's are a TPU's.
 """
 from __future__ import annotations
 
 from collections import deque
+from dataclasses import dataclass, field
+from typing import Callable, Optional, Union
 
 import numpy as np
 
-from qbot_tpu.ops.gates import controlled
-from qbot_tpu.tpu.circuit import Circuit
-from qbot_tpu.tpu.compiler import (
-    ContractStep,
-    DiagStep,
-    FlipStep,
-    PhaseStep,
-    Plan,
-    ReflectStep,
-    Step,
-    Term,
-    WindowStep,
-    _fuse_flips,
-    _fuse_phases,
-    _pair_windows,
-    decompose_spanning_swap,
-    eigen_decompose_controlled,
-    gate_as_diag,
-    merge_adjacent_diags,
-)
-from qbot_tpu_torch.tpu.planar import fold_window_static
+from qbot_tpu_torch.ops.gates import controlled
+from qbot_tpu_torch.tpu.circuit import Circuit, CircuitOp
 
-__all__ = ["compile_circuit"]
+__all__ = ["Term", "WindowStep", "DiagStep", "FlipStep", "PhaseStep",
+           "ContractStep", "PairStep", "ReflectStep", "Plan",
+           "compile_circuit", "expand_pairs", "expand_reflections",
+           "expand_phases", "phase_as_diag", "gate_as_diag",
+           "eigen_decompose_controlled", "decompose_spanning_swap"]
 
 _LANE_LOG2 = 7     # width of the trailing window
+
+
+@dataclass(frozen=True)
+class Term:
+    """One gate folded into a window: positions are window-relative axes."""
+    positions: tuple[int, ...]
+    matrix: Optional[np.ndarray]      # static (controls already folded in)
+    param_idx: Optional[int] = None
+    maker: Optional[Callable] = None
+    num_controls: int = 0             # for param gates: wrap maker output
+
+
+@dataclass(frozen=True)
+class WindowStep:
+    start: int                        # first qubit axis of the window
+    width: int                        # window qubit count (dim = 2**width)
+    terms: tuple[Term, ...]
+    # basis-state sign flips applied BEFORE this window's unitary, fused
+    # into the window kernel so they cost no extra HBM pass
+    pre_flips: tuple[int, ...] = ()
+    # controlled-phase factors applied BEFORE this window's unitary:
+    # each (qubits, z) multiplies an amplitude by z when ALL the qubits
+    # are 1 — fused into the window kernel as an in-register masked
+    # complex multiply, so a cross-window CZ/CPhase costs no HBM pass
+    pre_phases: tuple[tuple[tuple[int, ...], complex], ...] = ()
+
+
+@dataclass(frozen=True)
+class DiagStep:
+    targets: tuple[int, ...]
+    diag: np.ndarray                  # (2**len(targets),) phase vector
+
+
+@dataclass(frozen=True)
+class FlipStep:
+    """Sign-flip of a single basis state (multi-controlled-Z): one scatter."""
+    index: int
+
+
+@dataclass(frozen=True)
+class PhaseStep:
+    """Multiply by ``phase`` every amplitude whose ``qubits`` bits equal
+    the bits of ``pattern`` (bit k−1−j of ``pattern`` ↔ ``qubits[j]``,
+    matching the diag-vector index convention).
+
+    The normal form of any (multi-)controlled phase gate — in particular
+    every cross-window CZ/CPhase left by the CX → H·CZ·H and controlled-U
+    eigendecomposition rewrites (whose eigenvalue ordering may place the
+    phase at any diag index, hence the pattern).  Never executed
+    standalone on the hot path: ``_fuse_phases`` attaches it to the next
+    window/pair kernel, where it costs a few in-register VPU ops instead
+    of a full HBM pass (a standalone DiagStep pass measured 13 ms at
+    26 qubits — as much as a fused 128×128 window matmul pass).
+    """
+    qubits: tuple[int, ...]
+    phase: complex
+    pattern: int = -1                     # -1 = all qubits 1
+
+
+@dataclass(frozen=True)
+class PairStep:
+    """Two disjoint, qubit-contiguous windows applied in ONE HBM pass.
+
+    The planar executor lowers this to a single Pallas kernel that
+    left-multiplies ``first``'s unitary and contracts ``second``'s on the
+    other axis of the same VMEM tile — halving state traffic versus two
+    window passes.  Disjoint supports commute, so semantics equal applying
+    ``first`` then ``second``.
+    """
+    first: WindowStep
+    second: WindowStep
+
+
+@dataclass(frozen=True)
+class ReflectStep:
+    """Householder reflection ``ψ → ψ − 2⟨v|ψ⟩v`` about a product state.
+
+    Detected from the algebraic pattern ``A-layer · flip(idx) · A†-layer``
+    (windows with inverse unitaries sandwiching a basis-state sign flip),
+    which equals ``I − 2|v⟩⟨v|`` with ``v = A†|idx⟩`` — a PRODUCT of
+    per-block vectors, so the whole two-layer sandwich collapses to one
+    read pass (the ⟨v|ψ⟩ contraction) plus one read+write pass (the rank-1
+    update), instead of 2× full window layers.  This is exactly Grover's
+    diffusion operator, recognised structurally rather than special-cased.
+
+    ``factors[i]`` is the complex vector for the i-th contiguous qubit
+    block; blocks tile [0, n) in order.  ``original`` keeps the replaced
+    steps for executors that cannot run reflections directly (density).
+
+    ``pre_flips`` are basis-state sign flips applied BEFORE the reflection
+    (a preceding oracle).  Because the reflection is a rank-1 update, a
+    flipped basis state only shifts ⟨v|ψ⟩ by a scalar and the output at one
+    index — so fused flips cost O(1) gather/scatter work instead of an HBM
+    pass of their own.
+    """
+    factors: tuple[np.ndarray, ...]
+    original: tuple = ()
+    pre_flips: tuple[int, ...] = ()
+
+
+@dataclass(frozen=True)
+class ContractStep:
+    targets: tuple[int, ...]          # includes controls (leading)
+    matrix: Optional[np.ndarray]
+    param_idx: Optional[int] = None
+    maker: Optional[Callable] = None
+    num_controls: int = 0
+
+
+Step = Union[WindowStep, DiagStep, FlipStep, PhaseStep, ContractStep,
+             PairStep, ReflectStep]
+
+
+@dataclass
+class Plan:
+    n: int
+    window: int
+    steps: list[Step] = field(default_factory=list)
+    num_params: int = 0
+    gate_count: int = 0               # logical gates represented
+
+    @property
+    def num_passes(self) -> int:
+        """Full-state HBM passes this plan costs (the perf figure of merit).
+
+        ReflectStep costs 2 (⟨v|ψ⟩ read pass + rank-1 update pass);
+        FlipStep costs 0 (an in-place single-element scatter); every other
+        step reads and writes the state once.
+        """
+        total = 0
+        for s in self.steps:
+            if isinstance(s, ReflectStep):
+                total += 2
+            elif not isinstance(s, FlipStep):
+                total += 1
+        return total
+
+
+def fold_window_static(step: WindowStep) -> Optional[np.ndarray]:
+    """Fuse a window's terms into one complex matrix on the host.
+
+    Returns None if any term is parameterised.
+    """
+    if any(t.matrix is None for t in step.terms):
+        return None
+    w, dim = step.width, 2**step.width
+    W = np.eye(dim, dtype=np.complex128).reshape((2,) * w + (dim,))
+    for term in step.terms:
+        m = np.asarray(term.matrix, dtype=np.complex128)
+        k = len(term.positions)
+        g = m.reshape((2,) * (2 * k))
+        W = np.tensordot(g, W, axes=(list(range(k, 2 * k)),
+                                     list(term.positions)))
+        W = np.moveaxis(W, list(range(k)), list(term.positions))
+    return W.reshape(dim, dim)
+
+
+def gate_as_diag(op: CircuitOp) -> Optional[CircuitOp]:
+    """Normalise a diagonal (possibly controlled) gate op to a 'diag' op.
+
+    A controlled diagonal gate is itself diagonal (identity on the
+    non-triggered block), so e.g. a multi-controlled-Z over ALL qubits
+    becomes one elementwise pass — and, on a sharded register, a purely
+    local multiply with zero communication — instead of a full-space
+    contraction.  Returns None when the op is not a static diagonal gate.
+    """
+    if op.kind != "gate" or op.matrix is None:
+        return None
+    m = np.asarray(op.matrix)
+    if m.ndim != 2 or not np.allclose(m, np.diag(np.diag(m)),
+                                      rtol=0.0, atol=1e-12):
+        return None
+    d = np.diag(m).astype(np.complex128)
+    if op.controls:
+        full = np.ones(2 ** len(op.controls + op.targets), np.complex128)
+        full[-d.shape[0]:] = d
+        d = full
+    return CircuitOp("diag", tuple(op.controls) + tuple(op.targets), (), d)
+
+
+_SWAP2 = np.array([[1, 0, 0, 0], [0, 0, 1, 0],
+                   [0, 1, 0, 0], [0, 0, 0, 1]], dtype=complex)
+
+
+def _unitary_eig(U: np.ndarray, atol: float = 1e-9):
+    """Orthonormal eigendecomposition U = V diag(d) V† of a unitary.
+
+    Every unitary is normal, hence unitarily diagonalizable — but
+    ``np.linalg.eig`` does not return orthonormal eigenvectors for repeated
+    eigenvalues, so diagonalize a random Hermitian combination of the
+    commuting Hermitian/anti-Hermitian parts instead (their joint
+    eigenbasis is U's); verify, retry with fresh coefficients on the
+    measure-zero failure of a degenerate combination.
+    """
+    H = (U + U.conj().T) / 2
+    S = (U - U.conj().T) / 2j
+    rng = np.random.default_rng(0)
+    for _ in range(4):
+        t = rng.uniform(0.2, 0.8)
+        _, V = np.linalg.eigh(t * H + (1 - t) * S)
+        D = V.conj().T @ U @ V
+        if np.allclose(D, np.diag(np.diag(D)), atol=atol):
+            return np.diag(D), V
+    return None, None
+
+
+def eigen_decompose_controlled(op: CircuitOp) -> Optional[list[CircuitOp]]:
+    """Rewrite a static controlled-U as  V† · controlled-diag · V.
+
+    U = V diag(d) V† (unitaries are normal) gives
+    ``C-U = (I⊗V) · C-diag(d) · (I⊗V†)`` — the V factors touch ONLY the
+    target qubits and the controlled part becomes a *diagonal*, which costs
+    one fused elementwise pass wherever it lands (and, on a sharded
+    register, factors across shards with zero communication).  This removes
+    the need to ever contract a controlled gate across windows or shards —
+    the TPU-native replacement for the reference's full-space
+    ``genMultiControlledGate`` conjugations (qgates.py:228-275).
+
+    Returns None when the op is not a static controlled gate or the
+    decomposition fails numerically (caller keeps the contraction path).
+    """
+    if op.kind != "gate" or op.matrix is None or not op.controls:
+        return None
+    U = np.asarray(op.matrix, np.complex128)
+    d, V = _unitary_eig(U)
+    if d is None:
+        return None                      # pragma: no cover - retry exhausted
+    full = np.ones(2 ** (len(op.controls) + len(op.targets)), np.complex128)
+    full[-d.shape[0]:] = d
+    out = []
+    if not np.allclose(V, np.eye(V.shape[0]), atol=1e-12):
+        out.append(CircuitOp("gate", op.targets, (), V.conj().T))
+        out.append(CircuitOp("diag", tuple(op.controls) + tuple(op.targets),
+                             (), full))
+        out.append(CircuitOp("gate", op.targets, (), V))
+    else:                                # U already diagonal
+        out.append(CircuitOp("diag", tuple(op.controls) + tuple(op.targets),
+                             (), full))
+    return out
+
+
+def decompose_spanning_swap(op: CircuitOp) -> Optional[list[CircuitOp]]:
+    """A 2-qubit SWAP as 3 CXs (each then eigen-decomposes to H·CZ·H),
+    for swaps spanning windows or shards."""
+    if (op.kind != "gate" or op.matrix is None or op.controls
+            or len(op.targets) != 2):
+        return None
+    if not np.allclose(np.asarray(op.matrix, complex), _SWAP2, atol=1e-12):
+        return None
+    a, b = op.targets
+    X = np.array([[0, 1], [1, 0]], dtype=complex)
+    return [CircuitOp("gate", (b,), (a,), X),
+            CircuitOp("gate", (a,), (b,), X),
+            CircuitOp("gate", (b,), (a,), X)]
 
 
 def compile_circuit(circ: Circuit, window: int = 7,
@@ -170,6 +411,52 @@ def compile_circuit(circ: Circuit, window: int = 7,
     return plan
 
 
+def combine_diag_vectors(targets_a, diag_a, targets_b, diag_b, union):
+    """Phase vector of diag_a·diag_b over the sorted union of their targets.
+
+    Diagonals compose elementwise: each union index selects the bits of the
+    two operand target subsets and multiplies the corresponding phases.
+    """
+    k = len(union)
+    pos = {q: i for i, q in enumerate(union)}
+    idx = np.arange(2**k)
+
+    def sub_index(targets):
+        s = np.zeros(2**k, dtype=np.int64)
+        t = len(targets)
+        for j, q in enumerate(targets):
+            bit = (idx >> (k - 1 - pos[q])) & 1
+            s |= bit << (t - 1 - j)
+        return s
+
+    va = np.asarray(diag_a, np.complex128)
+    vb = np.asarray(diag_b, np.complex128)
+    return va[sub_index(targets_a)] * vb[sub_index(targets_b)]
+
+
+def merge_adjacent_diags(steps: list[Step], cap: int = 12) -> list[Step]:
+    """Fuse runs of adjacent DiagSteps into one elementwise pass each.
+
+    All diagonals commute, so adjacent DiagSteps combine exactly; the
+    merged phase tensor is capped at 2^cap entries so a long run over many
+    distinct qubits (e.g. a QFT's controlled-phase cascade) merges in
+    chunks rather than materialising a 2^n constant.
+    """
+    out: list[Step] = []
+    for step in steps:
+        if (isinstance(step, DiagStep) and out
+                and isinstance(out[-1], DiagStep)):
+            prev = out[-1]
+            union = tuple(sorted(set(prev.targets) | set(step.targets)))
+            if len(union) <= cap:
+                out[-1] = DiagStep(union, combine_diag_vectors(
+                    prev.targets, prev.diag, step.targets, step.diag,
+                    union))
+                continue
+        out.append(step)
+    return out
+
+
 def _detect_reflections(steps: list[Step], n: int) -> list[Step]:
     """Replace ``windows_A · flip(idx) · windows_B`` with a ReflectStep when
     B is the blockwise inverse of A (``qbot_tpu/tpu/compiler.py:752-817``).
@@ -231,4 +518,158 @@ def _detect_reflections(steps: list[Step], n: int) -> list[Step]:
             i = a_lo + 1
             continue
         i += 1
+    return out
+
+
+def expand_reflections(steps):
+    """Iterate steps with ReflectSteps expanded back to their window/flip
+    form (for executors without a reflection fast path)."""
+    for step in steps:
+        if isinstance(step, ReflectStep):
+            yield from step.original
+        else:
+            yield step
+
+
+def _pairable(a: Step, b: Step, n: int) -> bool:
+    """True when adjacent steps fuse into one Pallas pair-kernel pass.
+
+    Requirements: both are windows, qubit-contiguous (``a`` immediately
+    before ``b``, so the state views as (A, D1, D2, B) with no middle
+    axis), ``b`` carries no pre-flips (a basis-state flip between the two
+    unitaries would not commute with ``a``), and the geometry matches one
+    of the two kernels: trailing pair (B == 1, any D1/D2 up to 128×128) or
+    middle pair (B >= 128 with D1 <= 32 so the in-kernel row loop stays
+    short).
+    """
+    if not (isinstance(a, WindowStep) and isinstance(b, WindowStep)):
+        return False
+    if a.start + a.width != b.start or b.pre_flips or b.pre_phases:
+        return False
+    if a.width + b.width > 14:          # fused tile beyond 128×128
+        return False
+    B = 2 ** (n - b.start - b.width)
+    if B == 1:
+        return True
+    return B >= 128 and a.width <= 5
+
+
+def _pair_windows(steps: list[Step], n: int) -> list[Step]:
+    """Greedy left-to-right fusion of adjacent window steps into PairSteps."""
+    out: list[Step] = []
+    i = 0
+    while i < len(steps):
+        if i + 1 < len(steps) and _pairable(steps[i], steps[i + 1], n):
+            out.append(PairStep(steps[i], steps[i + 1]))
+            i += 2
+        else:
+            out.append(steps[i])
+            i += 1
+    return out
+
+
+def expand_pairs(steps):
+    """Iterate steps with PairSteps expanded to their two windows (for
+    executors that gain nothing from pair fusion: complex/density/XLA)."""
+    for step in steps:
+        if isinstance(step, PairStep):
+            yield step.first
+            yield step.second
+        else:
+            yield step
+
+
+def _fuse_phases(steps: list[Step]) -> list[Step]:
+    """Attach each PhaseStep to the next WindowStep as a fused pre-phase.
+
+    Controlled phases are diagonal, so consecutive ones commute with each
+    other (and with FlipSteps) but not with a later unitary — each run of
+    PhaseSteps may only fuse into the *first* subsequent window.  Phases
+    with no fusable successor stay standalone (executors apply them as one
+    masked elementwise pass).
+    """
+    out: list[Step] = []
+    pending: list[PhaseStep] = []
+    for step in steps:
+        if isinstance(step, PhaseStep):
+            pending.append(step)
+            continue
+        if pending and isinstance(step, WindowStep):
+            step = WindowStep(
+                step.start, step.width, step.terms, step.pre_flips,
+                step.pre_phases + tuple((p.qubits, p.phase, p.pattern)
+                                        for p in pending))
+            pending.clear()
+        elif pending and not isinstance(step, FlipStep):
+            # flips are diagonal too: let a phase run pass over them so
+            # both can fuse into the same following window
+            out.extend(pending)
+            pending.clear()
+        out.append(step)
+    out.extend(pending)
+    return out
+
+
+def phase_as_diag(step: PhaseStep) -> DiagStep:
+    """Equivalent DiagStep (for executors without in-kernel phase fusion)."""
+    k = len(step.qubits)
+    d = np.ones(2**k, np.complex128)
+    d[step.pattern if step.pattern >= 0 else 2**k - 1] = step.phase
+    return DiagStep(tuple(step.qubits), d)
+
+
+def expand_phases(steps):
+    """Iterate steps with fused pre-phases re-materialised as DiagSteps
+    (and standalone PhaseSteps converted), for executors that apply
+    diagonals as their own pass (density / sharded / complex oracle)."""
+    for step in steps:
+        if isinstance(step, PhaseStep):
+            yield phase_as_diag(step)
+        elif isinstance(step, WindowStep) and step.pre_phases:
+            for qubits, z, pat in step.pre_phases:
+                yield phase_as_diag(PhaseStep(qubits, z, pat))
+            yield WindowStep(step.start, step.width, step.terms,
+                             step.pre_flips)
+        elif isinstance(step, PairStep) and step.first.pre_phases:
+            for qubits, z, pat in step.first.pre_phases:
+                yield phase_as_diag(PhaseStep(qubits, z, pat))
+            yield PairStep(WindowStep(step.first.start, step.first.width,
+                                      step.first.terms,
+                                      step.first.pre_flips),
+                           step.second)
+        else:
+            yield step
+
+
+def _fuse_flips(steps: list[Step]) -> list[Step]:
+    """Attach each FlipStep to the next WindowStep or ReflectStep as a
+    fused pre-flip.
+
+    A flip does not commute with later steps, so it may only fuse into the
+    *first* subsequent step; flips not followed by a fusable step stay
+    standalone.  Fusing into a ReflectStep keeps the replaced original
+    steps prefixed with the flips so ``expand_reflections`` stays exact.
+    """
+    out: list[Step] = []
+    pending: list[int] = []
+    for step in steps:
+        if isinstance(step, FlipStep):
+            pending.append(step.index)
+            continue
+        if pending and isinstance(step, WindowStep):
+            step = WindowStep(step.start, step.width, step.terms,
+                              step.pre_flips + tuple(pending),
+                              step.pre_phases)
+            pending.clear()
+        elif pending and isinstance(step, ReflectStep):
+            step = ReflectStep(
+                step.factors,
+                tuple(FlipStep(i) for i in pending) + tuple(step.original),
+                step.pre_flips + tuple(pending))
+            pending.clear()
+        elif pending:
+            out.extend(FlipStep(i) for i in pending)
+            pending.clear()
+        out.append(step)
+    out.extend(FlipStep(i) for i in pending)
     return out

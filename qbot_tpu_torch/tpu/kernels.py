@@ -68,8 +68,10 @@ def _nvcc() -> str:
 
 def build_kernels() -> Path:
     """Compile ``csrc/*.cu`` into one shared library (once per source hash)
-    and return its path.  The sources compile in parallel, one nvcc each.
-    A failed build raises with nvcc's stderr."""
+    and return its path.  The sources compile in parallel, one nvcc each;
+    ptxas's register and spill report of every kernel goes to
+    ``ptxas.log`` beside the library.  A failed build raises with nvcc's
+    stderr."""
     sources = sorted(_CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     for src in sources:
@@ -84,8 +86,10 @@ def build_kernels() -> Path:
     # load a half-written library
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         objs = [Path(tmp) / f"{src.stem}.o" for src in sources]
-        _run_nvcc([[_nvcc(), *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                   for src, obj in zip(sources, objs)])
+        logs = _run_nvcc([[_nvcc(), *_NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                           "-o", str(obj), str(src)]
+                          for src, obj in zip(sources, objs)])
+        (out_dir / "ptxas.log").write_text("".join(logs))
         lib_tmp = Path(tmp) / lib_path.name
         _run_nvcc([[_nvcc(), *_NVCC_FLAGS, "-shared", "-o", str(lib_tmp),
                     *map(str, objs)]])
@@ -93,20 +97,22 @@ def build_kernels() -> Path:
     return lib_path
 
 
-def _run_nvcc(cmds) -> None:
-    """Run the nvcc commands at once; raise with the stderr of the first
-    that fails."""
+def _run_nvcc(cmds) -> list[str]:
+    """Run the nvcc commands at once and return their stderr; raise with
+    the stderr of the first that fails."""
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for cmd in cmds]
-    errors = []
+    errors, logs = [], []
     for cmd, proc in zip(cmds, procs):
         _, err = proc.communicate()
+        logs.append(err)
         if proc.returncode != 0:
             errors.append(f"nvcc failed ({proc.returncode}): "
                           f"{' '.join(cmd)}\n{err}")
     if errors:
         raise RuntimeError(errors[0])
+    return logs
 
 
 def _library():
@@ -234,7 +240,8 @@ def phase_bits(n: int, qubits, pattern: int) -> tuple[int, int]:
 def fused_diagonals(n: int, pre_flips=(), pre_phases=(),
                     device="cpu") -> FusedDiagonals:
     """Device tables of a step's fused flips and (qubits, z, pattern)
-    phases, as :class:`qbot_tpu.tpu.compiler.WindowStep` carries them."""
+    phases, as :class:`qbot_tpu_torch.tpu.compiler.WindowStep` carries
+    them."""
     bits = [phase_bits(n, q, pat) for q, _, pat in pre_phases]
     z = np.array([complex(z) for _, z, _ in pre_phases], np.complex128)
     return FusedDiagonals(
@@ -313,6 +320,7 @@ def window_apply(psi, n: int, start: int, width: int, w,
     _check_diag(diag, psi.device)
     if not _dispatch(psi):
         return window_apply_ref(psi, n, start, width, w, diag)
+    _require(psi.data_ptr() % 16 == 0, "psi must be 16-byte aligned")
     lib = _library()
     out = torch.empty_like(psi)
     with torch.cuda.device(psi.device):

@@ -11,9 +11,8 @@ is never written.
 
 Not ported yet: parameterised gates and ``renorm_every`` (they raise
 ``NotImplementedError`` naming the ROADMAP item that brings them), the
-precision modes (every product is full float32), and the dot engine
-(``plan.engine``, which the port's compiler never sets, is not read: every
-plan runs on the window and pair kernels).
+precision modes (every product is full float32 or its 3xTF32 split), and
+the dot engine (every plan runs on the window and pair kernels).
 """
 from __future__ import annotations
 
@@ -22,7 +21,9 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from qbot_tpu.tpu.compiler import (
+from qbot_tpu_torch.tpu import kernels
+from qbot_tpu_torch.tpu.circuit import PARAM_TODO
+from qbot_tpu_torch.tpu.compiler import (
     ContractStep,
     DiagStep,
     FlipStep,
@@ -33,9 +34,9 @@ from qbot_tpu.tpu.compiler import (
     WindowStep,
     expand_phases,
     expand_reflections,
+    fold_window_static,
     phase_as_diag,
 )
-from qbot_tpu_torch.tpu import kernels
 from qbot_tpu_torch.tpu.kernels import _fp32_matmul
 
 __all__ = ["zero_state_planar", "to_planar", "from_planar",
@@ -48,8 +49,6 @@ __all__ = ["zero_state_planar", "to_planar", "from_planar",
 
 REAL_DTYPE = torch.float32
 
-_PARAM_TODO = ("parameterised gates are not ported yet "
-               "(ROADMAP queue 1, item 8: inference and the kernels' backward)")
 _RENORM_TODO = ("renorm_every is not ported yet (ROADMAP queue 1, item 5: "
                 "precision modes and renormalisation)")
 
@@ -97,25 +96,6 @@ def from_planar(psi) -> np.ndarray:
         psi = psi.detach().cpu().numpy()
     psi = np.asarray(psi)
     return psi[0] + 1j * psi[1]
-
-
-def fold_window_static(step: WindowStep) -> Optional[np.ndarray]:
-    """Fuse a window's terms into one complex matrix on the host.
-
-    Returns None if any term is parameterised.
-    """
-    if any(t.matrix is None for t in step.terms):
-        return None
-    w, dim = step.width, 2**step.width
-    W = np.eye(dim, dtype=np.complex128).reshape((2,) * w + (dim,))
-    for term in step.terms:
-        m = np.asarray(term.matrix, dtype=np.complex128)
-        k = len(term.positions)
-        g = m.reshape((2,) * (2 * k))
-        W = np.tensordot(g, W, axes=(list(range(k, 2 * k)),
-                                     list(term.positions)))
-        W = np.moveaxis(W, list(range(k)), list(term.positions))
-    return W.reshape(dim, dim)
 
 
 def _planar_tensor(mat, device) -> torch.Tensor:
@@ -166,7 +146,7 @@ _PLAIN = _Ops(kernels.window_apply_ref, kernels.pair_apply_ref,
 def _window_matrix(step: WindowStep) -> np.ndarray:
     static = fold_window_static(step)
     if static is None:
-        raise NotImplementedError(_PARAM_TODO)
+        raise NotImplementedError(PARAM_TODO)
     return static
 
 
@@ -296,7 +276,7 @@ def _flip_fn(index: int):
 def _contract_fn(n: int, step: ContractStep, device):
     """Cross-window gate as a tensor contraction over its target axes."""
     if step.matrix is None:
-        raise NotImplementedError(_PARAM_TODO)
+        raise NotImplementedError(PARAM_TODO)
     g = _planar_tensor(step.matrix, device)
     k = len(step.targets)
     shape, axes, _ = _grouped_view(n, step.targets)
@@ -516,7 +496,7 @@ def _density_step_fns(plan: Plan, device, ops: _Ops) -> list:
             fns.append(_density_flip_fn(n, step.index))
         else:
             if step.matrix is None:
-                raise NotImplementedError(_PARAM_TODO)
+                raise NotImplementedError(PARAM_TODO)
             col = ContractStep(tuple(n + q for q in step.targets),
                                np.conj(np.asarray(step.matrix)))
             fns.append(_both_sides(_contract_fn(2 * n, step, device),

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card vs their plain PyTorch versions.
 
 Every test here needs a CUDA card and skips without one.  The file imports
-no JAX, so it also runs on a machine without it:
+neither JAX nor ``qbot_tpu``, so it also runs on a machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -13,9 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from qbot_tpu.tpu.circuit import Circuit, random_circuit
 from qbot_tpu_torch import compile_circuit
 from qbot_tpu_torch.tpu import kernels, planar
+from qbot_tpu_torch.tpu.circuit import Circuit, random_circuit
 
 pytestmark = pytest.mark.cuda
 
@@ -65,6 +65,36 @@ def test_window_kernel_every_width(cuda, width, where):
     got = kernels.window_apply(psi, n, start, width, w, diag)
     want = kernels.window_apply_ref(psi, n, start, width, w, diag)
     assert rel_l2(got, want) <= TOL
+
+
+@pytest.mark.parametrize("width", [3, 5, 7])
+def test_window_kernel_many_diagonals(cuda, width):
+    """More flips and phases than the kernel's lookup tables hold (8): the
+    rest are tested element by element."""
+    n = 12
+    start = n - width - 2
+    rng = np.random.default_rng(width)
+    psi = _state(n, rng, cuda)
+    w = _unitary(2**width, rng, cuda)
+    phases = tuple((tuple(int(q) for q in rng.choice(n, size=3,
+                                                      replace=False)),
+                    complex(np.exp(1j * rng.uniform(0, 6))),
+                    int(rng.integers(0, 8))) for _ in range(7))
+    flips = tuple(int(m) for m in rng.integers(0, 2**n, size=5))
+    diag = kernels.fused_diagonals(n, flips + flips[:1], phases, cuda)
+    got = kernels.window_apply(psi, n, start, width, w, diag)
+    want = kernels.window_apply_ref(psi, n, start, width, w, diag)
+    assert rel_l2(got, want) <= TOL
+
+
+def test_window_kernel_needs_aligned_state(cuda):
+    n = 8
+    flat = torch.zeros(2 * 2**n + 1, device=cuda)
+    psi = flat[1:].view(2, 2**n)
+    w = _unitary(4, np.random.default_rng(0), cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels.window_apply(psi, n, 0, 2, w,
+                             kernels.fused_diagonals(n, device=cuda))
 
 
 def _pair_inputs(n, start, width1, width2, rng, device):

@@ -16,14 +16,16 @@ import torch
 import jax.numpy as jnp
 
 import qbot_tpu_torch
+from _torch_parity import both, brickwork
+from qbot_tpu.tpu import compiler as jc
 from qbot_tpu.tpu import kernels as jk
 from qbot_tpu.tpu import planar as jp
-from qbot_tpu.tpu.circuit import Circuit, random_circuit
-from qbot_tpu.tpu.compiler import PairStep
 from qbot_tpu.tpu.simulator import apply_plan_density
+from qbot_tpu_torch.tpu import circuit as tcirc
 from qbot_tpu_torch.tpu import kernels as tk
 from qbot_tpu_torch.tpu import planar as tp
-from qbot_tpu_torch.tpu.compiler import compile_circuit
+from qbot_tpu_torch.tpu.circuit import Circuit
+from qbot_tpu_torch.tpu.compiler import PairStep, compile_circuit
 
 torch.set_num_threads(1)
 
@@ -40,31 +42,15 @@ def interpret_kernels():
         jk.set_kernel_mode("auto")
 
 
-def brickwork(n, layers, seed=0):
-    """``bench.py``'s random brickwork: Haar 1-qubit gates, then CX on
-    alternating neighbour pairs, per layer."""
-    rng = np.random.default_rng(seed)
-    c = Circuit(n)
-    X = np.array([[0, 1], [1, 0]], dtype=complex)
-    for layer in range(layers):
-        for q in range(n):
-            z = rng.normal(size=(2, 2)) + 1j * rng.normal(size=(2, 2))
-            qm, r = np.linalg.qr(z)
-            c.gate(qm * np.conj(r.diagonal() / np.abs(r.diagonal())), [q])
-        for q in range(layer % 2, n - 1, 2):
-            c.gate(X, [q + 1], controls=[q])
-    return c
-
-
-def bell():
-    c = Circuit(2)
+def bell(m):
+    c = m.Circuit(2)
     c.h(0)
     c.cx(0, 1)
     return c
 
 
-def flips_and_diagonal():
-    c = Circuit(4)
+def flips_and_diagonal(m):
+    c = m.Circuit(4)
     for q in range(4):
         c.h(q)
     c.phase_flip(9)
@@ -74,11 +60,11 @@ def flips_and_diagonal():
     return c
 
 
-def flips_and_phases(n):
+def flips_and_phases(m, n):
     """A plan whose windows (at 6 qubits, window 3) or pairs (at 8 qubits,
     window 1) carry fused flips and phases, then a reflection, which the
     density executor expands into windows and standalone flips."""
-    c = Circuit(n)
+    c = m.Circuit(n)
     for q in range(n):
         c.h(q)
     c.phase_flip(5)
@@ -100,11 +86,11 @@ def flips_and_phases(n):
 # windows and pairs with fused flips
 CASES = {
     "bell": (bell, 7),
-    "random": (lambda: random_circuit(5, 3, seed=11), 3),
+    "random": (lambda m: m.random_circuit(5, 3, seed=11), 3),
     "flips_and_diagonal": (flips_and_diagonal, 2),
-    "brickwork": (lambda: brickwork(9, 4, seed=3), 2),
-    "flips_in_window": (lambda: flips_and_phases(6), 3),
-    "flips_on_pairs": (lambda: flips_and_phases(8), 1),
+    "brickwork": (lambda m: brickwork(m, 9, 4, seed=3), 2),
+    "flips_in_window": (lambda m: flips_and_phases(m, 6), 3),
+    "flips_on_pairs": (lambda m: flips_and_phases(m, 8), 1),
 }
 
 
@@ -126,12 +112,13 @@ def _planar(rho):
 @pytest.mark.parametrize("name", list(CASES))
 def test_density_matches_jax(name, interpret_kernels):
     make, window = CASES[name]
-    circ = make()
+    circ, jcirc = both(make)
     plan = compile_circuit(circ, window=window)
+    jplan = jc.compile_circuit(jcirc, window=window)
     rho = _rand_density(circ.n, 5)
     want_planar = np.asarray(jp.apply_plan_density_planar(
-        jnp.asarray(_planar(rho)), plan))
-    want_complex = np.asarray(apply_plan_density(jnp.asarray(rho), plan))
+        jnp.asarray(_planar(rho)), jplan))
+    want_complex = np.asarray(apply_plan_density(jnp.asarray(rho), jplan))
     got = tp.apply_plan_density_planar(torch.from_numpy(_planar(rho)), plan)
     np.testing.assert_allclose(got.numpy(), want_planar, atol=TOL)
     g = got.numpy()
@@ -146,7 +133,7 @@ def test_density_matches_jax(name, interpret_kernels):
 def test_brickwork_pairs_take_both_kernels():
     """The rows of the 18-qubit view take the middle pair kernel, the
     columns the trailing one."""
-    plan = compile_circuit(brickwork(9, 4, seed=3), window=2)
+    plan = compile_circuit(brickwork(tcirc, 9, 4, seed=3), window=2)
     pairs = [s for s in plan.steps if isinstance(s, PairStep)]
     assert [(s.first.start, s.first.width, s.second.width)
             for s in pairs] == [(0, 2, 7)] * 2
@@ -157,7 +144,7 @@ def test_brickwork_pairs_take_both_kernels():
 @pytest.mark.parametrize("window", [2, 7])
 def test_zero_state_density_is_pure_state(window):
     """From |0⟩⟨0|, ρ = ψψ† of the statevector executor's ψ."""
-    circ = brickwork(6, 3, seed=9)
+    circ = brickwork(tcirc, 6, 3, seed=9)
     plan = compile_circuit(circ, window=window)
     rho = tp.apply_plan_density_planar(tp.zero_density_planar(6, "cpu"),
                                        plan)
@@ -170,7 +157,7 @@ def test_zero_state_density_is_pure_state(window):
 
 
 def test_runner_matches_apply_and_keeps_input():
-    plan = compile_circuit(flips_and_phases(6), window=3)
+    plan = compile_circuit(flips_and_phases(tcirc, 6), window=3)
     run = tp.make_planar_density_runner(plan)
     rho = torch.from_numpy(_planar(_rand_density(6, 8)))
     before = rho.clone()
@@ -189,15 +176,20 @@ def test_zero_density_matches_jax():
 
 @pytest.mark.parametrize("targets", [None, [0, 1], [2], [3, 0]])
 def test_density_probs_match_jax(targets):
-    c = Circuit(4)
-    c.h(0)
-    c.cx(0, 1)
-    c.ry(3, 0.8)
+    def circuit(m):
+        c = m.Circuit(4)
+        c.h(0)
+        c.cx(0, 1)
+        c.ry(3, 0.8)
+        return c
+
+    c, jcirc = both(circuit)
     plan = compile_circuit(c)
     rho = tp.apply_plan_density_planar(tp.zero_density_planar(4, "cpu"),
                                        plan)
     want = np.asarray(jp.planar_density_probs(
-        jp.apply_plan_density_planar(jp.zero_density_planar(4), plan),
+        jp.apply_plan_density_planar(jp.zero_density_planar(4),
+                                     jc.compile_circuit(jcirc)),
         targets))
     got = tp.planar_density_probs(rho, targets)
     np.testing.assert_allclose(got.numpy(), want, atol=TOL)
@@ -207,19 +199,21 @@ def test_density_probs_match_jax(targets):
 
 def test_density_state_carries_across_packages():
     """A JAX density matrix goes through the port and back as numpy."""
-    plan = compile_circuit(random_circuit(5, 2, seed=3), window=3)
-    start = jp.apply_plan_density_planar(jp.zero_density_planar(5), plan)
+    circ, jcirc = both(lambda m: m.random_circuit(5, 2, seed=3))
+    plan = compile_circuit(circ, window=3)
+    jplan = jc.compile_circuit(jcirc, window=3)
+    start = jp.apply_plan_density_planar(jp.zero_density_planar(5), jplan)
     mid = qbot_tpu_torch.planar_from_numpy(np.asarray(start), "cpu")
     assert mid.shape == (2, 32, 32) and mid.dtype == torch.float32
     out = qbot_tpu_torch.planar_to_numpy(tp.apply_plan_density_planar(mid,
                                                                       plan))
-    want = np.asarray(jp.apply_plan_density_planar(start, plan))
+    want = np.asarray(jp.apply_plan_density_planar(start, jplan))
     np.testing.assert_allclose(out, want, atol=TOL)
 
 
 def test_parameterised_density_raises():
     c = Circuit(3)
-    c.pry(0)
+    c.param_gate(lambda t: np.eye(2), [0])
     c.cx(0, 2)
     plan = compile_circuit(c)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):

@@ -15,10 +15,12 @@ import pytest
 import torch
 
 from qbot_tpu.frontend import lowering as jl
-from qbot_tpu.frontend.lowering import LoweringError, lower_program
 from qbot_tpu.ops.measurement import MeasurementResult
-from qbot_tpu_torch import run_lowered
+from qbot_tpu_torch import lower_program, run_lowered
 from qbot_tpu_torch.cli import main as torch_cli
+from qbot_tpu_torch.frontend.lowering import LoweringError
+from qbot_tpu_torch.ops.measurement import \
+    MeasurementResult as TorchMeasurementResult
 
 torch.set_num_threads(1)
 
@@ -48,18 +50,19 @@ PROGRAMS = {
 }
 
 
-def _results(ns):
+def _results(ns, cls):
     return {k: v for k, v in ns.items()
-            if not k.startswith("__") and isinstance(v, MeasurementResult)}
+            if not k.startswith("__") and isinstance(v, cls)}
 
 
 def _assert_same_run(src):
-    lp_t, lp_j = lower_program(src), lower_program(src)
+    lp_t, lp_j = lower_program(src), jl.lower_program(src)
     probs_t, psi = run_lowered(lp_t, device="cpu")
     probs_j, _ = jl.run_lowered(lp_j)
     assert psi.device.type == "cpu" and psi.dtype == torch.float32
     np.testing.assert_allclose(probs_t, np.asarray(probs_j), atol=TOL)
-    got, want = _results(lp_t.namespace), _results(lp_j.namespace)
+    got = _results(lp_t.namespace, TorchMeasurementResult)
+    want = _results(lp_j.namespace, MeasurementResult)
     assert got.keys() == want.keys()
     for name in want:
         np.testing.assert_allclose(got[name].probs, want[name].probs,
@@ -95,8 +98,8 @@ def test_dense_fields_replay_on_the_host():
 
 def test_outside_the_fragment_raises_like_jax():
     src = (ROOT / "examples" / "mid_measurement.qb").read_text()
-    with pytest.raises(LoweringError):
-        jl.run_lowered(lower_program(src))
+    with pytest.raises(jl.LoweringError):
+        jl.run_lowered(jl.lower_program(src))
     lp = lower_program(src)
     with pytest.raises(LoweringError):
         run_lowered(lp, device="cpu")

@@ -1,11 +1,15 @@
-"""The port runs where JAX is not installed, as on the machine with the card.
+"""The port runs where neither JAX nor ``qbot_tpu`` can be imported, as on
+the machine with the card.
 
-A subprocess blocks ``import jax`` (``sys.modules["jax"] = None``), imports
-``qbot_tpu_torch``, compiles a 10-qubit Grover circuit with the port's
-compiler (whose reflection detection folds window matrices, which the JAX
-package's compiler does through a module that imports JAX) and runs it on
-the CPU, then runs a paired plan on the statevector and density executors.
-Tolerance: 1e-5 on the marked probability and on ρ against ψψ† (float32).
+A subprocess blocks ``import jax`` and ``import qbot_tpu``
+(``sys.modules[name] = None``), imports ``qbot_tpu_torch``, compiles a
+10-qubit Grover circuit with the port's compiler (whose reflection
+detection folds window matrices, which the JAX package's compiler does
+through a module that imports JAX) and runs it on the CPU, then runs a
+paired plan on the statevector and density executors, a lowered program,
+and the port's CLI on ``examples/grover.qb`` with and without
+``--compile``.  Tolerance: 1e-5 on the marked probability and on ρ against
+ψψ† (float32); the two CLI modes print the same readout within 1e-6.
 """
 import re
 import subprocess
@@ -15,14 +19,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 SCRIPT = """
-import sys
+import contextlib, io, re, sys
 sys.modules["jax"] = None
+sys.modules["qbot_tpu"] = None
 import numpy as np
 import torch
 torch.set_num_threads(1)
 import qbot_tpu_torch
-from qbot_tpu.frontend.lowering import lower_program
-from qbot_tpu.tpu.circuit import grover_circuit
+from qbot_tpu_torch import lower_program
+from qbot_tpu_torch.cli import main as cli_main
+from qbot_tpu_torch.tpu.circuit import grover_circuit
 from qbot_tpu_torch.tpu.compiler import compile_circuit
 from qbot_tpu_torch.tpu.planar import (apply_plan_density_planar,
                                        apply_plan_planar, from_planar,
@@ -44,7 +50,20 @@ assert np.allclose(rho[0] + 1j * rho[1], np.outer(psi, psi.conj()),
 lp = lower_program("qset comp[0]\\ngate hadamardGate\\nmeas out ; comp")
 probs, _ = qbot_tpu_torch.run_lowered(lp, device="cpu")
 assert np.allclose(probs, [0.5, 0.5], atol=1e-6)
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+outs = []
+for extra in ([], ["--compile", "--device", "cpu"]):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli_main(["examples/grover.qb", *extra]) == 0
+    outs.append(buf.getvalue())
+line = re.compile(r"^(\\S+)- (\\S+) \\((\\S+)%\\)$", re.M)
+dense, compiled = (line.findall(o) for o in outs)
+assert len(dense) == len(compiled) == 8, outs
+for (kd, pd, cd), (kc, pc, cc) in zip(dense, compiled):
+    assert kd == kc and abs(float(pd) - float(pc)) <= 1e-6, outs
+    assert abs(float(cd) - float(cc)) <= 1e-4, outs
+assert max(float(p) for _, p, _ in dense) > 0.9, outs
+assert not any(m.split(".")[0] in ("jax", "qbot_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print("ok")
 """
@@ -61,5 +80,13 @@ def test_port_sources_never_import_jax():
     pattern = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
     sources = sorted((ROOT / "qbot_tpu_torch").rglob("*.py"))
     assert sources
+    for path in sources + [ROOT / "chip_smoke.py"]:
+        assert not pattern.search(path.read_text()), path
+
+
+def test_port_sources_never_import_qbot_tpu():
+    pattern = re.compile(r"^\s*(import|from)\s+qbot_tpu(\.|\s|$)", re.M)
+    sources = sorted((ROOT / "qbot_tpu_torch").rglob("*.py"))
+    assert len(sources) >= 20
     for path in sources + [ROOT / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path

@@ -12,16 +12,14 @@ import torch
 
 import jax.numpy as jnp
 
+from _torch_parity import both, brickwork, grover_body
+from qbot_tpu.tpu import compiler as jc
 from qbot_tpu.tpu import kernels as jk
 from qbot_tpu.tpu import planar as jp
-from qbot_tpu.tpu.circuit import (
-    Circuit,
-    grover_circuit,
-    parameterized_layers,
-    qft_circuit,
-    random_circuit,
-)
-from qbot_tpu.tpu.compiler import (
+from qbot_tpu_torch.tpu import circuit as tcirc
+from qbot_tpu_torch.tpu import planar as tp
+from qbot_tpu_torch.tpu.circuit import Circuit, random_circuit
+from qbot_tpu_torch.tpu.compiler import (
     ContractStep,
     DiagStep,
     FlipStep,
@@ -29,9 +27,8 @@ from qbot_tpu.tpu.compiler import (
     PhaseStep,
     ReflectStep,
     WindowStep,
+    compile_circuit,
 )
-from qbot_tpu_torch.tpu import planar as tp
-from qbot_tpu_torch.tpu.compiler import compile_circuit
 
 torch.set_num_threads(1)
 
@@ -50,22 +47,6 @@ def _rand_unitary(d, rng):
     return q * (np.diag(r) / np.abs(np.diag(r)))
 
 
-def brickwork(n, layers, seed=0):
-    """``bench.py``'s random brickwork: Haar 1-qubit gates, then CX on
-    alternating neighbour pairs, per layer."""
-    rng = np.random.default_rng(seed)
-    c = Circuit(n)
-    X = np.array([[0, 1], [1, 0]], dtype=complex)
-    for layer in range(layers):
-        for q in range(n):
-            z = rng.normal(size=(2, 2)) + 1j * rng.normal(size=(2, 2))
-            qm, r = np.linalg.qr(z)
-            c.gate(qm * np.conj(r.diagonal() / np.abs(r.diagonal())), [q])
-        for q in range(layer % 2, n - 1, 2):
-            c.gate(X, [q + 1], controls=[q])
-    return c
-
-
 @pytest.fixture
 def interpret_kernels():
     jk.set_kernel_mode("interpret")
@@ -75,12 +56,12 @@ def interpret_kernels():
         jk.set_kernel_mode("auto")
 
 
-def every_step_kind(n=10, seed=3):
+def every_step_kind(m=tcirc, n=10, seed=3):
     """A circuit whose 4-wide plan holds every step kind the executor
     runs: windows with fused flips and phases, a reflection, a standalone
     diagonal, phase, flip and a cross-window contraction."""
     rng = np.random.default_rng(seed)
-    c = Circuit(n)
+    c = m.Circuit(n)
     for q in range(n):
         c.h(q)
     c.cz(1, 8)                                  # phase fused into a window
@@ -101,9 +82,9 @@ def every_step_kind(n=10, seed=3):
 
 
 CIRCUITS = {
-    "random": (lambda: random_circuit(10, 3, seed=2), 7),
-    "qft": (lambda: qft_circuit(8), 4),
-    "grover": (lambda: grover_circuit(9, 300, iterations=3), 7),
+    "random": (lambda m: m.random_circuit(10, 3, seed=2), 7),
+    "qft": (lambda m: m.qft_circuit(8), 4),
+    "grover": (lambda m: m.grover_circuit(9, 300, iterations=3), 7),
     "every_step": (every_step_kind, 4),
 }
 
@@ -111,10 +92,11 @@ CIRCUITS = {
 @pytest.mark.parametrize("name", list(CIRCUITS))
 def test_apply_plan_matches_jax(name):
     make, window = CIRCUITS[name]
-    circ = make()
+    circ, jcirc = both(make)
     plan = compile_circuit(circ, window=window)
     psi = _rand_state(circ.n, 11)
-    want = np.asarray(jp.apply_plan_planar(jnp.asarray(psi), plan))
+    want = np.asarray(jp.apply_plan_planar(
+        jnp.asarray(psi), jc.compile_circuit(jcirc, window=window)))
     got = tp.apply_plan_planar(torch.from_numpy(psi), plan)
     np.testing.assert_allclose(got.numpy(), want, atol=TOL)
     # the plain twin runs the same steps through the same plain versions
@@ -127,10 +109,10 @@ def test_apply_plan_matches_jax(name):
 # a middle pair (B = 512, D1 = 2) at window 2 on 12 qubits, and the
 # random circuit that ``qbot_tpu`` pairs at window 7
 PAIRED = {
-    "brickwork_w7": (lambda: brickwork(10, 4), 7),
-    "brickwork_w2": (lambda: brickwork(9, 4, seed=1), 2),
-    "middle_pair": (lambda: brickwork(12, 3, seed=2), 2),
-    "random": (lambda: random_circuit(10, 2, seed=1), 7),
+    "brickwork_w7": (lambda m: brickwork(m, 10, 4), 7),
+    "brickwork_w2": (lambda m: brickwork(m, 9, 4, seed=1), 2),
+    "middle_pair": (lambda m: brickwork(m, 12, 3, seed=2), 2),
+    "random": (lambda m: m.random_circuit(10, 2, seed=1), 7),
 }
 
 
@@ -139,11 +121,12 @@ def test_pair_step(name, interpret_kernels):
     """Paired plans vs ``qbot_tpu``'s apply_plan_planar with its pair
     kernels in interpret mode, and vs the same circuit unpaired."""
     make, window = PAIRED[name]
-    circ = make()
+    circ, jcirc = both(make)
     plan = compile_circuit(circ, window=window)
     assert any(isinstance(s, PairStep) for s in plan.steps)
     psi = _rand_state(circ.n, 12)
-    want = np.asarray(jp.apply_plan_planar(jnp.asarray(psi), plan))
+    want = np.asarray(jp.apply_plan_planar(
+        jnp.asarray(psi), jc.compile_circuit(jcirc, window=window)))
     got = tp.apply_plan_planar(torch.from_numpy(psi), plan)
     np.testing.assert_allclose(got.numpy(), want, atol=TOL)
     unpaired = tp.apply_plan_planar(
@@ -170,28 +153,23 @@ def test_input_state_is_not_written():
     assert torch.equal(psi, before)
 
 
-def _grover_body(n, marked):
-    c = Circuit(n)
-    c.phase_flip(marked)
-    for q in range(n):
-        c.h(q)
-    c.phase_flip(0)
-    for q in range(n):
-        c.h(q)
-    return c
-
-
 @pytest.mark.parametrize("n,marked", [(10, 345), (11, 2000)])
 def test_scanned_reflection_runner_matches_jax(n, marked):
-    init = Circuit(n)
-    for q in range(n):
-        init.h(q)
-    body_plan = compile_circuit(_grover_body(n, marked))
+    def hadamards(m):
+        init = m.Circuit(n)
+        for q in range(n):
+            init.h(q)
+        return init
+
+    init, jinit = both(hadamards)
+    body, jbody = both(lambda m: grover_body(m, n, marked))
+    body_plan = compile_circuit(body)
     assert [type(s) for s in body_plan.steps] == [ReflectStep]
     init_plan = compile_circuit(init)
     repeats = 8
     want = np.asarray(jp.make_scanned_planar_runner(
-        body_plan, repeats, init_plan=init_plan)(jp.zero_state_planar(n)))
+        jc.compile_circuit(jbody), repeats,
+        init_plan=jc.compile_circuit(jinit))(jp.zero_state_planar(n)))
     got = tp.make_scanned_planar_runner(body_plan, repeats,
                                         init_plan=init_plan)(
         tp.zero_state_planar(n, "cpu"))
@@ -202,10 +180,10 @@ def test_scanned_reflection_runner_matches_jax(n, marked):
 
 
 def test_scanned_runner_loops_other_bodies():
-    circ = random_circuit(8, 2, seed=9)
+    circ, jcirc = both(lambda m: m.random_circuit(8, 2, seed=9))
     plan = compile_circuit(circ)
-    want = np.asarray(jp.make_scanned_planar_runner(plan, 3)(
-        jp.zero_state_planar(8)))
+    want = np.asarray(jp.make_scanned_planar_runner(
+        jc.compile_circuit(jcirc), 3)(jp.zero_state_planar(8)))
     got = tp.make_scanned_planar_runner(plan, 3)(tp.zero_state_planar(8,
                                                                       "cpu"))
     np.testing.assert_allclose(got.numpy(), want, atol=TOL)
@@ -233,12 +211,13 @@ def test_state_carries_across_packages():
     """A JAX planar state goes through the port and back as numpy."""
     import qbot_tpu_torch
 
-    plan = compile_circuit(random_circuit(9, 2, seed=3))
-    start = jp.apply_plan_planar(jp.zero_state_planar(9), plan)
+    circ, jcirc = both(lambda m: m.random_circuit(9, 2, seed=3))
+    plan, jplan = compile_circuit(circ), jc.compile_circuit(jcirc)
+    start = jp.apply_plan_planar(jp.zero_state_planar(9), jplan)
     mid = qbot_tpu_torch.planar_from_numpy(np.asarray(start), "cpu")
     assert mid.dtype == torch.float32 and mid.is_contiguous()
     out = qbot_tpu_torch.planar_to_numpy(tp.apply_plan_planar(mid, plan))
-    want = np.asarray(jp.apply_plan_planar(start, plan))
+    want = np.asarray(jp.apply_plan_planar(start, jplan))
     np.testing.assert_allclose(out, want, atol=TOL)
 
 
@@ -255,9 +234,20 @@ class TestNotPortedYet:
     """What the port does not run yet raises, naming its ROADMAP item."""
 
     def test_parameterised_gate(self):
-        plan = compile_circuit(parameterized_layers(4, 1))
+        c = Circuit(4)
+        c.param_gate(lambda t: np.eye(2), [1])
+        plan = compile_circuit(c)
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             tp.apply_plan_planar(tp.zero_state_planar(4, "cpu"), plan)
+
+    @pytest.mark.parametrize("builder", ["prx", "pry", "prz"])
+    def test_parameterised_builders(self, builder):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1, item 8"):
+            getattr(Circuit(2), builder)(0)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1, item 8"):
+            tcirc.parameterized_layers(3, 1)
 
     def test_renorm_every(self):
         plan = compile_circuit(random_circuit(4, 1))
