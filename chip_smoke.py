@@ -13,15 +13,16 @@ nonzero:
    26-qubit shapes of the ``--compile`` and density paths, with fused flips
    and phases: relative L2 error <= 1e-5 (float32 sums of up to 128
    products, two such sums for a pair, or row partials, taken in another
-   order).  ``window_apply`` is also held within relative L2 2e-6 of a
-   float64 product of the same inputs (3xTF32 products with FP32
-   accumulation; the plain float32 version's own float64 error is printed
-   beside it).  Times each kernel in turns with its plain version and with
-   one PyTorch call of the same function (``library_ms``, empty diagonals,
-   TF32 off: an einsum over the real block form of W for the windows and
-   pairs; none for the reflections), the window also without diagonals,
-   each pair also as the two window launches it replaces; and states each
-   kernel's bound (section ``bound``).
+   order).  ``window_apply`` and the trailing pair are also held within
+   relative L2 2e-6 of a float64 product of the same inputs (3xTF32
+   products with FP32 accumulation; the plain float32 version's own float64
+   error is printed beside it).  Times each kernel in turns with its plain
+   version and with one PyTorch call of the same function (``library_ms``,
+   empty diagonals, TF32 off: an einsum over the real block form of W for
+   the windows and pairs, one matmul of conj(A)'s block form for
+   ``reflect_dot``; none for ``reflect_update``), the window also without
+   diagonals, each pair also as the two window launches it replaces; and
+   states each kernel's bound (section ``bound``).
 3. runs the example programs through the port's CLI and holds the readout
    to the dense host interpreter's within 1e-6; then a generated 24-qubit
    program (Hadamards and a CX chain; qubit 0 reads [0.5, 0.5]).
@@ -32,9 +33,10 @@ nonzero:
    unpaired: each norm within 1e-4 of 1, each state within relative L2
    1e-5 of the same plan run through the kernels' plain versions on the
    card, and the two states within relative L2 1e-5 of each other.  Then
-   the drift check: ``bench.py``'s full 256 layers unpaired (771 window
-   passes), its norm within 1e-5 of the plain versions' (a kernel whose
-   sums round with a bias drifts the norm pass after pass).
+   the drift check: ``bench.py``'s full 256 layers, paired (544 passes) and
+   unpaired (771 window passes), each norm within 1e-5 of the plain
+   versions' (a kernel whose sums round with a bias drifts the norm pass
+   after pass).
 6. a 13-qubit density matrix: ``bench.py``'s brickwork of 8 layers run 16
    times through the density runner.  The trace within 1e-4 of 1, one body
    within relative L2 1e-5 of the plain versions, and the final ρ within
@@ -101,7 +103,7 @@ DRIFT_TOL = 1e-5           # norm after DRIFT_LAYERS, kernels vs plain
 KERNEL_TOL = 1e-5          # relative L2, kernel vs plain version
 READOUT_TOL = 1e-6         # probability units
 NORM_TOL = 1e-4
-F64_TOL = 2e-6             # relative L2, window_apply vs a float64 product
+F64_TOL = 2e-6             # relative L2, 3xTF32 kernels vs float64 products
 HBM_BYTES_S = 3.35e12      # H100 SXM data sheet: memory rate
 TF32_FLOPS_S = 495e12      # dense TF32 tensor-core peak
 FP32_FLOPS_S = 67e12       # FP32 outside the tensor cores
@@ -115,17 +117,17 @@ DENSITY_TOL = 1e-4         # relative Frobenius, ρ vs ψψ† after 16 bodies
 # by geometry
 KERNEL_SOURCES = {
     "window_apply": ("qbot_tpu_torch/csrc/window_apply.cu",
-                     "qbot_tpu/tpu/kernels.py:208"),
+                     "qbot_tpu/tpu/kernels.py:209"),
     "window_apply_trailing": ("qbot_tpu_torch/csrc/window_apply.cu",
-                              "qbot_tpu/tpu/kernels.py:270"),
+                              "qbot_tpu/tpu/kernels.py:271"),
     "reflect_dot": ("qbot_tpu_torch/csrc/reflect.cu",
-                    "qbot_tpu/tpu/kernels.py:551"),
+                    "qbot_tpu/tpu/kernels.py:552"),
     "reflect_update": ("qbot_tpu_torch/csrc/reflect.cu",
-                       "qbot_tpu/tpu/kernels.py:500"),
+                       "qbot_tpu/tpu/kernels.py:501"),
     "pair_apply": ("qbot_tpu_torch/csrc/pair_apply.cu",
-                   "qbot_tpu/tpu/kernels.py:419"),
+                   "qbot_tpu/tpu/kernels.py:420"),
     "pair_apply_trailing": ("qbot_tpu_torch/csrc/pair_apply.cu",
-                            "qbot_tpu/tpu/kernels.py:351"),
+                            "qbot_tpu/tpu/kernels.py:352"),
 }
 
 
@@ -195,12 +197,13 @@ _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores")
 
 
 def ptxas_report(log: Path) -> list[tuple[str, int, int]]:
-    """(kernel, registers, spill-store bytes) of each window kernel variant
-    in the build's ptxas log."""
+    """(kernel, registers, spill-store bytes) of each window and pair kernel
+    variant in the build's ptxas log."""
     rows, kernel, spills = [], None, 0
     for line in log.read_text().splitlines():
         if m := _PTXAS_ENTRY.search(line):
-            k = re.search(r"(window_[a-z]+_kernel)I(\w*?)EEv", m.group(1))
+            k = re.search(r"((?:window|pair)_[a-z]+_kernel)I(\w*?)EEv",
+                          m.group(1))
             kernel = k and (f"{k.group(1)}<"
                             f"{','.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>")
         elif kernel and (m := _PTXAS_SPILL.search(line)):
@@ -325,6 +328,7 @@ def check_window(n: int, device, rng, gen) -> tuple[dict, dict]:
         return {"shapes": group,
                 "rel_l2": max(s["rel_l2"] for s in group),
                 "max_abs_err": max(s["max_abs_err"] for s in group),
+                "rel_l2_f64": max(s["rel_l2_f64"] for s in group),
                 **{k: timed[k] for k in ("ms", "plain_ms", "library_ms",
                                          "bound_ms", "bound_by")}}
 
@@ -334,14 +338,29 @@ def check_window(n: int, device, rng, gen) -> tuple[dict, dict]:
     return summary(wide, middle), summary(trailing, trailing[0])
 
 
+def library_reflect_dot(psi, a):
+    """One PyTorch call for reflect_dot: the (2, 2H) real block form
+    [[Ar, Ai], [-Ai, Ar]] of conj(A) times ψ viewed as (2H, T), in float32
+    (the kernel sums in float64)."""
+    ar, ai = a[0, :, 0], a[1, :, 0]
+    m = torch.stack([torch.cat([ar, ai]), torch.cat([-ai, ar])])
+    view = psi.reshape(2 * psi.shape[1], psi.shape[2])
+
+    def run():
+        with kernels._fp32_matmul():
+            return m @ view
+    return run
+
+
 def check_pair(n: int, device, rng, gen) -> tuple[dict, dict]:
     """pair_apply vs pair_apply_ref at the paths' 26-qubit pairs: the
     middle pair (0,5)+(5,7) of the brickwork and Grover's init (A = 1, B =
     2^14), their trailing pair (12,7)+(19,7), and the 13-qubit density's
-    column pair (13,6)+(19,7).  Each is timed as the kernel, its plain
-    version, one einsum (empty diagonals) and the two window_apply launches
-    it replaces.  Returns the results of the middle pair and of the
-    trailing pairs (timed at (128, 128))."""
+    column pair (13,6)+(19,7).  The trailing pairs (3xTF32) are also held
+    to a float64 product of the same inputs.  Each is timed as the kernel,
+    its plain version, one einsum (empty diagonals) and the two
+    window_apply launches it replaces.  Returns the results of the middle
+    pair and of the trailing pairs (timed at (128, 128))."""
     geoms = {"middle": (0, 5, 7), "trailing": (n - 14, 7, 7),
              "density_columns": (n - 13, 6, 7)}
     psi = _random_state(n, gen, device)
@@ -386,8 +405,20 @@ def check_pair(n: int, device, rng, gen) -> tuple[dict, dict]:
                 return torch.einsum("xyij,yzlm,zajmb->xailb", m1, m2, view)
 
         want = plain()
-        rel, max_abs = compare(f"pair_apply {label}", kernel(), want)
+        got = kernel()
+        rel, max_abs = compare(f"pair_apply {label}", got, want)
         compare(f"two windows {label}", windows(), want)
+        f64 = plain_f64 = None
+        if B == 1:
+            exact = kernels.pair_apply_ref(psi.double(), n, start, width1,
+                                           width2, w1.double(), w2.double(),
+                                           diag)
+            f64, plain_f64 = rel_l2(got, exact), rel_l2(want, exact)
+            del exact
+            if not f64 <= F64_TOL:
+                raise AssertionError(f"pair_apply {label}: relative L2 "
+                                     f"{f64:.3e} from float64 > {F64_TOL:g}")
+        del got
         plain_ms, ms, library_ms, windows_ms = timed_in_turns(
             [plain, kernel, library, windows], device)
         bound_ms, bound_by = bound(
@@ -395,19 +426,25 @@ def check_pair(n: int, device, rng, gen) -> tuple[dict, dict]:
             tf32_flops=8 * (2**width1 + 2**width2) * 2**n)
         shapes.append({"pair": label, "A": A, "D1": 2**width1,
                        "D2": 2**width2, "B": B, "rel_l2": rel,
-                       "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-                       "library_ms": library_ms, "two_window_ms": windows_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by})
+                       "max_abs_err": max_abs, "rel_l2_f64": f64,
+                       "plain_rel_l2_f64": plain_f64, "ms": ms,
+                       "plain_ms": plain_ms, "library_ms": library_ms,
+                       "two_window_ms": windows_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by})
+        vs_f64 = "" if f64 is None else (
+            f"; vs float64 {f64:.3e} (plain float32 {plain_f64:.3e})")
         say(f"pair_apply {label}: (A, D1, D2, B) = ({A}, {2**width1}, "
-            f"{2**width2}, {B}), rel L2 {rel:.3e}, max abs {max_abs:.3e}, "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{2**width2}, {B}), rel L2 {rel:.3e}, max abs {max_abs:.3e}"
+            f"{vs_f64}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
             f"{library_ms:.4f} ms, two windows {windows_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}, share {bound_ms / ms:.3f})")
 
     def summary(group):
+        f64 = [s["rel_l2_f64"] for s in group if s["rel_l2_f64"] is not None]
         return {"shapes": group,
                 "rel_l2": max(s["rel_l2"] for s in group),
                 "max_abs_err": max(s["max_abs_err"] for s in group),
+                "rel_l2_f64": max(f64, default=None),
                 **{k: group[0][k] for k in ("ms", "plain_ms", "library_ms",
                                             "two_window_ms", "bound_ms",
                                             "bound_by")}}
@@ -435,21 +472,25 @@ def check_reflect(n: int, device, rng, gen) -> tuple[dict, dict]:
     flips = torch.tensor(rng.integers(0, 2**n, size=2), dtype=torch.int64,
                          device=device)
 
+    want = kernels.reflect_dot_ref(psi, a, b)
     rel, max_abs = compare("reflect_dot", kernels.reflect_dot(psi, a, b),
-                           kernels.reflect_dot_ref(psi, a, b))
-    ms, plain_ms = kernel_and_plain_ms(
-        lambda: kernels.reflect_dot(psi, a, b),
-        lambda: kernels.reflect_dot_ref(psi, a, b), device)
+                           want)
+    library = library_reflect_dot(psi, a)
+    compare("reflect_dot library", library().reshape(want.shape), want)
+    plain_ms, ms, library_ms = timed_in_turns([
+        lambda: kernels.reflect_dot_ref(psi, a, b),
+        lambda: kernels.reflect_dot(psi, a, b), library], device)
     # reads ψ and A (not B), writes the float64 (2, 1, T) D
     bound_ms, bound_by = bound(psi.nbytes + a.nbytes + 16 * T,
                                fp32_flops=8 * H * T)
     dot = {"rel_l2": rel, "max_abs_err": max_abs, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
-           "bound_by": bound_by, "shapes": [{"H": H, "T": T}]}
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "shapes": [{"H": H, "T": T}]}
     say(f"reflect_dot: (H, T) = ({H}, {T}), rel L2 {rel:.3e}, max abs "
         f"{max_abs:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library none, bound {bound_ms:.4f} ms ({bound_by}, share "
-        f"{bound_ms / ms:.3f})")
+        f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+        f"share {bound_ms / ms:.3f})")
 
     out, d = kernels.reflect_update(psi, c, a, b, flips)
     out_ref, d_ref = kernels.reflect_update_ref(psi, c, a, b, flips)
@@ -657,23 +698,27 @@ def brickwork(n: int, layers: int, device) -> tuple[dict, dict]:
 
 
 def brickwork_drift(n: int, layers: int, device) -> None:
-    """The unpaired brickwork at ``bench.py``'s depth: the norm after
-    every window pass of it within DRIFT_TOL of the plain versions'."""
-    plan = compile_circuit(brickwork_circuit(n, layers), pair=False)
+    """The brickwork at ``bench.py``'s depth, paired and unpaired: the norm
+    after every pass of it within DRIFT_TOL of the plain versions'."""
+    c = brickwork_circuit(n, layers)
     psi0 = product_state_planar([np.array([1.0, 0.0])] * n, device)
-    t0 = time.perf_counter()
-    out = apply_plan_planar(psi0, plan)
-    norm = float(planar_norm(out))
-    elapsed = time.perf_counter() - t0
-    ref = apply_plan_planar_ref(psi0, plan)
-    norm_ref = float(planar_norm(ref))
-    rel = rel_l2(out, ref)
-    if not abs(norm - norm_ref) <= DRIFT_TOL:
-        raise AssertionError(f"brickwork x {layers} unpaired: norm {norm} "
-                             f"against {norm_ref} of the plain versions")
-    say(f"brickwork {n}q x {layers} layers, unpaired: {plan.num_passes} "
-        f"passes, norm {norm:.8f} (plain versions {norm_ref:.8f}), rel L2 "
-        f"vs plain {rel:.3e}, {elapsed:.4f} s")
+    for label, pair in (("paired", True), ("unpaired", False)):
+        plan = compile_circuit(c, pair=pair)
+        t0 = time.perf_counter()
+        out = apply_plan_planar(psi0, plan)
+        norm = float(planar_norm(out))
+        elapsed = time.perf_counter() - t0
+        ref = apply_plan_planar_ref(psi0, plan)
+        norm_ref = float(planar_norm(ref))
+        rel = rel_l2(out, ref)
+        del out, ref
+        if not abs(norm - norm_ref) <= DRIFT_TOL:
+            raise AssertionError(f"brickwork x {layers} {label}: norm "
+                                 f"{norm} against {norm_ref} of the plain "
+                                 f"versions")
+        say(f"brickwork {n}q x {layers} layers, {label}: "
+            f"{plan.num_passes} passes, norm {norm:.8f} (plain versions "
+            f"{norm_ref:.8f}), rel L2 vs plain {rel:.3e}, {elapsed:.4f} s")
 
 
 def pure_density(psi: torch.Tensor) -> torch.Tensor:
@@ -844,7 +889,8 @@ def main(argv=None) -> int:
     brick_rates, brick_launches = brickwork(N, BRICKWORK_LAYERS, device)
     brickwork_drift(N, DRIFT_LAYERS, device)
     say("phase 5: brickwork, paired and unpaired, agrees with the plain "
-        "versions and with itself; no norm drift over 256 layers")
+        "versions and with itself; no norm drift over 256 layers, paired "
+        "or unpaired")
     density_rate, density_launches = density(device)
     say("phase 6: the density matrix agrees with the plain versions and "
         "with ψψ†")
@@ -877,6 +923,7 @@ def main(argv=None) -> int:
          "bound_by": results[name]["bound_by"],
          "library_ms": results[name]["library_ms"],
          "two_window_ms": results[name].get("two_window_ms"),
+         "rel_l2_f64": results[name].get("rel_l2_f64"),
          "shapes": results[name]["shapes"]}
         for name, (src, rep) in KERNEL_SOURCES.items()]}))
     print(json.dumps({"ok": True, "device": {

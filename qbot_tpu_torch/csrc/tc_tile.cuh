@@ -1,0 +1,424 @@
+// The tensor-core tile of the window and pair kernels (window_apply.cu,
+// pair_apply.cu): 3xTF32 mma.sync.m16n8k8 products of planar complex
+// operands without rounding bias, the cp.async helpers, and the lookup
+// tables of the fused flips and phases.  One copy, included by both sources;
+// tpu/kernels.py:build_kernels hashes it with them.
+//
+// The product is one real GEMM, [out_r; out_i] = [[Wr, -Wi], [Wi, Wr]]
+// [x_r; x_i], computed transposed: the state columns are the rows of the A
+// operand (built in registers), W the B operand.
+//
+// 3xTF32 without rounding bias.  x = x_hi + x_lo, W = W_hi + W_lo.  The
+// tensor cores round their sums toward zero, so any sum they round shrinks
+// the state a little every pass.  Here x_hi is x rounded to nearest on a
+// grid shared by a column's 8 elements of a k-step (both planes): the step
+// 2^(E - 10), E the exponent just above their largest magnitude; W likewise
+// per row and k-step.  Every hi*hi product is then a multiple of
+// 2^(Ex + Ew - 20) below 2^(Ex + Ew), a k-step's xr Wr - xi Wi (and
+// xr Wi + xi Wr) has at most 24 significant bits, and the tensor cores sum
+// it exactly; it is added to FP32 accumulators by round-to-nearest FADDs.
+// x_lo = x - x_hi rounded to tf32 can reach 2^-11 of the grid's largest
+// magnitude, so x_lo W_lo is not negligible: the three products are
+// x_hi W_hi + x_hi W_lo + x_lo tf32(W).  The two cross terms (small, of
+// random sign) are summed over a stage on the tensor cores.
+// tests/test_torch_window_split.py and tests/test_torch_pair_split.py
+// replay the arithmetic in numpy.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__host__ __device__ constexpr int ilog2(int x) {
+  return x <= 1 ? 0 : 1 + ilog2(x / 2);
+}
+
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int STAGES = 3;   // cp.async ring depth
+constexpr int TABLE = 8;    // diagonal entries looked up by tables
+constexpr int MAX_DEVICES = 64;  // size of the per-device launch caches
+constexpr int MAX_SMEM = 232448;  // dynamic shared memory of a block (H100)
+
+// x rounded to tf32, to nearest with ties away from zero, for finite x
+// (cvt.rna.tf32.f32 also screens NaN: twice the instructions)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// The rounding constant of a grid: for values below 2^E in magnitude, where
+// e is the exponent field of their largest magnitude (E = e - 126), it is
+// 1.5 * 2^(E + 13), whose ulp is the grid step 2^(E - 10).
+__device__ __forceinline__ float grid_of(uint32_t e) {
+  return __uint_as_float(((e + 14u) << 23) | 0x400000u);
+}
+
+// The grid of 8 k-consecutive elements of a row of W, both planes
+__device__ __forceinline__ float grid_of_row8(const float* wr,
+                                              const float* wi) {
+  float a = 0.f;
+  for (int j = 0; j < 8; ++j) a = fmaxf(a, fmaxf(fabsf(wr[j]), fabsf(wi[j])));
+  return grid_of(__float_as_uint(a) >> 23);
+}
+
+// x = hi + lo: hi is x rounded to nearest on the grid of m (at most 11
+// significant bits, so a tf32 value), lo the rest rounded to tf32
+__device__ __forceinline__ void split(float x, float m, uint32_t& hi,
+                                      uint32_t& lo) {
+  const float h = __fsub_rn(__fadd_rn(x, m), m);
+  hi = __float_as_uint(h);
+  lo = tf32(__fsub_rn(x, h));
+}
+
+// The grids of the column rows g and g + 8 of an A fragment's k-step: the
+// lanes 4g..4g+3 hold the row's 8 elements of both planes
+__device__ __forceinline__ void row_grids(const float* xr, const float* xi,
+                                          float& m0, float& m1) {
+  const float a0 = fmaxf(fmaxf(fabsf(xr[0]), fabsf(xi[0])),
+                         fmaxf(fabsf(xr[2]), fabsf(xi[2])));
+  const float a1 = fmaxf(fmaxf(fabsf(xr[1]), fabsf(xi[1])),
+                         fmaxf(fabsf(xr[3]), fabsf(xi[3])));
+  uint32_t e = (__float_as_uint(a0) >> 23) | (__float_as_uint(a1) >> 23 << 16);
+  e = __vmaxu2(e, __shfl_xor_sync(0xffffffffu, e, 1));
+  e = __vmaxu2(e, __shfl_xor_sync(0xffffffffu, e, 2));
+  m0 = grid_of(e & 0xffffu);
+  m1 = grid_of(e >> 16);
+}
+
+__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a * b, from a zero accumulator
+__device__ __forceinline__ void mma0(float* c, const uint32_t* a,
+                                     uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         int bytes, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid ? 16 : 0));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid ? 8 : 0));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void cmul(float& xr, float& xi, float zr,
+                                     float zi) {
+  const float r = xr * zr - xi * zi;
+  xi = xr * zi + xi * zr;
+  xr = r;
+}
+
+// ---------------------------------------------------------------------------
+// fused flips and phases
+// ---------------------------------------------------------------------------
+
+// Diagonal entry e of a launch: the phases, then the flips as phases of -1
+// on every index bit.
+struct Diag {
+  const int64_t* flips;
+  int nflips;
+  const int64_t* masks;
+  const int64_t* wants;
+  const float* phase;
+  int nphases;
+  int64_t all_bits;
+
+  __device__ __forceinline__ void entry(int e, int64_t& mask, int64_t& want,
+                                        float& zr, float& zi) const {
+    if (e < nphases) {
+      mask = masks[e], want = wants[e];
+      zr = phase[e], zi = phase[nphases + e];
+    } else {
+      mask = all_bits, want = flips[e - nphases];
+      zr = -1.f, zi = 0.f;
+    }
+  }
+};
+
+// The lookup tables of the first TABLE diagonal entries for a product over
+// the D window bits log_b.. of the flat index (block-wide): entry e hits
+// element (c, j) iff its window bits match j (bit e of jtab[j]) and its
+// other bits match the column (bit e of col_hits); comb[h] is the product
+// of the entries of the hit set h.
+template <int D>
+__device__ __forceinline__ void diag_tables(const Diag& diag, int log_b,
+                                            uint32_t* jtab, float2* comb,
+                                            long long* cmask,
+                                            long long* cwant) {
+  const int tid = threadIdx.x;
+  const int64_t jbits = int64_t(D - 1) << log_b;
+  const int ndiag = diag.nphases + diag.nflips;
+  const int ntab = ndiag < TABLE ? ndiag : TABLE;
+  for (int j = tid; j < D; j += blockDim.x) {
+    uint32_t bits = 0;
+    for (int e = 0; e < ntab; ++e) {
+      int64_t mask, want;
+      float zr, zi;
+      diag.entry(e, mask, want, zr, zi);
+      if (((int64_t(j) << log_b) & mask & jbits) == (want & jbits))
+        bits |= 1u << e;
+    }
+    jtab[j] = bits;
+  }
+  for (int h = tid; h < (1 << ntab); h += blockDim.x) {
+    float zr = 1.f, zi = 0.f;
+    for (int e = 0; e < ntab; ++e) {
+      if ((h >> e) & 1) {
+        int64_t mask, want;
+        float er, ei;
+        diag.entry(e, mask, want, er, ei);
+        cmul(zr, zi, er, ei);
+      }
+    }
+    comb[h] = make_float2(zr, zi);
+  }
+  if (tid < ntab) {
+    int64_t mask, want;
+    float zr, zi;
+    diag.entry(tid, mask, want, zr, zi);
+    cmask[tid] = mask & ~jbits;
+    cwant[tid] = want & ~jbits;
+  }
+}
+
+// the table entries that the column whose j = 0 element sits at flat index
+// base hits
+__device__ __forceinline__ uint32_t col_hits(int64_t base, int ntab,
+                                             const long long* cmask,
+                                             const long long* cwant) {
+  uint32_t bits = 0;
+  for (int e = 0; e < ntab; ++e) {
+    if ((base & cmask[e]) == cwant[e]) bits |= 1u << e;
+  }
+  return bits;
+}
+
+// The k within its k-step of element e of a lane's A fragment (and of its
+// B fragment's b0, b1 for e >> 1 = 0, 1): t + 4 (e >> 1) in mma's own
+// order; 2t + (e >> 1) in the paired order, which keeps a lane's two k of a
+// row side by side (one 8-byte load).  A k-step's sum is the same in any
+// order of its k, as long as A and B take the same one.
+template <bool PAIRED_K>
+__device__ __forceinline__ int k_of(int t, int e) {
+  return PAIRED_K ? 2 * t + (e >> 1) : t + 4 * (e >> 1);
+}
+
+// Flips and phases on the A fragments of KC k-steps whose first j is j0:
+// one table lookup and one complex multiply an element, then the entries
+// past the tables tested on the flat index, base_of(r) | j << log_b for
+// column row g + 8 r.  Call only with diagonals (ndiag > 0).
+template <int KC, bool PAIRED_K, typename BaseOf>
+__device__ __forceinline__ void diag_fragments(
+    float (&xr)[KC][4], float (&xi)[KC][4], const Diag& diag, int ndiag,
+    int j0, int log_b, const uint32_t* jtab, const float2* comb,
+    const uint32_t (&colhit)[2], BaseOf base_of) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = j0 + kc * 8 + k_of<PAIRED_K>(t, e);
+      const float2 z = comb[colhit[e & 1] & jtab[j]];
+      cmul(xr[kc][e], xi[kc][e], z.x, z.y);
+    }
+  }
+  if (ndiag > TABLE) {
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + kc * 8 + k_of<PAIRED_K>(t, e);
+        const int64_t mflat = base_of(e & 1) | (int64_t(j) << log_b);
+        for (int q = TABLE; q < ndiag; ++q) {
+          int64_t mask, want;
+          float zr, zi;
+          diag.entry(q, mask, want, zr, zi);
+          if ((mflat & mask) == want) cmul(xr[kc][e], xi[kc][e], zr, zi);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the products
+// ---------------------------------------------------------------------------
+
+// The A fragments of KC k-steps, element e of k-step kc being column row
+// g (+ 8 for odd e) at k = 8 kc + k_of(t, e), split into hi and lo
+// parts on the grid of their column row and k-step, with the negated im
+// parts that the real form of the complex product takes.
+template <int KC>
+struct ASplit {
+  uint32_t rh[KC][4], rl[KC][4], ih[KC][4], il[KC][4], nh[KC][4], nl[KC][4];
+
+  __device__ __forceinline__ ASplit(const float (&xr)[KC][4],
+                                    const float (&xi)[KC][4]) {
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      float m[2];
+      row_grids(xr[kc], xi[kc], m[0], m[1]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        split(xr[kc][e], m[e & 1], rh[kc][e], rl[kc][e]);
+        split(xi[kc][e], m[e & 1], ih[kc][e], il[kc][e]);
+        nh[kc][e] = ih[kc][e] ^ 0x80000000u;
+        nl[kc][e] = il[kc][e] ^ 0x80000000u;
+      }
+    }
+  }
+};
+
+// The B fragments of one n-tile and k-step, W[8 it + g][8 ks + k_of(t, e)]
+// for e = 0, 2: W_hi, W_lo and tf32(W), each [re, im][b0, b1]
+struct BFrag {
+  uint32_t h[2][2], l[2][2], t[2][2];
+
+  // from FP32 values and the grid m of their row and k-step
+  __device__ __forceinline__ void set(float r0, float r1, float i0, float i1,
+                                      float m) {
+    split(r0, m, h[0][0], l[0][0]);
+    split(r1, m, h[0][1], l[0][1]);
+    split(i0, m, h[1][0], l[1][0]);
+    split(i1, m, h[1][1], l[1][1]);
+    t[0][0] = tf32(r0);
+    t[0][1] = tf32(r1);
+    t[1][0] = tf32(i0);
+    t[1][1] = tf32(i1);
+  }
+};
+
+// acc[it] += x W over the KC k-steps of a stage for the warp's NI n-tiles;
+// load_b(it, kc, b) fills the B fragments of n-tile it at k-step kc.  x W =
+// x_hi W_hi + x_hi W_lo + x_lo tf32(W): each k-step's exact x_hi W_hi sums
+// go to the FP32 accumulators by round-to-nearest FADDs; the cross terms
+// are summed over the stage on the tensor cores, then added likewise.
+// G n-tiles at once, each with two exact sums (re, im) and two cross-term
+// sums.  acc[it][p][q]: plane p; q = 0, 1 are outputs 2t, 2t + 1 of column
+// row g, q = 2, 3 the same of row g + 8.
+template <int KC, int NI, int NA, typename LoadB>
+__device__ __forceinline__ void tc_products(float (&acc)[NA][2][4],
+                                            const ASplit<KC>& a,
+                                            LoadB load_b) {
+  static_assert(NI <= NA, "accumulators");
+  constexpr int G = NI < 2 ? NI : 2;
+#pragma unroll
+  for (int it0 = 0; it0 < NI; it0 += G) {
+    float cross[G][2][4];
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      BFrag b[G];
+#pragma unroll
+      for (int g2 = 0; g2 < G; ++g2) load_b(it0 + g2, kc, b[g2]);
+      // plane p of n-tile g2 sums x plane ah/al[p][s] times W plane
+      // wp[p][s], s = 0, 1
+      const uint32_t* ah[2][2] = {{a.rh[kc], a.nh[kc]}, {a.rh[kc], a.ih[kc]}};
+      const uint32_t* al[2][2] = {{a.rl[kc], a.nl[kc]}, {a.rl[kc], a.il[kc]}};
+      constexpr int wp[2][2] = {{0, 1}, {1, 0}};
+      float exact[G][2][4];
+#pragma unroll
+      for (int g2 = 0; g2 < G; ++g2) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const uint32_t* bh = b[g2].h[wp[p][0]];
+          const uint32_t* bl = b[g2].l[wp[p][0]];
+          mma0(exact[g2][p], ah[p][0], bh[0], bh[1]);
+          if (kc == 0)
+            mma0(cross[g2][p], ah[p][0], bl[0], bl[1]);
+          else
+            mma(cross[g2][p], ah[p][0], bl[0], bl[1]);
+        }
+      }
+#pragma unroll
+      for (int g2 = 0; g2 < G; ++g2) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const uint32_t* bh = b[g2].h[wp[p][1]];
+          const uint32_t* bt = b[g2].t[wp[p][0]];
+          mma(exact[g2][p], ah[p][1], bh[0], bh[1]);
+          mma(cross[g2][p], al[p][0], bt[0], bt[1]);
+        }
+      }
+#pragma unroll
+      for (int g2 = 0; g2 < G; ++g2) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[it0 + g2][p][q] += exact[g2][p][q];
+        }
+      }
+#pragma unroll
+      for (int g2 = 0; g2 < G; ++g2) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const uint32_t* bl = b[g2].l[wp[p][1]];
+          const uint32_t* bt = b[g2].t[wp[p][1]];
+          mma(cross[g2][p], ah[p][1], bl[0], bl[1]);
+          mma(cross[g2][p], al[p][1], bt[0], bt[1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int g2 = 0; g2 < G; ++g2) {
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[it0 + g2][p][q] += cross[g2][p][q];
+      }
+    }
+  }
+}
+
+// Resident blocks of a kernel on the current device, cached per device,
+// after allowing it smem bytes of dynamic shared memory; cache holds
+// MAX_DEVICES entries.  Returns 0 with err set on failure.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int smem, int* cache, cudaError_t& err) {
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return 0;
+  if (dev >= MAX_DEVICES) {
+    err = cudaErrorInvalidDevice;
+    return 0;
+  }
+  if (cache[dev] == 0) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int sms = 0, per_sm = 0;
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          THREADS, smem);
+    if (err != cudaSuccess) return 0;
+    cache[dev] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  return cache[dev];
+}
+
+}  // namespace

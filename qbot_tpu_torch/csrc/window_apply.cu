@@ -25,26 +25,16 @@
 // memory in W's own row-major (K-major) order.  mma.sync and not wgmma:
 // wgmma's TF32 form needs its B operand K-major in shared memory with the
 // swizzled layouts and descriptors of the async proxy; mma.sync takes the
-// same products from registers, and this kernel is its first tensor-core
-// version.
+// same products from registers.  The tile (tc_tile.cuh, shared with
+// pair_apply.cu) does:
 //
-// - 3xTF32 without rounding bias.  x = x_hi + x_lo, W = W_hi + W_lo.  The
-//   tensor cores round their sums toward zero, so any sum they round
-//   shrinks the state a little every pass (with x_hi = x rounded to tf32,
-//   a 26-qubit brickwork lost 1.6e-7 of its norm a pass, about 1.2e-4 over
-//   256 layers).  Here x_hi is x rounded to nearest on a
-//   grid shared by a column's 8 elements of a k-step (both planes): the
-//   step 2^(E - 10), E the exponent just above their largest magnitude; W
-//   likewise per row and k-step.  Every hi*hi product is then a multiple
-//   of 2^(Ex + Ew - 20) below 2^(Ex + Ew), a k-step's xr Wr - xi Wi (and
-//   xr Wi + xi Wr) has at most 24 significant bits, and the tensor cores
-//   sum it exactly; it is added to FP32 accumulators by round-to-nearest
-//   FADDs.  x_lo = x - x_hi rounded to tf32 can reach 2^-11 of the grid's
-//   largest magnitude, so x_lo W_lo is not negligible: the three products
-//   are x_hi W_hi + x_hi W_lo + x_lo tf32(W).  The two cross terms (small,
-//   of random sign) are summed over a stage on the tensor cores.  Error
-//   against float64: about 3e-7 relative L2 (float32 FMAs: 1-2e-7;
-//   tests/test_torch_window_split.py replays the arithmetic in numpy).
+// - 3xTF32 without rounding bias: x and W split into hi and lo parts on a
+//   grid per column (row) and k-step, so each k-step's hi*hi sums are exact
+//   on tensor cores that round toward zero; the products are x_hi W_hi +
+//   x_hi W_lo + x_lo tf32(W).  Error against float64: about 3e-7 relative
+//   L2 (float32 FMAs: 1-2e-7; tests/test_torch_window_split.py replays the
+//   arithmetic in numpy).  Without the grids (x_hi = x rounded to tf32) a
+//   26-qubit brickwork lost 1.6e-7 of its norm a pass.
 // - A persistent block (8 warps) stages W once in mma fragment order with
 //   its grids: split into hi, lo and tf32 parts at D <= 64 (96 KiB at
 //   D = 64), kept FP32 and split as the fragments are built at D = 128,
@@ -79,14 +69,9 @@
 // 0.50 ms at D = 32 (39% and 64% of the byte bound).  Its time is set by
 // issue slots, not by the products: the grids and the cross terms cost
 // 17-19% at D = 128 against tf32-rounded hi parts.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tc_tile.cuh"
 
 namespace {
-
-__host__ __device__ constexpr int ilog2(int x) {
-  return x <= 1 ? 0 : 1 + ilog2(x / 2);
-}
 
 // ---------------------------------------------------------------------------
 // D <= 4: FP32 FMAs from shared-memory tiles
@@ -211,11 +196,6 @@ int launch_fma(const float* psi, float* out, const float* w, int64_t n_amps,
 // D >= 8: 3xTF32 tensor-core kernel
 // ---------------------------------------------------------------------------
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int STAGES = 3;
-constexpr int TABLE = 8;           // diagonal entries looked up by tables
-
 template <int D, bool TRAIL>
 struct Tile {
   static constexpr int LOG_D = ilog2(D);
@@ -242,112 +222,6 @@ struct Tile {
                               8 * (1 << TABLE) + 16 * TABLE;
 };
 
-// x rounded to tf32, to nearest with ties away from zero, for finite x
-// (cvt.rna.tf32.f32 also screens NaN: twice the instructions)
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// The rounding constant of a grid: for values below 2^E in magnitude, where
-// e is the exponent field of their largest magnitude (E = e - 126), it is
-// 1.5 * 2^(E + 13), whose ulp is the grid step 2^(E - 10).
-__device__ __forceinline__ float grid_of(uint32_t e) {
-  return __uint_as_float(((e + 14u) << 23) | 0x400000u);
-}
-
-// x = hi + lo: hi is x rounded to nearest on the grid of m (at most 11
-// significant bits, so a tf32 value), lo the rest rounded to tf32
-__device__ __forceinline__ void split(float x, float m, uint32_t& hi,
-                                      uint32_t& lo) {
-  const float h = __fsub_rn(__fadd_rn(x, m), m);
-  hi = __float_as_uint(h);
-  lo = tf32(__fsub_rn(x, h));
-}
-
-// The grids of the column rows g and g + 8 of an A fragment's k-step: the
-// lanes 4g..4g+3 hold the row's 8 elements of both planes
-__device__ __forceinline__ void row_grids(const float* xr, const float* xi,
-                                          float& m0, float& m1) {
-  const float a0 = fmaxf(fmaxf(fabsf(xr[0]), fabsf(xi[0])),
-                         fmaxf(fabsf(xr[2]), fabsf(xi[2])));
-  const float a1 = fmaxf(fmaxf(fabsf(xr[1]), fabsf(xi[1])),
-                         fmaxf(fabsf(xr[3]), fabsf(xi[3])));
-  uint32_t e = (__float_as_uint(a0) >> 23) | (__float_as_uint(a1) >> 23 << 16);
-  e = __vmaxu2(e, __shfl_xor_sync(0xffffffffu, e, 1));
-  e = __vmaxu2(e, __shfl_xor_sync(0xffffffffu, e, 2));
-  m0 = grid_of(e & 0xffffu);
-  m1 = grid_of(e >> 16);
-}
-
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c = a * b, from a zero accumulator
-__device__ __forceinline__ void mma0(float* c, const uint32_t* a,
-                                     uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(0.f));
-}
-
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         int bytes, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (bytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(valid ? 16 : 0));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
-                 "l"(src), "r"(valid ? 8 : 0));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void cmul(float& xr, float& xi, float zr,
-                                     float zi) {
-  const float r = xr * zr - xi * zi;
-  xi = xr * zi + xi * zr;
-  xr = r;
-}
-
-// Diagonal entry e of a launch: the phases, then the flips as phases of -1
-// on every index bit.
-struct Diag {
-  const int64_t* flips;
-  int nflips;
-  const int64_t* masks;
-  const int64_t* wants;
-  const float* phase;
-  int nphases;
-  int64_t all_bits;
-
-  __device__ __forceinline__ void entry(int e, int64_t& mask, int64_t& want,
-                                        float& zr, float& zi) const {
-    if (e < nphases) {
-      mask = masks[e], want = wants[e];
-      zr = phase[e], zi = phase[nphases + e];
-    } else {
-      mask = all_bits, want = flips[e - nphases];
-      zr = -1.f, zi = 0.f;
-    }
-  }
-};
-
 template <int D, bool TRAIL>
 __global__ void __launch_bounds__(THREADS, 1)
     window_tc_kernel(const float* __restrict__ psi, float* __restrict__ out,
@@ -369,17 +243,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int64_t B = int64_t(1) << log_b;
   const int64_t cols = n_amps >> T::LOG_D;
   const int64_t tiles = (cols + T::BN - 1) / T::BN;
-  const int64_t jbits = int64_t(D - 1) << log_b;
   const int ndiag = diag.nphases + diag.nflips;
   const int ntab = ndiag < TABLE ? ndiag : TABLE;
 
   // the grid of row i of W over k-step ks, both planes
   for (int e = tid; e < T::KS * D; e += THREADS) {
     const int i = e & (D - 1), ks = e >> T::LOG_D;
-    float a = 0.f;
-    for (int j = 8 * ks; j < 8 * ks + 8; ++j)
-      a = fmaxf(a, fmaxf(fabsf(w[i * D + j]), fabsf(w[D * D + i * D + j])));
-    wgrid[e] = grid_of(__float_as_uint(a) >> 23);
+    wgrid[e] = grid_of_row8(w + i * D + 8 * ks, w + D * D + i * D + 8 * ks);
   }
   __syncthreads();
   // W into fragment order: for n-tile it, k-step ks and lane (g, t), the
@@ -407,39 +277,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       f[2 + half] = wim;
     }
   }
-  // diagonal entry e < TABLE hits element (c, j) iff its window bits match
-  // j (bit e of jtab[j]) and its other bits match the column (bit e of
-  // colhit); comb[h] is the product of the entries of the hit set h
-  for (int j = tid; j < D; j += THREADS) {
-    uint32_t bits = 0;
-    for (int e = 0; e < ntab; ++e) {
-      int64_t mask, want;
-      float zr, zi;
-      diag.entry(e, mask, want, zr, zi);
-      if (((int64_t(j) << log_b) & mask & jbits) == (want & jbits))
-        bits |= 1u << e;
-    }
-    jtab[j] = bits;
-  }
-  for (int h = tid; h < (1 << ntab); h += THREADS) {
-    float zr = 1.f, zi = 0.f;
-    for (int e = 0; e < ntab; ++e) {
-      if ((h >> e) & 1) {
-        int64_t mask, want;
-        float er, ei;
-        diag.entry(e, mask, want, er, ei);
-        cmul(zr, zi, er, ei);
-      }
-    }
-    comb[h] = make_float2(zr, zi);
-  }
-  if (tid < ntab) {
-    int64_t mask, want;
-    float zr, zi;
-    diag.entry(tid, mask, want, zr, zi);
-    cmask[tid] = mask & ~jbits;
-    cwant[tid] = want & ~jbits;
-  }
+  diag_tables<D>(diag, log_b, jtab, comb, cmask, cwant);
 
   auto tile_c0 = [&](int64_t s) {
     return (blockIdx.x + (s / T::CHUNKS) * gridDim.x) * T::BN;
@@ -504,14 +342,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int q = 0; q < 8; ++q) acc[it][q >> 2][q & 3] = 0.f;
       }
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int64_t base = col_base(c0 + cw + g + 8 * r);
-        uint32_t bits = 0;
-        for (int e = 0; e < ntab; ++e) {
-          if ((base & cmask[e]) == cwant[e]) bits |= 1u << e;
-        }
-        colhit[r] = bits;
-      }
+      for (int r = 0; r < 2; ++r)
+        colhit[r] = col_hits(col_base(c0 + cw + g + 8 * r), ntab, cmask, cwant);
     }
     // the A fragments of the stage's k-steps: element e of k-step kc is
     // column row g (+ 8 for odd e) at j = 8 kc + t (+ 4 for e >= 2).  All
@@ -533,158 +365,38 @@ __global__ void __launch_bounds__(THREADS, 1)
       load(s + STAGES - 1, stage == 0 ? STAGES - 1 : int(stage) - 1);
     cp_async_commit();
     if (ndiag) {
-#pragma unroll
-      for (int kc = 0; kc < T::KC; ++kc) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = chunk * T::BK + kc * 8 + t + 4 * (e >> 1);
-          const float2 z = comb[colhit[e & 1] & jtab[j]];
-          cmul(xr[kc][e], xi[kc][e], z.x, z.y);
-        }
-      }
-      if (ndiag > TABLE) {
-#pragma unroll
-        for (int kc = 0; kc < T::KC; ++kc) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int j = chunk * T::BK + kc * 8 + t + 4 * (e >> 1);
-            const int64_t mflat = col_base(c0 + cw + g + 8 * (e & 1)) |
-                                  (int64_t(j) << log_b);
-            for (int q = TABLE; q < ndiag; ++q) {
-              int64_t mask, want;
-              float zr, zi;
-              diag.entry(q, mask, want, zr, zi);
-              if ((mflat & mask) == want) cmul(xr[kc][e], xi[kc][e], zr, zi);
-            }
-          }
-        }
-      }
+      diag_fragments<T::KC, false>(
+          xr, xi, diag, ndiag, chunk * T::BK, log_b, jtab, comb, colhit,
+          [&](int r) { return col_base(c0 + cw + g + 8 * r); });
     }
     // x = hi + lo on the grid of its column row and k-step, W likewise on
-    // the grid of its row and k-step (wgrid).  A hi·hi product is then a
-    // multiple of 2^(Ex + Ew - 20) below 2^(Ex + Ew) in magnitude, and a
-    // sum of 16 of them has at most 24 significant bits: the tensor cores
-    // sum a k-step's xr·Wr - xi·Wi (and xr·Wi + xi·Wr) exactly, and their
-    // rounding toward zero never acts on it.
-    uint32_t xrh[T::KC][4], xrl[T::KC][4], xih[T::KC][4], xil[T::KC][4];
-    uint32_t nxh[T::KC][4], nxl[T::KC][4];
-#pragma unroll
-    for (int kc = 0; kc < T::KC; ++kc) {
-      float m[2];
-      row_grids(xr[kc], xi[kc], m[0], m[1]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        split(xr[kc][e], m[e & 1], xrh[kc][e], xrl[kc][e]);
-        split(xi[kc][e], m[e & 1], xih[kc][e], xil[kc][e]);
-        nxh[kc][e] = xih[kc][e] ^ 0x80000000u;
-        nxl[kc][e] = xil[kc][e] ^ 0x80000000u;
+    // the grid of its row and k-step (wgrid): exact hi·hi k-step sums
+    // (tc_tile.cuh)
+    const ASplit<T::KC> a(xr, xi);
+    tc_products<T::KC, T::NI>(acc, a, [&](int it, int kc, BFrag& b) {
+      const int row = wi * T::NI + it;
+      const int frag = row * T::KS + chunk * T::KC + kc;
+      if (T::SPLIT_W) {
+        const float4* f = reinterpret_cast<const float4*>(ws) + frag * 96;
+        const float4 fr = f[lane], fi = f[32 + lane], ft = f[64 + lane];
+        b.h[0][0] = __float_as_uint(fr.x);
+        b.h[0][1] = __float_as_uint(fr.y);
+        b.l[0][0] = __float_as_uint(fr.z);
+        b.l[0][1] = __float_as_uint(fr.w);
+        b.h[1][0] = __float_as_uint(fi.x);
+        b.h[1][1] = __float_as_uint(fi.y);
+        b.l[1][0] = __float_as_uint(fi.z);
+        b.l[1][1] = __float_as_uint(fi.w);
+        b.t[0][0] = __float_as_uint(ft.x);
+        b.t[0][1] = __float_as_uint(ft.y);
+        b.t[1][0] = __float_as_uint(ft.z);
+        b.t[1][1] = __float_as_uint(ft.w);
+      } else {
+        const float m = wgrid[(chunk * T::KC + kc) * D + row * 8 + g];
+        const float4 f = reinterpret_cast<const float4*>(ws)[frag * 32 + lane];
+        b.set(f.x, f.y, f.z, f.w, m);
       }
-    }
-    // x W = x_hi W_hi + x_hi W_lo + x_lo W, with W rounded to tf32 in the
-    // last product (x_lo is 2^-11 of the grid's largest magnitude, so that
-    // rounding costs 2^-23 of it).  Each k-step's exact x_hi W_hi sums go
-    // to the FP32 accumulators by round-to-nearest FADDs; the cross terms,
-    // small and of random sign, are summed over the stage on the tensor
-    // cores, then added likewise.  G n-tiles at once, each with two exact
-    // sums (re, im) and two cross-term sums.
-    constexpr int G = T::NI < 2 ? T::NI : 2;
-#pragma unroll
-    for (int it0 = 0; it0 < T::NI; it0 += G) {
-      float cross[G][2][4];
-#pragma unroll
-      for (int kc = 0; kc < T::KC; ++kc) {
-        // [n-tile][re, im][b0, b1]: W_hi, W_lo and tf32(W)
-        uint32_t wh[G][2][2], wl[G][2][2], wt[G][2][2];
-#pragma unroll
-        for (int g2 = 0; g2 < G; ++g2) {
-          const int row = wi * T::NI + it0 + g2;
-          const int frag = row * T::KS + chunk * T::KC + kc;
-          if (T::SPLIT_W) {
-            const float4* f = reinterpret_cast<const float4*>(ws) + frag * 96;
-            const float4 fr = f[lane], fi = f[32 + lane], ft = f[64 + lane];
-            wh[g2][0][0] = __float_as_uint(fr.x);
-            wh[g2][0][1] = __float_as_uint(fr.y);
-            wl[g2][0][0] = __float_as_uint(fr.z);
-            wl[g2][0][1] = __float_as_uint(fr.w);
-            wh[g2][1][0] = __float_as_uint(fi.x);
-            wh[g2][1][1] = __float_as_uint(fi.y);
-            wl[g2][1][0] = __float_as_uint(fi.z);
-            wl[g2][1][1] = __float_as_uint(fi.w);
-            wt[g2][0][0] = __float_as_uint(ft.x);
-            wt[g2][0][1] = __float_as_uint(ft.y);
-            wt[g2][1][0] = __float_as_uint(ft.z);
-            wt[g2][1][1] = __float_as_uint(ft.w);
-          } else {
-            const float m = wgrid[(chunk * T::KC + kc) * D + row * 8 + g];
-            const float4 f =
-                reinterpret_cast<const float4*>(ws)[frag * 32 + lane];
-            split(f.x, m, wh[g2][0][0], wl[g2][0][0]);
-            split(f.y, m, wh[g2][0][1], wl[g2][0][1]);
-            split(f.z, m, wh[g2][1][0], wl[g2][1][0]);
-            split(f.w, m, wh[g2][1][1], wl[g2][1][1]);
-            wt[g2][0][0] = tf32(f.x);
-            wt[g2][0][1] = tf32(f.y);
-            wt[g2][1][0] = tf32(f.z);
-            wt[g2][1][1] = tf32(f.w);
-          }
-        }
-        // plane p of n-tile g2 sums x plane ah/al[p][s] times W plane
-        // wp[p][s], s = 0, 1
-        const uint32_t* ah[2][2] = {{xrh[kc], nxh[kc]}, {xrh[kc], xih[kc]}};
-        const uint32_t* al[2][2] = {{xrl[kc], nxl[kc]}, {xrl[kc], xil[kc]}};
-        constexpr int wp[2][2] = {{0, 1}, {1, 0}};
-        float exact[G][2][4];
-#pragma unroll
-        for (int g2 = 0; g2 < G; ++g2) {
-#pragma unroll
-          for (int p = 0; p < 2; ++p) {
-            const uint32_t* bh = wh[g2][wp[p][0]];
-            const uint32_t* bl = wl[g2][wp[p][0]];
-            mma0(exact[g2][p], ah[p][0], bh[0], bh[1]);
-            if (kc == 0)
-              mma0(cross[g2][p], ah[p][0], bl[0], bl[1]);
-            else
-              mma(cross[g2][p], ah[p][0], bl[0], bl[1]);
-          }
-        }
-#pragma unroll
-        for (int g2 = 0; g2 < G; ++g2) {
-#pragma unroll
-          for (int p = 0; p < 2; ++p) {
-            const uint32_t* bh = wh[g2][wp[p][1]];
-            const uint32_t* bt = wt[g2][wp[p][0]];
-            mma(exact[g2][p], ah[p][1], bh[0], bh[1]);
-            mma(cross[g2][p], al[p][0], bt[0], bt[1]);
-          }
-        }
-#pragma unroll
-        for (int g2 = 0; g2 < G; ++g2) {
-#pragma unroll
-          for (int p = 0; p < 2; ++p) {
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[it0 + g2][p][q] += exact[g2][p][q];
-          }
-        }
-#pragma unroll
-        for (int g2 = 0; g2 < G; ++g2) {
-#pragma unroll
-          for (int p = 0; p < 2; ++p) {
-            const uint32_t* bl = wl[g2][wp[p][1]];
-            const uint32_t* bt = wt[g2][wp[p][1]];
-            mma(cross[g2][p], ah[p][1], bl[0], bl[1]);
-            mma(cross[g2][p], al[p][1], bt[0], bt[1]);
-          }
-        }
-      }
-#pragma unroll
-      for (int g2 = 0; g2 < G; ++g2) {
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[it0 + g2][p][q] += cross[g2][p][q];
-        }
-      }
-    }
+    });
     if (chunk == T::CHUNKS - 1) {
       // c0, c1 of an accumulator are outputs 2t, 2t + 1 of column row g;
       // c2, c3 the same of row g + 8
@@ -721,28 +433,13 @@ int launch_tc(const float* psi, float* out, const float* w, int64_t n_amps,
               const int64_t* masks, const int64_t* wants, const float* phase,
               int nphases, cudaStream_t stream) {
   using T = Tile<D, TRAIL>;
-  constexpr int MAX_DEVICES = 64;
   static int blocks_cap[MAX_DEVICES] = {};  // resident blocks, per device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
-  if (blocks_cap[dev] == 0) {
-    err = cudaFuncSetAttribute(window_tc_kernel<D, TRAIL>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               T::SMEM);
-    int sms = 0, per_sm = 0;
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, window_tc_kernel<D, TRAIL>, THREADS, T::SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    blocks_cap[dev] = sms * (per_sm > 0 ? per_sm : 1);
-  }
+  cudaError_t err;
+  const int cap =
+      resident_blocks(window_tc_kernel<D, TRAIL>, T::SMEM, blocks_cap, err);
+  if (cap == 0) return static_cast<int>(err);
   const int64_t tiles = ((n_amps >> T::LOG_D) + T::BN - 1) / T::BN;
-  const unsigned grid = static_cast<unsigned>(
-      tiles < blocks_cap[dev] ? tiles : blocks_cap[dev]);
+  const unsigned grid = static_cast<unsigned>(tiles < cap ? tiles : cap);
   const Diag diag{flips, nflips, masks, wants, phase, nphases, n_amps - 1};
   window_tc_kernel<D, TRAIL><<<grid, THREADS, T::SMEM, stream>>>(
       psi, out, w, n_amps, log_b, diag);

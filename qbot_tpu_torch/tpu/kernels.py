@@ -66,18 +66,25 @@ def _nvcc() -> str:
                        "CUDA toolkit")
 
 
-def build_kernels() -> Path:
-    """Compile ``csrc/*.cu`` into one shared library (once per source hash)
-    and return its path.  The sources compile in parallel, one nvcc each;
-    ptxas's register and spill report of every kernel goes to
-    ``ptxas.log`` beside the library.  A failed build raises with nvcc's
-    stderr."""
-    sources = sorted(_CSRC.glob("*.cu"))
+def _build_dir() -> Path:
+    """The build directory of the current sources: named by a hash of the
+    nvcc flags and of every file nvcc reads (the ``*.cu`` sources and the
+    ``*.cuh`` headers they include), so an edited header rebuilds too."""
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted([*_CSRC.glob("*.cu"), *_CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    out_dir = _BUILD / h.hexdigest()[:16]
+    return _BUILD / h.hexdigest()[:16]
+
+
+def build_kernels() -> Path:
+    """Compile ``csrc/*.cu`` into one shared library (once per source hash,
+    :func:`_build_dir`) and return its path.  The sources compile in
+    parallel, one nvcc each; ptxas's register and spill report of every
+    kernel goes to ``ptxas.log`` beside the library.  A failed build raises
+    with nvcc's stderr."""
+    sources = sorted(_CSRC.glob("*.cu"))
+    out_dir = _build_dir()
     lib_path = out_dir / "libqbot_tpu_torch.so"
     if lib_path.exists():
         return lib_path
@@ -380,7 +387,9 @@ def pair_apply(psi, n: int, start: int, width1: int, width2: int, w1, w2,
 
     On a CUDA tensor, :func:`pair_route` picks the trailing or the middle
     pair kernel, or two :func:`window_apply` launches with the diagonals
-    fused into the first (counted as window launches).
+    fused into the first (counted as window launches).  The trailing pair
+    at D1, D2 >= 8 runs on the tensor cores (3xTF32), the rest in FP32
+    FMAs (``csrc/pair_apply.cu``).
     """
     _require(1 <= width1 <= 7 and 1 <= width2 <= 7 and 0 <= start
              and start + width1 + width2 <= n,
@@ -399,6 +408,8 @@ def pair_apply(psi, n: int, start: int, width1: int, width2: int, w1, w2,
         psi = window_apply(psi, n, start, width1, w1, diag)
         return window_apply(psi, n, start + width1, width2, w2,
                             fused_diagonals(n, device=psi.device))
+    _require(psi.data_ptr() % 16 == 0 and w1.data_ptr() % 16 == 0,
+             "psi and w1 must be 16-byte aligned")
     lib = _library()
     out = torch.empty_like(psi)
     with torch.cuda.device(psi.device):

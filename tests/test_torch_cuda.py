@@ -7,7 +7,8 @@ neither JAX nor ``qbot_tpu``, so it also runs on a machine without them:
 
 Tolerance: relative L2 error 1e-5 (float32 sums of up to 128 products, two
 such sums for a pair, or row partials, taken in another order than the
-plain version's).
+plain version's); the 3xTF32 trailing pair also within 2e-6 of a float64
+product of the same inputs (chip_smoke.py's F64_TOL).
 """
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from qbot_tpu_torch.tpu.circuit import Circuit, random_circuit
 pytestmark = pytest.mark.cuda
 
 TOL = 1e-5
+F64_TOL = 2e-6
 
 
 @pytest.fixture
@@ -134,9 +136,11 @@ def test_pair_kernel(cuda, geometry):
 @pytest.mark.parametrize("width2", range(1, 8))
 @pytest.mark.parametrize("width1", range(1, 8))
 def test_pair_kernel_every_width(cuda, width1, width2):
-    """The trailing pair at every (D1, D2), and the middle pair at every
-    D1 <= 32 with B = 128."""
-    for n, start in ((width1 + width2 + 2, 2), (width1 + width2 + 8, 1)):
+    """The trailing pair at every (D1, D2), on both sides of the boundary
+    between its tensor-core (D1, D2 >= 8) and FMA variants, with 4 and with
+    64 slabs, and the middle pair at every D1 <= 32 with B = 128."""
+    for n, start in ((width1 + width2 + 2, 2), (width1 + width2 + 6, 6),
+                     (width1 + width2 + 8, 1)):
         if kernels.pair_route(n, start, width1, width2) == "two_windows":
             continue
         rng = np.random.default_rng(10 * width1 + width2 + n)
@@ -147,8 +151,24 @@ def test_pair_kernel_every_width(cuda, width1, width2):
         assert rel_l2(got, want) <= TOL, (n, start)
 
 
+@pytest.mark.parametrize("width1,width2", [(7, 7), (6, 7)])
+def test_trailing_pair_within_f64(cuda, width1, width2):
+    """The trailing pair at the 26-qubit paths' widths, (128, 128) and
+    (64, 128), against a float64 product: more slabs than the card has
+    blocks, so the persistent blocks take several units each."""
+    n = width1 + width2 + 8
+    rng = np.random.default_rng(width1)
+    psi, w1, w2, diag = _pair_inputs(n, 8, width1, width2, rng, cuda)
+    got = kernels.pair_apply(psi, n, 8, width1, width2, w1, w2, diag)
+    want = kernels.pair_apply_ref(psi.double(), n, 8, width1, width2,
+                                  w1.double(), w2.double(), diag)
+    assert rel_l2(got, want) <= F64_TOL
+
+
 def test_pair_kernel_is_deterministic(cuda):
-    for n, start, width1, width2 in ((20, 6, 7, 7), (19, 0, 5, 7)):
+    for n, start, width1, width2 in ((20, 6, 7, 7), (19, 0, 5, 7),
+                                     (19, 6, 6, 7), (14, 4, 3, 7),
+                                     (12, 5, 2, 5)):
         rng = np.random.default_rng(n)
         psi, w1, w2, diag = _pair_inputs(n, start, width1, width2, rng, cuda)
         first = kernels.pair_apply(psi, n, start, width1, width2, w1, w2,
@@ -157,6 +177,18 @@ def test_pair_kernel_is_deterministic(cuda):
             assert torch.equal(kernels.pair_apply(psi, n, start, width1,
                                                   width2, w1, w2, diag),
                                first)
+
+
+def test_pair_kernel_needs_aligned_operands(cuda):
+    """The pair kernels copy the state and W1 in 16-byte cp.async chunks."""
+    n = 8
+    rng = np.random.default_rng(0)
+    psi, w1, w2, diag = _pair_inputs(n, 2, 3, 3, rng, cuda)
+    flat = torch.zeros(2 * 2**n + 1, device=cuda)
+    shifted = flat[1:].view(2, 2**n)
+    shifted.copy_(psi)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels.pair_apply(shifted, n, 2, 3, 3, w1, w2, diag)
 
 
 def test_pair_counts_its_routes(cuda):

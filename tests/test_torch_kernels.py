@@ -280,3 +280,19 @@ def test_failed_build_raises_with_nvcc_stderr(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="broken kernel"):
         tk.build_kernels()
     assert not list((tmp_path / "build").rglob("*.so"))
+
+
+def test_edited_header_changes_the_build_directory(monkeypatch, tmp_path):
+    """The build is named by every file nvcc reads, headers too: an edited
+    ``csrc/*.cuh`` never loads a library built from the old one."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "kernel.cu").write_text('#include "tile.cuh"\n')
+    header = src / "tile.cuh"
+    header.write_text("// first\n")
+    monkeypatch.setattr(tk, "_CSRC", src)
+    monkeypatch.setattr(tk, "_BUILD", tmp_path / "build")
+    first = tk._build_dir()
+    assert tk._build_dir() == first
+    header.write_text("// second\n")
+    assert tk._build_dir() != first
