@@ -13,10 +13,10 @@ nonzero:
    26-qubit shapes of the ``--compile`` and density paths, with fused flips
    and phases: relative L2 error <= 1e-5 (float32 sums of up to 128
    products, two such sums for a pair, or row partials, taken in another
-   order).  ``window_apply`` and the trailing pair are also held within
-   relative L2 2e-6 of a float64 product of the same inputs (3xTF32
-   products with FP32 accumulation; the plain float32 version's own float64
-   error is printed beside it).  Times each kernel in turns with its plain
+   order).  ``window_apply`` and the pairs are also held within relative
+   L2 2e-6 of a float64 product of the same inputs (3xTF32 products with
+   FP32 accumulation; the plain float32 version's own float64 error is
+   printed beside it).  Times each kernel in turns with its plain
    version and with one PyTorch call of the same function (``library_ms``,
    empty diagonals, TF32 off: an einsum over the real block form of W for
    the windows and pairs, one matmul of conj(A)'s block form for
@@ -124,9 +124,9 @@ KERNEL_SOURCES = {
                     "qbot_tpu/tpu/kernels.py:552"),
     "reflect_update": ("qbot_tpu_torch/csrc/reflect.cu",
                        "qbot_tpu/tpu/kernels.py:501"),
-    "pair_apply": ("qbot_tpu_torch/csrc/pair_apply.cu",
+    "pair_apply": ("qbot_tpu_torch/csrc/pair_tc.cuh",
                    "qbot_tpu/tpu/kernels.py:420"),
-    "pair_apply_trailing": ("qbot_tpu_torch/csrc/pair_apply.cu",
+    "pair_apply_trailing": ("qbot_tpu_torch/csrc/pair_tc.cuh",
                             "qbot_tpu/tpu/kernels.py:352"),
 }
 
@@ -356,13 +356,18 @@ def check_pair(n: int, device, rng, gen) -> tuple[dict, dict]:
     """pair_apply vs pair_apply_ref at the paths' 26-qubit pairs: the
     middle pair (0,5)+(5,7) of the brickwork and Grover's init (A = 1, B =
     2^14), their trailing pair (12,7)+(19,7), and the 13-qubit density's
-    column pair (13,6)+(19,7).  The trailing pairs (3xTF32) are also held
-    to a float64 product of the same inputs.  Each is timed as the kernel,
+    column pair (13,6)+(19,7), all on the tensor cores; the brickwork's
+    middle pair moved to (4,5)+(9,7) (A = 16, B = 2^10: the same work with
+    16x shorter strides between the slab rows); and a middle pair
+    (0,2)+(2,7), whose D1 = 4 takes the FP32 FMA variant.  Each is also
+    held to a float64 product of the same inputs, and timed as the kernel,
     its plain version, one einsum (empty diagonals) and the two
     window_apply launches it replaces.  Returns the results of the middle
-    pair and of the trailing pairs (timed at (128, 128))."""
+    pairs (timed at (32, 128)) and of the trailing pairs (timed at
+    (128, 128))."""
     geoms = {"middle": (0, 5, 7), "trailing": (n - 14, 7, 7),
-             "density_columns": (n - 13, 6, 7)}
+             "density_columns": (n - 13, 6, 7), "middle_b1024": (4, 5, 7),
+             "middle_fma": (0, 2, 7)}
     psi = _random_state(n, gen, device)
     none = kernels.fused_diagonals(n, device=device)
     shapes = []
@@ -408,17 +413,13 @@ def check_pair(n: int, device, rng, gen) -> tuple[dict, dict]:
         got = kernel()
         rel, max_abs = compare(f"pair_apply {label}", got, want)
         compare(f"two windows {label}", windows(), want)
-        f64 = plain_f64 = None
-        if B == 1:
-            exact = kernels.pair_apply_ref(psi.double(), n, start, width1,
-                                           width2, w1.double(), w2.double(),
-                                           diag)
-            f64, plain_f64 = rel_l2(got, exact), rel_l2(want, exact)
-            del exact
-            if not f64 <= F64_TOL:
-                raise AssertionError(f"pair_apply {label}: relative L2 "
-                                     f"{f64:.3e} from float64 > {F64_TOL:g}")
-        del got
+        exact = kernels.pair_apply_ref(psi.double(), n, start, width1,
+                                       width2, w1.double(), w2.double(), diag)
+        f64, plain_f64 = rel_l2(got, exact), rel_l2(want, exact)
+        del exact, got
+        if not f64 <= F64_TOL:
+            raise AssertionError(f"pair_apply {label}: relative L2 "
+                                 f"{f64:.3e} from float64 > {F64_TOL:g}")
         plain_ms, ms, library_ms, windows_ms = timed_in_turns(
             [plain, kernel, library, windows], device)
         bound_ms, bound_by = bound(
@@ -431,20 +432,18 @@ def check_pair(n: int, device, rng, gen) -> tuple[dict, dict]:
                        "plain_ms": plain_ms, "library_ms": library_ms,
                        "two_window_ms": windows_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by})
-        vs_f64 = "" if f64 is None else (
-            f"; vs float64 {f64:.3e} (plain float32 {plain_f64:.3e})")
         say(f"pair_apply {label}: (A, D1, D2, B) = ({A}, {2**width1}, "
-            f"{2**width2}, {B}), rel L2 {rel:.3e}, max abs {max_abs:.3e}"
-            f"{vs_f64}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{2**width2}, {B}), rel L2 {rel:.3e}, max abs {max_abs:.3e}; "
+            f"vs float64 {f64:.3e} (plain float32 {plain_f64:.3e}), kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
             f"{library_ms:.4f} ms, two windows {windows_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}, share {bound_ms / ms:.3f})")
 
     def summary(group):
-        f64 = [s["rel_l2_f64"] for s in group if s["rel_l2_f64"] is not None]
         return {"shapes": group,
                 "rel_l2": max(s["rel_l2"] for s in group),
                 "max_abs_err": max(s["max_abs_err"] for s in group),
-                "rel_l2_f64": max(f64, default=None),
+                "rel_l2_f64": max(s["rel_l2_f64"] for s in group),
                 **{k: group[0][k] for k in ("ms", "plain_ms", "library_ms",
                                             "two_window_ms", "bound_ms",
                                             "bound_by")}}

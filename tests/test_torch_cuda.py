@@ -7,8 +7,8 @@ neither JAX nor ``qbot_tpu``, so it also runs on a machine without them:
 
 Tolerance: relative L2 error 1e-5 (float32 sums of up to 128 products, two
 such sums for a pair, or row partials, taken in another order than the
-plain version's); the 3xTF32 trailing pair also within 2e-6 of a float64
-product of the same inputs (chip_smoke.py's F64_TOL).
+plain version's); the 3xTF32 trailing and middle pairs also within 2e-6 of
+a float64 product of the same inputs (chip_smoke.py's F64_TOL).
 """
 import numpy as np
 import pytest
@@ -161,6 +161,22 @@ def test_trailing_pair_within_f64(cuda, width1, width2):
     psi, w1, w2, diag = _pair_inputs(n, 8, width1, width2, rng, cuda)
     got = kernels.pair_apply(psi, n, 8, width1, width2, w1, w2, diag)
     want = kernels.pair_apply_ref(psi.double(), n, 8, width1, width2,
+                                  w1.double(), w2.double(), diag)
+    assert rel_l2(got, want) <= F64_TOL
+
+
+@pytest.mark.parametrize("width2", range(3, 8))
+@pytest.mark.parametrize("width1", range(3, 6))
+def test_middle_pair_within_f64(cuda, width1, width2):
+    """The middle pair at every (D1, D2) of its tensor-core variant, with
+    B = 128 and 16 a, against a float64 product."""
+    start = 4
+    n = start + width1 + width2 + 7
+    rng = np.random.default_rng(10 * width1 + width2)
+    psi, w1, w2, diag = _pair_inputs(n, start, width1, width2, rng, cuda)
+    assert kernels.pair_route(n, start, width1, width2) == "middle"
+    got = kernels.pair_apply(psi, n, start, width1, width2, w1, w2, diag)
+    want = kernels.pair_apply_ref(psi.double(), n, start, width1, width2,
                                   w1.double(), w2.double(), diag)
     assert rel_l2(got, want) <= F64_TOL
 

@@ -1,8 +1,10 @@
-"""The arithmetic of ``csrc/pair_apply.cu``'s tensor-core trailing pair, in
+"""The arithmetic of the tensor-core pair kernel (``csrc/pair_tc.cuh``), in
 numpy.
 
 The kernel computes out = W1 · (ΦF X) · W2ᵀ on each (D1, D2) slab X as two
-products of the window kernel's 3xTF32 tile (``csrc/tc_tile.cuh``):
+products of the window kernel's 3xTF32 tile (``csrc/tc_tile.cuh``); a slab
+is one a of the trailing pair's (A, D1, D2) view, or one b-column of the
+middle pair's (A, D1, D2, B) view:
 
 - phase 1, Y[j, l] = Σ_m X[j, m] W2[l, m]: X split on a grid per row j and
   k-step of 8 m, W2 per row l and k-step;
@@ -15,9 +17,12 @@ cores, which round each sum toward zero; the sums go to float32
 accumulators by round-to-nearest adds.  These tests replay that with
 float32 numpy operations (products summed in float64, then rounded as the
 tensor cores round), on slabs of amplitudes of many sizes with a few flips
-and phases: every k-step's hi·hi sums are exactly representable, and the
-pair stays within chip_smoke.py's float64 limit (F64_TOL, 2e-6) at every
-(D1, D2) of the tensor-core variant.
+and phases at the flat indices of each orientation: every k-step's hi·hi
+sums are exactly representable, and the pair stays within chip_smoke.py's
+float64 limit (F64_TOL, 2e-6) at every (D1, D2) of the tensor-core
+variant, trailing and middle.  The rows and columns of a product are
+independent, so the replay takes them in slab order, whatever order the
+kernel's tiles take them in.
 
     python3 tests/test_torch_pair_split.py
 
@@ -33,6 +38,7 @@ from test_torch_window_split import F32, F64_TOL, _grid, _split, _tf32, \
 
 F64 = np.float64
 WIDTHS = [8, 16, 32, 64, 128]
+MIDDLE_WIDTHS = [8, 16, 32]     # D1 of the middle pair (pair_route)
 STAGE = 16      # k per cp.async stage: the cross terms' sums on the cores
 
 
@@ -100,33 +106,86 @@ def _diagonals(slabs, d1, d2, rng):
     return f
 
 
-def emulate(d1: int, d2: int, slabs: int = 2, seed: int = 0):
-    """(kernel's relative L2 error vs float64, every k-step's hi·hi sums
-    exact) for random unitaries on random slabs."""
-    rng = np.random.default_rng(seed)
+def _random_pair(d1, d2, shape, rng):
+    """(W1, W2) float32 planes of random unitaries, and complex64
+    amplitudes of many sizes of the given shape."""
     u1, u2 = _unitary(d1, rng), _unitary(d2, rng)
     w1 = [u1.real.astype(F32), u1.imag.astype(F32)]
     w2 = [u2.real.astype(F32), u2.imag.astype(F32)]
-    shape = (slabs, d1, d2)
     x = rng.normal(size=shape) + 1j * rng.normal(size=shape)
-    x *= np.exp(rng.normal(size=shape))             # amplitudes of many sizes
-    x = x.astype(np.complex64)
-    diag = _diagonals(slabs, d1, d2, rng)
-    want = ((w1[0].astype(F64) + 1j * w1[1]) @ (x.astype(np.complex128) * diag)
-            @ (w2[0].astype(F64) + 1j * w2[1]).T)
-    xd = x * diag                                   # float32 complex products
+    x *= np.exp(rng.normal(size=shape))
+    return w1, w2, x.astype(np.complex64)
+
+
+def tc_pair(xd, w1, w2):
+    """(out, every k-step's hi·hi sums exact): W1 · X · W2ᵀ of each
+    (D1, D2) slab of xd (slabs, D1, D2), complex64, as the kernel computes
+    it."""
+    slabs, d1, d2 = xd.shape
     # phase 1: rows (s, j), K = m
     yr, yi, exact1 = tc_product(xd.real.reshape(-1, d2),
                                 xd.imag.reshape(-1, d2), *w2)
     # phase 2: columns (s, l), K = j, from the float32 Y
     def cols(y):
-        return y.reshape(shape).transpose(0, 2, 1).reshape(-1, d1)
+        return y.reshape(xd.shape).transpose(0, 2, 1).reshape(-1, d1)
 
     outr, outi, exact2 = tc_product(cols(yr), cols(yi), *w1)
     got = (outr.astype(F64) + 1j * outi).reshape(slabs, d2, d1)
-    got = got.transpose(0, 2, 1)
-    err = float(np.linalg.norm(got - want) / np.linalg.norm(want))
-    return err, exact1 and exact2
+    return got.transpose(0, 2, 1), exact1 and exact2
+
+
+def _rel(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def emulate(d1: int, d2: int, slabs: int = 2, seed: int = 0):
+    """(kernel's relative L2 error vs float64, every k-step's hi·hi sums
+    exact) for random unitaries on random slabs of the trailing pair."""
+    rng = np.random.default_rng(seed)
+    shape = (slabs, d1, d2)
+    w1, w2, x = _random_pair(d1, d2, shape, rng)
+    diag = _diagonals(slabs, d1, d2, rng)
+    want = ((w1[0].astype(F64) + 1j * w1[1]) @ (x.astype(np.complex128) * diag)
+            @ (w2[0].astype(F64) + 1j * w2[1]).T)
+    got, exact = tc_pair(x * diag, w1, w2)         # float32 complex products
+    return _rel(got, want), exact
+
+
+def _middle_diagonals(a, d1, d2, b, rng):
+    """ΦF of the middle pair as one complex64 factor an element of the
+    (A, D1, D2, B) view, from its flat indices ((a D1 + j) D2 + m) B + b:
+    three flips, a phase on a pattern of a-, j-, m- and b-bits, one on a j
+    and an m bit, one on an a and a b bit."""
+    lb, lm, lj = (int(np.log2(v)) for v in (b, d2, d1))
+    flat = np.arange(a * d1 * d2 * b)
+    bit_a, bit_j, bit_m, bit_b = (1 << (lb + lm + lj), 1 << (lb + lm),
+                                  1 << lb, 1)
+    top_j, top_m, top_b = (1 << (lb + lm + lj - 1), 1 << (lb + lm - 1),
+                           1 << (lb - 1))
+    f = np.ones(flat.size, np.complex64)
+    f[rng.integers(0, flat.size, size=3)] *= -1
+    mask = bit_a | bit_j | top_m | top_b
+    want = mask & int(rng.integers(0, 2**62))
+    f[(flat & mask) == want] *= np.complex64(np.exp(0.7j))
+    f[(flat & (top_j | bit_m)) == top_j] *= np.complex64(-1)
+    f[(flat & (bit_a | bit_b)) == (bit_a | bit_b)] *= np.complex64(
+        np.exp(-1.3j))
+    return f.reshape(a, d1, d2, b)
+
+
+def emulate_middle(d1: int, d2: int, a: int = 2, b: int = 4, seed: int = 0):
+    """As :func:`emulate`, for the middle pair: the slabs are the b-columns
+    of a (D1, D2, B) view, the flips and phases at their flat indices."""
+    rng = np.random.default_rng(seed)
+    w1, w2, x = _random_pair(d1, d2, (a, d1, d2, b), rng)
+    diag = _middle_diagonals(a, d1, d2, b, rng)
+    want = np.einsum("ij,ajmb,lm->ailb", w1[0].astype(F64) + 1j * w1[1],
+                     x.astype(np.complex128) * diag,
+                     w2[0].astype(F64) + 1j * w2[1])
+    slabs = (x * diag).transpose(0, 3, 1, 2).reshape(a * b, d1, d2)
+    got, exact = tc_pair(slabs, w1, w2)
+    got = got.reshape(a, b, d1, d2).transpose(0, 2, 3, 1)
+    return _rel(got, want), exact
 
 
 @pytest.mark.parametrize("d2", WIDTHS)
@@ -137,9 +196,22 @@ def test_pair_split_sums_are_exact_and_within_f64_limit(d1, d2):
     assert err <= F64_TOL
 
 
+@pytest.mark.parametrize("d2", WIDTHS)
+@pytest.mark.parametrize("d1", MIDDLE_WIDTHS)
+def test_middle_pair_split_sums_are_exact_and_within_f64_limit(d1, d2):
+    err, exact = emulate_middle(d1, d2, seed=d1 + 5 * d2)
+    assert exact
+    assert err <= F64_TOL
+
+
 if __name__ == "__main__":
     for d1 in WIDTHS:
         for d2 in WIDTHS:
             err, exact = emulate(d1, d2)
-            print(f"(D1, D2) = ({d1:3d}, {d2:3d}): emulated kernel {err:.3e} "
-                  f"relative L2 vs float64; exact sums {exact}")
+            print(f"trailing (D1, D2) = ({d1:3d}, {d2:3d}): emulated kernel "
+                  f"{err:.3e} relative L2 vs float64; exact sums {exact}")
+    for d1 in MIDDLE_WIDTHS:
+        for d2 in WIDTHS:
+            err, exact = emulate_middle(d1, d2)
+            print(f"middle (D1, D2) = ({d1:3d}, {d2:3d}): emulated kernel "
+                  f"{err:.3e} relative L2 vs float64; exact sums {exact}")
