@@ -22,7 +22,17 @@ nonzero:
    the windows and pairs, one matmul of conj(A)'s block form for
    ``reflect_dot``; none for ``reflect_update``), the window also without
    diagonals, each pair also as the two window launches it replaces; and
-   states each kernel's bound (section ``bound``).
+   states each kernel's bound (section ``bound``).  Then every window and
+   pair shape again in each reduced dot mode (``bf16_3x``, ``bf16``; the
+   FMA variants at D <= 4 included): each kernel against its plain version
+   in the same mode (relative L2 1e-5; a bf16 pair 1e-4, since it rounds
+   its float32 Y to bf16 a second time, and a Y one ulp apart can round
+   2^-8 apart) and against float64 (2e-5, 1e-2), timed beside the f32
+   kernel.  The pairs apply W1 first, as the reference and the plain
+   version do.  Each is timed with the bound of its BF16 products and, for
+   the
+   windows, one bf16 product with float32 output (``torch.mm`` /
+   ``torch.bmm`` with ``out_dtype``) as its library call.
 3. runs the example programs through the port's CLI and holds the readout
    to the dense host interpreter's within 1e-6; then a generated 24-qubit
    program (Hadamards and a CX chain; qubit 0 reads [0.5, 0.5]).
@@ -43,9 +53,22 @@ nonzero:
    relative Frobenius 1e-4 of ψψ† of the statevector path (float32 over 16
    bodies).
 
-Launch counts are reset before phase 3 and read after phase 6: every kernel
-must have launched on that path.  The timed run of Grover, of each
-brickwork plan and of the density bodies also reports its own launches.
+7. the main path in each reduced dot mode: ``bench.py``'s brickwork
+   (16-layer body x 16 repeats, 256 layers) on the scanned runner, its norm
+   drift per 100 gates without renormalisation, and with ``renorm_every=1``
+   the norm within 1e-5 of 1 and its distance from the f32 run; the
+   unpaired body; the density run (one body against the plain versions in
+   the mode: within its launches' pair limits in bf16_3x, 1e-2 in bf16,
+   whose roundings carry any difference up to a bf16 ulp; the trace after
+   16 bodies within 1e-3 of 1 in bf16_3x); the examples through the CLI with
+   ``--precision`` (readouts within 1e-4 of the dense interpreter's in
+   bf16_3x, 1e-2 in bf16).
+
+Launch counts are reset before phase 3 and read after phase 6: every f32
+kernel must have launched on that path; they are reset again before
+phase 7, after which every reduced-mode counter (``window_apply[bf16_3x]``
+and so on) must have moved.  The timed run of Grover, of each brickwork
+plan and of the density bodies also reports its own launches.
 The line before the last is one JSON object of per-kernel results; the
 last is the run's verdict.
 
@@ -53,7 +76,9 @@ Bound: the least time the card could take for a kernel's work, the larger
 of its bytes (each input read once, each output written once) over 3.35
 TB/s and its operations over their peak rate: the complex products of a
 window or pair as 3xTF32 products (FP32-grade) on the 495 TFLOP/s TF32
-tensor cores, the reflections' arithmetic at the 67 TFLOP/s FP32 rate.
+tensor cores, or as 3 (bf16_3x) and 1 (bf16) BF16 products on the 989
+TFLOP/s BF16 tensor cores; the FMA variants' products (D <= 4; 1, 3, 1
+a product) and the reflections' arithmetic at the 67 TFLOP/s FP32 rate.
 
     python3 chip_smoke.py --profile chiprun_out
 
@@ -106,7 +131,25 @@ NORM_TOL = 1e-4
 F64_TOL = 2e-6             # relative L2, 3xTF32 kernels vs float64 products
 HBM_BYTES_S = 3.35e12      # H100 SXM data sheet: memory rate
 TF32_FLOPS_S = 495e12      # dense TF32 tensor-core peak
+BF16_FLOPS_S = 989e12      # dense BF16 tensor-core peak
 FP32_FLOPS_S = 67e12       # FP32 outside the tensor cores
+# dot mode -> relative L2 limits (window vs plain, pair vs plain, either vs
+# float64).  A bf16 pair rounds its float32 Y to bf16 a second time, and
+# the kernel's Y and the plain version's are summed in other orders, so a
+# one-ulp difference there moves a rounding by 2^-8: 1e-4 against its
+# plain version.
+LIMITS = {"f32": (KERNEL_TOL, KERNEL_TOL, F64_TOL),
+          "bf16_3x": (1e-5, 1e-5, 2e-5),
+          "bf16": (1e-5, 1e-4, 1e-2)}
+REDUCED_MODES = ("bf16_3x", "bf16")
+# readouts of the CLI in a reduced mode vs the dense interpreter (bf16: one
+# bf16 product a pass, 2^-9 relative rounding of each operand)
+MODE_READOUT_TOL = {"bf16_3x": 1e-4, "bf16": 1e-2}
+RENORM_TOL = 1e-5          # |norm - 1| of the renormalised reduced runs
+# |trace - 1| of the bf16_3x density run, 16 bodies without
+# renormalisation (bf16's rounded W are not unitary: its trace is printed,
+# and its body held to the plain versions)
+DENSITY_TRACE_TOL = 1e-3
 DENSITY_N = 13             # bench.py's density workload
 DENSITY_LAYERS = 8
 DENSITY_REPEATS = 16
@@ -114,11 +157,11 @@ DENSITY_TOL = 1e-4         # relative Frobenius, ρ vs ψψ† after 16 bodies
 
 # launch count name -> (source, TPU kernel it replaces); window_apply and
 # pair_apply are one CUDA kernel each serving two TPU kernels, counted apart
-# by geometry
+# by geometry, and by dot mode (window_apply[bf16_3x], ...)
 KERNEL_SOURCES = {
-    "window_apply": ("qbot_tpu_torch/csrc/window_apply.cu",
+    "window_apply": ("qbot_tpu_torch/csrc/window_tc.cuh",
                      "qbot_tpu/tpu/kernels.py:209"),
-    "window_apply_trailing": ("qbot_tpu_torch/csrc/window_apply.cu",
+    "window_apply_trailing": ("qbot_tpu_torch/csrc/window_tc.cuh",
                               "qbot_tpu/tpu/kernels.py:271"),
     "reflect_dot": ("qbot_tpu_torch/csrc/reflect.cu",
                     "qbot_tpu/tpu/kernels.py:552"),
@@ -129,6 +172,11 @@ KERNEL_SOURCES = {
     "pair_apply_trailing": ("qbot_tpu_torch/csrc/pair_tc.cuh",
                             "qbot_tpu/tpu/kernels.py:352"),
 }
+PRODUCT_KERNELS = ("window_apply", "window_apply_trailing", "pair_apply",
+                   "pair_apply_trailing")
+for _mode in REDUCED_MODES:
+    for _name in PRODUCT_KERNELS:
+        KERNEL_SOURCES[f"{_name}[{_mode}]"] = KERNEL_SOURCES[_name]
 
 
 def say(msg: str) -> None:
@@ -181,13 +229,14 @@ def rel_l2(got, want) -> float:
                  / torch.linalg.vector_norm(want))
 
 
-def compare(name: str, got, want) -> tuple[float, float]:
-    """(relative L2 error, max abs error); raises above KERNEL_TOL."""
+def compare(name: str, got, want, tol: float = KERNEL_TOL
+            ) -> tuple[float, float]:
+    """(relative L2 error, max abs error); raises above ``tol``."""
     rel = rel_l2(got, want)
     max_abs = float(torch.max(torch.abs(got.double() - want.double())))
-    if not rel <= KERNEL_TOL:
+    if not rel <= tol:
         raise AssertionError(f"{name}: relative L2 error {rel:.3e} > "
-                             f"{KERNEL_TOL:g} (max abs {max_abs:.3e})")
+                             f"{tol:g} (max abs {max_abs:.3e})")
     return rel, max_abs
 
 
@@ -235,15 +284,31 @@ def _planar_unitary(d: int, rng, device) -> torch.Tensor:
 
 
 def bound(nbytes: float, tf32_flops: float = 0.0,
-          fp32_flops: float = 0.0) -> tuple[float, str]:
+          fp32_flops: float = 0.0, bf16_flops: float = 0.0
+          ) -> tuple[float, str]:
     """(bound ms, what bounds it): bytes over the memory rate against
-    3xTF32 products (3 TF32 FLOPs each) plus FP32 arithmetic over their
-    peak rates."""
+    3xTF32 products (3 TF32 FLOPs each), BF16 tensor-core FLOPs and FP32
+    arithmetic over their peak rates."""
     t_bytes = nbytes / HBM_BYTES_S
-    t_ops = 3 * tf32_flops / TF32_FLOPS_S + fp32_flops / FP32_FLOPS_S
+    t_ops = (3 * tf32_flops / TF32_FLOPS_S + bf16_flops / BF16_FLOPS_S
+             + fp32_flops / FP32_FLOPS_S)
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
+
+
+def product_bound(nbytes: float, flops: float, mode: str,
+                  tensor_cores: bool) -> tuple[float, str]:
+    """The bound of a window or pair doing ``flops`` of complex products in
+    dot ``mode``: on the tensor cores 3xTF32 (f32) or 3 and 1 BF16 products
+    (bf16_3x, bf16); in the FMA variants (widths below 8) 1, 3 and 1 FP32
+    products."""
+    parts = 3 if mode == "bf16_3x" else 1
+    if not tensor_cores:
+        return bound(nbytes, fp32_flops=parts * flops)
+    if mode == "f32":
+        return bound(nbytes, tf32_flops=flops)
+    return bound(nbytes, bf16_flops=parts * flops)
 
 
 def real_block(w: torch.Tensor) -> torch.Tensor:
@@ -262,20 +327,49 @@ def library_window(psi, A, D, w):
     return run
 
 
-def check_window(n: int, device, rng, gen) -> tuple[dict, dict]:
-    """window_apply vs window_apply_ref at the --compile path's geometries:
-    the first and middle windows of the 26-qubit partition (B >= 128), the
-    trailing window (B = 1), a window with small B, and the density path's
-    D = 64 row window, with 3 flips and 3 phases.  Also vs a float64
-    product of the same inputs, and timed with and without the diagonals,
-    beside the plain version and one einsum.  Returns the results of the
-    B > 1 shapes (timed at the middle window) and of the trailing window."""
+def library_window_reduced(psi, A, D, B, w, mode):
+    """One PyTorch call for window_apply with empty diagonals in a reduced
+    mode: a bf16 matrix product with float32 output (``out_dtype``) over
+    the real block form, K-stacked [W_hi, W_hi, W_lo]·[x_hi; x_lo; x_hi]
+    for bf16_3x.  Its operands are split and laid out (A, K, B) before the
+    timed call, which the kernel does itself."""
+    m = real_block(w).permute(0, 2, 1, 3).reshape(2 * D, 2 * D)
+    x = psi.view(2, A, D, B).permute(1, 0, 2, 3).reshape(A, 2 * D, B)
+    mh, xh = m.bfloat16(), x.bfloat16()
+    if mode == "bf16_3x":
+        ml, xl = (m - mh.float()).bfloat16(), (x - xh.float()).bfloat16()
+        mh, xh = torch.cat([mh, mh, ml], dim=1), torch.cat([xh, xl, xh], 1)
+    if B == 1:
+        x2, mt = xh.reshape(A, -1).contiguous(), mh.t().contiguous()
+        return lambda: torch.mm(x2, mt, out_dtype=torch.float32)
+    mb = mh.expand(A, -1, -1)
+    return lambda: torch.bmm(mb, xh, out_dtype=torch.float32)
+
+
+def check_window(n: int, device, rng, gen, mode: str = "f32",
+                 f32: dict | None = None) -> tuple[dict, dict]:
+    """window_apply vs window_apply_ref in dot ``mode`` (set by the caller)
+    at the --compile path's geometries: the first and middle windows of the
+    26-qubit partition (B >= 128), the trailing window (B = 1), a window
+    with small B, the density path's D = 64 row window, and the FMA
+    variant's D = 2 and 4 (middle and trailing), with 3 flips and 3 phases.
+    Also vs a float64 product of the same inputs, and timed with and
+    without the diagonals, beside the plain version and one library call;
+    ``f32``, the f32 run's results, puts each shape's f32 time beside.
+    Returns the results of the B > 1 shapes (timed at the middle window) and
+    of the trailing ones."""
     width = 7
     geoms = {"first": (0, 5),
              "middle": (n - 3 * width, width),
              "trailing": (n - width, width),
              "small_b": (n - width - 3, width),
-             "density_rows": (0, 6)}
+             "density_rows": (0, 6),
+             "fma_d2": (n - 10, 1),
+             "fma_d4": (n - 10, 2),
+             "fma_d4_trailing": (n - 2, 2)}
+    tol, _, f64_tol = LIMITS[mode]
+    f32_ms = {s["window"]: s["ms"] for g in (f32 or {}).values()
+              for s in g["shapes"]}
     shapes = []
     psi = _random_state(n, gen, device)
     none = kernels.fused_diagonals(n, device=device)
@@ -295,34 +389,40 @@ def check_window(n: int, device, rng, gen) -> tuple[dict, dict]:
 
         got = kernels.window_apply(psi, n, start, w, wt, diag)
         want = kernels.window_apply_ref(psi, n, start, w, wt, diag)
-        rel, max_abs = compare(f"window_apply {label}", got, want)
+        rel, max_abs = compare(f"window_apply[{mode}] {label}", got, want,
+                               tol)
         exact = kernels.window_apply_ref(psi.double(), n, start, w,
-                                         wt.double(), diag)
+                                         wt.double(), diag, mode="f32")
         f64, plain_f64 = rel_l2(got, exact), rel_l2(want, exact)
         del exact
-        if not f64 <= F64_TOL:
-            raise AssertionError(f"window_apply {label}: relative L2 "
-                                 f"{f64:.3e} from float64 > {F64_TOL:g}")
+        if not f64 <= f64_tol:
+            raise AssertionError(f"window_apply[{mode}] {label}: relative "
+                                 f"L2 {f64:.3e} from float64 > {f64_tol:g}")
+        library = (library_window(psi, A, 2**w, wt) if mode == "f32"
+                   else library_window_reduced(psi, A, 2**w, B, wt, mode))
         plain_ms, ms, library_ms, no_diag_ms = timed_in_turns([
             lambda: kernels.window_apply_ref(psi, n, start, w, wt, diag),
             lambda: kernels.window_apply(psi, n, start, w, wt, diag),
-            library_window(psi, A, 2**w, wt),
+            library,
             lambda: kernels.window_apply(psi, n, start, w, wt, none)],
             device)
-        bound_ms, bound_by = bound(2 * psi.nbytes + wt.nbytes,
-                                   tf32_flops=8 * 2**w * 2**n)
+        del library
+        bound_ms, bound_by = product_bound(2 * psi.nbytes + wt.nbytes,
+                                           8 * 2**w * 2**n, mode, w >= 3)
         shapes.append({"window": label, "A": A, "D": 2**w, "B": B,
                        "rel_l2": rel, "max_abs_err": max_abs,
                        "rel_l2_f64": f64, "plain_rel_l2_f64": plain_f64,
                        "ms": ms, "ms_no_diagonals": no_diag_ms,
                        "plain_ms": plain_ms, "library_ms": library_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by})
-        say(f"window_apply {label}: (A, D, B) = ({A}, {2**w}, {B}), "
+        beside = (f"; f32 kernel {f32_ms[label]:.4f} ms" if label in f32_ms
+                  else "")
+        say(f"window_apply[{mode}] {label}: (A, D, B) = ({A}, {2**w}, {B}), "
             f"rel L2 {rel:.3e}, max abs {max_abs:.3e}; vs float64 "
-            f"{f64:.3e} (plain float32 {plain_f64:.3e}); kernel {ms:.4f} ms "
+            f"{f64:.3e} (plain {plain_f64:.3e}); kernel {ms:.4f} ms "
             f"(no diagonals {no_diag_ms:.4f}), plain {plain_ms:.4f} ms, "
             f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}, share {bound_ms / ms:.3f})")
+            f"({bound_by}, share {bound_ms / ms:.3f}){beside}")
 
     def summary(group, timed):
         return {"shapes": group,
@@ -352,22 +452,28 @@ def library_reflect_dot(psi, a):
     return run
 
 
-def check_pair(n: int, device, rng, gen) -> tuple[dict, dict]:
-    """pair_apply vs pair_apply_ref at the paths' 26-qubit pairs: the
-    middle pair (0,5)+(5,7) of the brickwork and Grover's init (A = 1, B =
-    2^14), their trailing pair (12,7)+(19,7), and the 13-qubit density's
-    column pair (13,6)+(19,7), all on the tensor cores; the brickwork's
-    middle pair moved to (4,5)+(9,7) (A = 16, B = 2^10: the same work with
-    16x shorter strides between the slab rows); and a middle pair
-    (0,2)+(2,7), whose D1 = 4 takes the FP32 FMA variant.  Each is also
-    held to a float64 product of the same inputs, and timed as the kernel,
-    its plain version, one einsum (empty diagonals) and the two
-    window_apply launches it replaces.  Returns the results of the middle
-    pairs (timed at (32, 128)) and of the trailing pairs (timed at
-    (128, 128))."""
+def check_pair(n: int, device, rng, gen, mode: str = "f32",
+               f32: dict | None = None) -> tuple[dict, dict]:
+    """pair_apply vs pair_apply_ref in dot ``mode`` (set by the caller) at
+    the paths' 26-qubit pairs: the middle pair (0,5)+(5,7) of the brickwork
+    and Grover's init (A = 1, B = 2^14), their trailing pair (12,7)+(19,7),
+    and the 13-qubit density's column pair (13,6)+(19,7), all on the tensor
+    cores; the brickwork's middle pair moved to (4,5)+(9,7) (A = 16, B =
+    2^10: the same work with 16x shorter strides between the slab rows); a
+    middle pair (0,2)+(2,7) and a trailing pair (17,2)+(19,7), whose D1 = 4
+    takes the FP32 FMA variant.  Each is also held to a float64 product of
+    the same inputs, and timed as the kernel, its plain version, one einsum
+    (empty diagonals; f32 only: no PyTorch call re-splits the intermediate
+    Y of a reduced mode) and the two window_apply launches it replaces;
+    ``f32``, the f32 run's results, puts each shape's f32 time beside.
+    Returns the results of the middle pairs (timed at (32, 128)) and of the
+    trailing pairs (timed at (128, 128))."""
     geoms = {"middle": (0, 5, 7), "trailing": (n - 14, 7, 7),
              "density_columns": (n - 13, 6, 7), "middle_b1024": (4, 5, 7),
-             "middle_fma": (0, 2, 7)}
+             "middle_fma": (0, 2, 7), "trailing_fma": (n - 9, 2, 7)}
+    _, tol, f64_tol = LIMITS[mode]
+    f32_ms = {s["pair"]: s["ms"] for g in (f32 or {}).values()
+              for s in g["shapes"]}
     psi = _random_state(n, gen, device)
     none = kernels.fused_diagonals(n, device=device)
     shapes = []
@@ -411,20 +517,27 @@ def check_pair(n: int, device, rng, gen) -> tuple[dict, dict]:
 
         want = plain()
         got = kernel()
-        rel, max_abs = compare(f"pair_apply {label}", got, want)
-        compare(f"two windows {label}", windows(), want)
+        rel, max_abs = compare(f"pair_apply[{mode}] {label}", got, want, tol)
+        compare(f"two windows[{mode}] {label}", windows(), want, tol)
         exact = kernels.pair_apply_ref(psi.double(), n, start, width1,
-                                       width2, w1.double(), w2.double(), diag)
+                                       width2, w1.double(), w2.double(), diag,
+                                       mode="f32")
         f64, plain_f64 = rel_l2(got, exact), rel_l2(want, exact)
         del exact, got
-        if not f64 <= F64_TOL:
-            raise AssertionError(f"pair_apply {label}: relative L2 "
-                                 f"{f64:.3e} from float64 > {F64_TOL:g}")
-        plain_ms, ms, library_ms, windows_ms = timed_in_turns(
-            [plain, kernel, library, windows], device)
-        bound_ms, bound_by = bound(
+        if not f64 <= f64_tol:
+            raise AssertionError(f"pair_apply[{mode}] {label}: relative L2 "
+                                 f"{f64:.3e} from float64 > {f64_tol:g}")
+        if mode == "f32":
+            plain_ms, ms, library_ms, windows_ms = timed_in_turns(
+                [plain, kernel, library, windows], device)
+        else:
+            plain_ms, ms, windows_ms = timed_in_turns(
+                [plain, kernel, windows], device)
+            library_ms = None
+        bound_ms, bound_by = product_bound(
             2 * psi.nbytes + w1.nbytes + w2.nbytes,
-            tf32_flops=8 * (2**width1 + 2**width2) * 2**n)
+            8 * (2**width1 + 2**width2) * 2**n, mode,
+            width1 >= 3 and width2 >= 3)
         shapes.append({"pair": label, "A": A, "D1": 2**width1,
                        "D2": 2**width2, "B": B, "rel_l2": rel,
                        "max_abs_err": max_abs, "rel_l2_f64": f64,
@@ -432,12 +545,16 @@ def check_pair(n: int, device, rng, gen) -> tuple[dict, dict]:
                        "plain_ms": plain_ms, "library_ms": library_ms,
                        "two_window_ms": windows_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by})
-        say(f"pair_apply {label}: (A, D1, D2, B) = ({A}, {2**width1}, "
-            f"{2**width2}, {B}), rel L2 {rel:.3e}, max abs {max_abs:.3e}; "
-            f"vs float64 {f64:.3e} (plain float32 {plain_f64:.3e}), kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"{library_ms:.4f} ms, two windows {windows_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}, share {bound_ms / ms:.3f})")
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        beside = (f"; f32 kernel {f32_ms[label]:.4f} ms" if label in f32_ms
+                  else "")
+        say(f"pair_apply[{mode}] {label}: (A, D1, D2, B) = ({A}, "
+            f"{2**width1}, {2**width2}, {B}), rel L2 {rel:.3e}, max abs "
+            f"{max_abs:.3e}; vs float64 "
+            f"{f64:.3e} (plain {plain_f64:.3e}), "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, "
+            f"two windows {windows_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}, share {bound_ms / ms:.3f}){beside}")
 
     def summary(group):
         return {"shapes": group,
@@ -518,17 +635,17 @@ def check_reflect(n: int, device, rng, gen) -> tuple[dict, dict]:
 _NUM = re.compile(r"-?\d+(?:\.\d+)?(?:e[-+]?\d+)?%?")
 
 
-def _same_readout(name: str, got: str, want: str) -> None:
-    """The two outputs agree in text, and number for number within
-    READOUT_TOL (percentages within 100 × READOUT_TOL)."""
+def _same_readout(name: str, got: str, want: str,
+                  tol: float = READOUT_TOL) -> None:
+    """The two outputs agree in text, and number for number within ``tol``
+    (percentages within 100 × ``tol``)."""
     if _NUM.sub("#", got) != _NUM.sub("#", want):
         raise AssertionError(f"{name}: output differs from the dense "
                              f"interpreter's\n--- port\n{got}--- dense\n"
                              f"{want}")
     for g, w in zip(_NUM.findall(got), _NUM.findall(want)):
         scale = 100.0 if g.endswith("%") else 1.0
-        if abs(float(g.rstrip("%")) - float(w.rstrip("%"))) > \
-                READOUT_TOL * scale:
+        if abs(float(g.rstrip("%")) - float(w.rstrip("%"))) > tol * scale:
             raise AssertionError(f"{name}: {g} vs dense {w}")
 
 
@@ -771,6 +888,120 @@ def density(device) -> tuple[float, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the reduced dot modes end to end
+# ---------------------------------------------------------------------------
+
+def _launch_delta(fn):
+    """(result of ``fn()`` ended by a synchronise, kernel launches it
+    made)."""
+    before = kernels.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    return out, {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+
+
+def f32_references(n: int, device) -> dict:
+    """The f32 states the reduced runs are measured against: the 26-qubit
+    brickwork's 16 bodies on the scanned runner, and its unpaired body."""
+    c = brickwork_circuit(n, BRICKWORK_LAYERS)
+    psi0 = product_state_planar([np.array([1.0, 0.0])] * n, device)
+    return {"scanned": make_scanned_planar_runner(
+                compile_circuit(c), DRIFT_LAYERS // BRICKWORK_LAYERS)(psi0),
+            "unpaired": apply_plan_planar(psi0, compile_circuit(c,
+                                                                pair=False))}
+
+
+def reduced_mode_path(n: int, device, mode: str, f32: dict) -> dict:
+    """The main path in dot ``mode`` (set by the caller), as ``bench.py``'s
+    reduced-precision rows run it (``tpu_general``: a 16-layer brickwork
+    body x 16 repeats on the scanned runner, 256 layers): without
+    renormalisation, the norm drift per 100 gates; with ``renorm_every=1``
+    the norm within RENORM_TOL of 1, and the distance from the f32 run.
+    Then the unpaired body (the single windows), the 13-qubit density
+    matrix (one body against the plain versions in the mode, and its trace
+    after 16 bodies), and the example programs through the
+    CLI with ``--precision`` (readouts within MODE_READOUT_TOL of the dense
+    interpreter's; mid_measurement.qb stops at a LoweringError under
+    --compile and probabilistic_branching.qb needs --ensemble, as in phase
+    3).  Returns the launches of each run."""
+    c = brickwork_circuit(n, BRICKWORK_LAYERS)
+    repeats = DRIFT_LAYERS // BRICKWORK_LAYERS
+    body = compile_circuit(c)
+    psi0 = product_state_planar([np.array([1.0, 0.0])] * n, device)
+    gates = c.gate_count * repeats
+    runs = {}
+    t0 = time.perf_counter()
+    out, runs["scanned"] = _launch_delta(
+        lambda: make_scanned_planar_runner(body, repeats)(psi0))
+    elapsed = time.perf_counter() - t0
+    norm = float(planar_norm(out))
+    rel = rel_l2(out, f32["scanned"])
+    say(f"[{mode}] brickwork {n}q x {BRICKWORK_LAYERS} layers x {repeats} "
+        f"(scanned, {gates} gates): norm {norm:.8f}, drift "
+        f"{(1.0 - norm) / (gates / 100):.4e} per 100 gates, rel L2 vs f32 "
+        f"{rel:.3e}, {elapsed:.4f} s")
+    out, runs["scanned_renorm"] = _launch_delta(
+        lambda: make_scanned_planar_runner(body, repeats,
+                                           renorm_every=1)(psi0))
+    norm = float(planar_norm(out))
+    rel = rel_l2(out, f32["scanned"])
+    if not abs(norm - 1.0) <= RENORM_TOL:
+        raise AssertionError(f"[{mode}] renorm_every=1: norm {norm}")
+    say(f"[{mode}] the same with renorm_every=1: norm {norm:.8f}, rel L2 "
+        f"vs f32 {rel:.3e}")
+    del out
+    out, runs["unpaired"] = _launch_delta(
+        lambda: apply_plan_planar(psi0, compile_circuit(c, pair=False)))
+    say(f"[{mode}] unpaired body: norm {float(planar_norm(out)):.8f}, rel "
+        f"L2 vs f32 {rel_l2(out, f32['unpaired']):.3e}")
+    del out
+    gates_d, plan_d, run_density, rho0 = density_runner(device)
+    # one body against the plain versions in the mode.  bf16_3x: each
+    # launch within its pair limit, and a unitary step carries an earlier
+    # difference on unchanged, so the body within their sum.  bf16: a
+    # difference anywhere moves later bf16 roundings, each by 2^-8, so two
+    # runs of a body drift apart to the mode's own error: its float64 limit
+    one, launches_one = _launch_delta(
+        lambda: make_planar_density_runner(plan_d)(rho0))
+    rel_one, _ = compare(f"[{mode}] density one body", one,
+                         apply_plan_density_planar_ref(rho0, plan_d),
+                         sum(launches_one.values()) * LIMITS[mode][1]
+                         if mode == "bf16_3x" else LIMITS[mode][2])
+    del one
+    rho, runs["density"] = _launch_delta(lambda: run_density(rho0))
+    trace = float(torch.sum(torch.diagonal(rho[0])))
+    if mode == "bf16_3x" and not abs(trace - 1.0) <= DENSITY_TRACE_TOL:
+        raise AssertionError(f"[{mode}] density: trace {trace}")
+    say(f"[{mode}] density {DENSITY_N}q x {DENSITY_LAYERS} layers x "
+        f"{DENSITY_REPEATS} ({gates_d} gates): one body rel L2 vs plain "
+        f"{rel_one:.3e} ({sum(launches_one.values())} launches), trace "
+        f"{trace:.8f}")
+    del rho
+
+    def examples():
+        for path in sorted((ROOT / "examples").glob("*.qb")):
+            if path.name in ("probabilistic_branching.qb",
+                             "mid_measurement.qb"):
+                continue
+            rc, got = _capture(cli_main, [
+                str(path), "--compile", "--precision", mode, "--device",
+                str(torch.device(device).type)])
+            if rc != 0:
+                raise AssertionError(f"[{mode}] {path.name}: rc {rc}\n"
+                                     f"{got}")
+            _same_readout(f"[{mode}] {path.name}", got,
+                          _capture(executeTxt, path.read_text())[1],
+                          MODE_READOUT_TOL[mode])
+            say(f"[{mode}] example {path.name} --compile --precision "
+                f"{mode}: readout within {MODE_READOUT_TOL[mode]:g} of the "
+                f"dense interpreter")
+    _, runs["examples"] = _launch_delta(examples)
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # --profile: where the time goes in phases 4 and 5
 # ---------------------------------------------------------------------------
 
@@ -878,7 +1109,18 @@ def main(argv=None) -> int:
         N, device, rng, gen)
     results["pair_apply"], results["pair_apply_trailing"] = check_pair(
         N, device, rng, gen)
-    say("phase 2: every kernel agrees with its plain version")
+    for mode in REDUCED_MODES:
+        kernels.set_dot_mode(mode)
+        names = [f"{k}[{mode}]" for k in PRODUCT_KERNELS]
+        results[names[0]], results[names[1]] = check_window(
+            N, device, rng, gen, mode,
+            {k: results[k] for k in PRODUCT_KERNELS[:2]})
+        results[names[2]], results[names[3]] = check_pair(
+            N, device, rng, gen, mode,
+            {k: results[k] for k in PRODUCT_KERNELS[2:]})
+    kernels.set_dot_mode("f32")
+    say("phase 2: every kernel agrees with its plain version, in every dot "
+        "mode")
 
     kernels.reset_launch_counts()
     run_examples(device)
@@ -898,7 +1140,23 @@ def main(argv=None) -> int:
             "brickwork_unpaired": brick_launches["unpaired"],
             "density": density_launches}
     say(f"launches on the main path: {counts}")
-    missing = [k for k, v in counts.items() if v <= 0]
+
+    f32_states = f32_references(N, device)
+    kernels.reset_launch_counts()
+    for mode in REDUCED_MODES:
+        kernels.set_dot_mode(mode)
+        for run, launches in reduced_mode_path(N, device, mode,
+                                               f32_states).items():
+            runs[f"{run}[{mode}]"] = launches
+    kernels.set_dot_mode("f32")
+    reduced_counts = kernels.launch_counts()
+    del f32_states
+    say(f"phase 7: the reduced dot modes run the main path; launches "
+        f"{ {k: v for k, v in reduced_counts.items() if '[' in k} }")
+    for name in KERNEL_SOURCES:
+        if "[" in name:
+            counts[name] = reduced_counts[name]
+    missing = [k for k in KERNEL_SOURCES if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -914,7 +1172,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name],
-         "launches_per_run": {k: v[name] for k, v in runs.items()},
+         "launches_per_run": {k: v[name] for k, v in runs.items()
+                              if v.get(name)},
          "max_abs_err": results[name]["max_abs_err"],
          "rel_l2": results[name]["rel_l2"], "ms": results[name]["ms"],
          "plain_ms": results[name]["plain_ms"],

@@ -7,7 +7,8 @@ front end and dense interpreter, circuit IR, plan dataclasses and compiler
 passes) under the same module names.
 
 Entry points: :func:`executeTxt` / :func:`executeFile` (the dense host
-interpreter), :func:`lower_program` and :func:`run_lowered` (a .qb program
+interpreter), :func:`executeTxtEnsemble` (its exact probabilistic-branching
+ensemble), :func:`lower_program` and :func:`run_lowered` (a .qb program
 on the planar executor),
 :func:`compile_circuit` (circuit IR to a plan, paired by default), and the
 statevector and density-matrix executors in
@@ -18,6 +19,7 @@ statevector and density-matrix executors in
 import numpy as np
 import torch
 
+from qbot_tpu_torch.frontend.ensemble import executeTxtEnsemble
 from qbot_tpu_torch.frontend.interpreter import executeFile, executeTxt
 from qbot_tpu_torch.frontend.lowering import lower_program, run_lowered
 from qbot_tpu_torch.tpu.compiler import compile_circuit
@@ -43,6 +45,7 @@ def main():
     sys.exit(_cli_main())
 
 
-__all__ = ["executeTxt", "executeFile", "lower_program", "run_lowered",
+__all__ = ["executeTxt", "executeFile", "executeTxtEnsemble",
+           "lower_program", "run_lowered",
            "compile_circuit", "planar_from_numpy",
            "planar_to_numpy", "main", "__version__"]

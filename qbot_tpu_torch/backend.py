@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 
+_DTYPE: str | None = None      # None = numpy's complex128; "c64" | "c128"
+
 
 def set_backend(name: str) -> None:
     """Accept ``numpy``, the only engine; raise for any other."""
@@ -28,3 +30,24 @@ def xp():
 def is_array(v) -> bool:
     """True for an engine array (a numpy ndarray)."""
     return isinstance(v, np.ndarray)
+
+
+def set_dtype(name: str | None) -> None:
+    """Select the register's complex precision (CLI ``--dtype``).
+
+    ``None`` keeps the default, complex128.
+    """
+    global _DTYPE
+    if name not in (None, "c64", "c128"):
+        raise ValueError(f"unknown dtype {name!r} (expected c64|c128)")
+    _DTYPE = name
+
+
+def complex_dtype():
+    """The active complex dtype for register states."""
+    return np.complex64 if _DTYPE == "c64" else np.complex128
+
+
+def dtype_override():
+    """The explicitly requested complex dtype, or None when defaulted."""
+    return None if _DTYPE is None else complex_dtype()

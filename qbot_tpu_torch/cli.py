@@ -1,10 +1,18 @@
 """Command-line interface of the PyTorch port.
 
-``python -m qbot_tpu_torch FILE --compile [--device cuda|cpu]`` runs a .qb
-program's unitary fragment on the planar executor, with the same output as
-``python -m qbot_tpu FILE --compile`` (``qbot_tpu/cli.py:193-247``).
-Without ``--compile`` the program runs on the port's copy of the dense host
-interpreter, as it does under ``qbot_tpu``.
+``python -m qbot_tpu_torch FILE --compile [--device cuda|cpu]
+[--precision f32|f32_mix|bf16_3x|bf16]`` runs a .qb program's unitary
+fragment on the planar executor, with the same output as ``python -m
+qbot_tpu FILE --compile`` (``qbot_tpu/cli.py:193-247``).  Without
+``--compile`` the program runs on the port's copy of the dense host
+interpreter, as it does under ``qbot_tpu``, ``--ensemble`` on its copy of
+the exact host ensemble.
+
+The parser takes every flag of ``qbot_tpu/cli.py:22-75``, with the same
+names, choices and defaults, and ``--device``.  The flags whose slice has
+not landed (``--backend jax``, ``--smc``, ``--shard``, ``--mesh``,
+``--compile --ensemble``) print the ROADMAP item that brings them and
+exit 1.
 """
 from __future__ import annotations
 
@@ -25,9 +33,45 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("FILE", type=str,
                         help="path to the .qb file to execute (relative or "
                              "absolute)")
+    parser.add_argument("--backend", choices=["numpy", "jax"],
+                        default="numpy",
+                        help="numeric engine of the host interpreter: numpy "
+                             "(the port has no jax engine)")
+    parser.add_argument("--dtype", choices=["c64", "c128"], default=None,
+                        help="complex precision of the host interpreter's "
+                             "registers (default c128)")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="PRNG seed for sampling layers (SMC/HMC)")
+    parser.add_argument("--precision",
+                        choices=["f32", "f32_mix", "bf16_3x", "bf16"],
+                        default=None,
+                        help="precision of the --compile engine's window and "
+                             "pair products: f32 (3xTF32 on the card, "
+                             "default), f32_mix (full f32 here: its "
+                             "per-window rule is the reference's dot "
+                             "engine's), bf16_3x (a bf16 hi/lo split, three "
+                             "products), bf16 (one bf16 product).  The "
+                             "reduced modes shrink the norm a little every "
+                             "pass (README.md)")
+    parser.add_argument("--profile", action="store_true",
+                        help="print a per-line wall-time report after "
+                             "execution")
     parser.add_argument("--compile", dest="compile_mode", action="store_true",
                         help="lower the program to the circuit IR and run it "
                              "on the device engine (unitary fragment only)")
+    parser.add_argument("--shard", type=int, default=0, metavar="K",
+                        help="with --compile: shard the register over 2^K "
+                             "devices (not ported yet)")
+    parser.add_argument("--ensemble", action="store_true",
+                        help="enable probabilistic control flow: ProbVal "
+                             "conditions on cjmp/halt/retr fork weighted "
+                             "execution branches")
+    parser.add_argument("--smc", type=int, default=0, metavar="B",
+                        help="with --compile --ensemble: run B sampled SMC "
+                             "particles (not ported yet)")
+    parser.add_argument("--mesh", type=str, default=None, metavar="PxQ",
+                        help="device mesh shape for --shard runs (not "
+                             "ported yet)")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="device of the --compile engine (default cuda; "
                              "cpu runs the kernels' plain PyTorch versions)")
@@ -49,21 +93,68 @@ def _print_outcomes(lp, probs) -> None:
               f"({round(float(p) * 100, 13)}%)")
 
 
+def _not_ported(args) -> str | None:
+    """The message for a flag whose slice has not landed, or None."""
+    if args.backend == "jax":
+        return ("--backend jax: the port has no jax engine and imports no "
+                "jax (ROADMAP, North star); use --backend numpy")
+    if args.smc:
+        return ("--smc is not ported yet (ROADMAP queue 1, item 7: the "
+                "device ensemble and SMC)")
+    if args.shard or args.mesh:
+        return ("--shard and --mesh are not ported yet (ROADMAP queue 1, "
+                "item 10: multi-GPU)")
+    if args.compile_mode and args.ensemble:
+        return ("--compile --ensemble is not ported yet (ROADMAP queue 1, "
+                "item 7: the device ensemble)")
+    return None
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    missing = _not_ported(args)
+    if missing:
+        print(missing, file=sys.stderr)
+        return 1
     path = args.FILE if os.path.isabs(args.FILE) else os.path.join(
         os.getcwd(), args.FILE.lstrip("/"))
     if not os.path.exists(path):
         print(f"File Not Found at Path: \n{path}")
         return 1
 
+    from qbot_tpu_torch.backend import set_backend, set_dtype
     from qbot_tpu_torch.errors import QbotScriptError
     from qbot_tpu_torch.frontend.interpreter import executeFile
+    from qbot_tpu_torch.utils.config import EngineConfig, set_runtime_config
+    from qbot_tpu_torch.utils.profiling import (
+        line_profile_report,
+        profiling_enabled,
+    )
+
+    set_backend(args.backend)
+    set_dtype(args.dtype)
+    set_runtime_config(EngineConfig.from_args(args))
+    if args.precision:
+        from qbot_tpu_torch.tpu.kernels import set_dot_mode
+
+        set_dot_mode(args.precision)
 
     try:
         if not args.compile_mode:
             with open(path, "r") as f:
-                executeFile(f)
+                if args.ensemble:
+                    from qbot_tpu_torch.frontend.ensemble import (
+                        executeTxtEnsemble,
+                    )
+                    runner = lambda: executeTxtEnsemble(f.read())  # noqa: E731
+                else:
+                    runner = lambda: executeFile(f)  # noqa: E731
+                if args.profile:
+                    with profiling_enabled():
+                        runner()
+                    print(line_profile_report(), file=sys.stderr)
+                else:
+                    runner()
             return 0
 
         import torch

@@ -18,6 +18,9 @@
 //   3xTF32 products on the tensor cores;
 // - D1 or D2 in {2, 4}, below the tile's k-step and n-tile of 8:
 //   pair_apply_kernel, FP32 FMAs.
+// Each in the precision of the products the caller asks for (tc_tile.cuh:
+// Prec): F32 for the f32 and f32_mix modes, BF16X3 and BF16 for bf16_3x and
+// bf16, whose FMA variant splits its operands into bf16 parts in registers.
 //
 // The FP32 FMA variant (pair_apply_kernel), bound by the card's 67 TFLOP/s
 // FP32 rate: every output amplitude depends on the whole (D1, D2) slab of
@@ -26,18 +29,21 @@
 // pair: S consecutive a, each slab contiguous in memory, kept row by row.
 // Middle pair: S consecutive b of one a, read and written in runs of S
 // floats (S = 32 at D1 = 4, D2 = 128: 128-byte runs) and kept in that
-// order, b fastest.  The block then runs two GEMMs on the slabs:
-//   phase 1  Y = X W2^T  over the rows (s, j); a row sweep covers every
-//            column l, so it writes Y back over its own rows of X in place;
-//   phase 2  out = W1 Y  over the columns (s, l), stored to device memory.
+// order, b fastest.  The block then runs two GEMMs on the slabs, W1 first,
+// as the reference's pair kernels (so the reduced modes round the same
+// intermediate Y):
+//   phase 1  Y = W1 X  over the columns (s, m); a column sweep covers every
+//            row i, so it writes Y back over its own columns of X in place;
+//   phase 2  out = Y W2^T  over the rows (s, i), stored to device memory.
 // Each thread keeps a TM x TN tile of complex accumulators; its TN columns
 // are two runs of 4, so at the geometries of the 26-qubit paths (FULL: no
-// ragged edge) the column operands and the W1 rows load as float4.  The
-// matrices stream through two shared-memory buffers in BK-deep chunks, the
-// next chunk copied by cp.async while the block computes on the current
-// one; the slab loads LU amplitudes a thread at once.  Rows are padded by 4
-// floats so the row operands of neighbouring threads fall in distinct
-// banks.
+// ragged edge) the column operands and the W1 rows load as float4, and the
+// outputs store as float4 (runs of 4 l, or of 4 s in the middle pair).
+// The matrices stream through two shared-memory buffers in BK-deep chunks,
+// the next chunk copied by cp.async while the block computes on the
+// current one; the slab loads LU amplitudes a thread at once.  Rows are
+// padded by 4 floats so the row operands of neighbouring threads fall in
+// distinct banks.
 #include "pair_tc.cuh"
 
 namespace {
@@ -70,29 +76,67 @@ __device__ __forceinline__ void apply_diagonals(
   }
   for (int p = 0; p < nphases; ++p) {
     if ((m & masks[p]) == wants[p]) {
-      const float zr = phase[p], zi = phase[nphases + p];
-      const float r = xr * zr - xi * zi;
-      const float i = xr * zi + xi * zr;
-      xr = r;
-      xi = i;
+      cmul(xr, xi, phase[p], phase[nphases + p]);
     }
   }
 }
 
+// c += a b, complex, in FP32 FMAs
+__device__ __forceinline__ void cfma(float& cr, float& ci, float ar, float ai,
+                                     float br, float bi) {
+  cr = fmaf(ar, br, cr);
+  cr = fmaf(-ai, bi, cr);
+  ci = fmaf(ar, bi, ci);
+  ci = fmaf(ai, br, ci);
+}
+
+// x = hi + lo of n values, each rounded to bf16
+template <int n>
+__device__ __forceinline__ void split_parts(const float (&x)[n],
+                                            float (&hi)[n], float (&lo)[n]) {
+#pragma unroll
+  for (int k = 0; k < n; ++k) {
+    hi[k] = round_bf16(x[k]);
+    lo[k] = round_bf16(__fsub_rn(x[k], hi[k]));
+  }
+}
+
+// acc += a b over a TM x TN tile: PREC F32 in FP32 FMAs; BF16X3 and BF16
+// split both operands into bf16 parts where they are used (so phase 2
+// splits the FP32 Y anew, as the reference's second _dot does) and sum the
+// products of parts (exact in FP32) by FP32 FMAs: hi hi, hi lo and lo hi,
+// or hi hi
+template <int PREC>
 __device__ __forceinline__ void cmac(float (&acc_r)[TM][TN],
                                      float (&acc_i)[TM][TN],
                                      const float (&ar)[TM],
                                      const float (&ai)[TM],
                                      const float (&br)[TN],
                                      const float (&bi)[TN]) {
+  if constexpr (PREC == F32) {
 #pragma unroll
-  for (int r = 0; r < TM; ++r) {
+    for (int r = 0; r < TM; ++r) {
 #pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      acc_r[r][t] = fmaf(ar[r], br[t], acc_r[r][t]);
-      acc_r[r][t] = fmaf(-ai[r], bi[t], acc_r[r][t]);
-      acc_i[r][t] = fmaf(ar[r], bi[t], acc_i[r][t]);
-      acc_i[r][t] = fmaf(ai[r], br[t], acc_i[r][t]);
+      for (int t = 0; t < TN; ++t)
+        cfma(acc_r[r][t], acc_i[r][t], ar[r], ai[r], br[t], bi[t]);
+    }
+  } else {
+    float arh[TM], arl[TM], aih[TM], ail[TM];
+    float brh[TN], brl[TN], bih[TN], bil[TN];
+    split_parts(ar, arh, arl);
+    split_parts(ai, aih, ail);
+    split_parts(br, brh, brl);
+    split_parts(bi, bih, bil);
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+#pragma unroll
+      for (int t = 0; t < TN; ++t) {
+        cfma(acc_r[r][t], acc_i[r][t], arh[r], aih[r], brh[t], bih[t]);
+        if constexpr (PREC == BF16X3) {
+          cfma(acc_r[r][t], acc_i[r][t], arh[r], aih[r], brl[t], bil[t]);
+          cfma(acc_r[r][t], acc_i[r][t], arl[r], ail[r], brh[t], bih[t]);
+        }
+      }
     }
   }
 }
@@ -131,9 +175,10 @@ __device__ __forceinline__ int col_of(int t, int tx, int nx) {
 // TRAILING: slabs s are consecutive a (B == 1), element (j, m) of slab s at
 // flat index base + s * D1 * D2 + j * D2 + m.  Otherwise slabs are
 // consecutive b, element (j, m) at base + s + (j * D2 + m) * B.  FULL: the
-// geometry has no ragged edge (D2 >= 8, D1 >= 4, S * D1 * D2 >= 8192), so
-// no operand is masked and runs of 4 load as float4.
-template <bool TRAILING, bool FULL>
+// geometry has no ragged edge (D2 >= 8, D1 >= 4, S * D1 * D2 >= 8192, and
+// S >= 4 in the middle pair), so no operand is masked and runs of 4 load
+// and store as float4.
+template <bool TRAILING, bool FULL, int PREC>
 __global__ void __launch_bounds__(NT, 1)
     pair_apply_kernel(const float* __restrict__ psi, float* __restrict__ out,
                       const float* __restrict__ w1,
@@ -210,7 +255,99 @@ __global__ void __launch_bounds__(NT, 1)
 
   float acc_r[TM][TN], acc_i[TM][TN];
 
-  // phase 1: Y[(s, j), l] = sum_m X[(s, j), m] * W2[l, m], in place
+  // phase 1: Y[(s, i), m] = sum_j W1[i, j] * X[(s, j), m], in place
+  {
+    const int cols = S * D2;
+    const int ny_want = D1 / TM > 0 ? D1 / TM : 1;
+    const int ny = ny_want < NT ? ny_want : NT;  // threads along i
+    const int nx = NT / ny;
+    const int tx = tid % nx, ty = tid / nx;
+    // one sweep covers every row i (D1 <= NT TM), so it writes Y back over
+    // its own columns of X in place
+    const int rows_sweep = ny * TM < D1 ? ny * TM : D1;
+    const int kc = D1 < BK ? D1 : BK;
+    for (int c0 = 0; c0 < cols; c0 += nx * TN) {
+      // column c = (s, m): m fastest in the trailing pair, s in the middle
+      // one, so a run of 4 columns is contiguous in shared memory
+      int coff[TN];
+      bool cok[TN];
+#pragma unroll
+      for (int t = 0; t < TN; ++t) {
+        const int c = c0 + col_of(t, tx, nx);
+        const int s = TRAILING ? c >> log_d2 : c & (S - 1);
+        const int m = TRAILING ? c & (D2 - 1) : c >> log_s;
+        cok[t] = FULL || c < cols;
+        coff[t] = s * SS + m * MS;
+      }
+      // chunk c of W1^T: wr[k][i] = W1[i, c * kc + k]
+      auto fetch = [&](int c) {
+        float* wr = wbuf + (c & 1) * WBUF;
+        float* wi = wr + BK * WROW;
+        for (int e = tid; e < kc * rows_sweep; e += NT) {
+          const int k = e % kc, i = e / kc;
+          cp_async4(wr + k * WROW + i, w1 + i * D1 + c * kc + k);
+          cp_async4(wi + k * WROW + i, w1 + D1 * D1 + i * D1 + c * kc + k);
+        }
+        cp_async_commit();
+      };
+      zero(acc_r, acc_i);
+      fetch(0);
+      for (int c = 0; c < D1 / kc; ++c) {
+        if (c + 1 < D1 / kc) {
+          fetch(c + 1);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+        const int j0 = c * kc;
+        const float* wr = wbuf + (c & 1) * WBUF;
+        const float* wi = wr + BK * WROW;
+#pragma unroll 4
+        for (int k = 0; k < kc; ++k) {
+          float ar[TM], ai[TM], br[TN], bi[TN];
+          const int krow = (j0 + k) * JS;
+          if (FULL) {
+            load4(ar, wr + k * WROW + ty * TM);
+            load4(ai, wi + k * WROW + ty * TM);
+            load4(br, xr + coff[0] + krow);
+            load4(br + 4, xr + coff[4] + krow);
+            load4(bi, xi + coff[0] + krow);
+            load4(bi + 4, xi + coff[4] + krow);
+          } else {
+#pragma unroll
+            for (int r = 0; r < TM; ++r) {
+              const bool ok = ty * TM + r < rows_sweep;
+              ar[r] = ok ? wr[k * WROW + ty * TM + r] : 0.f;
+              ai[r] = ok ? wi[k * WROW + ty * TM + r] : 0.f;
+            }
+#pragma unroll
+            for (int t = 0; t < TN; ++t) {
+              br[t] = cok[t] ? xr[coff[t] + krow] : 0.f;
+              bi[t] = cok[t] ? xi[coff[t] + krow] : 0.f;
+            }
+          }
+          cmac<PREC>(acc_r, acc_i, ar, ai, br, bi);
+        }
+        __syncthreads();
+      }
+      // every read of these columns is behind the barrier above
+#pragma unroll
+      for (int r = 0; r < TM; ++r) {
+        const int i = ty * TM + r;
+        if (!FULL && i >= rows_sweep) continue;
+#pragma unroll
+        for (int t = 0; t < TN; ++t) {
+          if (!cok[t]) continue;
+          xr[coff[t] + i * JS] = acc_r[r][t];
+          xi[coff[t] + i * JS] = acc_i[r][t];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // phase 2: out[(s, i), l] = sum_m Y[(s, i), m] * W2[l, m]
   {
     const int nx = D2 >= TN ? D2 / TN : 1;  // threads along l
     const int ny = NT / nx;
@@ -218,15 +355,20 @@ __global__ void __launch_bounds__(NT, 1)
     const int rows = S * D1;
     const int kc = D2 < BK ? D2 : BK;
     for (int r0 = 0; r0 < rows; r0 += ny * TM) {
+      // row (s, i): TM consecutive rows are consecutive i (trailing) or
+      // consecutive s (middle: FULL has S >= TM, so a run of 4 rows is
+      // contiguous in device memory)
       int roff[TM];
+      int64_t rmem[TM];
       bool rok[TM];
 #pragma unroll
       for (int r = 0; r < TM; ++r) {
         const int row = r0 + ty * TM + r;
         const int s = TRAILING ? row >> log_d1 : row & (S - 1);
-        const int j = TRAILING ? row & (D1 - 1) : row >> log_s;
+        const int i = TRAILING ? row & (D1 - 1) : row >> log_s;
         rok[r] = FULL || row < rows;
-        roff[r] = s * SS + j * JS;
+        roff[r] = s * SS + i * JS;
+        rmem[r] = base + s * sl_step + int64_t(i) * D2 * el_step;
       }
       // chunk c of W2^T: wr[k][l] = W2[l, c * kc + k]
       auto fetch = [&](int c) {
@@ -274,128 +416,44 @@ __global__ void __launch_bounds__(NT, 1)
               bi[t] = l < D2 ? wi[k * WROW + l] : 0.f;
             }
           }
-          cmac(acc_r, acc_i, ar, ai, br, bi);
+          cmac<PREC>(acc_r, acc_i, ar, ai, br, bi);
         }
         __syncthreads();
       }
-      // every read of these rows is behind the barrier above
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-#pragma unroll
-        for (int t = 0; t < TN; ++t) {
-          const int l = col_of(t, tx, nx);
-          if (rok[r] && (FULL || l < D2)) {
-            xr[roff[r] + l * MS] = acc_r[r][t];
-            xi[roff[r] + l * MS] = acc_i[r][t];
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // phase 2: out[i, (s, l)] = sum_j W1[i, j] * Y[(s, j), l]
-  {
-    const int cols = S * D2;
-    const int ny_want = D1 / TM > 0 ? D1 / TM : 1;
-    const int ny = ny_want < NT ? ny_want : NT;  // threads along i
-    const int nx = NT / ny;
-    const int tx = tid % nx, ty = tid / nx;
-    const int rows_sweep = ny * TM < D1 ? ny * TM : D1;
-    const int kc = D1 < BK ? D1 : BK;
-    for (int i0 = 0; i0 < D1; i0 += ny * TM) {
-      for (int c0 = 0; c0 < cols; c0 += nx * TN) {
-        // column c = (s, l): l fastest in the trailing pair, s in the
-        // middle one, so a run of 4 columns is contiguous in shared and in
-        // device memory
-        int coff[TN];
-        int64_t cmem[TN];
-        bool cok[TN];
-#pragma unroll
-        for (int t = 0; t < TN; ++t) {
-          const int c = c0 + col_of(t, tx, nx);
-          const int s = TRAILING ? c >> log_d2 : c & (S - 1);
-          const int l = TRAILING ? c & (D2 - 1) : c >> log_s;
-          cok[t] = FULL || c < cols;
-          coff[t] = s * SS + l * MS;
-          cmem[t] = base + s * sl_step + l * el_step;
-        }
-        // chunk c of W1^T: wr[k][i] = W1[i0 + i, c * kc + k]
-        auto fetch = [&](int c) {
-          float* wr = wbuf + (c & 1) * WBUF;
-          float* wi = wr + BK * WROW;
-          for (int e = tid; e < kc * rows_sweep; e += NT) {
-            const int k = e % kc, i = e / kc;
-            cp_async4(wr + k * WROW + i, w1 + (i0 + i) * D1 + c * kc + k);
-            cp_async4(wi + k * WROW + i,
-                      w1 + D1 * D1 + (i0 + i) * D1 + c * kc + k);
-          }
-          cp_async_commit();
-        };
-        zero(acc_r, acc_i);
-        fetch(0);
-        for (int c = 0; c < D1 / kc; ++c) {
-          if (c + 1 < D1 / kc) {
-            fetch(c + 1);
-            cp_async_wait<1>();
-          } else {
-            cp_async_wait<0>();
-          }
-          __syncthreads();
-          const int j0 = c * kc;
-          const float* wr = wbuf + (c & 1) * WBUF;
-          const float* wi = wr + BK * WROW;
-#pragma unroll 4
-          for (int k = 0; k < kc; ++k) {
-            float ar[TM], ai[TM], br[TN], bi[TN];
-            const int krow = (j0 + k) * JS;
-            if (FULL) {
-              load4(ar, wr + k * WROW + ty * TM);
-              load4(ai, wi + k * WROW + ty * TM);
-              load4(br, xr + coff[0] + krow);
-              load4(br + 4, xr + coff[4] + krow);
-              load4(bi, xi + coff[0] + krow);
-              load4(bi + 4, xi + coff[4] + krow);
-            } else {
-#pragma unroll
-              for (int r = 0; r < TM; ++r) {
-                const bool ok = ty * TM + r < rows_sweep;
-                ar[r] = ok ? wr[k * WROW + ty * TM + r] : 0.f;
-                ai[r] = ok ? wi[k * WROW + ty * TM + r] : 0.f;
-              }
-#pragma unroll
-              for (int t = 0; t < TN; ++t) {
-                br[t] = cok[t] ? xr[coff[t] + krow] : 0.f;
-                bi[t] = cok[t] ? xi[coff[t] + krow] : 0.f;
-              }
-            }
-            cmac(acc_r, acc_i, ar, ai, br, bi);
-          }
-          __syncthreads();
-        }
+      if (FULL && TRAILING) {
+        // runs of 4 l
 #pragma unroll
         for (int r = 0; r < TM; ++r) {
-          const int i = i0 + ty * TM + r;
-          if (!FULL && ty * TM + r >= rows_sweep) continue;
-          const int64_t irow = int64_t(i) * D2 * el_step;
-          if (FULL) {
 #pragma unroll
-            for (int g = 0; g < TN; g += 4) {
-              const int64_t m = cmem[g] + irow;
-              *reinterpret_cast<float4*>(out + m) = make_float4(
-                  acc_r[r][g], acc_r[r][g + 1], acc_r[r][g + 2],
-                  acc_r[r][g + 3]);
-              *reinterpret_cast<float4*>(out + n_amps + m) = make_float4(
-                  acc_i[r][g], acc_i[r][g + 1], acc_i[r][g + 2],
-                  acc_i[r][g + 3]);
-            }
-          } else {
+          for (int g = 0; g < TN; g += 4) {
+            const int64_t m = rmem[r] + col_of(g, tx, nx);
+            *reinterpret_cast<float4*>(out + m) = make_float4(
+                acc_r[r][g], acc_r[r][g + 1], acc_r[r][g + 2],
+                acc_r[r][g + 3]);
+            *reinterpret_cast<float4*>(out + n_amps + m) = make_float4(
+                acc_i[r][g], acc_i[r][g + 1], acc_i[r][g + 2],
+                acc_i[r][g + 3]);
+          }
+        }
+      } else if (FULL) {
+        // runs of 4 s
 #pragma unroll
-            for (int t = 0; t < TN; ++t) {
-              if (!cok[t]) continue;
-              out[cmem[t] + irow] = acc_r[r][t];
-              out[n_amps + cmem[t] + irow] = acc_i[r][t];
-            }
+        for (int t = 0; t < TN; ++t) {
+          const int64_t m = rmem[0] + col_of(t, tx, nx) * el_step;
+          *reinterpret_cast<float4*>(out + m) = make_float4(
+              acc_r[0][t], acc_r[1][t], acc_r[2][t], acc_r[3][t]);
+          *reinterpret_cast<float4*>(out + n_amps + m) = make_float4(
+              acc_i[0][t], acc_i[1][t], acc_i[2][t], acc_i[3][t]);
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+#pragma unroll
+          for (int t = 0; t < TN; ++t) {
+            const int l = col_of(t, tx, nx);
+            if (!rok[r] || l >= D2) continue;
+            out[rmem[r] + l * el_step] = acc_r[r][t];
+            out[n_amps + rmem[r] + l * el_step] = acc_i[r][t];
           }
         }
       }
@@ -409,7 +467,7 @@ int smem_bytes(bool trailing, int log_d1, int log_d2, int log_s) {
   return static_cast<int>(sizeof(float)) * (2 * plane + 2 * WBUF);
 }
 
-template <bool TRAILING, bool FULL>
+template <bool TRAILING, bool FULL, int PREC>
 int launch(const float* psi, float* out, const float* w1, const float* w2,
            int64_t n_amps, int log_d1, int log_d2, int log_b, int log_s,
            int64_t blocks, const int64_t* flips, int nflips,
@@ -419,17 +477,17 @@ int launch(const float* psi, float* out, const float* w1, const float* w2,
   // (a per-device attribute, so set at every launch)
   const int smem = smem_bytes(TRAILING, log_d1, log_d2, log_s);
   const cudaError_t err = cudaFuncSetAttribute(
-      pair_apply_kernel<TRAILING, FULL>,
+      pair_apply_kernel<TRAILING, FULL, PREC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pair_apply_kernel<TRAILING, FULL>
+  pair_apply_kernel<TRAILING, FULL, PREC>
       <<<static_cast<unsigned>(blocks), NT, smem, stream>>>(
           psi, out, w1, w2, n_amps, log_d1, log_d2, log_b, log_s, flips,
           nflips, masks, wants, phase, nphases);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool TRAILING>
+template <bool TRAILING, int PREC>
 int launch_geometry(bool full, const float* psi, float* out, const float* w1,
                     const float* w2, int64_t n_amps, int log_d1, int log_d2,
                     int log_b, int log_s, int64_t blocks,
@@ -437,12 +495,14 @@ int launch_geometry(bool full, const float* psi, float* out, const float* w1,
                     const int64_t* wants, const float* phase, int nphases,
                     cudaStream_t stream) {
   if (full)
-    return launch<TRAILING, true>(psi, out, w1, w2, n_amps, log_d1, log_d2,
-                                  log_b, log_s, blocks, flips, nflips, masks,
-                                  wants, phase, nphases, stream);
-  return launch<TRAILING, false>(psi, out, w1, w2, n_amps, log_d1, log_d2,
-                                 log_b, log_s, blocks, flips, nflips, masks,
-                                 wants, phase, nphases, stream);
+    return launch<TRAILING, true, PREC>(psi, out, w1, w2, n_amps, log_d1,
+                                        log_d2, log_b, log_s, blocks, flips,
+                                        nflips, masks, wants, phase, nphases,
+                                        stream);
+  return launch<TRAILING, false, PREC>(psi, out, w1, w2, n_amps, log_d1,
+                                       log_d2, log_b, log_s, blocks, flips,
+                                       nflips, masks, wants, phase, nphases,
+                                       stream);
 }
 
 int log2_floor(int64_t x) {
@@ -451,48 +511,37 @@ int log2_floor(int64_t x) {
   return k;
 }
 
+template <int PREC>
 int launch_tc_any(int log_d1, bool middle, const PairArgs& args) {
   if (middle) {
     switch (log_d1) {
-      case 3: return pair_tc_launch<8, true>(args);
-      case 4: return pair_tc_launch<16, true>(args);
-      case 5: return pair_tc_launch<32, true>(args);
+      case 3: return pair_tc_launch<8, true, PREC>(args);
+      case 4: return pair_tc_launch<16, true, PREC>(args);
+      case 5: return pair_tc_launch<32, true, PREC>(args);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   switch (log_d1) {
-    case 3: return pair_tc_launch<8, false>(args);
-    case 4: return pair_tc_launch<16, false>(args);
-    case 5: return pair_tc_launch<32, false>(args);
-    case 6: return pair_tc_launch<64, false>(args);
-    case 7: return pair_tc_launch<128, false>(args);
+    case 3: return pair_tc_launch<8, false, PREC>(args);
+    case 4: return pair_tc_launch<16, false, PREC>(args);
+    case 5: return pair_tc_launch<32, false, PREC>(args);
+    case 6: return pair_tc_launch<64, false, PREC>(args);
+    case 7: return pair_tc_launch<128, false, PREC>(args);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-}  // namespace
-
-// psi, out: (2, n_amps) float32, 16-byte aligned; w1: (2, D1, D1), w2:
-// (2, D2, D2) float32, w1 16-byte aligned, with Di = 2^log_di; B = 2^log_b.
-// B == 1 runs the trailing pair, B >= 128 with D1 <= 32 the middle pair;
-// other geometries are refused (the caller runs two windows).  Returns the
-// launch's cudaGetLastError().
-extern "C" int qbot_pair_apply(const float* psi, float* out, const float* w1,
-                               const float* w2, int64_t n_amps, int log_d1,
-                               int log_d2, int log_b, const int64_t* flips,
-                               int nflips, const int64_t* masks,
-                               const int64_t* wants, const float* phase,
-                               int nphases, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (log_d1 < 1 || log_d1 > 7 || log_d2 < 1 || log_d2 > 7 ||
-      (n_amps >> (log_d1 + log_d2 + log_b)) < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (log_b != 0 && (log_b < 7 || log_d1 > 5))
-    return static_cast<int>(cudaErrorInvalidValue);
+template <int PREC>
+int launch_pair(const float* psi, float* out, const float* w1,
+                const float* w2, int64_t n_amps, int log_d1, int log_d2,
+                int log_b, const int64_t* flips, int nflips,
+                const int64_t* masks, const int64_t* wants,
+                const float* phase, int nphases, cudaStream_t s) {
   if (log_d1 >= 3 && log_d2 >= 3) {
-    return launch_tc_any(log_d1, log_b != 0,
-                         {psi, out, w1, w2, n_amps, log_d2, log_b, flips,
-                          nflips, masks, wants, phase, nphases, s});
+    return launch_tc_any<PREC>(log_d1, log_b != 0,
+                               {psi, out, w1, w2, n_amps, log_d2, log_b,
+                                flips, nflips, masks, wants, phase, nphases,
+                                s});
   }
   const int log_a = log2_floor(n_amps) - log_d1 - log_d2 - log_b;
   // slabs a block holds: up to MAX_TILE amplitudes and MAX_S slabs
@@ -505,14 +554,52 @@ extern "C" int qbot_pair_apply(const float* psi, float* out, const float* w1,
          smem_bytes(log_b == 0, log_d1, log_d2, log_s) > MAX_SMEM)
     --log_s;
   const bool full = log_d2 >= 3 && log_d1 >= 2 &&
-                    log_s + log_d1 + log_d2 >= 13;
+                    log_s + log_d1 + log_d2 >= 13 &&
+                    (log_b == 0 || log_s >= 2);
   if (log_b == 0)
-    return launch_geometry<true>(full, psi, out, w1, w2, n_amps, log_d1,
-                                 log_d2, 0, log_s,
-                                 int64_t(1) << (log_a - log_s), flips, nflips,
-                                 masks, wants, phase, nphases, s);
-  return launch_geometry<false>(full, psi, out, w1, w2, n_amps, log_d1,
-                                log_d2, log_b, log_s,
-                                int64_t(1) << (log_a + log_b - log_s), flips,
-                                nflips, masks, wants, phase, nphases, s);
+    return launch_geometry<true, PREC>(
+        full, psi, out, w1, w2, n_amps, log_d1, log_d2, 0, log_s,
+        int64_t(1) << (log_a - log_s), flips, nflips, masks, wants, phase,
+        nphases, s);
+  return launch_geometry<false, PREC>(
+      full, psi, out, w1, w2, n_amps, log_d1, log_d2, log_b, log_s,
+      int64_t(1) << (log_a + log_b - log_s), flips, nflips, masks, wants,
+      phase, nphases, s);
+}
+
+}  // namespace
+
+// psi, out: (2, n_amps) float32, 16-byte aligned; w1: (2, D1, D1), w2:
+// (2, D2, D2) float32, w2 16-byte aligned, with Di = 2^log_di; B = 2^log_b;
+// prec: the precision of the products (tc_tile.cuh: Prec).  B == 1 runs the
+// trailing pair, B >= 128 with D1 <= 32 the middle pair; other geometries
+// are refused (the caller runs two windows).  Returns the launch's
+// cudaGetLastError().
+extern "C" int qbot_pair_apply(const float* psi, float* out, const float* w1,
+                               const float* w2, int64_t n_amps, int log_d1,
+                               int log_d2, int log_b, const int64_t* flips,
+                               int nflips, const int64_t* masks,
+                               const int64_t* wants, const float* phase,
+                               int nphases, int prec, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (log_d1 < 1 || log_d1 > 7 || log_d2 < 1 || log_d2 > 7 ||
+      (n_amps >> (log_d1 + log_d2 + log_b)) < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (log_b != 0 && (log_b < 7 || log_d1 > 5))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (prec) {
+    case F32:
+      return launch_pair<F32>(psi, out, w1, w2, n_amps, log_d1, log_d2,
+                              log_b, flips, nflips, masks, wants, phase,
+                              nphases, s);
+    case BF16X3:
+      return launch_pair<BF16X3>(psi, out, w1, w2, n_amps, log_d1, log_d2,
+                                 log_b, flips, nflips, masks, wants, phase,
+                                 nphases, s);
+    case BF16:
+      return launch_pair<BF16>(psi, out, w1, w2, n_amps, log_d1, log_d2,
+                               log_b, flips, nflips, masks, wants, phase,
+                               nphases, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -101,6 +101,9 @@ def _to_density(lines, line_num, val):
                              type(val).__name__)
     if val.ndim == 1 and val.size:
         val = core.ket_to_density(val, xp=backend.xp())
+    dt = backend.dtype_override()
+    if dt is not None and val.size and val.dtype != dt:
+        val = val.astype(dt)
     return val
 
 

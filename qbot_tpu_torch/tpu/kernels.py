@@ -5,7 +5,14 @@ Port of :mod:`qbot_tpu.tpu.kernels` (the forward window, pair and
 reflection kernels).  Each wrapper dispatches on the device of the state it
 is given: a CPU tensor goes through the plain PyTorch version beside it, a
 CUDA tensor launches the kernel from ``qbot_tpu_torch/csrc/`` or raises.
-There is no fallback and no mode switch.
+There is no fallback.
+
+The window and pair products run in the dot mode of :func:`set_dot_mode`,
+the reference's ``--precision`` (``qbot_tpu/tpu/kernels.py:41-71``):
+``f32`` and ``f32_mix`` in full float32 (the kernels' 3xTF32 tile),
+``bf16_3x`` as three bfloat16 products of a hi/lo split, ``bf16`` as one.
+The plain versions compute each mode as the reference's ``_dot`` does; a
+CUDA tensor launches the kernel of the mode, never another.
 
 The kernels are CUDA C++ for ``sm_90a`` with a plain C interface, compiled
 by ``nvcc`` at first use (one process per source, all at once, then one
@@ -14,10 +21,11 @@ link) into ``qbot_tpu_torch/_build/<hash of the sources>/`` and loaded with
 and allocate nothing: the wrappers allocate outputs and scratch with
 ``torch.empty``.
 
-Every wrapper counts its launches in an integer attribute (``launches``)
-so a run can show that it went through the kernel.  ``window_apply`` and
-``pair_apply`` count their trailing launches (B = 1, the role of the TPU's
-``_right_multiply`` and ``_pair_b1``) apart, in ``trailing_launches``.
+Every wrapper counts its launches (:func:`launch_counts`) so a run can
+show that it went through the kernel.  ``window_apply`` and ``pair_apply``
+count their trailing launches (B = 1, the role of the TPU's
+``_right_multiply`` and ``_pair_b1``) apart, and the launches of each
+reduced mode apart, as ``window_apply[bf16_3x]`` and so on.
 """
 from __future__ import annotations
 
@@ -34,7 +42,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-__all__ = ["FusedDiagonals", "fused_diagonals", "phase_bits",
+__all__ = ["set_dot_mode", "dot_mode", "DOT_MODES",
+           "FusedDiagonals", "fused_diagonals", "phase_bits",
            "window_apply", "window_apply_ref",
            "pair_apply", "pair_apply_ref", "pair_route",
            "reflect_dot", "reflect_dot_ref",
@@ -48,6 +57,42 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC"]
 
 _lib = None
+
+# The sources nvcc compiles once per variant, with the variant's -D defines
+# (csrc/window_tc.cu, csrc/pair_tc.cu): the tensor-core window once per
+# precision of the products (csrc/tc_tile.cuh: Prec), the tensor-core pair
+# once per D1, orientation and precision, so that the longest compiles of
+# the library run side by side.  Every other source compiles once.
+_PRECS = (0, 1, 2)
+_VARIANTS = {
+    "window_tc.cu": [{"QBOT_PREC": p} for p in _PRECS],
+    "pair_tc.cu": [{"QBOT_D1": d1, "QBOT_MIDDLE": middle, "QBOT_PREC": p}
+                   for p in _PRECS
+                   for middle, widths in ((0, (8, 16, 32, 64, 128)),
+                                          (1, (8, 16, 32)))
+                   for d1 in widths],
+}
+
+# The dot modes of qbot_tpu/tpu/kernels.py:41-52, and the precision of the
+# products each launches (csrc/tc_tile.cuh: Prec): f32_mix is a dot-engine
+# policy, and the reference's kernels run it in full f32 (:56-60)
+DOT_MODES = ("f32", "f32_mix", "bf16_3x", "bf16")
+_PREC = {"f32": 0, "f32_mix": 0, "bf16_3x": 1, "bf16": 2}
+REDUCED_MODES = ("bf16_3x", "bf16")
+_DOT_MODE = "f32"
+
+
+def set_dot_mode(mode: str) -> None:
+    """Select the precision of the window and pair products (the CLI's
+    ``--precision``), for the kernels and their plain versions alike."""
+    global _DOT_MODE
+    if mode not in DOT_MODES:
+        raise ValueError(f"unknown dot mode {mode!r}")
+    _DOT_MODE = mode
+
+
+def dot_mode() -> str:
+    return _DOT_MODE
 
 
 # ---------------------------------------------------------------------------
@@ -71,6 +116,7 @@ def _build_dir() -> Path:
     nvcc flags and of every file nvcc reads (the ``*.cu`` sources and the
     ``*.cuh`` headers they include), so an edited header rebuilds too."""
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    h.update(repr(sorted(_VARIANTS.items())).encode())
     for src in sorted([*_CSRC.glob("*.cu"), *_CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -79,11 +125,11 @@ def _build_dir() -> Path:
 
 def build_kernels() -> Path:
     """Compile ``csrc/*.cu`` into one shared library (once per source hash,
-    :func:`_build_dir`) and return its path.  The sources compile in
-    parallel, one nvcc each; ptxas's register and spill report of every
+    :func:`_build_dir`) and return its path.  The objects compile in
+    parallel, one nvcc each: one per source, or one per variant of the
+    sources of :data:`_VARIANTS`; ptxas's register and spill report of every
     kernel goes to ``ptxas.log`` beside the library.  A failed build raises
     with nvcc's stderr."""
-    sources = sorted(_CSRC.glob("*.cu"))
     out_dir = _build_dir()
     lib_path = out_dir / "libqbot_tpu_torch.so"
     if lib_path.exists():
@@ -92,10 +138,17 @@ def build_kernels() -> Path:
     # build under a private name, then rename: concurrent builders never
     # load a half-written library
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        objs = [Path(tmp) / f"{src.stem}.o" for src in sources]
-        logs = _run_nvcc([[_nvcc(), *_NVCC_FLAGS, "-Xptxas", "-v", "-c",
-                           "-o", str(obj), str(src)]
-                          for src, obj in zip(sources, objs)])
+        cmds, objs = [], []
+        for src in sorted(_CSRC.glob("*.cu")):
+            for defines in _VARIANTS.get(src.name, [{}]):
+                obj = Path(tmp) / "_".join(
+                    [src.stem, *(str(v) for v in defines.values())])
+                objs.append(obj.with_suffix(".o"))
+                cmds.append([_nvcc(), *_NVCC_FLAGS,
+                             *(f"-D{k}={v}" for k, v in defines.items()),
+                             "-Xptxas", "-v", "-c", "-o", str(objs[-1]),
+                             str(src)])
+        logs = _run_nvcc(cmds)
         (out_dir / "ptxas.log").write_text("".join(logs))
         lib_tmp = Path(tmp) / lib_path.name
         _run_nvcc([[_nvcc(), *_NVCC_FLAGS, "-shared", "-o", str(lib_tmp),
@@ -129,10 +182,10 @@ def _library():
     lib = ctypes.CDLL(str(build_kernels()))
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.qbot_window_apply.argtypes = [p, p, p, i64, i32, i32, p, i32,
-                                      p, p, p, i32, p]
+                                      p, p, p, i32, i32, p]
     lib.qbot_window_apply.restype = i32
     lib.qbot_pair_apply.argtypes = [p, p, p, p, i64, i32, i32, i32,
-                                    p, i32, p, p, p, i32, p]
+                                    p, i32, p, p, p, i32, i32, p]
     lib.qbot_pair_apply.restype = i32
     lib.qbot_reflect_dot.argtypes = [p, p, i64, i64, i64, i32, p, p, p]
     lib.qbot_reflect_dot.restype = i32
@@ -168,23 +221,32 @@ def _fp32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+# launch counts: one per TPU kernel replaced (window_apply and pair_apply
+# with B > 1 and with B = 1 apart), and one per reduced mode of each of the
+# four that run the products
+_PRODUCT_COUNTS = ("window_apply", "window_apply_trailing", "pair_apply",
+                   "pair_apply_trailing")
+LAUNCH_COUNTS = (
+    "window_apply", "window_apply_trailing", "reflect_dot", "reflect_update",
+    "pair_apply", "pair_apply_trailing",
+    *(f"{name}[{mode}]" for mode in REDUCED_MODES for name in _PRODUCT_COUNTS))
+_launches: dict = {}
+
+
 def reset_launch_counts() -> None:
-    for fn in (window_apply, pair_apply, reflect_dot, reflect_update):
-        fn.launches = 0
-    window_apply.trailing_launches = 0
-    pair_apply.trailing_launches = 0
+    _launches.update(dict.fromkeys(LAUNCH_COUNTS, 0))
 
 
 def launch_counts() -> dict:
-    """Kernel launches since the last reset, one count per TPU kernel
-    replaced: window_apply and pair_apply with B > 1 and with B = 1 count
-    apart."""
-    return {"window_apply": window_apply.launches,
-            "window_apply_trailing": window_apply.trailing_launches,
-            "reflect_dot": reflect_dot.launches,
-            "reflect_update": reflect_update.launches,
-            "pair_apply": pair_apply.launches,
-            "pair_apply_trailing": pair_apply.trailing_launches}
+    """Kernel launches since the last reset, by :data:`LAUNCH_COUNTS`."""
+    return dict(_launches)
+
+
+def _count(name: str) -> None:
+    """One launch of ``name`` in the current dot mode (the f32 and f32_mix
+    launches run one kernel, counted under the plain name)."""
+    mode = _DOT_MODE
+    _launches[name if _PREC[mode] == 0 else f"{name}[{mode}]"] += 1
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -296,17 +358,51 @@ def _check_diag(diag: FusedDiagonals, device) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the products of a dot mode: qbot_tpu/tpu/kernels.py:55-71
+# ---------------------------------------------------------------------------
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (to nearest even), in x's dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _mode_einsum(spec: str, a, b, mode: str):
+    """``torch.einsum(spec, a, b)`` with the products of ``mode``, as the
+    reference's ``_dot``: full precision (f32, f32_mix); both operands split
+    as hi = bf16(x), lo = bf16(x − hi), summed as hi·hi + hi·lo + lo·hi
+    (bf16_3x); both rounded to bf16, one product (bf16).  Products of
+    bf16 values are exact in float32, their sums float32's."""
+    if _PREC[mode] == 0:
+        return torch.einsum(spec, a, b)
+    ah, bh = _bf16(a), _bf16(b)
+    if mode == "bf16":
+        return torch.einsum(spec, ah, bh)
+    al, bl = _bf16(a - ah), _bf16(b - bh)
+    return (torch.einsum(spec, ah, bh) + torch.einsum(spec, ah, bl)
+            + torch.einsum(spec, al, bh))
+
+
+def _resolve_mode(mode) -> str:
+    if mode is None:
+        return _DOT_MODE
+    _require(mode in DOT_MODES, f"unknown dot mode {mode!r}")
+    return mode
+
+
+# ---------------------------------------------------------------------------
 # window: out[a, i, b] = Σ_j W[i, j] · (Φ F p)[a, j, b]
 # ---------------------------------------------------------------------------
 
 def window_apply_ref(psi, n: int, start: int, width: int, w,
-                     diag: FusedDiagonals):
-    """Plain version of :func:`window_apply`."""
+                     diag: FusedDiagonals, mode=None):
+    """Plain version of :func:`window_apply`, in dot mode ``mode`` (default
+    the current one)."""
+    mode = _resolve_mode(mode)
     A, D = 2**start, 2**width
     x = _apply_diagonals_ref(psi, diag).reshape(2, A, D, -1)
     with _fp32_matmul():
         def mm(W, p):
-            return torch.einsum("ij,ajb->aib", W, p)
+            return _mode_einsum("ij,ajb->aib", W, p, mode)
 
         out_r = mm(w[0], x[0]) - mm(w[1], x[1])
         out_i = mm(w[0], x[1]) + mm(w[1], x[0])
@@ -317,7 +413,8 @@ def window_apply(psi, n: int, start: int, width: int, w,
                  diag: FusedDiagonals):
     """Apply a (2, D, D) planar window unitary to qubits
     [start, start + width) of a (2, 2^n) planar float32 state, after the
-    fused flips and phases of ``diag``.  Out of place."""
+    fused flips and phases of ``diag``, with the products of the current
+    dot mode.  Out of place."""
     _require(1 <= width <= 7 and 0 <= start and start + width <= n,
              f"window [{start}, {start + width}) does not fit 1..7 qubits "
              f"of a {n}-qubit register")
@@ -335,12 +432,10 @@ def window_apply(psi, n: int, start: int, width: int, w,
             psi.data_ptr(), out.data_ptr(), w.data_ptr(), 2**n, width,
             n - start - width, diag.flips.data_ptr(), diag.flips.numel(),
             diag.mask.data_ptr(), diag.want.data_ptr(),
-            diag.phase.data_ptr(), diag.mask.numel(), _stream(psi))
+            diag.phase.data_ptr(), diag.mask.numel(), _PREC[_DOT_MODE],
+            _stream(psi))
     _check_launch(lib, rc, "window_apply")
-    if start + width == n:
-        window_apply.trailing_launches += 1
-    else:
-        window_apply.launches += 1
+    _count("window_apply_trailing" if start + width == n else "window_apply")
     return out
 
 
@@ -349,14 +444,18 @@ def window_apply(psi, n: int, start: int, width: int, w,
 # ---------------------------------------------------------------------------
 
 def pair_apply_ref(psi, n: int, start: int, width1: int, width2: int, w1, w2,
-                   diag: FusedDiagonals):
-    """Plain version of :func:`pair_apply`, for every geometry."""
+                   diag: FusedDiagonals, mode=None):
+    """Plain version of :func:`pair_apply`, for every geometry, in dot mode
+    ``mode`` (default the current one).  W1 goes first, Y = W1·(ΦF X), as
+    in the reference (``qbot_tpu/tpu/kernels.py:341-348, 407-416``) and the
+    kernels; the second product splits the float32 intermediate Y anew."""
+    mode = _resolve_mode(mode)
     A, D1, D2 = 2**start, 2**width1, 2**width2
     x = _apply_diagonals_ref(psi, diag).reshape(2, A, D1, D2, -1)
     with _fp32_matmul():
         def cmm(spec, w, xr, xi):
             def mm(a, b):
-                return torch.einsum(spec, a, b)
+                return _mode_einsum(spec, a, b, mode)
 
             return (mm(w[0], xr) - mm(w[1], xi), mm(w[0], xi) + mm(w[1], xr))
 
@@ -383,14 +482,16 @@ def pair_apply(psi, n: int, start: int, width1: int, width2: int, w1, w2,
     """Apply (2, D1, D1) and (2, D2, D2) planar window unitaries to the
     adjacent windows [start, start + width1) and [start + width1,
     start + width1 + width2) of a (2, 2^n) planar float32 state, in one
-    pass, after the fused flips and phases of ``diag``.  Out of place.
+    pass, after the fused flips and phases of ``diag``, with the products
+    of the current dot mode.  Out of place.
 
     On a CUDA tensor, :func:`pair_route` picks the trailing or the middle
     pair kernel, or two :func:`window_apply` launches with the diagonals
     fused into the first (counted as window launches).  The trailing and
-    middle pairs at D1, D2 >= 8 run on the tensor cores (3xTF32,
-    ``csrc/pair_tc.cuh``), narrower widths in FP32 FMAs
-    (``csrc/pair_apply.cu``).
+    middle pairs at D1, D2 >= 8 run on the tensor cores (3xTF32, or BF16 in
+    the reduced modes, ``csrc/pair_tc.cuh``), narrower widths in FP32 FMAs
+    (``csrc/pair_apply.cu``); both apply W1 first, as the plain version
+    does.
     """
     _require(1 <= width1 <= 7 and 1 <= width2 <= 7 and 0 <= start
              and start + width1 + width2 <= n,
@@ -409,8 +510,8 @@ def pair_apply(psi, n: int, start: int, width1: int, width2: int, w1, w2,
         psi = window_apply(psi, n, start, width1, w1, diag)
         return window_apply(psi, n, start + width1, width2, w2,
                             fused_diagonals(n, device=psi.device))
-    _require(psi.data_ptr() % 16 == 0 and w1.data_ptr() % 16 == 0,
-             "psi and w1 must be 16-byte aligned")
+    _require(psi.data_ptr() % 16 == 0 and w2.data_ptr() % 16 == 0,
+             "psi and w2 must be 16-byte aligned")
     lib = _library()
     out = torch.empty_like(psi)
     with torch.cuda.device(psi.device):
@@ -419,12 +520,9 @@ def pair_apply(psi, n: int, start: int, width1: int, width2: int, w1, w2,
             2**n, width1, width2, n - start - width1 - width2,
             diag.flips.data_ptr(), diag.flips.numel(), diag.mask.data_ptr(),
             diag.want.data_ptr(), diag.phase.data_ptr(), diag.mask.numel(),
-            _stream(psi))
+            _PREC[_DOT_MODE], _stream(psi))
     _check_launch(lib, rc, "pair_apply")
-    if route == "trailing":
-        pair_apply.trailing_launches += 1
-    else:
-        pair_apply.launches += 1
+    _count("pair_apply_trailing" if route == "trailing" else "pair_apply")
     return out
 
 
@@ -484,7 +582,7 @@ def reflect_dot(psi, a, b):
                                   chunks, partial.data_ptr(), d.data_ptr(),
                                   _stream(psi))
     _check_launch(lib, rc, "reflect_dot")
-    reflect_dot.launches += 1
+    _launches["reflect_dot"] += 1
     return d
 
 
@@ -525,7 +623,7 @@ def reflect_update(psi, c, a, b, flips):
             c.data_ptr(), flips.data_ptr(), flips.numel(), H, T, rows,
             chunks, partial.data_ptr(), d.data_ptr(), _stream(psi))
     _check_launch(lib, rc, "reflect_update")
-    reflect_update.launches += 1
+    _launches["reflect_update"] += 1
     return out, d
 
 

@@ -9,10 +9,14 @@ flip and contraction steps are plain PyTorch, as they are XLA outside
 Pallas in the JAX package.  Every step is out of place: the caller's state
 is never written.
 
-Not ported yet: parameterised gates and ``renorm_every`` (they raise
-``NotImplementedError`` naming the ROADMAP item that brings them), the
-precision modes (every product is full float32 or its 3xTF32 split), and
-the dot engine (every plan runs on the window and pair kernels).
+The window and pair products run in the dot mode of
+:func:`qbot_tpu_torch.tpu.kernels.set_dot_mode` (the CLI's
+``--precision``); the reduced modes shrink the norm a little every pass,
+and :func:`make_scanned_planar_runner`'s ``renorm_every`` renormalises.
+
+Not ported yet: parameterised gates (they raise ``NotImplementedError``
+naming the ROADMAP item that brings them) and the dot engine (every plan
+runs on the window and pair kernels, ``f32_mix`` as full float32).
 """
 from __future__ import annotations
 
@@ -48,10 +52,6 @@ __all__ = ["zero_state_planar", "to_planar", "from_planar",
            "planar_density_probs"]
 
 REAL_DTYPE = torch.float32
-
-_RENORM_TODO = ("renorm_every is not ported yet (ROADMAP queue 1, item 5: "
-                "precision modes and renormalisation)")
-
 
 # ---------------------------------------------------------------------------
 # states
@@ -341,30 +341,41 @@ def apply_plan_planar_ref(psi: torch.Tensor, plan: Plan) -> torch.Tensor:
     return _run(psi, _step_fns(plan, psi.device, _PLAIN))
 
 
+def _renormalize(psi: torch.Tensor) -> torch.Tensor:
+    """ψ/√⟨ψ|ψ⟩, the norm summed in float64 (float32 sums of 2^n nearly
+    equal terms are biased)."""
+    norm2 = torch.sum(torch.square(psi), dtype=torch.float64)
+    return psi * torch.rsqrt(norm2).to(psi.dtype)
+
+
 def make_scanned_planar_runner(body_plan: Plan, repeats: int,
                                init_plan: Optional[Plan] = None,
                                renorm_every: int = 0):
     """``run(psi)`` applying ``init_plan`` once, then ``body_plan``
-    ``repeats`` times.
+    ``repeats`` times, renormalising ψ after every ``renorm_every``-th body
+    when it is set (``qbot_tpu/tpu/planar.py:767-803``: the remedy for the
+    norm drift of the reduced dot modes).
 
-    A body that is one ReflectStep (Grover's oracle and diffusion) runs one
-    ``reflect_dot`` prologue, then one ``reflect_update`` per iteration:
-    each update also returns the lane dot of its result, from which the
-    next ⟨v|Fψ⟩ is formed on the device, so the loop never waits for the
-    host.  Other bodies loop over :func:`apply_plan_planar`.
+    A body that is one ReflectStep (Grover's oracle and diffusion), without
+    ``renorm_every``, runs one ``reflect_dot`` prologue, then one
+    ``reflect_update`` per iteration: each update also returns the lane dot
+    of its result, from which the next ⟨v|Fψ⟩ is formed on the device, so
+    the loop never waits for the host.  Other bodies loop over
+    :func:`apply_plan_planar`.
     """
-    if renorm_every:
-        raise NotImplementedError(_RENORM_TODO)
     reflect_body = (len(body_plan.steps) == 1
-                    and isinstance(body_plan.steps[0], ReflectStep))
+                    and isinstance(body_plan.steps[0], ReflectStep)
+                    and not renorm_every)
 
     def run(psi: torch.Tensor) -> torch.Tensor:
         if init_plan is not None:
             psi = apply_plan_planar(psi, init_plan)
         if not reflect_body:
             fns = _step_fns(body_plan, psi.device, _KERNELS)
-            for _ in range(repeats):
+            for i in range(repeats):
                 psi = _run(psi, fns)
+                if renorm_every and (i + 1) % renorm_every == 0:
+                    psi = _renormalize(psi)
             return psi
         refl = _Reflection(body_plan.steps[0], psi.device)
         p3 = psi.reshape(2, refl.H, refl.T)

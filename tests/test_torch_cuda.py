@@ -8,7 +8,12 @@ neither JAX nor ``qbot_tpu``, so it also runs on a machine without them:
 Tolerance: relative L2 error 1e-5 (float32 sums of up to 128 products, two
 such sums for a pair, or row partials, taken in another order than the
 plain version's); the 3xTF32 trailing and middle pairs also within 2e-6 of
-a float64 product of the same inputs (chip_smoke.py's F64_TOL).
+a float64 product of the same inputs (chip_smoke.py's F64_TOL).  In the
+reduced dot modes each kernel is held to its plain version in the same mode
+at 1e-5 (a bf16 pair at 1e-4: it rounds its float32 Y to bf16 a second
+time, so a one-ulp difference in Y moves a rounding by 2^-8), and to a
+float64 product at 2e-5 (bf16_3x) and 1e-2 (bf16), chip_smoke.py's
+limits.
 """
 import numpy as np
 import pytest
@@ -22,6 +27,8 @@ pytestmark = pytest.mark.cuda
 
 TOL = 1e-5
 F64_TOL = 2e-6
+# reduced dot mode -> (window vs plain, pair vs plain, vs float64)
+MODE_TOL = {"bf16_3x": (1e-5, 1e-5, 2e-5), "bf16": (1e-5, 1e-4, 1e-2)}
 
 
 @pytest.fixture
@@ -29,6 +36,16 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda", 0)
+
+
+@pytest.fixture(params=list(MODE_TOL))
+def reduced_mode(request):
+    """A reduced dot mode for the test, f32 again after it."""
+    kernels.set_dot_mode(request.param)
+    try:
+        yield request.param
+    finally:
+        kernels.set_dot_mode("f32")
 
 
 def rel_l2(got, want):
@@ -333,3 +350,77 @@ def test_grover_loop_on_card(cuda):
     p = float(planar.planar_probs(out)[marked])
     want = np.sin((2 * repeats + 1) * np.arcsin(2 ** (-n / 2))) ** 2
     assert abs(p - want) < 1e-5
+
+
+@pytest.mark.parametrize("where", ["first", "middle", "trailing"])
+@pytest.mark.parametrize("width", range(1, 8))
+def test_window_kernel_reduced_modes(cuda, reduced_mode, width, where):
+    """Every width and orientation in bf16_3x and bf16: the kernel of the
+    mode against the plain version of the mode and against float64."""
+    tol, _, f64_tol = MODE_TOL[reduced_mode]
+    n = 12
+    start = {"first": 0, "middle": (n - width) // 2,
+             "trailing": n - width}[where]
+    rng = np.random.default_rng(100 * width + len(where))
+    psi = _state(n, rng, cuda)
+    w = _unitary(2**width, rng, cuda)
+    flips = tuple(int(m) for m in rng.integers(0, 2**n, size=3))
+    phases = ((tuple(sorted({0, start, n - 1})), complex(np.exp(0.5j)), 0),)
+    diag = kernels.fused_diagonals(n, flips, phases, cuda)
+    got = kernels.window_apply(psi, n, start, width, w, diag)
+    want = kernels.window_apply_ref(psi, n, start, width, w, diag)
+    exact = kernels.window_apply_ref(psi.double(), n, start, width,
+                                     w.double(), diag, mode="f32")
+    assert rel_l2(got, want) <= tol
+    assert rel_l2(got, exact) <= f64_tol
+
+
+@pytest.mark.parametrize("geometry", PAIR_GEOMETRIES,
+                         ids=lambda g: "n{}_s{}_{}x{}".format(*g))
+def test_pair_kernel_reduced_modes(cuda, reduced_mode, geometry):
+    """Every pair route in bf16_3x and bf16: the kernel (W1 first, as the
+    reference) against the plain version of the mode and against
+    float64."""
+    _, tol, f64_tol = MODE_TOL[reduced_mode]
+    n, start, width1, width2 = geometry
+    rng = np.random.default_rng(sum(geometry))
+    psi, w1, w2, diag = _pair_inputs(n, start, width1, width2, rng, cuda)
+    got = kernels.pair_apply(psi, n, start, width1, width2, w1, w2, diag)
+    want = kernels.pair_apply_ref(psi, n, start, width1, width2, w1, w2,
+                                  diag)
+    exact = kernels.pair_apply_ref(psi.double(), n, start, width1, width2,
+                                   w1.double(), w2.double(), diag,
+                                   mode="f32")
+    assert rel_l2(got, want) <= tol
+    assert rel_l2(got, exact) <= f64_tol
+
+
+def test_reduced_mode_launches_its_own_kernel(cuda, reduced_mode):
+    """A CUDA tensor in a reduced mode launches that mode's kernel: its
+    counter moves, the f32 kernel's does not."""
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(5)
+    psi, w1, w2, diag = _pair_inputs(12, 2, 3, 7, rng, cuda)
+    kernels.window_apply(psi, 12, 2, 3, w1, diag)
+    kernels.pair_apply(psi, 12, 2, 3, 7, w1, w2, diag)
+    counts = kernels.launch_counts()
+    assert counts[f"window_apply[{reduced_mode}]"] == 1
+    assert counts[f"pair_apply_trailing[{reduced_mode}]"] == 1
+    assert counts["window_apply"] == counts["pair_apply_trailing"] == 0
+
+
+def test_renormalised_bf16_3x_runner_on_card(cuda):
+    """The scanned runner in bf16_3x with renorm_every=1 keeps the norm
+    within 1e-5 of 1 and the state within 1e-4 of the f32 run."""
+    n = 14
+    plan = compile_circuit(random_circuit(n, 4, seed=2))
+    psi0 = planar.zero_state_planar(n, cuda)
+    want = planar.make_scanned_planar_runner(plan, 8)(psi0)
+    kernels.set_dot_mode("bf16_3x")
+    try:
+        got = planar.make_scanned_planar_runner(plan, 8,
+                                                renorm_every=1)(psi0)
+    finally:
+        kernels.set_dot_mode("f32")
+    assert abs(float(planar.planar_norm(got)) - 1.0) <= 1e-5
+    assert rel_l2(got, want) <= 1e-4

@@ -263,11 +263,12 @@ class TestWrapperChecks:
         psi, w, diag = self._window_args()
         tk.window_apply(psi, 4, 0, 2, w, diag)
         tk.pair_apply(psi, 4, 0, 2, 2, w, w, diag)
-        assert tk.launch_counts() == {"window_apply": 0,
-                                      "window_apply_trailing": 0,
-                                      "reflect_dot": 0, "reflect_update": 0,
-                                      "pair_apply": 0,
-                                      "pair_apply_trailing": 0}
+        counts = tk.launch_counts()
+        assert counts == dict.fromkeys(tk.LAUNCH_COUNTS, 0)
+        assert {"window_apply", "window_apply_trailing", "reflect_dot",
+                "reflect_update", "pair_apply", "pair_apply_trailing",
+                "window_apply[bf16_3x]", "pair_apply_trailing[bf16]"} \
+            <= set(counts)
 
 
 def test_failed_build_raises_with_nvcc_stderr(monkeypatch, tmp_path):

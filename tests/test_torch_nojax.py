@@ -8,8 +8,11 @@ detection folds window matrices, which the JAX package's compiler does
 through a module that imports JAX) and runs it on the CPU, then runs a
 paired plan on the statevector and density executors, a lowered program,
 and the port's CLI on ``examples/grover.qb`` with and without
-``--compile``.  Tolerance: 1e-5 on the marked probability and on ρ against
-ψψ† (float32); the two CLI modes print the same readout within 1e-6.
+``--compile``, and with ``--compile --precision bf16_3x``, then the exact
+host ensemble (``frontend/ensemble.py``, with ``utils/config.py`` read by
+the CLI) through ``--ensemble``.  Tolerance: 1e-5 on the marked
+probability and on ρ against ψψ† (float32); the two CLI modes print the
+same readout within 1e-6, the bf16_3x run within 1e-4.
 """
 import re
 import subprocess
@@ -51,18 +54,31 @@ lp = lower_program("qset comp[0]\\ngate hadamardGate\\nmeas out ; comp")
 probs, _ = qbot_tpu_torch.run_lowered(lp, device="cpu")
 assert np.allclose(probs, [0.5, 0.5], atol=1e-6)
 outs = []
-for extra in ([], ["--compile", "--device", "cpu"]):
+for extra in ([], ["--compile", "--device", "cpu"],
+              ["--compile", "--device", "cpu", "--precision", "bf16_3x"]):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         assert cli_main(["examples/grover.qb", *extra]) == 0
     outs.append(buf.getvalue())
 line = re.compile(r"^(\\S+)- (\\S+) \\((\\S+)%\\)$", re.M)
-dense, compiled = (line.findall(o) for o in outs)
-assert len(dense) == len(compiled) == 8, outs
-for (kd, pd, cd), (kc, pc, cc) in zip(dense, compiled):
-    assert kd == kc and abs(float(pd) - float(pc)) <= 1e-6, outs
+dense, compiled, reduced = (line.findall(o) for o in outs)
+assert len(dense) == len(compiled) == len(reduced) == 8, outs
+for (kd, pd, cd), (kc, pc, cc), (kr, pr, _) in zip(dense, compiled, reduced):
+    assert kd == kc == kr and abs(float(pd) - float(pc)) <= 1e-6, outs
     assert abs(float(cd) - float(cc)) <= 1e-4, outs
+    assert abs(float(pd) - float(pr)) <= 1e-4, outs
 assert max(float(p) for _, p, _ in dense) > 0.9, outs
+from qbot_tpu_torch.tpu.kernels import dot_mode
+assert dot_mode() == "bf16_3x"
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    assert cli_main(["examples/probabilistic_branching.qb", "--ensemble",
+                     "--seed", "5"]) == 0
+from qbot_tpu_torch.utils.config import runtime_config
+assert runtime_config().seed == 5
+ns = qbot_tpu_torch.executeTxtEnsemble(
+    open("examples/probabilistic_branching.qb").read())
+assert np.allclose(np.diag(ns["state"]).real, [0.75, 0.25])
 assert not any(m.split(".")[0] in ("jax", "qbot_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print("ok")

@@ -2,14 +2,14 @@
 numpy.
 
 The kernel computes out = W1 · (ΦF X) · W2ᵀ on each (D1, D2) slab X as two
-products of the window kernel's 3xTF32 tile (``csrc/tc_tile.cuh``); a slab
-is one a of the trailing pair's (A, D1, D2) view, or one b-column of the
-middle pair's (A, D1, D2, B) view:
+products of the window kernel's 3xTF32 tile (``csrc/tc_tile.cuh``), W1
+first as in the reference; a slab is one a of the trailing pair's
+(A, D1, D2) view, or one b-column of the middle pair's (A, D1, D2, B) view:
 
-- phase 1, Y[j, l] = Σ_m X[j, m] W2[l, m]: X split on a grid per row j and
-  k-step of 8 m, W2 per row l and k-step;
-- phase 2, out[i, l] = Σ_j W1[i, j] Y[j, l] on the float32 Y: Y split on a
-  grid per column l and k-step of 8 j, W1 per row i and k-step.
+- phase 1, Y[m, i] = Σ_j X[j, m] W1[i, j]: X split on a grid per column m
+  and k-step of 8 j, W1 per row i and k-step;
+- phase 2, out[i, l] = Σ_m Y[m, i] W2[l, m] on the float32 Y: Y split on a
+  grid per row i and k-step of 8 m, W2 per row l and k-step.
 
 Each k-step's hi·hi sums (two mma.sync products) are exact; the cross terms
 x_hi W_lo + x_lo tf32(W) are summed over a stage of 16 k on the tensor
@@ -24,6 +24,14 @@ variant, trailing and middle.  The rows and columns of a product are
 independent, so the replay takes them in slab order, whatever order the
 kernel's tiles take them in.
 
+In the reduced modes (``bf16_3x``, ``bf16``) each product is the BF16
+tile of ``tests/test_torch_window_split.py`` (``tc_product_bf16``), and
+phase 2 splits the float32 Y anew, as the reference's second ``_dot``
+does: the replays hold each mode to chip_smoke.py's float64 limits (2e-5,
+1e-2) and to its plain version's model (float64 sums, Y rounded to float32
+between the products) within 1e-5, bf16 within 1e-4 (its Y is rounded to
+bf16 a second time, so a one-ulp difference in Y moves a rounding).
+
     python3 tests/test_torch_pair_split.py
 
 prints the emulated relative L2 error against float64 at every (D1, D2).
@@ -33,8 +41,8 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from test_torch_window_split import F32, F64_TOL, _grid, _split, _tf32, \
-    _unitary
+from test_torch_window_split import BF16_F64_TOL, F32, F64_TOL, _grid, \
+    _split, _tf32, _unitary, plain_model_bf16, tc_product_bf16
 
 F64 = np.float64
 WIDTHS = [8, 16, 32, 64, 128]
@@ -117,37 +125,69 @@ def _random_pair(d1, d2, shape, rng):
     return w1, w2, x.astype(np.complex64)
 
 
-def tc_pair(xd, w1, w2):
+def tc_pair(xd, w1, w2, mode="f32"):
     """(out, every k-step's hi·hi sums exact): W1 · X · W2ᵀ of each
     (D1, D2) slab of xd (slabs, D1, D2), complex64, as the kernel computes
-    it."""
+    it in dot ``mode`` (the reduced modes' sums are not exact: False)."""
     slabs, d1, d2 = xd.shape
-    # phase 1: rows (s, j), K = m
-    yr, yi, exact1 = tc_product(xd.real.reshape(-1, d2),
-                                xd.imag.reshape(-1, d2), *w2)
-    # phase 2: columns (s, l), K = j, from the float32 Y
-    def cols(y):
-        return y.reshape(xd.shape).transpose(0, 2, 1).reshape(-1, d1)
 
-    outr, outi, exact2 = tc_product(cols(yr), cols(yi), *w1)
-    got = (outr.astype(F64) + 1j * outi).reshape(slabs, d2, d1)
-    return got.transpose(0, 2, 1), exact1 and exact2
+    def product(xr, xi, wr, wi):
+        if mode == "f32":
+            return tc_product(xr, xi, wr, wi)
+        return (*tc_product_bf16(xr, xi, wr, wi, mode), False)
+
+    # phase 1: the columns (s, m) as A rows, K = j
+    def cols(x):
+        return x.transpose(0, 2, 1).reshape(-1, d1)
+
+    yr, yi, exact1 = product(cols(xd.real), cols(xd.imag), *w1)
+
+    # phase 2: rows (s, i), K = m, from the float32 Y
+    def rows(y):
+        return y.reshape(slabs, d2, d1).transpose(0, 2, 1).reshape(-1, d2)
+
+    outr, outi, exact2 = product(rows(yr), rows(yi), *w2)
+    got = (outr.astype(F64) + 1j * outi).reshape(slabs, d1, d2)
+    return got, exact1 and exact2
+
+
+def plain_pair_bf16(xd, w1, w2, mode):
+    """The plain version's pair in a reduced mode: each product's split
+    products summed in float64, Y rounded to float32 between them."""
+    slabs, d1, d2 = xd.shape
+
+    def cols(x):
+        return x.transpose(0, 2, 1).reshape(-1, d1).astype(F32)
+
+    yr, yi = plain_model_bf16(cols(xd.real), cols(xd.imag), *w1, mode)
+
+    def rows(y):
+        return (y.astype(F32).reshape(slabs, d2, d1).transpose(0, 2, 1)
+                .reshape(-1, d2))
+
+    outr, outi = plain_model_bf16(rows(yr), rows(yi), *w2, mode)
+    return (outr + 1j * outi).reshape(slabs, d1, d2)
 
 
 def _rel(got, want):
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
-def emulate(d1: int, d2: int, slabs: int = 2, seed: int = 0):
+def emulate(d1: int, d2: int, slabs: int = 2, seed: int = 0,
+            mode: str = "f32"):
     """(kernel's relative L2 error vs float64, every k-step's hi·hi sums
-    exact) for random unitaries on random slabs of the trailing pair."""
+    exact) for random unitaries on random slabs of the trailing pair; in a
+    reduced mode, (error vs float64, error vs the plain version's model)."""
     rng = np.random.default_rng(seed)
     shape = (slabs, d1, d2)
     w1, w2, x = _random_pair(d1, d2, shape, rng)
     diag = _diagonals(slabs, d1, d2, rng)
     want = ((w1[0].astype(F64) + 1j * w1[1]) @ (x.astype(np.complex128) * diag)
             @ (w2[0].astype(F64) + 1j * w2[1]).T)
-    got, exact = tc_pair(x * diag, w1, w2)         # float32 complex products
+    got, exact = tc_pair(x * diag, w1, w2, mode)   # float32 complex products
+    if mode != "f32":
+        return _rel(got, want), _rel(got, plain_pair_bf16(x * diag, w1, w2,
+                                                          mode))
     return _rel(got, want), exact
 
 
@@ -173,7 +213,8 @@ def _middle_diagonals(a, d1, d2, b, rng):
     return f.reshape(a, d1, d2, b)
 
 
-def emulate_middle(d1: int, d2: int, a: int = 2, b: int = 4, seed: int = 0):
+def emulate_middle(d1: int, d2: int, a: int = 2, b: int = 4, seed: int = 0,
+                   mode: str = "f32"):
     """As :func:`emulate`, for the middle pair: the slabs are the b-columns
     of a (D1, D2, B) view, the flips and phases at their flat indices."""
     rng = np.random.default_rng(seed)
@@ -183,9 +224,14 @@ def emulate_middle(d1: int, d2: int, a: int = 2, b: int = 4, seed: int = 0):
                      x.astype(np.complex128) * diag,
                      w2[0].astype(F64) + 1j * w2[1])
     slabs = (x * diag).transpose(0, 3, 1, 2).reshape(a * b, d1, d2)
-    got, exact = tc_pair(slabs, w1, w2)
-    got = got.reshape(a, b, d1, d2).transpose(0, 2, 3, 1)
-    return _rel(got, want), exact
+    got, exact = tc_pair(slabs, w1, w2, mode)
+
+    def view(out):
+        return out.reshape(a, b, d1, d2).transpose(0, 2, 3, 1)
+    if mode != "f32":
+        return _rel(view(got), want), _rel(got, plain_pair_bf16(slabs, w1,
+                                                                w2, mode))
+    return _rel(view(got), want), exact
 
 
 @pytest.mark.parametrize("d2", WIDTHS)
@@ -204,6 +250,28 @@ def test_middle_pair_split_sums_are_exact_and_within_f64_limit(d1, d2):
     assert err <= F64_TOL
 
 
+# relative L2 of a reduced-mode pair against its plain version's model
+BF16_PLAIN_TOL = {"bf16_3x": 1e-5, "bf16": 1e-4}
+
+
+@pytest.mark.parametrize("mode", ["bf16_3x", "bf16"])
+@pytest.mark.parametrize("d2", WIDTHS)
+@pytest.mark.parametrize("d1", WIDTHS)
+def test_bf16_pair_within_its_limits(d1, d2, mode):
+    err, vs_plain = emulate(d1, d2, seed=d1 + 3 * d2, mode=mode)
+    assert err <= BF16_F64_TOL[mode]
+    assert vs_plain <= BF16_PLAIN_TOL[mode]
+
+
+@pytest.mark.parametrize("mode", ["bf16_3x", "bf16"])
+@pytest.mark.parametrize("d2", WIDTHS)
+@pytest.mark.parametrize("d1", MIDDLE_WIDTHS)
+def test_bf16_middle_pair_within_its_limits(d1, d2, mode):
+    err, vs_plain = emulate_middle(d1, d2, seed=d1 + 5 * d2, mode=mode)
+    assert err <= BF16_F64_TOL[mode]
+    assert vs_plain <= BF16_PLAIN_TOL[mode]
+
+
 if __name__ == "__main__":
     for d1 in WIDTHS:
         for d2 in WIDTHS:
@@ -215,3 +283,10 @@ if __name__ == "__main__":
             err, exact = emulate_middle(d1, d2)
             print(f"middle (D1, D2) = ({d1:3d}, {d2:3d}): emulated kernel "
                   f"{err:.3e} relative L2 vs float64; exact sums {exact}")
+    for mode in ("bf16_3x", "bf16"):
+        for d1 in WIDTHS:
+            for d2 in WIDTHS:
+                err, vs_plain = emulate(d1, d2, mode=mode)
+                print(f"{mode} trailing (D1, D2) = ({d1:3d}, {d2:3d}): "
+                      f"emulated kernel {err:.3e} vs float64, {vs_plain:.3e} "
+                      f"vs its plain version")

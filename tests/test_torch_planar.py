@@ -231,7 +231,8 @@ def test_state_round_trip():
 
 
 class TestNotPortedYet:
-    """What the port does not run yet raises, naming its ROADMAP item."""
+    """What the port does not run yet raises, naming its ROADMAP item;
+    ``renorm_every``, which raised here before, runs as the reference's."""
 
     def test_parameterised_gate(self):
         c = Circuit(4)
@@ -250,6 +251,14 @@ class TestNotPortedYet:
             tcirc.parameterized_layers(3, 1)
 
     def test_renorm_every(self):
-        plan = compile_circuit(random_circuit(4, 1))
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            tp.make_scanned_planar_runner(plan, 4, renorm_every=2)
+        """The scanned runner renormalises every 2nd body as
+        ``qbot_tpu``'s does: the same state, a norm of 1."""
+        circ, jcirc = both(lambda m: m.random_circuit(6, 2, seed=4))
+        scale = np.float32(1.5)      # an unnormalised start shows the cadence
+        psi = _rand_state(6, 13) * scale
+        want = np.asarray(jp.make_scanned_planar_runner(
+            jc.compile_circuit(jcirc), 5, renorm_every=2)(jnp.asarray(psi)))
+        got = tp.make_scanned_planar_runner(
+            compile_circuit(circ), 5, renorm_every=2)(torch.from_numpy(psi))
+        np.testing.assert_allclose(got.numpy(), want, atol=TOL)
+        assert abs(float(tp.planar_norm(got)) - 1.0) < 1e-6
