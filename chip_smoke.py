@@ -30,9 +30,10 @@ nonzero:
    2^-8 apart) and against float64 (2e-5, 1e-2), timed beside the f32
    kernel.  The pairs apply W1 first, as the reference and the plain
    version do.  Each is timed with the bound of its BF16 products and, for
-   the
-   windows, one bf16 product with float32 output (``torch.mm`` /
-   ``torch.bmm`` with ``out_dtype``) as its library call.
+   the windows, one bf16 product with float32 output (``torch.mm`` /
+   ``torch.bmm`` with ``out_dtype``) as its library call, its operands split
+   and laid out before the timed call (``library_ms``) and inside it
+   (``library_split_ms``).
 3. runs the example programs through the port's CLI and holds the readout
    to the dense host interpreter's within 1e-6; then a generated 24-qubit
    program (Hadamards and a CX chain; qubit 0 reads [0.5, 0.5]).
@@ -55,7 +56,9 @@ nonzero:
 
 7. the main path in each reduced dot mode: ``bench.py``'s brickwork
    (16-layer body x 16 repeats, 256 layers) on the scanned runner, its norm
-   drift per 100 gates without renormalisation, and with ``renorm_every=1``
+   drift per 100 gates without renormalisation (at most 1e-6 in bf16_3x;
+   bf16's rounded W are not unitary, its drift is printed), and with
+   ``renorm_every=1``
    the norm within 1e-5 of 1 and its distance from the f32 run; the
    unpaired body; the density run (one body against the plain versions in
    the mode: within its launches' pair limits in bf16_3x, 1e-2 in bf16,
@@ -80,11 +83,12 @@ tensor cores, or as 3 (bf16_3x) and 1 (bf16) BF16 products on the 989
 TFLOP/s BF16 tensor cores; the FMA variants' products (D <= 4; 1, 3, 1
 a product) and the reflections' arithmetic at the 67 TFLOP/s FP32 rate.
 
-    python3 chip_smoke.py --profile chiprun_out
+    python3 chip_smoke.py --profile chiprun_out [--precision bf16_3x]
 
 runs phases 0 and 1, then profiles phases 4, 5 (paired and unpaired) and 6
 with torch.profiler (device busy share, the table of device time per
-kernel, Chrome traces written to the directory) and nothing else.
+kernel, Chrome traces written to the directory), in the dot mode
+``--precision`` (default f32), and nothing else.
 """
 from __future__ import annotations
 
@@ -146,6 +150,10 @@ REDUCED_MODES = ("bf16_3x", "bf16")
 # bf16 product a pass, 2^-9 relative rounding of each operand)
 MODE_READOUT_TOL = {"bf16_3x": 1e-4, "bf16": 1e-2}
 RENORM_TOL = 1e-5          # |norm - 1| of the renormalised reduced runs
+# |1 - norm| per 100 gates of the 256-layer bf16_3x brickwork without
+# renormalisation (the tensor cores' truncating sums shrink it; 4.324e-7 on
+# the k8 BF16 tile)
+BF16X3_DRIFT_TOL = 1e-6
 # |trace - 1| of the bf16_3x density run, 16 bodies without
 # renormalisation (bf16's rounded W are not unitary: its trace is printed,
 # and its body held to the plain versions)
@@ -174,9 +182,14 @@ KERNEL_SOURCES = {
 }
 PRODUCT_KERNELS = ("window_apply", "window_apply_trailing", "pair_apply",
                    "pair_apply_trailing")
+# the reduced modes' windows run csrc/window_bf16.cuh (the FMA variant of
+# D <= 4 in csrc/window_apply.cu)
 for _mode in REDUCED_MODES:
     for _name in PRODUCT_KERNELS:
-        KERNEL_SOURCES[f"{_name}[{_mode}]"] = KERNEL_SOURCES[_name]
+        src, rep = KERNEL_SOURCES[_name]
+        if _name.startswith("window"):
+            src = "qbot_tpu_torch/csrc/window_bf16.cuh"
+        KERNEL_SOURCES[f"{_name}[{_mode}]"] = (src, rep)
 
 
 def say(msg: str) -> None:
@@ -243,6 +256,10 @@ def compare(name: str, got, want, tol: float = KERNEL_TOL
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores")
+# a window or pair kernel in a mangled name (after its length prefix; an
+# anonymous namespace may put a source's name before it)
+_PTXAS_KERNEL = re.compile(
+    r"\d((?:window|pair)_(?:tc|bf16|fma|fma_stream|apply)_kernel)I(\w*?)EEv")
 
 
 def ptxas_report(log: Path) -> list[tuple[str, int, int]]:
@@ -251,8 +268,7 @@ def ptxas_report(log: Path) -> list[tuple[str, int, int]]:
     rows, kernel, spills = [], None, 0
     for line in log.read_text().splitlines():
         if m := _PTXAS_ENTRY.search(line):
-            k = re.search(r"((?:window|pair)_[a-z]+_kernel)I(\w*?)EEv",
-                          m.group(1))
+            k = _PTXAS_KERNEL.search(m.group(1))
             kernel = k and (f"{k.group(1)}<"
                             f"{','.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>")
         elif kernel and (m := _PTXAS_SPILL.search(line)):
@@ -327,23 +343,33 @@ def library_window(psi, A, D, w):
     return run
 
 
-def library_window_reduced(psi, A, D, B, w, mode):
+def library_window_reduced(psi, A, D, B, w, mode, split_inside=False):
     """One PyTorch call for window_apply with empty diagonals in a reduced
     mode: a bf16 matrix product with float32 output (``out_dtype``) over
     the real block form, K-stacked [W_hi, W_hi, W_lo]·[x_hi; x_lo; x_hi]
     for bf16_3x.  Its operands are split and laid out (A, K, B) before the
-    timed call, which the kernel does itself."""
-    m = real_block(w).permute(0, 2, 1, 3).reshape(2 * D, 2 * D)
-    x = psi.view(2, A, D, B).permute(1, 0, 2, 3).reshape(A, 2 * D, B)
-    mh, xh = m.bfloat16(), x.bfloat16()
-    if mode == "bf16_3x":
-        ml, xl = (m - mh.float()).bfloat16(), (x - xh.float()).bfloat16()
-        mh, xh = torch.cat([mh, mh, ml], dim=1), torch.cat([xh, xl, xh], 1)
-    if B == 1:
-        x2, mt = xh.reshape(A, -1).contiguous(), mh.t().contiguous()
-        return lambda: torch.mm(x2, mt, out_dtype=torch.float32)
-    mb = mh.expand(A, -1, -1)
-    return lambda: torch.bmm(mb, xh, out_dtype=torch.float32)
+    timed call (``library_ms``: less than the kernel's own work, which reads
+    float32), or inside it (``split_inside``, ``library_split_ms``)."""
+    def operands():
+        m = real_block(w).permute(0, 2, 1, 3).reshape(2 * D, 2 * D)
+        x = psi.view(2, A, D, B).permute(1, 0, 2, 3).reshape(A, 2 * D, B)
+        mh, xh = m.bfloat16(), x.bfloat16()
+        if mode == "bf16_3x":
+            ml, xl = (m - mh.float()).bfloat16(), (x - xh.float()).bfloat16()
+            mh, xh = torch.cat([mh, mh, ml], dim=1), torch.cat([xh, xl, xh],
+                                                               1)
+        if B == 1:
+            return xh.reshape(A, -1).contiguous(), mh.t().contiguous()
+        return mh.expand(A, -1, -1), xh
+
+    mm = torch.mm if B == 1 else torch.bmm
+
+    def run(a, b):
+        return mm(a, b, out_dtype=torch.float32)
+    if split_inside:
+        return lambda: run(*operands())
+    ops = operands()
+    return lambda: run(*ops)
 
 
 def check_window(n: int, device, rng, gen, mode: str = "f32",
@@ -398,15 +424,19 @@ def check_window(n: int, device, rng, gen, mode: str = "f32",
         if not f64 <= f64_tol:
             raise AssertionError(f"window_apply[{mode}] {label}: relative "
                                  f"L2 {f64:.3e} from float64 > {f64_tol:g}")
-        library = (library_window(psi, A, 2**w, wt) if mode == "f32"
-                   else library_window_reduced(psi, A, 2**w, B, wt, mode))
-        plain_ms, ms, library_ms, no_diag_ms = timed_in_turns([
-            lambda: kernels.window_apply_ref(psi, n, start, w, wt, diag),
-            lambda: kernels.window_apply(psi, n, start, w, wt, diag),
-            library,
-            lambda: kernels.window_apply(psi, n, start, w, wt, none)],
-            device)
-        del library
+        fns = [lambda: kernels.window_apply_ref(psi, n, start, w, wt, diag),
+               lambda: kernels.window_apply(psi, n, start, w, wt, diag),
+               lambda: kernels.window_apply(psi, n, start, w, wt, none)]
+        if mode == "f32":
+            fns.append(library_window(psi, A, 2**w, wt))
+        else:
+            fns += [library_window_reduced(psi, A, 2**w, B, wt, mode),
+                    library_window_reduced(psi, A, 2**w, B, wt, mode,
+                                           split_inside=True)]
+        plain_ms, ms, no_diag_ms, library_ms, *split_ms = timed_in_turns(
+            fns, device)
+        library_split_ms = split_ms[0] if split_ms else None
+        del fns
         bound_ms, bound_by = product_bound(2 * psi.nbytes + wt.nbytes,
                                            8 * 2**w * 2**n, mode, w >= 3)
         shapes.append({"window": label, "A": A, "D": 2**w, "B": B,
@@ -414,14 +444,17 @@ def check_window(n: int, device, rng, gen, mode: str = "f32",
                        "rel_l2_f64": f64, "plain_rel_l2_f64": plain_f64,
                        "ms": ms, "ms_no_diagonals": no_diag_ms,
                        "plain_ms": plain_ms, "library_ms": library_ms,
+                       "library_split_ms": library_split_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by})
         beside = (f"; f32 kernel {f32_ms[label]:.4f} ms" if label in f32_ms
                   else "")
+        split = ("" if library_split_ms is None
+                 else f" (split inside {library_split_ms:.4f} ms)")
         say(f"window_apply[{mode}] {label}: (A, D, B) = ({A}, {2**w}, {B}), "
             f"rel L2 {rel:.3e}, max abs {max_abs:.3e}; vs float64 "
             f"{f64:.3e} (plain {plain_f64:.3e}); kernel {ms:.4f} ms "
             f"(no diagonals {no_diag_ms:.4f}), plain {plain_ms:.4f} ms, "
-            f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"library {library_ms:.4f} ms{split}, bound {bound_ms:.4f} ms "
             f"({bound_by}, share {bound_ms / ms:.3f}){beside}")
 
     def summary(group, timed):
@@ -430,7 +463,8 @@ def check_window(n: int, device, rng, gen, mode: str = "f32",
                 "max_abs_err": max(s["max_abs_err"] for s in group),
                 "rel_l2_f64": max(s["rel_l2_f64"] for s in group),
                 **{k: timed[k] for k in ("ms", "plain_ms", "library_ms",
-                                         "bound_ms", "bound_by")}}
+                                         "library_split_ms", "bound_ms",
+                                         "bound_by")}}
 
     trailing = [s for s in shapes if s["B"] == 1]
     wide = [s for s in shapes if s["B"] > 1]
@@ -938,10 +972,14 @@ def reduced_mode_path(n: int, device, mode: str, f32: dict) -> dict:
     elapsed = time.perf_counter() - t0
     norm = float(planar_norm(out))
     rel = rel_l2(out, f32["scanned"])
+    drift = (1.0 - norm) / (gates / 100)
     say(f"[{mode}] brickwork {n}q x {BRICKWORK_LAYERS} layers x {repeats} "
         f"(scanned, {gates} gates): norm {norm:.8f}, drift "
-        f"{(1.0 - norm) / (gates / 100):.4e} per 100 gates, rel L2 vs f32 "
-        f"{rel:.3e}, {elapsed:.4f} s")
+        f"{drift:.4e} per 100 gates, rel L2 vs f32 {rel:.3e}, "
+        f"{elapsed:.4f} s")
+    if mode == "bf16_3x" and not abs(drift) <= BF16X3_DRIFT_TOL:
+        raise AssertionError(f"[{mode}] norm drift {drift:.4e} per 100 "
+                             f"gates > {BF16X3_DRIFT_TOL:g}")
     out, runs["scanned_renorm"] = _launch_delta(
         lambda: make_scanned_planar_runner(body, repeats,
                                            renorm_every=1)(psi0))
@@ -1059,7 +1097,8 @@ def profile(n: int, device, out_dir: Path) -> None:
         busy_ms = _device_busy_ms(prof)
         trace = out_dir / f"trace_{name}.json"
         prof.export_chrome_trace(str(trace))
-        say(f"profile {name} {n}q: wall {wall_ms:.3f} ms untraced, "
+        say(f"profile [{kernels.dot_mode()}] {name} {n}q: wall "
+            f"{wall_ms:.3f} ms untraced, "
             f"{traced_ms:.3f} ms traced; device busy {busy_ms:.3f} ms, "
             f"busy share {busy_ms / traced_ms:.3f}; trace {trace}")
         print(prof.key_averages().table(sort_by="self_device_time_total",
@@ -1075,6 +1114,9 @@ def main(argv=None) -> int:
                              "brickwork (paired and unpaired) and the "
                              "density run with torch.profiler, write their "
                              "traces to DIR, and run no other phase")
+    parser.add_argument("--precision", choices=kernels.DOT_MODES,
+                        default="f32",
+                        help="the dot mode of the --profile runs")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card: "
@@ -1097,6 +1139,7 @@ def main(argv=None) -> int:
         say(f"ptxas {kernel}: {regs} registers, {spills} bytes spill "
             f"stores")
     if args.profile is not None:
+        kernels.set_dot_mode(args.precision)
         profile(N, device, args.profile)
         return 0
 
@@ -1180,6 +1223,7 @@ def main(argv=None) -> int:
          "bound_ms": results[name]["bound_ms"],
          "bound_by": results[name]["bound_by"],
          "library_ms": results[name]["library_ms"],
+         "library_split_ms": results[name].get("library_split_ms"),
          "two_window_ms": results[name].get("two_window_ms"),
          "rel_l2_f64": results[name].get("rel_l2_f64"),
          "shapes": results[name]["shapes"]}

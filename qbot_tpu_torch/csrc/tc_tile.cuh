@@ -27,10 +27,11 @@
 //
 // The reduced modes (Prec BF16X3, BF16: the reference's --precision bf16_3x
 // and bf16, qbot_tpu/tpu/kernels.py:55-71) take the same tile with
-// mma.sync.m16n8k8 BF16 products.  x and W are split as the reference splits
-// them, x_hi = x rounded to bf16 (to nearest even), x_lo = bf16(x - x_hi),
-// with no grid; BF16X3 sums x_hi W_hi + x_hi W_lo + x_lo W_hi, BF16 x_hi
-// W_hi alone.  Products of bf16 values are exact in FP32, but a k-step's sum
+// mma.sync.m16n8k8 BF16 products in the pair kernels (the reduced windows
+// run window_bf16.cuh: m16n8k16, W split once per block).  x and W are
+// split as the reference splits them, x_hi = x rounded to bf16 (to nearest
+// even), x_lo = bf16(x - x_hi), with no grid; BF16X3 sums x_hi W_hi +
+// x_hi W_lo + x_lo W_hi, BF16 x_hi W_hi alone.  Products of bf16 values are exact in FP32, but a k-step's sum
 // of them is not, and the tensor cores round it toward zero: the state
 // shrinks a little every pass (a norm drift that is these modes' contract;
 // planar.make_scanned_planar_runner's renorm_every is its remedy).  A
@@ -141,6 +142,28 @@ __device__ __forceinline__ void mma0(float* c, const uint32_t* a,
         : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
         : "r"(a[0]), "r"(a[1]), "r"(b[0]), "f"(0.f));
   }
+}
+
+// c += a b in mma.sync.m16n8k16 BF16 (window_bf16.cuh): A registers a.x,
+// a.y hold k slots 2t, 2t + 1 of rows g and g + 8, a.z, a.w slots 2t + 8,
+// 2t + 9 of the same rows; B registers b[0], b[1] slots 2t, 2t + 1 and
+// 2t + 8, 2t + 9 of column g
+__device__ __forceinline__ void mma16(float* c, const uint4& a,
+                                      const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b[0]), "r"(b[1]));
+}
+
+// c = a b in mma.sync.m16n8k16 BF16, from a zero accumulator
+__device__ __forceinline__ void mma16_0(float* c, const uint4& a,
+                                        const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
 }
 
 // x0, x1 rounded to bf16 to nearest even and packed, x0 in the low half
@@ -485,11 +508,13 @@ __device__ __forceinline__ void tc_products(float (&acc)[NA][2][4],
   }
 }
 
-// Resident blocks of a kernel on the current device, cached per device,
-// after allowing it smem bytes of dynamic shared memory; cache holds
-// MAX_DEVICES entries.  Returns 0 with err set on failure.
+// Resident blocks of a kernel of ``threads`` threads a block on the current
+// device, cached per device, after allowing it smem bytes of dynamic shared
+// memory; cache holds MAX_DEVICES entries.  Returns 0 with err set on
+// failure.
 template <typename Kernel>
-int resident_blocks(Kernel kernel, int smem, int* cache, cudaError_t& err) {
+int resident_blocks(Kernel kernel, int smem, int* cache, cudaError_t& err,
+                    int threads = THREADS) {
   int dev = 0;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return 0;
@@ -505,7 +530,7 @@ int resident_blocks(Kernel kernel, int smem, int* cache, cudaError_t& err) {
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          THREADS, smem);
+                                                          threads, smem);
     if (err != cudaSuccess) return 0;
     cache[dev] = sms * (per_sm > 0 ? per_sm : 1);
   }

@@ -58,7 +58,9 @@
 //   256: one lookup and one complex multiply an element.  Further entries
 //   are tested on the flat index, element by element.
 // - D <= 4 is below the tensor-core tile's k-step of 8 and runs a plain FP32
-//   FMA variant from shared-memory tiles.
+//   FMA variant from shared-memory tiles (f32), or a streaming FMA kernel
+//   that splits its operands in registers (bf16_3x, bf16).
+// - The reduced modes' tensor-core window is window_bf16.cuh.
 //
 // ptxas (sm_90a, -O3; chip_smoke.py phase 1 on an H100), registers / spill
 // stores of window_tc_kernel<D, B == 1>: <128, no> 255 / 12 B, <128, yes>
@@ -97,10 +99,8 @@ __device__ __forceinline__ void apply_diagonals(
   }
 }
 
-// PREC F32: the products in FP32 FMAs.  BF16X3 and BF16: x and W split
-// into bf16 hi and lo parts as they are staged, the products of parts
-// (exact in FP32) summed by FP32 FMAs: hi·hi, hi·lo and lo·hi, or hi·hi.
-template <int D, int BN, int TM, int PREC>
+// F32: the products in FP32 FMAs, from shared-memory tiles.
+template <int D, int BN, int TM>
 __global__ void __launch_bounds__((D / TM) * (BN / TN))
     window_fma_kernel(const float* __restrict__ psi, float* __restrict__ out,
                       const float* __restrict__ w, int64_t n_amps, int log_b,
@@ -111,10 +111,8 @@ __global__ void __launch_bounds__((D / TM) * (BN / TN))
   constexpr int NX = BN / TN;  // threads along the columns
   constexpr int NT = (D / TM) * NX;
   constexpr int LOG_BN = ilog2(BN);
-  constexpr int PARTS = PREC == F32 ? 1 : 2;     // [hi, lo] of x and W
-  constexpr int PRODUCTS = PREC == BF16X3 ? 3 : 1;
-  __shared__ float xs[PARTS][2][D][BN + 1];
-  __shared__ float ws[PARTS][2][D][D + 1];
+  __shared__ float xs[2][D][BN + 1];
+  __shared__ float ws[2][D][D + 1];
 
   const int tid = threadIdx.x;
   const int tx = tid % NX;
@@ -125,17 +123,6 @@ __global__ void __launch_bounds__((D / TM) * (BN / TN))
   // the tile holds BN / Bt runs of Bt contiguous columns (Bt = min(B, BN))
   const int log_bt = log_b < LOG_BN ? log_b : LOG_BN;
   const int bt_mask = (1 << log_bt) - 1;
-  // x into parts[0] (and its bf16 lo part into parts[1])
-  auto stage = [](float (*parts)[2][D][BN + 1], int pl, int k, int col,
-                  float x) {
-    if constexpr (PREC == F32) {
-      parts[0][pl][k][col] = x;
-    } else {
-      const float hi = round_bf16(x);
-      parts[0][pl][k][col] = hi;
-      parts[1][pl][k][col] = round_bf16(__fsub_rn(x, hi));
-    }
-  };
 
   for (int e = tid; e < D * BN; e += NT) {
     const int b_off = e & bt_mask;
@@ -151,21 +138,12 @@ __global__ void __launch_bounds__((D / TM) * (BN / TN))
       apply_diagonals(m, xr, xi, flips, nflips, masks, wants, phase,
                       nphases);
     }
-    stage(xs, 0, k, col, xr);
-    stage(xs, 1, k, col, xi);
+    xs[0][k][col] = xr;
+    xs[1][k][col] = xi;
   }
   for (int e = tid; e < D * D; e += NT) {
-    const float wr = w[e], wi = w[D * D + e];
-    if constexpr (PREC == F32) {
-      ws[0][0][e % D][e / D] = wr;
-      ws[0][1][e % D][e / D] = wi;
-    } else {
-      const float hr = round_bf16(wr), hi = round_bf16(wi);
-      ws[0][0][e % D][e / D] = hr;
-      ws[0][1][e % D][e / D] = hi;
-      ws[1][0][e % D][e / D] = round_bf16(__fsub_rn(wr, hr));
-      ws[1][1][e % D][e / D] = round_bf16(__fsub_rn(wi, hi));
-    }
+    ws[0][e % D][e / D] = w[e];
+    ws[1][e % D][e / D] = w[D * D + e];
   }
   __syncthreads();
 
@@ -176,17 +154,12 @@ __global__ void __launch_bounds__((D / TM) * (BN / TN))
     for (int r = 0; r < TM; ++r) {
 #pragma unroll
       for (int t = 0; t < TN; ++t) {
-        // the (W part, x part) of product q: hi hi, hi lo, lo hi
-#pragma unroll
-        for (int q = 0; q < PRODUCTS; ++q) {
-          const int pw = q == 2 ? 1 : 0, px = q == 1 ? 1 : 0;
-          const float wr = ws[pw][0][k][ty * TM + r];
-          const float wi = ws[pw][1][k][ty * TM + r];
-          const float xr = xs[px][0][k][tx + t * NX];
-          const float xi = xs[px][1][k][tx + t * NX];
-          acc_r[r][t] = fmaf(wr, xr, fmaf(-wi, xi, acc_r[r][t]));
-          acc_i[r][t] = fmaf(wr, xi, fmaf(wi, xr, acc_i[r][t]));
-        }
+        const float wr = ws[0][k][ty * TM + r];
+        const float wi = ws[1][k][ty * TM + r];
+        const float xr = xs[0][k][tx + t * NX];
+        const float xi = xs[1][k][tx + t * NX];
+        acc_r[r][t] = fmaf(wr, xr, fmaf(-wi, xi, acc_r[r][t]));
+        acc_i[r][t] = fmaf(wr, xi, fmaf(wi, xr, acc_i[r][t]));
       }
     }
   }
@@ -206,15 +179,215 @@ __global__ void __launch_bounds__((D / TM) * (BN / TN))
   }
 }
 
+// N consecutive floats, one vector load or store
+template <int N>
+struct Vec {
+  float v[N];
+};
+
+template <int N>
+__device__ __forceinline__ Vec<N> load_vec(const float* p) {
+  Vec<N> r;
+  if constexpr (N == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    r.v[0] = q.x, r.v[1] = q.y, r.v[2] = q.z, r.v[3] = q.w;
+  } else {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    r.v[0] = q.x, r.v[1] = q.y;
+  }
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  }
+}
+
+// BF16X3 and BF16: a streaming kernel.  Each thread owns V whole columns
+// (V consecutive b, read as one vector a row, B > 1) or one column (its D
+// contiguous elements read as one vector, TRAIL: B == 1), walked by a grid
+// of resident blocks.  The flips and phases are applied in registers, found
+// by the tensor-core windows' lookup tables (tc_tile.cuh: diag_tables); x is
+// split into bf16 hi and lo there once, W once per block into shared
+// memory (read as broadcast (re, im) pairs); the products of the parts
+// (exact in FP32) are summed by FP32 FMAs in the order of the F32 kernel
+// above, hi·hi, hi·lo, lo·hi for each j (BF16: hi·hi alone).  Bound by the
+// bytes: at D = 4 in bf16_3x the FMAs take 0.1 ms of a 26-qubit pass at 67
+// TFLOP/s, its bytes 0.32 ms.
+template <int D, int V, bool TRAIL, int PREC>
+__global__ void __launch_bounds__(THREADS, 3)
+    window_fma_stream_kernel(const float* __restrict__ psi,
+                             float* __restrict__ out,
+                             const float* __restrict__ w, int64_t n_amps,
+                             int log_b, const Diag diag) {
+  static_assert(PREC == BF16X3 || PREC == BF16, "a reduced dot mode");
+  static_assert(!TRAIL || V == 1, "a trailing thread owns one column");
+  constexpr int LOG_D = ilog2(D);
+  constexpr int PARTS = PREC == BF16X3 ? 2 : 1;     // [hi, lo] of x and W
+  constexpr int PRODUCTS = PREC == BF16X3 ? 3 : 1;
+  __shared__ float2 ws[PARTS][D * D];               // (re, im) of W[i][k]
+  __shared__ uint32_t jtab[D];
+  __shared__ float2 comb[1 << TABLE];
+  __shared__ long long cmask[TABLE], cwant[TABLE];
+  for (int e = threadIdx.x; e < D * D; e += blockDim.x) {
+    const float wr = w[e], wi = w[D * D + e];
+    const float hr = round_bf16(wr), hi = round_bf16(wi);
+    ws[0][e] = make_float2(hr, hi);
+    if constexpr (PARTS == 2)
+      ws[1][e] = make_float2(round_bf16(__fsub_rn(wr, hr)),
+                             round_bf16(__fsub_rn(wi, hi)));
+  }
+  diag_tables<D>(diag, log_b, jtab, comb, cmask, cwant);
+  __syncthreads();
+  const int ndiag = diag.nphases + diag.nflips;
+  const int ntab = ndiag < TABLE ? ndiag : TABLE;
+
+  const int64_t B = int64_t(1) << log_b;
+  const int64_t groups = (n_amps >> LOG_D) / V;
+  for (int64_t grp = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+       grp < groups; grp += int64_t(gridDim.x) * blockDim.x) {
+    const int64_t c = grp * V;
+    // flat index of element (j, v): base + j * stride + v
+    const int64_t base =
+        TRAIL ? c * D : ((c >> log_b) << (log_b + LOG_D)) | (c & (B - 1));
+    const int64_t stride = TRAIL ? 1 : B;
+    // x[part][plane][j][v]
+    float x[PARTS][2][D][V];
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl) {
+      if constexpr (TRAIL) {
+        const Vec<D> r = load_vec<D>(psi + pl * n_amps + base);
+#pragma unroll
+        for (int j = 0; j < D; ++j) x[0][pl][j][0] = r.v[j];
+      } else {
+#pragma unroll
+        for (int j = 0; j < D; ++j) {
+          const Vec<V> r = load_vec<V>(psi + pl * n_amps + base + j * B);
+#pragma unroll
+          for (int v = 0; v < V; ++v) x[0][pl][j][v] = r.v[v];
+        }
+      }
+    }
+    if (ndiag) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        // column c + v's j = 0 element sits at base + v
+        const uint32_t hit = col_hits(base + v, ntab, cmask, cwant);
+#pragma unroll
+        for (int j = 0; j < D; ++j) {
+          // the entries that hit the element one by one, in order, as the
+          // plain version applies them (comb of one entry is the entry):
+          // a combined factor would round otherwise, and a bf16 rounding
+          // of x moves by 2^-8 with it
+          for (uint32_t h = hit & jtab[j]; h; h &= h - 1) {
+            const float2 z = comb[h & (0u - h)];
+            cmul(x[0][0][j][v], x[0][1][j][v], z.x, z.y);
+          }
+          for (int q = TABLE; q < ndiag; ++q) {
+            int64_t mask, want;
+            float zr, zi;
+            diag.entry(q, mask, want, zr, zi);
+            if (((base + j * stride + v) & mask) == want)
+              cmul(x[0][0][j][v], x[0][1][j][v], zr, zi);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const float hi = round_bf16(x[0][pl][j][v]);
+          if constexpr (PARTS == 2)
+            x[1][pl][j][v] = round_bf16(__fsub_rn(x[0][pl][j][v], hi));
+          x[0][pl][j][v] = hi;
+        }
+      }
+    }
+    // out[plane][i][v]
+    float o[2][D][V];
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float ar = 0.f, ai = 0.f;
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          // the (W part, x part) of product q: hi hi, hi lo, lo hi
+#pragma unroll
+          for (int q = 0; q < PRODUCTS; ++q) {
+            const int pw = q == 2 ? 1 : 0, px = q == 1 ? 1 : 0;
+            const float2 wq = ws[pw][i * D + k];
+            const float xr = x[px][0][k][v], xi = x[px][1][k][v];
+            ar = fmaf(wq.x, xr, fmaf(-wq.y, xi, ar));
+            ai = fmaf(wq.x, xi, fmaf(wq.y, xr, ai));
+          }
+        }
+        o[0][i][v] = ar;
+        o[1][i][v] = ai;
+      }
+    }
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl) {
+      if constexpr (TRAIL) {
+        float r[D];
+#pragma unroll
+        for (int i = 0; i < D; ++i) r[i] = o[pl][i][0];
+        store_vec<D>(out + pl * n_amps + base, r);
+      } else {
+#pragma unroll
+        for (int i = 0; i < D; ++i)
+          store_vec<V>(out + pl * n_amps + base + i * B, o[pl][i]);
+      }
+    }
+  }
+}
+
+template <int D, int V, bool TRAIL, int PREC>
+int launch_fma_stream(const WindowArgs& a) {
+  static int blocks_cap[MAX_DEVICES] = {};  // resident blocks, per device
+  cudaError_t err;
+  const int cap = resident_blocks(window_fma_stream_kernel<D, V, TRAIL, PREC>,
+                                  0, blocks_cap, err);
+  if (cap == 0) return static_cast<int>(err);
+  const int64_t groups = a.n_amps / D / V;
+  const int64_t blocks = (groups + THREADS - 1) / THREADS;
+  const unsigned grid = static_cast<unsigned>(blocks < cap ? blocks : cap);
+  const Diag diag{a.flips, a.nflips, a.masks, a.wants,
+                  a.phase, a.nphases, a.n_amps - 1};
+  window_fma_stream_kernel<D, V, TRAIL, PREC><<<grid, THREADS, 0, a.stream>>>(
+      a.psi, a.out, a.w, a.n_amps, a.log_b, diag);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D, int PREC>
 int launch_fma(const WindowArgs& a) {
-  constexpr int BN = 512;
-  const int64_t cols = a.n_amps / D;
-  const unsigned grid = static_cast<unsigned>((cols + BN - 1) / BN);
-  window_fma_kernel<D, BN, D, PREC><<<grid, BN / TN, 0, a.stream>>>(
-      a.psi, a.out, a.w, a.n_amps, a.log_b, a.flips, a.nflips, a.masks,
-      a.wants, a.phase, a.nphases);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (PREC == F32) {
+    constexpr int BN = 512;
+    const int64_t cols = a.n_amps / D;
+    const unsigned grid = static_cast<unsigned>((cols + BN - 1) / BN);
+    window_fma_kernel<D, BN, D><<<grid, BN / TN, 0, a.stream>>>(
+        a.psi, a.out, a.w, a.n_amps, a.log_b, a.flips, a.nflips, a.masks,
+        a.wants, a.phase, a.nphases);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    // V consecutive b a thread: one 16-byte (D = 2, B >= 4) or 8-byte load
+    // a row, so that x, its lo part and the outputs fit the registers of
+    // three blocks an SM
+    if (a.log_b == 0) return launch_fma_stream<D, 1, true, PREC>(a);
+    if constexpr (D == 4) {
+      return launch_fma_stream<D, 2, false, PREC>(a);
+    } else {
+      return a.log_b == 1 ? launch_fma_stream<D, 2, false, PREC>(a)
+                          : launch_fma_stream<D, 4, false, PREC>(a);
+    }
+  }
 }
 
 template <int PREC>

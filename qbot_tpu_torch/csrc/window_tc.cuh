@@ -1,6 +1,7 @@
 // The tensor-core window kernel (window_apply.cu describes its design) for
-// D = 8 .. 128, in both orientations (B > 1, and TRAIL: B == 1), in one
-// precision of the products (tc_tile.cuh: Prec).
+// D = 8 .. 128, in both orientations (B > 1, and TRAIL: B == 1), with the
+// F32 tile's products (tc_tile.cuh: Prec F32; the reduced modes' window is
+// window_bf16.cuh).
 //
 // Build: the kernel has one instantiation per (D, TRAIL, PREC).  So
 // window_tc.cu instantiates the launcher window_tc_launch<PREC> declared

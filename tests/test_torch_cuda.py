@@ -352,27 +352,67 @@ def test_grover_loop_on_card(cuda):
     assert abs(p - want) < 1e-5
 
 
-@pytest.mark.parametrize("where", ["first", "middle", "trailing"])
+def _many_diagonals(n, rng, device):
+    """13 flips and phases: more than the kernels' lookup tables hold (8)."""
+    phases = tuple((tuple(int(q) for q in rng.choice(n, size=3,
+                                                      replace=False)),
+                    complex(np.exp(1j * rng.uniform(0, 6))),
+                    int(rng.integers(0, 8))) for _ in range(7))
+    flips = tuple(int(m) for m in rng.integers(0, 2**n, size=6))
+    return kernels.fused_diagonals(n, flips, phases, device)
+
+
+@pytest.mark.parametrize("diagonals", ["few", "many"])
+@pytest.mark.parametrize("where", ["first", "middle", "trailing", "b2", "b4"])
 @pytest.mark.parametrize("width", range(1, 8))
-def test_window_kernel_reduced_modes(cuda, reduced_mode, width, where):
-    """Every width and orientation in bf16_3x and bf16: the kernel of the
-    mode against the plain version of the mode and against float64."""
+def test_window_kernel_reduced_modes(cuda, reduced_mode, width, where,
+                                     diagonals):
+    """Every width and orientation in bf16_3x and bf16 (the FMA variant at
+    D <= 4, window_bf16.cuh at D >= 8), with B = 2 and 4 beside the first,
+    middle and trailing windows, and with more diagonals than the lookup
+    tables hold: the kernel of the mode against the plain version of the
+    mode and against float64."""
     tol, _, f64_tol = MODE_TOL[reduced_mode]
     n = 12
-    start = {"first": 0, "middle": (n - width) // 2,
-             "trailing": n - width}[where]
+    start = {"first": 0, "middle": (n - width) // 2, "trailing": n - width,
+             "b2": n - width - 1, "b4": n - width - 2}[where]
     rng = np.random.default_rng(100 * width + len(where))
     psi = _state(n, rng, cuda)
     w = _unitary(2**width, rng, cuda)
-    flips = tuple(int(m) for m in rng.integers(0, 2**n, size=3))
-    phases = ((tuple(sorted({0, start, n - 1})), complex(np.exp(0.5j)), 0),)
-    diag = kernels.fused_diagonals(n, flips, phases, cuda)
+    if diagonals == "many":
+        diag = _many_diagonals(n, rng, cuda)
+    else:
+        flips = tuple(int(m) for m in rng.integers(0, 2**n, size=3))
+        phases = ((tuple(sorted({0, start, n - 1})), complex(np.exp(0.5j)),
+                   0),)
+        diag = kernels.fused_diagonals(n, flips, phases, cuda)
     got = kernels.window_apply(psi, n, start, width, w, diag)
     want = kernels.window_apply_ref(psi, n, start, width, w, diag)
     exact = kernels.window_apply_ref(psi.double(), n, start, width,
                                      w.double(), diag, mode="f32")
     assert rel_l2(got, want) <= tol
     assert rel_l2(got, exact) <= f64_tol
+
+
+@pytest.mark.parametrize("where", ["middle", "trailing"])
+@pytest.mark.parametrize("width", range(1, 8))
+def test_window_kernel_reduced_modes_many_tiles(cuda, reduced_mode, width,
+                                                where):
+    """At 20 qubits (a persistent block walks many tiles): the kernel of
+    the mode against its plain version, and bit for bit the same in a
+    second launch."""
+    tol = MODE_TOL[reduced_mode][0]
+    n = 20
+    start = n - width - (8 if where == "middle" else 0)
+    rng = np.random.default_rng(width)
+    psi = _state(n, rng, cuda)
+    w = _unitary(2**width, rng, cuda)
+    diag = _many_diagonals(n, rng, cuda)
+    got = kernels.window_apply(psi, n, start, width, w, diag)
+    again = kernels.window_apply(psi, n, start, width, w, diag)
+    want = kernels.window_apply_ref(psi, n, start, width, w, diag)
+    assert torch.equal(got, again)
+    assert rel_l2(got, want) <= tol
 
 
 @pytest.mark.parametrize("geometry", PAIR_GEOMETRIES,

@@ -18,6 +18,13 @@ for bf16), against its plain version's float64-summed model (the tensor
 cores' sums, rounded toward zero, cost less than 1e-5), and the norm drift
 those truncating sums cause pass after pass.
 
+The reduced modes' window kernel (``csrc/window_bf16.cuh``) takes W as the
+A operand of ``mma.sync.m16n8k16``, pre-split once per block, and sums
+each k16-step's hi·hi products on the tensor cores; its replays below fix
+its fragment map, its limits and its drift against the k8 tile's, and
+the order of products of the reduced FMA window (D <= 4) against
+``window_apply_ref``.
+
     python3 tests/test_torch_window_split.py
 
 prints the emulated relative L2 error against float64 at D = 8..128
@@ -269,16 +276,18 @@ def test_bf16_fragments_pack_a_lanes_two_k(paired):
     np.testing.assert_array_equal(slot_a @ slot_b, a @ b)
 
 
-def drift(d: int, mode: str, passes: int, rounding, seed: int = 0):
+def drift(d: int, mode: str, passes: int, rounding, seed: int = 0,
+          cols: int = 256, product=tc_product_bf16):
     """The norm of random columns after ``passes`` applications of one
-    random unitary window through the replayed tile."""
+    random unitary window through the replayed tile (``product``: the k8
+    tile, or the k16 kernel of the reduced windows)."""
     rng = np.random.default_rng(seed)
     u = _unitary(d, rng)
     wr, wi = u.real.astype(F32), u.imag.astype(F32)
-    xr, xi = _columns(d, 256, rng)
+    xr, xi = _columns(d, cols, rng)
     n0 = np.linalg.norm(xr.astype(F64)) ** 2 + np.linalg.norm(xi) ** 2
     for _ in range(passes):
-        xr, xi = tc_product_bf16(xr, xi, wr, wi, mode, rounding)
+        xr, xi = product(xr, xi, wr, wi, mode, rounding)
     return (np.linalg.norm(xr.astype(F64)) ** 2
             + np.linalg.norm(xi.astype(F64)) ** 2) / n0
 
@@ -298,6 +307,206 @@ def test_truncating_sums_shrink_the_norm(seed):
     assert 1e-8 < extra < 1e-5
 
 
+# ---------------------------------------------------------------------------
+# the reduced modes' window kernel (csrc/window_bf16.cuh): m16n8k16, W the
+# A operand, pre-split once per block
+# ---------------------------------------------------------------------------
+
+def w_fragment_word(d: int, mt: int, ks: int, lane: int, r: int):
+    """(row, j) of the low half of word r of lane ``lane``'s A fragment of
+    m-tile ``mt`` and k16-step ``ks``, as window_bf16.cuh's prologue writes
+    it (the high half holds j + 4), or None where the word is zero."""
+    g, t = lane >> 2, lane & 3
+    row, j = 16 * mt + g + 8 * (r & 1), 16 * ks + t + 8 * (r >> 1)
+    return (row, j) if row < d and j < d else None
+
+
+def x_fragment_j(d: int, t: int, e: int):
+    """The j (within the k16-step) of element e of a lane's B fragment:
+    b[0] packs e = 0, 1, b[1] e = 2, 3 (low half first), or None where the
+    element is zero (D = 8 holds 8 j)."""
+    return t + 4 * e if e < (2 if d < 16 else 4) else None
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+def test_k16_fragments_give_both_operands_the_same_j(d):
+    """mma.sync.m16n8k16 takes A slots (row, k) from lane (g, t): words 0-3
+    are rows g, g + 8, g, g + 8 at k = 2t, 2t + 1 (words 0, 1) and 2t + 8,
+    2t + 9 (words 2, 3), low half first; B slots (k, column g) from b[0]
+    (2t, 2t + 1) and b[1] (2t + 8, 2t + 9).  With the kernel's pre-split W
+    and x fragments, each lane's four k slots hold the same j on both
+    operands, so the slot sums over the k16-steps are W x."""
+    rng = np.random.default_rng(d)
+    w = _bf16(rng.normal(size=(d, d)).astype(F32)).astype(F64)
+    x = _bf16(rng.normal(size=(d, 8)).astype(F32)).astype(F64)
+    steps = max(1, d // 16)
+    got = np.zeros((16 * steps, 8))
+    for mt in range(steps):
+        for ks in range(steps):
+            a, b = np.zeros((16, 16)), np.zeros((16, 8))
+            slot_j = {}
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for r in range(4):
+                    rj = w_fragment_word(d, mt, ks, lane, r)
+                    row = g + 8 * (r & 1)
+                    k = 2 * t + 8 * (r >> 1)
+                    if rj is not None:
+                        a[row, k] = w[rj[0], rj[1]]
+                        a[row, k + 1] = w[rj[0], rj[1] + 4]
+                        slot_j[(lane, k)] = rj[1] - 16 * ks
+                        slot_j[(lane, k + 1)] = rj[1] + 4 - 16 * ks
+                for e in range(4):
+                    j = x_fragment_j(d, t, e)
+                    k = 2 * t + 8 * (e >> 1) + (e & 1)
+                    if j is not None:
+                        b[k, g] = x[16 * ks + j, g]
+                        assert slot_j.get((lane, k), j) == j
+            got[16 * mt:16 * mt + 16] += a @ b
+    np.testing.assert_array_equal(got[:d], w @ x)
+
+
+def tc_product_bf16_k16(xr, xi, wr, wi, mode, rounding=_rz):
+    """(out_r, out_i) of out[c, n] = Σ_k x[c, k] W[n, k], complex, as
+    window_bf16.cuh computes it: both operands split into bf16 parts; each
+    k16-step's hi·hi sums of both planes (two mma from a zero accumulator,
+    ``rounding`` after each) added to the float32 accumulators to nearest;
+    bf16_3x's four cross-term products of a plane summed over the stage
+    (the k16-step) on the tensor cores, then added likewise."""
+    (xrh, xrl), (xih, xil) = _split_bf16(xr), _split_bf16(xi)
+    (wrh, wrl), (wih, wil) = _split_bf16(wr), _split_bf16(wi)
+    acc = [np.zeros((xr.shape[0], wr.shape[0]), F32) for _ in range(2)]
+    plan = (([(xrh, wrh), (-xih, wih)],
+             [(xrh, wrl), (xrl, wrh), (-xih, wil), (-xil, wih)]),
+            ([(xrh, wih), (xih, wrh)],
+             [(xrh, wil), (xrl, wih), (xih, wrl), (xil, wrh)]))
+    for ks in range(0, xr.shape[1], 16):
+        s = slice(ks, ks + 16)
+        for p, (hi, lo) in enumerate(plan):
+            terms = [hi] + ([lo] if mode == "bf16_3x" else [])
+            for chain in terms:
+                e = np.zeros_like(acc[p], F64)
+                for a, b in chain:
+                    e = rounding(e + _mm(a[:, s], b[:, s])).astype(F64)
+                acc[p] = (acc[p] + e.astype(F32)).astype(F32)
+    return acc[0], acc[1]
+
+
+def emulate_bf16_k16(d: int, mode: str, cols: int = 512, seed: int = 0):
+    """(window_bf16.cuh's relative L2 error vs float64, vs its plain
+    version's model) for a random unitary window on random columns."""
+    rng = np.random.default_rng(seed)
+    u = _unitary(d, rng)
+    wr, wi = u.real.astype(F32), u.imag.astype(F32)
+    xr, xi = _columns(d, cols, rng)
+    want = (xr.astype(F64) + 1j * xi) @ (wr.astype(F64) + 1j * wi).T
+    gr, gi = tc_product_bf16_k16(xr, xi, wr, wi, mode)
+    got = gr.astype(F64) + 1j * gi
+    pr, pi = plain_model_bf16(xr, xi, wr, wi, mode)
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    return rel(got, want), rel(got, pr + 1j * pi)
+
+
+@pytest.mark.parametrize("mode", ["bf16_3x", "bf16"])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+def test_bf16_k16_tile_within_its_limits(d, mode):
+    err, vs_plain = emulate_bf16_k16(d, mode, seed=d)
+    assert err <= BF16_F64_TOL[mode]
+    assert vs_plain <= 1e-5
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_k16_truncating_sums_shrink_the_norm_more_than_k8(seed):
+    """The k16 kernel rounds each hi·hi sum toward zero half as often as
+    the k8 tile, but a sum of 16 bf16 products is exact in float32 less
+    often than a sum of 8: the shrink its truncating sums add over
+    round-to-nearest sums is 1.5-2.5 times the k8 tile's here, and stays
+    below three times it.  (On the card, phase 7 of chip_smoke.py holds the
+    whole drift of bf16_3x at 1e-6 per 100 gates.)"""
+    def rn(x):
+        return x.astype(F32)
+
+    def shrink(product):
+        return (drift(64, "bf16_3x", 8, rn, seed, 1024, product)
+                - drift(64, "bf16_3x", 8, _rz, seed, 1024, product))
+
+    k8, k16 = shrink(tc_product_bf16), shrink(tc_product_bf16_k16)
+    assert 0 < k8 < k16 < 3 * k8
+
+
+# ---------------------------------------------------------------------------
+# the reduced modes' FMA window at D <= 4 (csrc/window_apply.cu:
+# window_fma_stream_kernel)
+# ---------------------------------------------------------------------------
+
+def _fma(a, b, c):
+    """fmaf in float32: the float64 product of two float32 values is exact,
+    and the sum is rounded once (twice only where it is not exact in
+    float64, beyond any tolerance here)."""
+    return (a.astype(F64) * b + c).astype(F32)
+
+
+def fma_window_model(xr, xi, wr, wi, mode):
+    """out[a, i, b] = Σ_k W[i, k] x[a, k, b], complex, as the FMA window of
+    a reduced mode sums it: x (A, D, B) and W (D, D) planes split into bf16
+    hi and lo parts, and for each k the products hi·hi, hi·lo, lo·hi (W
+    part, x part; bf16: hi·hi) taken by FP32 FMAs in that order."""
+    xs, ws = [_split_bf16(xr), _split_bf16(xi)], [_split_bf16(wr),
+                                                  _split_bf16(wi)]
+    products = ((0, 0), (0, 1), (1, 0)) if mode == "bf16_3x" else ((0, 0),)
+    A, D, B = xr.shape
+    ar = np.zeros((A, D, B), F32)
+    ai = np.zeros((A, D, B), F32)
+    for k in range(D):
+        for pw, px in products:
+            w_r = ws[0][pw][None, :, k, None]
+            w_i = ws[1][pw][None, :, k, None]
+            x_r = xs[0][px][:, None, k, :]
+            x_i = xs[1][px][:, None, k, :]
+            ar = _fma(w_r, x_r, _fma(-w_i, x_i, ar))
+            ai = _fma(w_r, x_i, _fma(w_i, x_r, ai))
+    return ar, ai
+
+
+@pytest.mark.parametrize("mode", ["bf16_3x", "bf16"])
+@pytest.mark.parametrize("geometry", [(5, 1, 3), (4, 2, 3), (9, 1, 0),
+                                      (8, 2, 0), (6, 2, 1)],
+                         ids=lambda g: "A{}_w{}_B{}".format(*g))
+def test_fma_window_order_matches_plain_version(geometry, mode):
+    """The reduced FMA window's products, in the kernel's order, against
+    window_apply_ref in the same mode on the CPU (with flips and phases):
+    within 1e-5, the limit chip_smoke.py and the card tests hold the kernel
+    to, and within the mode's float64 limit."""
+    import torch
+
+    from qbot_tpu_torch.tpu import kernels
+
+    log_a, width, log_b = geometry
+    n, d = log_a + width + log_b, 2**width
+    rng = np.random.default_rng(sum(geometry))
+    psi = rng.normal(size=(2, 2**n))
+    psi = torch.tensor(psi / np.linalg.norm(psi), dtype=torch.float32)
+    u = _unitary(d, rng)
+    w = torch.tensor(np.stack([u.real, u.imag]), dtype=torch.float32)
+    phases = (((log_a, n - 1), complex(np.exp(0.5j)), 1),)
+    diag = kernels.fused_diagonals(n, (3, 2**n - 5), phases)
+    x = kernels._apply_diagonals_ref(psi, diag).numpy().reshape(
+        2, 2**log_a, d, 2**log_b)
+    ar, ai = fma_window_model(x[0], x[1], w[0].numpy(), w[1].numpy(), mode)
+    got = np.stack([ar, ai]).reshape(2, -1).astype(F64)
+    want = kernels.window_apply_ref(psi, n, log_a, width, w, diag,
+                                    mode=mode).numpy()
+    exact = kernels.window_apply_ref(psi.double(), n, log_a, width,
+                                     w.double(), diag, mode="f32").numpy()
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    assert rel(got, want) <= 1e-5
+    assert rel(got, exact) <= BF16_F64_TOL[mode]
+
+
 if __name__ == "__main__":
     for d in (8, 16, 32, 64, 128):
         err, plain, exact = emulate(d)
@@ -305,8 +514,12 @@ if __name__ == "__main__":
               f"{plain:.3e} relative L2 vs float64; exact sums {exact}")
         for mode in ("bf16_3x", "bf16"):
             err, vs_plain = emulate_bf16(d, mode)
-            print(f"    {mode}: emulated kernel {err:.3e} vs float64, "
-                  f"{vs_plain:.3e} vs its plain version")
+            err16, vs_plain16 = emulate_bf16_k16(d, mode)
+            print(f"    {mode}: emulated k8 tile {err:.3e} vs float64, "
+                  f"{vs_plain:.3e} vs its plain version; k16 kernel "
+                  f"{err16:.3e}, {vs_plain16:.3e}")
     for mode in ("bf16_3x", "bf16"):
         print(f"{mode}: norm after 16 passes at D = 64 "
               f"{drift(64, mode, 16, _rz):.9f} (sums rounded toward zero)")
+    print(f"bf16_3x k16 kernel: norm after 16 passes at D = 64 "
+          f"{drift(64, 'bf16_3x', 16, _rz, product=tc_product_bf16_k16):.9f}")
