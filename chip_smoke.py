@@ -31,9 +31,10 @@ nonzero:
    kernel.  The pairs apply W1 first, as the reference and the plain
    version do.  Each is timed with the bound of its BF16 products and, for
    the windows, one bf16 product with float32 output (``torch.mm`` /
-   ``torch.bmm`` with ``out_dtype``) as its library call, its operands split
-   and laid out before the timed call (``library_ms``) and inside it
-   (``library_split_ms``).
+   ``torch.bmm`` with ``out_dtype``) as its library call, for the pairs
+   the two such calls of its windows chained (no one call re-splits the
+   intermediate Y), their operands split and laid out before
+   the timed call (``library_ms``) and inside it (``library_split_ms``).
 3. runs the example programs through the port's CLI and holds the readout
    to the dense host interpreter's within 1e-6; then a generated 24-qubit
    program (Hadamards and a CX chain; qubit 0 reads [0.5, 0.5]).
@@ -182,13 +183,15 @@ KERNEL_SOURCES = {
 }
 PRODUCT_KERNELS = ("window_apply", "window_apply_trailing", "pair_apply",
                    "pair_apply_trailing")
-# the reduced modes' windows run csrc/window_bf16.cuh (the FMA variant of
-# D <= 4 in csrc/window_apply.cu)
+# the reduced modes' windows run csrc/window_bf16.cuh and their pairs
+# csrc/pair_bf16.cuh (the FMA variants of widths below 8 in
+# csrc/window_apply.cu and csrc/pair_apply.cu)
 for _mode in REDUCED_MODES:
     for _name in PRODUCT_KERNELS:
         src, rep = KERNEL_SOURCES[_name]
-        if _name.startswith("window"):
-            src = "qbot_tpu_torch/csrc/window_bf16.cuh"
+        src = ("qbot_tpu_torch/csrc/window_bf16.cuh"
+               if _name.startswith("window")
+               else "qbot_tpu_torch/csrc/pair_bf16.cuh")
         KERNEL_SOURCES[f"{_name}[{_mode}]"] = (src, rep)
 
 
@@ -372,6 +375,31 @@ def library_window_reduced(psi, A, D, B, w, mode, split_inside=False):
     return lambda: run(*ops)
 
 
+def _planar(out, A, D, B):
+    """The planar (2, A·D·B) state of a reduced window library call's output
+    (``library_window_reduced``: (A, 2D) for B = 1, (A, 2D, B) else)."""
+    return out.view(A, 2, D, B).permute(1, 0, 2, 3).reshape(2, -1)
+
+
+def library_pair_reduced(psi, A, D1, D2, B, w1, w2, mode,
+                         split_inside=False):
+    """Two PyTorch calls for pair_apply with empty diagonals in a reduced
+    mode: ``library_window_reduced`` for W1, then for W2 on its output
+    (which no single call re-splits).  Their operands are split and laid
+    out before the timed calls (``library_ms``), or inside them, the second
+    call's from the first call's output (``split_inside``,
+    ``library_split_ms``)."""
+    first = library_window_reduced(psi, A, D1, D2 * B, w1, mode,
+                                   split_inside)
+    if split_inside:
+        return lambda: library_window_reduced(
+            _planar(first(), A, D1, D2 * B), A * D1, D2, B, w2, mode,
+            True)()
+    second = library_window_reduced(_planar(first(), A, D1, D2 * B),
+                                    A * D1, D2, B, w2, mode)
+    return lambda: (first(), second())
+
+
 def check_window(n: int, device, rng, gen, mode: str = "f32",
                  f32: dict | None = None) -> tuple[dict, dict]:
     """window_apply vs window_apply_ref in dot ``mode`` (set by the caller)
@@ -497,8 +525,9 @@ def check_pair(n: int, device, rng, gen, mode: str = "f32",
     middle pair (0,2)+(2,7) and a trailing pair (17,2)+(19,7), whose D1 = 4
     takes the FP32 FMA variant.  Each is also held to a float64 product of
     the same inputs, and timed as the kernel, its plain version, one einsum
-    (empty diagonals; f32 only: no PyTorch call re-splits the intermediate
-    Y of a reduced mode) and the two window_apply launches it replaces;
+    (empty diagonals; in a reduced mode the two library calls of its
+    windows, ``library_pair_reduced``) and the two
+    window_apply launches it replaces;
     ``f32``, the f32 run's results, puts each shape's f32 time beside.
     Returns the results of the middle pairs (timed at (32, 128)) and of the
     trailing pairs (timed at (128, 128))."""
@@ -564,10 +593,15 @@ def check_pair(n: int, device, rng, gen, mode: str = "f32",
         if mode == "f32":
             plain_ms, ms, library_ms, windows_ms = timed_in_turns(
                 [plain, kernel, library, windows], device)
+            library_split_ms = None
         else:
-            plain_ms, ms, windows_ms = timed_in_turns(
-                [plain, kernel, windows], device)
-            library_ms = None
+            fns = [plain, kernel, windows,
+                   *(library_pair_reduced(psi, A, 2**width1, 2**width2, B,
+                                          w1, w2, mode, inside)
+                     for inside in (False, True))]
+            (plain_ms, ms, windows_ms, library_ms,
+             library_split_ms) = timed_in_turns(fns, device)
+            del fns
         bound_ms, bound_by = product_bound(
             2 * psi.nbytes + w1.nbytes + w2.nbytes,
             8 * (2**width1 + 2**width2) * 2**n, mode,
@@ -577,9 +611,16 @@ def check_pair(n: int, device, rng, gen, mode: str = "f32",
                        "max_abs_err": max_abs, "rel_l2_f64": f64,
                        "plain_rel_l2_f64": plain_f64, "ms": ms,
                        "plain_ms": plain_ms, "library_ms": library_ms,
+                       "library_split_ms": library_split_ms,
                        "two_window_ms": windows_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by})
-        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        if library_ms is None:
+            lib = "none"
+        elif library_split_ms is None:
+            lib = f"{library_ms:.4f} ms"
+        else:
+            lib = (f"{library_ms:.4f} ms as two calls (split inside "
+                   f"{library_split_ms:.4f} ms)")
         beside = (f"; f32 kernel {f32_ms[label]:.4f} ms" if label in f32_ms
                   else "")
         say(f"pair_apply[{mode}] {label}: (A, D1, D2, B) = ({A}, "
@@ -596,6 +637,7 @@ def check_pair(n: int, device, rng, gen, mode: str = "f32",
                 "max_abs_err": max(s["max_abs_err"] for s in group),
                 "rel_l2_f64": max(s["rel_l2_f64"] for s in group),
                 **{k: group[0][k] for k in ("ms", "plain_ms", "library_ms",
+                                            "library_split_ms",
                                             "two_window_ms", "bound_ms",
                                             "bound_by")}}
 

@@ -14,8 +14,9 @@
 //
 // Which widths take which variant (chosen here, by geometry, before the
 // launch; a geometry is never retried on another variant):
-// - D1 >= 8 and D2 >= 8, trailing or middle: pair_tc_kernel (pair_tc.cuh),
-//   3xTF32 products on the tensor cores;
+// - D1 >= 8 and D2 >= 8, trailing or middle: on the tensor cores,
+//   pair_tc_kernel (pair_tc.cuh: 3xTF32 products) in f32 and f32_mix,
+//   pair_bf16_kernel (pair_bf16.cuh: BF16 m16n8k16) in bf16_3x and bf16;
 // - D1 or D2 in {2, 4}, below the tile's k-step and n-tile of 8:
 //   pair_apply_kernel, FP32 FMAs.
 // Each in the precision of the products the caller asks for (tc_tile.cuh:

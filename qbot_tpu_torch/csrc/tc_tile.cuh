@@ -26,9 +26,12 @@
 // replay the arithmetic in numpy.
 //
 // The reduced modes (Prec BF16X3, BF16: the reference's --precision bf16_3x
-// and bf16, qbot_tpu/tpu/kernels.py:55-71) take the same tile with
-// mma.sync.m16n8k8 BF16 products in the pair kernels (the reduced windows
-// run window_bf16.cuh: m16n8k16, W split once per block).  x and W are
+// and bf16, qbot_tpu/tpu/kernels.py:55-71) have kernels of their own,
+// window_bf16.cuh and pair_bf16.cuh (m16n8k16, W split once per block);
+// the tile's form with mma.sync.m16n8k8 BF16 products below is
+// instantiated by no kernel, and tests/test_torch_window_split.py and
+// tests/test_torch_pair_split.py replay it as the yardstick of those
+// kernels' drift (ROADMAP queue 2b).  x and W are
 // split as the reference splits them, x_hi = x rounded to bf16 (to nearest
 // even), x_lo = bf16(x - x_hi), with no grid; BF16X3 sums x_hi W_hi +
 // x_hi W_lo + x_lo W_hi, BF16 x_hi W_hi alone.  Products of bf16 values are exact in FP32, but a k-step's sum

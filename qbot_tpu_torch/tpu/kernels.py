@@ -488,9 +488,10 @@ def pair_apply(psi, n: int, start: int, width1: int, width2: int, w1, w2,
     On a CUDA tensor, :func:`pair_route` picks the trailing or the middle
     pair kernel, or two :func:`window_apply` launches with the diagonals
     fused into the first (counted as window launches).  The trailing and
-    middle pairs at D1, D2 >= 8 run on the tensor cores (3xTF32, or BF16 in
-    the reduced modes, ``csrc/pair_tc.cuh``), narrower widths in FP32 FMAs
-    (``csrc/pair_apply.cu``); both apply W1 first, as the plain version
+    middle pairs at D1, D2 >= 8 run on the tensor cores (3xTF32,
+    ``csrc/pair_tc.cuh``; in the reduced modes BF16 ``mma.sync.m16n8k16``,
+    ``csrc/pair_bf16.cuh``), narrower widths in FP32 FMAs
+    (``csrc/pair_apply.cu``); all apply W1 first, as the plain version
     does.
     """
     _require(1 <= width1 <= 7 and 1 <= width2 <= 7 and 0 <= start

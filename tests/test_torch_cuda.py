@@ -435,6 +435,68 @@ def test_pair_kernel_reduced_modes(cuda, reduced_mode, geometry):
     assert rel_l2(got, exact) <= f64_tol
 
 
+def _reduced_pair_check(psi, n, start, width1, width2, w1, w2, diag, mode):
+    """The reduced pair kernel (csrc/pair_bf16.cuh at D1, D2 >= 8) against
+    the plain version of the mode and against float64."""
+    _, tol, f64_tol = MODE_TOL[mode]
+    got = kernels.pair_apply(psi, n, start, width1, width2, w1, w2, diag)
+    want = kernels.pair_apply_ref(psi, n, start, width1, width2, w1, w2,
+                                  diag)
+    exact = kernels.pair_apply_ref(psi.double(), n, start, width1, width2,
+                                   w1.double(), w2.double(), diag,
+                                   mode="f32")
+    assert rel_l2(got, want) <= tol, (n, start)
+    assert rel_l2(got, exact) <= f64_tol, (n, start)
+    return got
+
+
+@pytest.mark.parametrize("width2", range(3, 8))
+@pytest.mark.parametrize("width1", range(3, 8))
+def test_pair_kernel_reduced_modes_every_width(cuda, reduced_mode, width1,
+                                               width2):
+    """Every (D1, D2) of 8-128 in bf16_3x and bf16: the trailing pair with
+    1, 2 and 64 slabs (fewer than a unit of 2 or 4 slabs at D1 <= 32, and
+    more than the walkers), the middle pair (D1 <= 32) at B = 128 with 1
+    and 4 a."""
+    geometries = [(width1 + width2 + k, k) for k in (0, 1, 6)]
+    if width1 <= 5:
+        geometries += [(width1 + width2 + 7 + k, k) for k in (0, 2)]
+    for n, start in geometries:
+        rng = np.random.default_rng(10 * width1 + width2 + n)
+        psi, w1, w2, diag = _pair_inputs(n, start, width1, width2, rng, cuda)
+        assert kernels.pair_route(n, start, width1, width2) != "two_windows"
+        _reduced_pair_check(psi, n, start, width1, width2, w1, w2, diag,
+                            reduced_mode)
+
+
+@pytest.mark.parametrize("log_b", [7, 10])
+def test_middle_pair_reduced_modes_b(cuda, reduced_mode, log_b):
+    """The middle pair at the smallest B its route takes (128) and at
+    B = 2^10, (32, 128) as on the brickwork's path, with 4 a."""
+    n, start = 2 + 5 + 7 + log_b, 2
+    rng = np.random.default_rng(log_b)
+    psi, w1, w2, diag = _pair_inputs(n, start, 5, 7, rng, cuda)
+    assert kernels.pair_route(n, start, 5, 7) == "middle"
+    _reduced_pair_check(psi, n, start, 5, 7, w1, w2, diag, reduced_mode)
+
+
+def test_reduced_pair_kernel_is_deterministic(cuda, reduced_mode):
+    """Bit for bit the same output in repeated launches, in each reduced
+    mode: trailing (128, 128), (64, 128) and (32, 128) with more slabs than
+    the walkers, the middle (32, 128) and (8, 64)."""
+    for n, start, width1, width2 in ((20, 6, 7, 7), (19, 6, 6, 7),
+                                     (20, 8, 5, 7), (19, 0, 5, 7),
+                                     (18, 2, 3, 6)):
+        rng = np.random.default_rng(n + width1)
+        psi, w1, w2, diag = _pair_inputs(n, start, width1, width2, rng, cuda)
+        first = kernels.pair_apply(psi, n, start, width1, width2, w1, w2,
+                                   diag)
+        for _ in range(3):
+            assert torch.equal(kernels.pair_apply(psi, n, start, width1,
+                                                  width2, w1, w2, diag),
+                               first)
+
+
 def test_reduced_mode_launches_its_own_kernel(cuda, reduced_mode):
     """A CUDA tensor in a reduced mode launches that mode's kernel: its
     counter moves, the f32 kernel's does not."""

@@ -24,13 +24,20 @@ variant, trailing and middle.  The rows and columns of a product are
 independent, so the replay takes them in slab order, whatever order the
 kernel's tiles take them in.
 
-In the reduced modes (``bf16_3x``, ``bf16``) each product is the BF16
-tile of ``tests/test_torch_window_split.py`` (``tc_product_bf16``), and
-phase 2 splits the float32 Y anew, as the reference's second ``_dot``
-does: the replays hold each mode to chip_smoke.py's float64 limits (2e-5,
-1e-2) and to its plain version's model (float64 sums, Y rounded to float32
-between the products) within 1e-5, bf16 within 1e-4 (its Y is rounded to
-bf16 a second time, so a one-ulp difference in Y moves a rounding).
+In the reduced modes (``bf16_3x``, ``bf16``) phase 2 splits the float32 Y
+anew, as the reference's second ``_dot`` does.  The reduced pairs run
+``csrc/pair_bf16.cuh``: both products on ``mma.sync.m16n8k16`` with the
+rounding structure of the reduced window (``tc_product_bf16_k16`` of
+``tests/test_torch_window_split.py``), W1, W2 and Y split once, Y kept in
+registers between the products.  Their replays below fix its fragment maps
+(each operand's k slots give both operands the same j, or m), hold each
+mode to chip_smoke.py's float64 limits (2e-5, 1e-2) and to its plain
+version's model (float64 sums, Y rounded to float32 between the products)
+within 1e-5, bf16 within 1e-4 (its Y is rounded to bf16 a second time, so a
+one-ulp difference in Y moves a rounding), and bound the norm shrink of its
+truncating sums against that of the k8 BF16 tile (``tc_product_bf16``)
+that the reduced pairs ran before, which these tests keep replaying as the
+yardstick of the drift.
 
     python3 tests/test_torch_pair_split.py
 
@@ -41,8 +48,9 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from test_torch_window_split import BF16_F64_TOL, F32, F64_TOL, _grid, \
-    _split, _tf32, _unitary, plain_model_bf16, tc_product_bf16
+from test_torch_window_split import BF16_F64_TOL, F32, F64_TOL, _bf16, \
+    _grid, _split, _tf32, _unitary, plain_model_bf16, tc_product_bf16, \
+    tc_product_bf16_k16
 
 F64 = np.float64
 WIDTHS = [8, 16, 32, 64, 128]
@@ -125,16 +133,23 @@ def _random_pair(d1, d2, shape, rng):
     return w1, w2, x.astype(np.complex64)
 
 
-def tc_pair(xd, w1, w2, mode="f32"):
+# the reduced modes' tiles: "k16", csrc/pair_bf16.cuh; "k8", the BF16
+# m16n8k8 tile of tc_tile.cuh that the reduced pairs ran before it
+REDUCED_TILES = {"k16": tc_product_bf16_k16, "k8": tc_product_bf16}
+
+
+def tc_pair(xd, w1, w2, mode="f32", tile="k16", rounding=_rz):
     """(out, every k-step's hi·hi sums exact): W1 · X · W2ᵀ of each
     (D1, D2) slab of xd (slabs, D1, D2), complex64, as the kernel computes
-    it in dot ``mode`` (the reduced modes' sums are not exact: False)."""
+    it in dot ``mode``; a reduced mode on ``tile`` (REDUCED_TILES), its
+    tensor-core sums rounded by ``rounding`` (its sums are not exact:
+    False)."""
     slabs, d1, d2 = xd.shape
 
     def product(xr, xi, wr, wi):
         if mode == "f32":
             return tc_product(xr, xi, wr, wi)
-        return (*tc_product_bf16(xr, xi, wr, wi, mode), False)
+        return (*REDUCED_TILES[tile](xr, xi, wr, wi, mode, rounding), False)
 
     # phase 1: the columns (s, m) as A rows, K = j
     def cols(x):
@@ -174,7 +189,7 @@ def _rel(got, want):
 
 
 def emulate(d1: int, d2: int, slabs: int = 2, seed: int = 0,
-            mode: str = "f32"):
+            mode: str = "f32", tile: str = "k16"):
     """(kernel's relative L2 error vs float64, every k-step's hi·hi sums
     exact) for random unitaries on random slabs of the trailing pair; in a
     reduced mode, (error vs float64, error vs the plain version's model)."""
@@ -184,7 +199,7 @@ def emulate(d1: int, d2: int, slabs: int = 2, seed: int = 0,
     diag = _diagonals(slabs, d1, d2, rng)
     want = ((w1[0].astype(F64) + 1j * w1[1]) @ (x.astype(np.complex128) * diag)
             @ (w2[0].astype(F64) + 1j * w2[1]).T)
-    got, exact = tc_pair(x * diag, w1, w2, mode)   # float32 complex products
+    got, exact = tc_pair(x * diag, w1, w2, mode, tile)   # float32 products
     if mode != "f32":
         return _rel(got, want), _rel(got, plain_pair_bf16(x * diag, w1, w2,
                                                           mode))
@@ -214,7 +229,7 @@ def _middle_diagonals(a, d1, d2, b, rng):
 
 
 def emulate_middle(d1: int, d2: int, a: int = 2, b: int = 4, seed: int = 0,
-                   mode: str = "f32"):
+                   mode: str = "f32", tile: str = "k16"):
     """As :func:`emulate`, for the middle pair: the slabs are the b-columns
     of a (D1, D2, B) view, the flips and phases at their flat indices."""
     rng = np.random.default_rng(seed)
@@ -224,7 +239,7 @@ def emulate_middle(d1: int, d2: int, a: int = 2, b: int = 4, seed: int = 0,
                      x.astype(np.complex128) * diag,
                      w2[0].astype(F64) + 1j * w2[1])
     slabs = (x * diag).transpose(0, 3, 1, 2).reshape(a * b, d1, d2)
-    got, exact = tc_pair(slabs, w1, w2, mode)
+    got, exact = tc_pair(slabs, w1, w2, mode, tile)
 
     def view(out):
         return out.reshape(a, b, d1, d2).transpose(0, 2, 3, 1)
@@ -258,7 +273,7 @@ BF16_PLAIN_TOL = {"bf16_3x": 1e-5, "bf16": 1e-4}
 @pytest.mark.parametrize("d2", WIDTHS)
 @pytest.mark.parametrize("d1", WIDTHS)
 def test_bf16_pair_within_its_limits(d1, d2, mode):
-    err, vs_plain = emulate(d1, d2, seed=d1 + 3 * d2, mode=mode)
+    err, vs_plain = emulate(d1, d2, seed=d1 + 3 * d2, mode=mode, tile="k8")
     assert err <= BF16_F64_TOL[mode]
     assert vs_plain <= BF16_PLAIN_TOL[mode]
 
@@ -267,10 +282,181 @@ def test_bf16_pair_within_its_limits(d1, d2, mode):
 @pytest.mark.parametrize("d2", WIDTHS)
 @pytest.mark.parametrize("d1", MIDDLE_WIDTHS)
 def test_bf16_middle_pair_within_its_limits(d1, d2, mode):
-    err, vs_plain = emulate_middle(d1, d2, seed=d1 + 5 * d2, mode=mode)
+    err, vs_plain = emulate_middle(d1, d2, seed=d1 + 5 * d2, mode=mode,
+                                   tile="k8")
     assert err <= BF16_F64_TOL[mode]
     assert vs_plain <= BF16_PLAIN_TOL[mode]
 
+
+
+# ---------------------------------------------------------------------------
+# csrc/pair_bf16.cuh: the reduced pairs on mma.sync.m16n8k16
+# ---------------------------------------------------------------------------
+
+PAIR_ORIENTATIONS = [("trailing", d1, d2) for d1 in WIDTHS for d2 in WIDTHS] \
+    + [("middle", d1, d2) for d1 in MIDDLE_WIDTHS for d2 in WIDTHS]
+
+
+@pytest.mark.parametrize("mode", ["bf16_3x", "bf16"])
+@pytest.mark.parametrize("orientation,d1,d2", PAIR_ORIENTATIONS,
+                         ids=lambda v: str(v))
+def test_k16_pair_within_its_limits(orientation, d1, d2, mode):
+    """The k16 pair (both products on m16n8k16, Y split once) in both
+    orientations: within the mode's float64 limit and within its limit of
+    the plain version's model, the limits the k8 tile was held to."""
+    if orientation == "trailing":
+        err, vs_plain = emulate(d1, d2, seed=d1 + 3 * d2, mode=mode)
+    else:
+        err, vs_plain = emulate_middle(d1, d2, seed=d1 + 5 * d2, mode=mode)
+    assert err <= BF16_F64_TOL[mode]
+    assert vs_plain <= BF16_PLAIN_TOL[mode]
+
+
+def w1_fragment_word(d1: int, rows: int, mt: int, ks: int, lane: int, r: int):
+    """(row, j) of the low half of word r of lane ``lane``'s A fragment of
+    m-tile ``mt`` and k16-step ``ks`` of a block's ``rows`` rows of W1, as
+    pair_bf16.cuh's prologue writes it (the high half holds j + 1), or None
+    where the word is zero."""
+    g, t = lane >> 2, lane & 3
+    row, j = 16 * mt + g + 8 * (r & 1), 16 * ks + 2 * t + 8 * (r >> 1)
+    return (row, j) if row < rows and j < d1 else None
+
+
+def x_fragment_slot(d1: int, ks: int, lane: int, e: int):
+    """(column g, j) of element e of a lane's B fragment of phase 1, as the
+    copying thread places it (b[0] packs e = 0, 1, b[1] e = 2, 3), or None
+    past D1."""
+    g, t = lane >> 2, lane & 3
+    j = 16 * ks + 2 * t + (e & 1) + 8 * (e >> 1)
+    return (g, j) if j < d1 else None
+
+
+def y_fragment_word(d2: int, kk: int, lane: int, r: int):
+    """(accumulator n-tile, element q) of phase 1 that word r's low half of
+    a lane's phase-2 A fragment of k16-step kk packs (the high half packs
+    q + 1), or None where it is zero (D2 = 8)."""
+    nt = 2 * kk + (r >> 1)
+    return (nt, 2 * (r & 1)) if 8 * nt < d2 else None
+
+
+def w2_fragment_word(d2: int, lt: int, kk: int, lane: int, r: int):
+    """(l, m, plane) of the low half of word r of lane ``lane``'s B fragment
+    of l-tile ``lt`` and k16-step ``kk`` ({re b0, re b1, im b0, im b1}; the
+    high half holds m + 1), or None past D2."""
+    g, t = lane >> 2, lane & 3
+    m = 16 * kk + 2 * t + 8 * (r & 1)
+    return (8 * lt + g, m, r >> 1) if m < d2 else None
+
+
+def _mma_k16(a_slot, b_slot):
+    """Σ_k A[row, k] B[k, col] of one m16n8k16 from the operands' slots:
+    a_slot(lane, r, half) and b_slot(lane, reg, half) give the value the
+    lane holds there.  A's words 0-3 are rows g, g + 8, g, g + 8 at k = 2t
+    (words 0, 1) and 2t + 8 (words 2, 3), low half first; B's registers
+    column g at k = 2t, 2t + 1 (b[0]) and 2t + 8, 2t + 9 (b[1]).  Returns
+    the (16, 8) product and each lane's C: rows g (q = 0, 1), g + 8 (q = 2,
+    3) at columns 2t + (q & 1)."""
+    a, b = np.zeros((16, 16)), np.zeros((16, 8))
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for r in range(4):
+            for half in range(2):
+                a[g + 8 * (r & 1), 2 * t + 8 * (r >> 1) + half] = \
+                    a_slot(lane, r, half)
+        for reg in range(2):
+            for half in range(2):
+                b[2 * t + 8 * reg + half, g] = b_slot(lane, reg, half)
+    return a @ b
+
+
+@pytest.mark.parametrize("d1,d2", [(8, 8), (8, 128), (32, 16), (64, 128),
+                                   (128, 32), (128, 128)])
+def test_k16_pair_fragments_give_both_operands_the_same_j(d1, d2):
+    """With pair_bf16.cuh's pre-split W1 fragments, the slots the copying
+    threads give X, phase 1's C fragments reused as phase 2's A fragments
+    and W2's pre-split fragments, the slot sums of both products are
+    W1 · X · W2ᵀ for a block's IN = min(D1, 64) rows of W1: each operand's
+    k slots hold the same j (phase 1) or m (phase 2) on both sides."""
+    rng = np.random.default_rng(d1 + d2)
+    rows = min(d1, 64)
+    w1 = _bf16(rng.normal(size=(d1, d1)).astype(F32)).astype(F64)
+    w2 = _bf16(rng.normal(size=(d2, d2)).astype(F32)).astype(F64)
+    x = _bf16(rng.normal(size=(d1, d2)).astype(F32)).astype(F64)
+    mts, ks1, ks2 = max(1, rows // 16), max(1, d1 // 16), max(1, d2 // 16)
+    want_y = w1[:rows] @ x
+    out = np.zeros((16 * mts, d2))
+    for mt in range(mts):
+        # phase 1: the warp's C fragments of every n-tile of m
+        cfrag = {}
+        for nt in range(d2 // 8):
+            c = np.zeros((16, 8))
+            for ks in range(ks1):
+                def a_slot(lane, r, half):
+                    rj = w1_fragment_word(d1, rows, mt, ks, lane, r)
+                    return 0.0 if rj is None else w1[rj[0], rj[1] + half]
+
+                def b_slot(lane, reg, half):
+                    gj = x_fragment_slot(d1, ks, lane, 2 * reg + half)
+                    return 0.0 if gj is None else x[gj[1], 8 * nt + gj[0]]
+                c += _mma_k16(a_slot, b_slot)
+            rows_mt = slice(16 * mt, min(16 * mt + 16, rows))
+            np.testing.assert_array_equal(
+                c[:rows_mt.stop - rows_mt.start], want_y[rows_mt,
+                                                         8 * nt:8 * nt + 8])
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                cfrag[nt, lane] = [c[g + 8 * (q >> 1), 2 * t + (q & 1)]
+                                   for q in range(4)]
+        # phase 2: those C fragments as A, W2's fragments as B
+        for lt in range(d2 // 8):
+            o = np.zeros((16, 8))
+            for kk in range(ks2):
+                def ya_slot(lane, r, half):
+                    nq = y_fragment_word(d2, kk, lane, r)
+                    return 0.0 if nq is None else \
+                        cfrag[nq[0], lane][nq[1] + half]
+
+                def w2_slot(lane, reg, half):
+                    lmp = w2_fragment_word(d2, lt, kk, lane, reg)
+                    return 0.0 if lmp is None else w2[lmp[0], lmp[1] + half]
+                o += _mma_k16(ya_slot, w2_slot)
+            out[16 * mt:16 * mt + 16, 8 * lt:8 * lt + 8] = o
+    np.testing.assert_allclose(out[:rows], want_y @ w2.T, rtol=1e-12,
+                               atol=1e-12)
+
+
+def pair_shrink(d1: int, d2: int, tile: str, seed: int, passes: int = 8,
+                slabs: int = 32) -> float:
+    """The norm the bf16_3x pair's truncating sums take from random slabs
+    over ``passes`` applications of one random (W1, W2), against the same
+    products summed to nearest: its share of the paired plans' drift."""
+    def norm_after(rounding):
+        rng = np.random.default_rng(seed)
+        w1, w2, x = _random_pair(d1, d2, (slabs, d1, d2), rng)
+        n0 = np.sum(np.abs(x.astype(np.complex128)) ** 2)
+        for _ in range(passes):
+            x = tc_pair(x, w1, w2, "bf16_3x", tile, rounding)[0].astype(
+                np.complex64)
+        return np.sum(np.abs(x.astype(np.complex128)) ** 2) / n0
+
+    def rn(x):
+        return x.astype(F32)
+    return norm_after(rn) - norm_after(_rz)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_k16_pair_shrinks_the_norm_less_than_three_k8_pairs(seed):
+    """A sum of 16 bf16 products is exact in float32 less often than one of
+    8, so the k16 pair's truncating sums shrink the norm more than the k8
+    tile's: 1.4-2.8 times over 8 seeds at (128, 128) and (32, 128), mean
+    1.9, which puts the bf16_3x 256-layer brickwork at 7.5-8.5e-7 per 100
+    gates (PERF.md §6, PR 9).  Held here between 1 and 3 times at (32, 64)
+    on 32 slabs (fewer slabs leave the difference of the two roundings to
+    chance);
+    chip_smoke.py phase 7 holds the card to 1e-6 per 100 gates."""
+    k8 = pair_shrink(32, 64, "k8", seed)
+    k16 = pair_shrink(32, 64, "k16", seed)
+    assert 0 < k8 < k16 < 3 * k8
 
 if __name__ == "__main__":
     for d1 in WIDTHS:

@@ -1,0 +1,85 @@
+#!/usr/bin/env python3
+"""Times ``pair_apply`` of two source trees of this repository on one card,
+in turns, at the pair shapes of ``chip_smoke.py``'s phase 2.
+
+    python3 tools/pair_ab.py PARENT_TREE [CHANGE_TREE]
+
+Each tree (a checkout, e.g. ``git archive`` of a commit unpacked into a
+directory that ``.gitignore`` lists; the change defaults to this one) runs
+in a process of its own, which imports that tree's ``qbot_tpu_torch`` and
+builds its kernels into the tree's own ``_build``.  The processes run in the
+order parent, change, change, parent; each times every shape in every dot
+mode (f32, whose kernels a change may leave as they are, shows the spread)
+as the mean of 20 launches after a warm-up, with CUDA events.  Prints, per
+shape and mode, each tree's mean of its two runs and their ratio, then the
+card's name and power limit (``tools/window_ab.py`` runs the turns).
+"""
+from __future__ import annotations
+
+import json
+import sys
+
+import window_ab
+
+N = 26
+MODES = ("f32", "bf16_3x", "bf16")
+# chip_smoke.py check_pair's shapes: label -> (start, width1, width2)
+SHAPES = {"middle": (0, 5, 7), "trailing": (N - 14, 7, 7),
+          "density_columns": (N - 13, 6, 7), "middle_b1024": (4, 5, 7),
+          "middle_fma": (0, 2, 7), "trailing_fma": (N - 9, 2, 7)}
+
+
+def worker() -> None:
+    """Times this process's qbot_tpu_torch (the tree first on sys.path)."""
+    import numpy as np
+    import torch
+
+    from qbot_tpu_torch.tpu import kernels
+
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(0)
+    rng = np.random.default_rng(0)
+    psi = torch.randn((2, 2**N), generator=gen, device=device)
+    psi /= torch.sqrt(torch.sum(psi * psi))
+
+    def unitary(d):
+        q, r = np.linalg.qr(rng.normal(size=(d, d))
+                            + 1j * rng.normal(size=(d, d)))
+        u = q * (np.diag(r) / np.abs(np.diag(r)))
+        return torch.tensor(np.stack([u.real, u.imag]), dtype=torch.float32,
+                            device=device)
+
+    times = {}
+    for label, (start, width1, width2) in SHAPES.items():
+        w1, w2 = unitary(2**width1), unitary(2**width2)
+        end = start + width1 + width2
+        qs = sorted({max(start - 1, 0), start, start + width1, end - 1,
+                     N - 1})
+        phases = ((tuple(qs), complex(np.exp(0.7j)), 1),
+                  ((start,), complex(-1.0), 0),
+                  ((N - 1,), complex(np.exp(-1.3j)), 0))
+        flips = tuple(int(m) for m in rng.integers(0, 2**N, size=3))
+        diag = kernels.fused_diagonals(N, flips, phases, device)
+        for mode in MODES:
+            kernels.set_dot_mode(mode)
+            kernels.pair_apply(psi, N, start, width1, width2, w1, w2, diag)
+            torch.cuda.synchronize()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            for _ in range(20):
+                kernels.pair_apply(psi, N, start, width1, width2, w1, w2,
+                                   diag)
+            t1.record()
+            torch.cuda.synchronize()
+            times[f"{label} {mode}"] = t0.elapsed_time(t1) / 20
+    kernels.set_dot_mode("f32")
+    print(json.dumps(times))
+
+
+def main(argv) -> int:
+    return window_ab.main(argv, tool="pair_ab")
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

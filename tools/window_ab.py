@@ -73,20 +73,22 @@ def worker() -> None:
     print(json.dumps(times))
 
 
-def run(tree: Path) -> dict:
+def run(tree: Path, tool: str) -> dict:
+    """The times ``tools/<tool>.py``'s worker takes in a process that
+    imports ``tree``'s qbot_tpu_torch."""
     code = (f"import sys; sys.path.insert(0, {str(tree)!r}); "
             f"sys.path.insert(0, {str(ROOT / 'tools')!r}); "
-            "import window_ab; window_ab.worker()")
+            f"import {tool}; {tool}.worker()")
     out = subprocess.run([sys.executable, "-c", code], cwd=tree, check=True,
                          capture_output=True, text=True).stdout
     return json.loads(out.strip().splitlines()[-1])
 
 
-def main(argv) -> int:
+def main(argv, tool: str = "window_ab") -> int:
     parent = Path(argv[0]).resolve()
     change = Path(argv[1]).resolve() if len(argv) > 1 else ROOT
-    runs = [("parent", run(parent)), ("change", run(change)),
-            ("change", run(change)), ("parent", run(parent))]
+    runs = [("parent", run(parent, tool)), ("change", run(change, tool)),
+            ("change", run(change, tool)), ("parent", run(parent, tool))]
     for key in runs[0][1]:
         a = sum(r[key] for who, r in runs if who == "parent") / 2
         b = sum(r[key] for who, r in runs if who == "change") / 2
