@@ -68,10 +68,21 @@ nonzero:
    ``--precision`` (readouts within 1e-4 of the dense interpreter's in
    bf16_3x, 1e-2 in bf16).
 
+8. the brickwork of 16 layers at n = 1, 2 (mod 7), whose paired plans
+   hold the narrow pairs (D1 = 2, 4 with D2 = 128), in every dot mode: at
+   8, 9, 22 and 23 qubits against the plain versions and the unpaired plan
+   (``runs_limit``); at 23 qubits the 256-layer drift (f32 as phase 5
+   holds it, bf16_3x at most 1e-6 per 100 gates); at 29 and 30 qubits (4
+   and 8 GiB planar states) one body paired and unpaired, timed (gates/s,
+   device milliseconds between CUDA events), the norm within 1e-4 of 1 (f32,
+   bf16_3x) and paired against unpaired.
+
 Launch counts are reset before phase 3 and read after phase 6: every f32
 kernel must have launched on that path; they are reset again before
 phase 7, after which every reduced-mode counter (``window_apply[bf16_3x]``
-and so on) must have moved.  The timed run of Grover, of each brickwork
+and so on) must have moved, and before phase 8, after which every narrow
+pair's counter (``pair_apply_narrow``, ``pair_apply_trailing_narrow``, in
+each mode) must have moved.  The timed run of Grover, of each brickwork
 plan and of the density bodies also reports its own launches.
 The line before the last is one JSON object of per-kernel results; the
 last is the run's verdict.
@@ -86,8 +97,8 @@ a product) and the reflections' arithmetic at the 67 TFLOP/s FP32 rate.
 
     python3 chip_smoke.py --profile chiprun_out [--precision bf16_3x]
 
-runs phases 0 and 1, then profiles phases 4, 5 (paired and unpaired) and 6
-with torch.profiler (device busy share, the table of device time per
+runs phases 0 and 1, then profiles phases 4, 5 (paired and unpaired), 8
+(the 23-qubit body) and 6 with torch.profiler (device busy share, the table of device time per
 kernel, Chrome traces written to the directory), in the dot mode
 ``--precision`` (default f32), and nothing else.
 """
@@ -163,6 +174,12 @@ DENSITY_N = 13             # bench.py's density workload
 DENSITY_LAYERS = 8
 DENSITY_REPEATS = 16
 DENSITY_TOL = 1e-4         # relative Frobenius, ρ vs ψψ† after 16 bodies
+# phase 8: the brickwork at n = 1, 2 (mod 7), whose paired plans hold the
+# narrow pairs: trailing (2, 128) and (4, 128) at 8 and 9 qubits, middle at
+# 22 and 23 (and the sizes users run up to 8 GiB planar states, 29 and 30)
+NARROW_QUBITS = (8, 9, 22, 23)
+NARROW_DRIFT_QUBITS = 23
+LARGE_QUBITS = (29, 30)
 
 # launch count name -> (source, TPU kernel it replaces); window_apply and
 # pair_apply are one CUDA kernel each serving two TPU kernels, counted apart
@@ -180,17 +197,25 @@ KERNEL_SOURCES = {
                    "qbot_tpu/tpu/kernels.py:420"),
     "pair_apply_trailing": ("qbot_tpu_torch/csrc/pair_tc.cuh",
                             "qbot_tpu/tpu/kernels.py:352"),
+    # the narrow pairs (D1 = 2, 4 with D2 >= 8): the window's tile with W1
+    # mixed into its operand
+    "pair_apply_narrow": ("qbot_tpu_torch/csrc/window_tc.cuh",
+                          "qbot_tpu/tpu/kernels.py:420"),
+    "pair_apply_trailing_narrow": ("qbot_tpu_torch/csrc/window_tc.cuh",
+                                   "qbot_tpu/tpu/kernels.py:352"),
 }
 PRODUCT_KERNELS = ("window_apply", "window_apply_trailing", "pair_apply",
-                   "pair_apply_trailing")
-# the reduced modes' windows run csrc/window_bf16.cuh and their pairs
-# csrc/pair_bf16.cuh (the FMA variants of widths below 8 in
+                   "pair_apply_trailing", "pair_apply_narrow",
+                   "pair_apply_trailing_narrow")
+NARROW_KERNELS = tuple(k for k in PRODUCT_KERNELS if k.endswith("narrow"))
+# the reduced modes' windows and narrow pairs run csrc/window_bf16.cuh, their
+# other pairs csrc/pair_bf16.cuh (the FMA variants of widths below 8 in
 # csrc/window_apply.cu and csrc/pair_apply.cu)
 for _mode in REDUCED_MODES:
     for _name in PRODUCT_KERNELS:
         src, rep = KERNEL_SOURCES[_name]
         src = ("qbot_tpu_torch/csrc/window_bf16.cuh"
-               if _name.startswith("window")
+               if src.endswith("window_tc.cuh")
                else "qbot_tpu_torch/csrc/pair_bf16.cuh")
         KERNEL_SOURCES[f"{_name}[{_mode}]"] = (src, rep)
 
@@ -240,9 +265,15 @@ def timed_in_turns(fns, device) -> list[float]:
 
 
 def rel_l2(got, want) -> float:
-    got, want = got.double(), want.double()
-    return float(torch.linalg.vector_norm(got - want)
-                 / torch.linalg.vector_norm(want))
+    """Relative L2 distance, in float64 a chunk of 2^26 values at a time
+    (a 30-qubit planar state takes 16 GiB in float64)."""
+    got, want = got.reshape(-1), want.reshape(-1)
+    num = den = 0.0
+    for i in range(0, want.numel(), 1 << 26):
+        g, w = got[i:i + (1 << 26)].double(), want[i:i + (1 << 26)].double()
+        num += float(torch.sum((g - w) ** 2))
+        den += float(torch.sum(w * w))
+    return math.sqrt(num / den)
 
 
 def compare(name: str, got, want, tol: float = KERNEL_TOL
@@ -328,6 +359,28 @@ def product_bound(nbytes: float, flops: float, mode: str,
     if mode == "f32":
         return bound(nbytes, tf32_flops=flops)
     return bound(nbytes, bf16_flops=parts * flops)
+
+
+def pair_bound(nbytes: float, n_amps: int, d1: int, d2: int,
+               mode: str) -> tuple[float, str]:
+    """The bound of a pair on ``n_amps`` amplitudes: its two windows'
+    products, 8 (D1 + D2) FLOPs an amplitude, on the tensor cores (D1,
+    D2 >= 8) or in FP32 FMAs (D2 <= 4); the narrow pair (D1 = 2, 4 with
+    D2 >= 8) runs W2's on the tensor cores and W1's 8 D1 (3 x 8 D1 in
+    bf16_3x) at the FP32 rate, on other units, so its bound is the larger of
+    its bytes and the two."""
+    if d1 >= 8 or d2 < 8:
+        return product_bound(nbytes, 8 * (d1 + d2) * n_amps, mode,
+                             d1 >= 8 and d2 >= 8)
+    parts = 3 if mode == "bf16_3x" else 1
+    w2 = 8 * d2 * n_amps
+    t_w2 = 3 * w2 / TF32_FLOPS_S if mode == "f32" else parts * w2 / \
+        BF16_FLOPS_S
+    t_ops = max(t_w2, parts * 8 * d1 * n_amps / FP32_FLOPS_S)
+    t_bytes = nbytes / HBM_BYTES_S
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
 
 
 def real_block(w: torch.Tensor) -> torch.Tensor:
@@ -521,19 +574,25 @@ def check_pair(n: int, device, rng, gen, mode: str = "f32",
     and Grover's init (A = 1, B = 2^14), their trailing pair (12,7)+(19,7),
     and the 13-qubit density's column pair (13,6)+(19,7), all on the tensor
     cores; the brickwork's middle pair moved to (4,5)+(9,7) (A = 16, B =
-    2^10: the same work with 16x shorter strides between the slab rows); a
-    middle pair (0,2)+(2,7) and a trailing pair (17,2)+(19,7), whose D1 = 4
-    takes the FP32 FMA variant.  Each is also held to a float64 product of
-    the same inputs, and timed as the kernel, its plain version, one einsum
-    (empty diagonals; in a reduced mode the two library calls of its
-    windows, ``library_pair_reduced``) and the two
-    window_apply launches it replaces;
-    ``f32``, the f32 run's results, puts each shape's f32 time beside.
-    Returns the results of the middle pairs (timed at (32, 128)) and of the
-    trailing pairs (timed at (128, 128))."""
+    2^10: the same work with 16x shorter strides between the slab rows);
+    the narrow pairs of the brickwork at n = 1, 2 (mod 7) at 26 qubits,
+    middle (0,2)+(2,7) and (0,1)+(1,7), trailing (17,2)+(19,7) and
+    (18,1)+(19,7), on the window's tile; a middle pair (0,5)+(5,2) and a
+    trailing pair (17,7)+(24,2), whose D2 = 4 takes the FP32 FMA variant.
+    Each is also held to a float64 product of the same inputs, and timed as
+    the kernel, its plain version, one einsum (empty diagonals; in a
+    reduced mode the two library calls of its windows,
+    ``library_pair_reduced``) and the two window_apply launches it
+    replaces; ``f32``, the f32 run's results, puts each shape's f32 time
+    beside.  Returns the results of the middle pairs (timed at (32, 128)),
+    the trailing pairs (timed at (128, 128)), the narrow middle and the
+    narrow trailing pairs (timed at D1 = 4)."""
     geoms = {"middle": (0, 5, 7), "trailing": (n - 14, 7, 7),
              "density_columns": (n - 13, 6, 7), "middle_b1024": (4, 5, 7),
-             "middle_fma": (0, 2, 7), "trailing_fma": (n - 9, 2, 7)}
+             "middle_fma": (0, 5, 2), "trailing_fma": (n - 9, 7, 2),
+             "middle_narrow": (0, 2, 7), "middle_narrow_d2": (0, 1, 7),
+             "trailing_narrow": (n - 9, 2, 7),
+             "trailing_narrow_d2": (n - 8, 1, 7)}
     _, tol, f64_tol = LIMITS[mode]
     f32_ms = {s["pair"]: s["ms"] for g in (f32 or {}).values()
               for s in g["shapes"]}
@@ -602,10 +661,9 @@ def check_pair(n: int, device, rng, gen, mode: str = "f32",
             (plain_ms, ms, windows_ms, library_ms,
              library_split_ms) = timed_in_turns(fns, device)
             del fns
-        bound_ms, bound_by = product_bound(
-            2 * psi.nbytes + w1.nbytes + w2.nbytes,
-            8 * (2**width1 + 2**width2) * 2**n, mode,
-            width1 >= 3 and width2 >= 3)
+        bound_ms, bound_by = pair_bound(
+            2 * psi.nbytes + w1.nbytes + w2.nbytes, 2**n, 2**width1,
+            2**width2, mode)
         shapes.append({"pair": label, "A": A, "D1": 2**width1,
                        "D2": 2**width2, "B": B, "rel_l2": rel,
                        "max_abs_err": max_abs, "rel_l2_f64": f64,
@@ -641,8 +699,12 @@ def check_pair(n: int, device, rng, gen, mode: str = "f32",
                                             "two_window_ms", "bound_ms",
                                             "bound_by")}}
 
-    return (summary([s for s in shapes if s["B"] > 1]),
-            summary([s for s in shapes if s["B"] == 1]))
+    def narrow(s):
+        return s["D1"] <= 4 and s["D2"] >= 8
+    return (summary([s for s in shapes if s["B"] > 1 and not narrow(s)]),
+            summary([s for s in shapes if s["B"] == 1 and not narrow(s)]),
+            summary([s for s in shapes if s["B"] > 1 and narrow(s)]),
+            summary([s for s in shapes if s["B"] == 1 and narrow(s)]))
 
 
 def check_reflect(n: int, device, rng, gen) -> tuple[dict, dict]:
@@ -833,22 +895,31 @@ def brickwork_circuit(n: int, layers: int, seed: int = 0) -> Circuit:
 
 
 def timed_run(fn, device):
-    """(result, host seconds, kernel launches) of one run of ``fn`` after a
-    warm-up run, ended by a synchronise."""
+    """(result, host seconds, device milliseconds between CUDA events around
+    the run (None off the card), kernel launches) of one run of ``fn``
+    after a warm-up run, ended by a synchronise."""
     fn()
     sync(device)
+    events = None
+    if torch.device(device).type == "cuda":
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     before = kernels.launch_counts()
     t0 = time.perf_counter()
+    if events:
+        events[0].record()
     out = fn()
+    if events:
+        events[1].record()
     sync(device)
     elapsed = time.perf_counter() - t0
     after = kernels.launch_counts()
-    return out, elapsed, {k: after[k] - before[k] for k in after}
+    return (out, elapsed, events and events[0].elapsed_time(events[1]),
+            {k: after[k] - before[k] for k in after if after[k] != before[k]})
 
 
 def grover(n: int, repeats: int, device) -> tuple[float, dict]:
     marked, gates, run, psi0 = grover_runner(n, repeats, device)
-    out, elapsed, launches = timed_run(lambda: run(psi0), device)
+    out, elapsed, _, launches = timed_run(lambda: run(psi0), device)
     p_marked = float(out[0, marked] ** 2 + out[1, marked] ** 2)
     p_want = math.sin((2 * repeats + 1) * math.asin(2 ** (-n / 2))) ** 2
     norm = float(planar_norm(out))
@@ -870,7 +941,7 @@ def brickwork(n: int, layers: int, device) -> tuple[dict, dict]:
     rates, outs, launches = {}, {}, {}
     for label, pair in (("paired", True), ("unpaired", False)):
         plan = compile_circuit(c, pair=pair)
-        out, elapsed, launches[label] = timed_run(
+        out, elapsed, _, launches[label] = timed_run(
             lambda: apply_plan_planar(psi0, plan), device)
         norm = float(planar_norm(out))
         if abs(norm - 1.0) > NORM_TOL:
@@ -941,7 +1012,7 @@ def density(device) -> tuple[float, dict]:
     rel_one, _ = compare("density one body", one,
                          apply_plan_density_planar_ref(rho0, plan))
     del one
-    rho, elapsed, launches = timed_run(lambda: run(rho0), device)
+    rho, elapsed, _, launches = timed_run(lambda: run(rho0), device)
     trace = float(torch.sum(torch.diagonal(rho[0])))
     if abs(trace - 1.0) > NORM_TOL:
         raise AssertionError(f"density: trace {trace}")
@@ -1082,6 +1153,105 @@ def reduced_mode_path(n: int, device, mode: str, f32: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the narrow pairs on the main path
+# ---------------------------------------------------------------------------
+
+def narrow_pairs(plan) -> list[tuple[int, int, int]]:
+    """(start, width1, width2) of the plan's narrow pairs (D1 = 2, 4 with
+    D2 >= 8)."""
+    return [(s.first.start, s.first.width, s.second.width)
+            for s in plan.steps if hasattr(s, "second")
+            and s.first.width <= 2 and s.second.width >= 3]
+
+
+def runs_limit(mode: str, launches: int) -> float:
+    """The relative L2 limit between two runs of a circuit in dot ``mode``
+    that make ``launches`` launches between them: f32 KERNEL_TOL (phase
+    5); bf16_3x and bf16, each launch within the mode's float64 limit of
+    the exact product and a unitary step carrying an earlier difference on
+    unchanged, the sum of their limits (in bf16 a difference anywhere moves
+    later bf16 roundings by 2^-8, so two runs drift apart to the mode's own
+    error)."""
+    if mode == "f32":
+        return KERNEL_TOL
+    return launches * LIMITS[mode][2]
+
+
+def narrow_path(device, mode: str) -> dict:
+    """The brickwork of 16 layers at n = 1, 2 (mod 7) in dot ``mode`` (set
+    by the caller): at 8, 9, 22 and 23 qubits paired, its state against the
+    same plan through the plain versions (f32 within KERNEL_TOL, bf16_3x
+    within its launches' pair limits as phase 7 holds a density body,
+    bf16 within ``runs_limit``) and against the unpaired plan (within
+    ``runs_limit``); at 23 qubits the 256-layer drift, f32 paired and
+    unpaired as phase 5 holds it, bf16_3x on the scanned runner at most
+    BF16X3_DRIFT_TOL per 100 gates; at 29 and 30 qubits one body paired and
+    unpaired, timed, its norm within NORM_TOL of 1 (bf16's rounded W are not
+    unitary: printed) and paired against unpaired within ``runs_limit``.
+    Returns the launches of each run."""
+    runs = {}
+    for n in NARROW_QUBITS + LARGE_QUBITS:
+        c = brickwork_circuit(n, BRICKWORK_LAYERS)
+        psi0 = product_state_planar([np.array([1.0, 0.0])] * n, device)
+        paired, unpaired = compile_circuit(c), compile_circuit(c, pair=False)
+        pairs = narrow_pairs(paired)
+        if not pairs:
+            raise AssertionError(f"brickwork {n}q: no narrow pair in "
+                                 f"{paired.steps}")
+        out, elapsed, span, launches = timed_run(
+            lambda: apply_plan_planar(psi0, paired), device)
+        runs[f"brickwork_{n}q"] = launches
+        alone, _, alone_span, launches_u = timed_run(
+            lambda: apply_plan_planar(psi0, unpaired), device)
+        between = sum(launches.values()) + sum(launches_u.values())
+        rel_u = rel_l2(out, alone)
+        norm = float(planar_norm(out))
+        del alone
+        def device_ms(ms):
+            return "not measured" if ms is None else f"{ms:.3f} ms"
+        line = (f"[{mode}] brickwork {n}q x {BRICKWORK_LAYERS} layers, "
+                f"narrow pairs {sorted(set(pairs))}: paired {elapsed:.4f} s "
+                f"({c.gate_count / elapsed:.1f} gates/s, device "
+                f"{device_ms(span)}), unpaired device "
+                f"{device_ms(alone_span)}; norm {norm:.8f}, paired vs "
+                f"unpaired rel L2 {rel_u:.3e}")
+        if n in LARGE_QUBITS:
+            if mode != "bf16" and not abs(norm - 1.0) <= NORM_TOL:
+                raise AssertionError(f"[{mode}] brickwork {n}q: norm {norm}")
+        else:
+            plain = (KERNEL_TOL if mode == "f32" else
+                     sum(launches.values()) * LIMITS[mode][1]
+                     if mode == "bf16_3x" else
+                     runs_limit(mode, 2 * sum(launches.values())))
+            rel, _ = compare(f"[{mode}] brickwork {n}q vs plain", out,
+                             apply_plan_planar_ref(psi0, paired), plain)
+            line += f", vs plain {rel:.3e}"
+        if not rel_u <= runs_limit(mode, between):
+            raise AssertionError(f"[{mode}] brickwork {n}q: paired vs "
+                                 f"unpaired rel L2 {rel_u:.3e}")
+        say(f"{line}; launches {launches}")
+        del out, psi0
+    n = NARROW_DRIFT_QUBITS
+    if mode == "f32":
+        brickwork_drift(n, DRIFT_LAYERS, device)
+    elif mode == "bf16_3x":
+        c = brickwork_circuit(n, BRICKWORK_LAYERS)
+        repeats = DRIFT_LAYERS // BRICKWORK_LAYERS
+        psi0 = product_state_planar([np.array([1.0, 0.0])] * n, device)
+        out, runs[f"scanned_{n}q"] = _launch_delta(
+            lambda: make_scanned_planar_runner(compile_circuit(c),
+                                               repeats)(psi0))
+        drift = (1.0 - float(planar_norm(out))) / (c.gate_count * repeats
+                                                   / 100)
+        say(f"[{mode}] brickwork {n}q x {BRICKWORK_LAYERS} layers x "
+            f"{repeats} (scanned): drift {drift:.4e} per 100 gates")
+        if not abs(drift) <= BF16X3_DRIFT_TOL:
+            raise AssertionError(f"[{mode}] {n}q norm drift {drift:.4e} per "
+                                 f"100 gates > {BF16X3_DRIFT_TOL:g}")
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # --profile: where the time goes in phases 4 and 5
 # ---------------------------------------------------------------------------
 
@@ -1100,9 +1270,10 @@ def _device_busy_ms(prof) -> float:
 
 
 def profile(n: int, device, out_dir: Path) -> None:
-    """Runs Grover (phase 4), the brickwork paired and unpaired (phase 5)
-    and the density run (phase 6) once untimed, once timed on the host
-    clock, and once under torch.profiler.  Prints each run's wall times,
+    """Runs Grover (phase 4), the brickwork paired and unpaired (phase 5),
+    the 23-qubit brickwork whose plan holds the narrow pairs (phase 8) and
+    the density run (phase 6) once untimed, once timed on the host clock,
+    and once under torch.profiler.  Prints each run's wall times,
     its device busy share (device-busy time over the traced wall time) and
     the profiler's table by device time, and writes the Chrome traces to
     ``out_dir``."""
@@ -1118,11 +1289,17 @@ def profile(n: int, device, out_dir: Path) -> None:
     paired = compile_circuit(brick)
     unpaired = compile_circuit(brick, pair=False)
     brick_psi0 = product_state_planar([np.array([1.0, 0.0])] * n, device)
+    narrow = compile_circuit(brickwork_circuit(NARROW_DRIFT_QUBITS,
+                                               BRICKWORK_LAYERS))
+    narrow_psi0 = product_state_planar(
+        [np.array([1.0, 0.0])] * NARROW_DRIFT_QUBITS, device)
     _, _, run_density, rho0 = density_runner(device)
     cases = {"grover": lambda: run(grover_psi0),
              "brickwork": lambda: apply_plan_planar(brick_psi0, paired),
              "brickwork_unpaired": lambda: apply_plan_planar(brick_psi0,
                                                              unpaired),
+             f"brickwork_{NARROW_DRIFT_QUBITS}q": lambda: apply_plan_planar(
+                 narrow_psi0, narrow),
              "density": lambda: run_density(rho0)}
     for name, fn in cases.items():
         fn()
@@ -1153,9 +1330,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR", type=Path,
                         help="after the build, profile Grover, the "
-                             "brickwork (paired and unpaired) and the "
-                             "density run with torch.profiler, write their "
-                             "traces to DIR, and run no other phase")
+                             "brickwork (paired and unpaired, and at 23 "
+                             "qubits) and the density run with "
+                             "torch.profiler, write their traces to DIR, "
+                             "and run no other phase")
     parser.add_argument("--precision", choices=kernels.DOT_MODES,
                         default="f32",
                         help="the dot mode of the --profile runs")
@@ -1192,17 +1370,17 @@ def main(argv=None) -> int:
         check_window(N, device, rng, gen)
     results["reflect_dot"], results["reflect_update"] = check_reflect(
         N, device, rng, gen)
-    results["pair_apply"], results["pair_apply_trailing"] = check_pair(
-        N, device, rng, gen)
+    results.update(zip(PRODUCT_KERNELS[2:], check_pair(N, device, rng,
+                                                       gen)))
     for mode in REDUCED_MODES:
         kernels.set_dot_mode(mode)
         names = [f"{k}[{mode}]" for k in PRODUCT_KERNELS]
         results[names[0]], results[names[1]] = check_window(
             N, device, rng, gen, mode,
             {k: results[k] for k in PRODUCT_KERNELS[:2]})
-        results[names[2]], results[names[3]] = check_pair(
+        results.update(zip(names[2:], check_pair(
             N, device, rng, gen, mode,
-            {k: results[k] for k in PRODUCT_KERNELS[2:]})
+            {k: results[k] for k in PRODUCT_KERNELS[2:]})))
     kernels.set_dot_mode("f32")
     say("phase 2: every kernel agrees with its plain version, in every dot "
         "mode")
@@ -1241,6 +1419,20 @@ def main(argv=None) -> int:
     for name in KERNEL_SOURCES:
         if "[" in name:
             counts[name] = reduced_counts[name]
+
+    kernels.reset_launch_counts()
+    for mode in ("f32", *REDUCED_MODES):
+        kernels.set_dot_mode(mode)
+        for run, launches in narrow_path(device, mode).items():
+            runs[run if mode == "f32" else f"{run}[{mode}]"] = launches
+    kernels.set_dot_mode("f32")
+    narrow_counts = kernels.launch_counts()
+    for name in KERNEL_SOURCES:
+        if name.split("[")[0] in NARROW_KERNELS:
+            counts[name] = narrow_counts[name]
+    say(f"phase 8: the brickwork at n = 1, 2 (mod 7) runs its narrow pairs "
+        f"in every dot mode; launches "
+        f"{ {k: v for k, v in narrow_counts.items() if v} }")
     missing = [k for k in KERNEL_SOURCES if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "

@@ -17,40 +17,43 @@
 // - D1 >= 8 and D2 >= 8, trailing or middle: on the tensor cores,
 //   pair_tc_kernel (pair_tc.cuh: 3xTF32 products) in f32 and f32_mix,
 //   pair_bf16_kernel (pair_bf16.cuh: BF16 m16n8k16) in bf16_3x and bf16;
-// - D1 or D2 in {2, 4}, below the tile's k-step and n-tile of 8:
+// - D1 in {2, 4} and D2 >= 8, the narrow pair of the brickwork at n = 1, 2
+//   (mod 7): the D2 window's tensor-core tile with W1 mixed into its
+//   operand as it is staged (window_tc.cuh in f32 and f32_mix,
+//   window_bf16.cuh in bf16_3x and bf16, instantiated with D1 > 1);
+// - D2 in {2, 4}, below the tile's k-step and n-tile of 8:
 //   pair_apply_kernel, FP32 FMAs.
 // Each in the precision of the products the caller asks for (tc_tile.cuh:
 // Prec): F32 for the f32 and f32_mix modes, BF16X3 and BF16 for bf16_3x and
 // bf16, whose FMA variant splits its operands into bf16 parts in registers.
 //
-// The FP32 FMA variant (pair_apply_kernel), bound by the card's 67 TFLOP/s
-// FP32 rate: every output amplitude depends on the whole (D1, D2) slab of
-// its (a, b), so a block holds S whole slabs in shared memory
-// (S * D1 * D2 <= 16384 complex amplitudes, at most 32 slabs).  Trailing
-// pair: S consecutive a, each slab contiguous in memory, kept row by row.
-// Middle pair: S consecutive b of one a, read and written in runs of S
-// floats (S = 32 at D1 = 4, D2 = 128: 128-byte runs) and kept in that
-// order, b fastest.  The block then runs two GEMMs on the slabs, W1 first,
-// as the reference's pair kernels (so the reduced modes round the same
+// The FP32 FMA variant (pair_apply_kernel, D2 = 2, 4; no path of the
+// brickwork reaches it), bound by the card's 67 TFLOP/s FP32 rate: every
+// output amplitude depends on the whole (D1, D2) slab of its (a, b), so a
+// block holds S whole slabs in shared memory (S * D1 * D2 <= 16384 complex
+// amplitudes, at most 32 slabs).  Trailing pair: S consecutive a, each
+// slab contiguous in memory, kept row by row.  Middle pair: S consecutive
+// b of one a, read and written in runs of S floats and kept in that order,
+// b fastest.  The block then runs two GEMMs on the slabs, W1 first, as the
+// reference's pair kernels (so the reduced modes round the same
 // intermediate Y):
 //   phase 1  Y = W1 X  over the columns (s, m); a column sweep covers every
 //            row i, so it writes Y back over its own columns of X in place;
 //   phase 2  out = Y W2^T  over the rows (s, i), stored to device memory.
-// Each thread keeps a TM x TN tile of complex accumulators; its TN columns
-// are two runs of 4, so at the geometries of the 26-qubit paths (FULL: no
-// ragged edge) the column operands and the W1 rows load as float4, and the
-// outputs store as float4 (runs of 4 l, or of 4 s in the middle pair).
+// Each thread keeps a TM x TN tile of complex accumulators, its TN columns
+// two runs of 4, every operand masked at the slabs' ragged edges.
 // The matrices stream through two shared-memory buffers in BK-deep chunks,
 // the next chunk copied by cp.async while the block computes on the
 // current one; the slab loads LU amplitudes a thread at once.  Rows are
 // padded by 4 floats so the row operands of neighbouring threads fall in
 // distinct banks.
 #include "pair_tc.cuh"
+#include "window_tc.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// D1 or D2 < 8: FP32 FMAs
+// D2 < 8: FP32 FMAs
 // ---------------------------------------------------------------------------
 
 constexpr int NT = 256;          // threads per block
@@ -160,14 +163,6 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                "l"(src));
 }
 
-__device__ __forceinline__ void load4(float* dst, const float* src) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x;
-  dst[1] = v.y;
-  dst[2] = v.z;
-  dst[3] = v.w;
-}
-
 // column of a thread's t-th output: two runs of 4, nx threads apart
 __device__ __forceinline__ int col_of(int t, int tx, int nx) {
   return (t >> 2) * 4 * nx + tx * 4 + (t & 3);
@@ -175,11 +170,8 @@ __device__ __forceinline__ int col_of(int t, int tx, int nx) {
 
 // TRAILING: slabs s are consecutive a (B == 1), element (j, m) of slab s at
 // flat index base + s * D1 * D2 + j * D2 + m.  Otherwise slabs are
-// consecutive b, element (j, m) at base + s + (j * D2 + m) * B.  FULL: the
-// geometry has no ragged edge (D2 >= 8, D1 >= 4, S * D1 * D2 >= 8192, and
-// S >= 4 in the middle pair), so no operand is masked and runs of 4 load
-// and store as float4.
-template <bool TRAILING, bool FULL, int PREC>
+// consecutive b, element (j, m) at base + s + (j * D2 + m) * B.
+template <bool TRAILING, int PREC>
 __global__ void __launch_bounds__(NT, 1)
     pair_apply_kernel(const float* __restrict__ psi, float* __restrict__ out,
                       const float* __restrict__ w1,
@@ -277,7 +269,7 @@ __global__ void __launch_bounds__(NT, 1)
         const int c = c0 + col_of(t, tx, nx);
         const int s = TRAILING ? c >> log_d2 : c & (S - 1);
         const int m = TRAILING ? c & (D2 - 1) : c >> log_s;
-        cok[t] = FULL || c < cols;
+        cok[t] = c < cols;
         coff[t] = s * SS + m * MS;
       }
       // chunk c of W1^T: wr[k][i] = W1[i, c * kc + k]
@@ -308,25 +300,16 @@ __global__ void __launch_bounds__(NT, 1)
         for (int k = 0; k < kc; ++k) {
           float ar[TM], ai[TM], br[TN], bi[TN];
           const int krow = (j0 + k) * JS;
-          if (FULL) {
-            load4(ar, wr + k * WROW + ty * TM);
-            load4(ai, wi + k * WROW + ty * TM);
-            load4(br, xr + coff[0] + krow);
-            load4(br + 4, xr + coff[4] + krow);
-            load4(bi, xi + coff[0] + krow);
-            load4(bi + 4, xi + coff[4] + krow);
-          } else {
 #pragma unroll
-            for (int r = 0; r < TM; ++r) {
-              const bool ok = ty * TM + r < rows_sweep;
-              ar[r] = ok ? wr[k * WROW + ty * TM + r] : 0.f;
-              ai[r] = ok ? wi[k * WROW + ty * TM + r] : 0.f;
-            }
+          for (int r = 0; r < TM; ++r) {
+            const bool ok = ty * TM + r < rows_sweep;
+            ar[r] = ok ? wr[k * WROW + ty * TM + r] : 0.f;
+            ai[r] = ok ? wi[k * WROW + ty * TM + r] : 0.f;
+          }
 #pragma unroll
-            for (int t = 0; t < TN; ++t) {
-              br[t] = cok[t] ? xr[coff[t] + krow] : 0.f;
-              bi[t] = cok[t] ? xi[coff[t] + krow] : 0.f;
-            }
+          for (int t = 0; t < TN; ++t) {
+            br[t] = cok[t] ? xr[coff[t] + krow] : 0.f;
+            bi[t] = cok[t] ? xi[coff[t] + krow] : 0.f;
           }
           cmac<PREC>(acc_r, acc_i, ar, ai, br, bi);
         }
@@ -336,7 +319,7 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
       for (int r = 0; r < TM; ++r) {
         const int i = ty * TM + r;
-        if (!FULL && i >= rows_sweep) continue;
+        if (i >= rows_sweep) continue;
 #pragma unroll
         for (int t = 0; t < TN; ++t) {
           if (!cok[t]) continue;
@@ -357,8 +340,7 @@ __global__ void __launch_bounds__(NT, 1)
     const int kc = D2 < BK ? D2 : BK;
     for (int r0 = 0; r0 < rows; r0 += ny * TM) {
       // row (s, i): TM consecutive rows are consecutive i (trailing) or
-      // consecutive s (middle: FULL has S >= TM, so a run of 4 rows is
-      // contiguous in device memory)
+      // consecutive s (middle)
       int roff[TM];
       int64_t rmem[TM];
       bool rok[TM];
@@ -367,7 +349,7 @@ __global__ void __launch_bounds__(NT, 1)
         const int row = r0 + ty * TM + r;
         const int s = TRAILING ? row >> log_d1 : row & (S - 1);
         const int i = TRAILING ? row & (D1 - 1) : row >> log_s;
-        rok[r] = FULL || row < rows;
+        rok[r] = row < rows;
         roff[r] = s * SS + i * JS;
         rmem[r] = base + s * sl_step + int64_t(i) * D2 * el_step;
       }
@@ -404,58 +386,24 @@ __global__ void __launch_bounds__(NT, 1)
             ar[r] = rok[r] ? xr[roff[r] + xk] : 0.f;
             ai[r] = rok[r] ? xi[roff[r] + xk] : 0.f;
           }
-          if (FULL) {
-            load4(br, wr + k * WROW + tx * 4);
-            load4(br + 4, wr + k * WROW + 4 * nx + tx * 4);
-            load4(bi, wi + k * WROW + tx * 4);
-            load4(bi + 4, wi + k * WROW + 4 * nx + tx * 4);
-          } else {
 #pragma unroll
-            for (int t = 0; t < TN; ++t) {
-              const int l = col_of(t, tx, nx);
-              br[t] = l < D2 ? wr[k * WROW + l] : 0.f;
-              bi[t] = l < D2 ? wi[k * WROW + l] : 0.f;
-            }
+          for (int t = 0; t < TN; ++t) {
+            const int l = col_of(t, tx, nx);
+            br[t] = l < D2 ? wr[k * WROW + l] : 0.f;
+            bi[t] = l < D2 ? wi[k * WROW + l] : 0.f;
           }
           cmac<PREC>(acc_r, acc_i, ar, ai, br, bi);
         }
         __syncthreads();
       }
-      if (FULL && TRAILING) {
-        // runs of 4 l
 #pragma unroll
-        for (int r = 0; r < TM; ++r) {
-#pragma unroll
-          for (int g = 0; g < TN; g += 4) {
-            const int64_t m = rmem[r] + col_of(g, tx, nx);
-            *reinterpret_cast<float4*>(out + m) = make_float4(
-                acc_r[r][g], acc_r[r][g + 1], acc_r[r][g + 2],
-                acc_r[r][g + 3]);
-            *reinterpret_cast<float4*>(out + n_amps + m) = make_float4(
-                acc_i[r][g], acc_i[r][g + 1], acc_i[r][g + 2],
-                acc_i[r][g + 3]);
-          }
-        }
-      } else if (FULL) {
-        // runs of 4 s
+      for (int r = 0; r < TM; ++r) {
 #pragma unroll
         for (int t = 0; t < TN; ++t) {
-          const int64_t m = rmem[0] + col_of(t, tx, nx) * el_step;
-          *reinterpret_cast<float4*>(out + m) = make_float4(
-              acc_r[0][t], acc_r[1][t], acc_r[2][t], acc_r[3][t]);
-          *reinterpret_cast<float4*>(out + n_amps + m) = make_float4(
-              acc_i[0][t], acc_i[1][t], acc_i[2][t], acc_i[3][t]);
-        }
-      } else {
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-#pragma unroll
-          for (int t = 0; t < TN; ++t) {
-            const int l = col_of(t, tx, nx);
-            if (!rok[r] || l >= D2) continue;
-            out[rmem[r] + l * el_step] = acc_r[r][t];
-            out[n_amps + rmem[r] + l * el_step] = acc_i[r][t];
-          }
+          const int l = col_of(t, tx, nx);
+          if (!rok[r] || l >= D2) continue;
+          out[rmem[r] + l * el_step] = acc_r[r][t];
+          out[n_amps + rmem[r] + l * el_step] = acc_i[r][t];
         }
       }
     }
@@ -468,7 +416,7 @@ int smem_bytes(bool trailing, int log_d1, int log_d2, int log_s) {
   return static_cast<int>(sizeof(float)) * (2 * plane + 2 * WBUF);
 }
 
-template <bool TRAILING, bool FULL, int PREC>
+template <bool TRAILING, int PREC>
 int launch(const float* psi, float* out, const float* w1, const float* w2,
            int64_t n_amps, int log_d1, int log_d2, int log_b, int log_s,
            int64_t blocks, const int64_t* flips, int nflips,
@@ -478,32 +426,14 @@ int launch(const float* psi, float* out, const float* w1, const float* w2,
   // (a per-device attribute, so set at every launch)
   const int smem = smem_bytes(TRAILING, log_d1, log_d2, log_s);
   const cudaError_t err = cudaFuncSetAttribute(
-      pair_apply_kernel<TRAILING, FULL, PREC>,
+      pair_apply_kernel<TRAILING, PREC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pair_apply_kernel<TRAILING, FULL, PREC>
+  pair_apply_kernel<TRAILING, PREC>
       <<<static_cast<unsigned>(blocks), NT, smem, stream>>>(
           psi, out, w1, w2, n_amps, log_d1, log_d2, log_b, log_s, flips,
           nflips, masks, wants, phase, nphases);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <bool TRAILING, int PREC>
-int launch_geometry(bool full, const float* psi, float* out, const float* w1,
-                    const float* w2, int64_t n_amps, int log_d1, int log_d2,
-                    int log_b, int log_s, int64_t blocks,
-                    const int64_t* flips, int nflips, const int64_t* masks,
-                    const int64_t* wants, const float* phase, int nphases,
-                    cudaStream_t stream) {
-  if (full)
-    return launch<TRAILING, true, PREC>(psi, out, w1, w2, n_amps, log_d1,
-                                        log_d2, log_b, log_s, blocks, flips,
-                                        nflips, masks, wants, phase, nphases,
-                                        stream);
-  return launch<TRAILING, false, PREC>(psi, out, w1, w2, n_amps, log_d1,
-                                       log_d2, log_b, log_s, blocks, flips,
-                                       nflips, masks, wants, phase, nphases,
-                                       stream);
 }
 
 int log2_floor(int64_t x) {
@@ -544,6 +474,14 @@ int launch_pair(const float* psi, float* out, const float* w1,
                                 flips, nflips, masks, wants, phase, nphases,
                                 s});
   }
+  if (log_d2 >= 3) {
+    // the narrow pair: the D2 window with W = W2, W1 mixed in as it stages
+    const WindowArgs a{psi,    out,   w2,    n_amps, log_d2, log_b,
+                       flips,  nflips, masks, wants, phase,  nphases,
+                       s,      w1};
+    return log_d1 == 1 ? window_tc_launch<2, PREC>(a)
+                       : window_tc_launch<4, PREC>(a);
+  }
   const int log_a = log2_floor(n_amps) - log_d1 - log_d2 - log_b;
   // slabs a block holds: up to MAX_TILE amplitudes and MAX_S slabs
   int log_s = log2_floor(MAX_TILE) - log_d1 - log_d2;
@@ -554,18 +492,13 @@ int launch_pair(const float* psi, float* out, const float* w1,
   while (log_s > 0 &&
          smem_bytes(log_b == 0, log_d1, log_d2, log_s) > MAX_SMEM)
     --log_s;
-  const bool full = log_d2 >= 3 && log_d1 >= 2 &&
-                    log_s + log_d1 + log_d2 >= 13 &&
-                    (log_b == 0 || log_s >= 2);
   if (log_b == 0)
-    return launch_geometry<true, PREC>(
-        full, psi, out, w1, w2, n_amps, log_d1, log_d2, 0, log_s,
-        int64_t(1) << (log_a - log_s), flips, nflips, masks, wants, phase,
-        nphases, s);
-  return launch_geometry<false, PREC>(
-      full, psi, out, w1, w2, n_amps, log_d1, log_d2, log_b, log_s,
-      int64_t(1) << (log_a + log_b - log_s), flips, nflips, masks, wants,
-      phase, nphases, s);
+    return launch<true, PREC>(psi, out, w1, w2, n_amps, log_d1, log_d2, 0,
+                              log_s, int64_t(1) << (log_a - log_s), flips,
+                              nflips, masks, wants, phase, nphases, s);
+  return launch<false, PREC>(psi, out, w1, w2, n_amps, log_d1, log_d2, log_b,
+                             log_s, int64_t(1) << (log_a + log_b - log_s),
+                             flips, nflips, masks, wants, phase, nphases, s);
 }
 
 }  // namespace

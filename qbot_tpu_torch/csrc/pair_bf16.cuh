@@ -47,10 +47,12 @@
 //   products of the stage before; one barrier a stage.  Every warp of the
 //   walker then loads the converted fragments.
 // - The rounding structure of window_bf16.cuh: each k16-step's hi·hi sums
-//   (both planes, two mma) start from a zero accumulator and go to the
-//   FP32 accumulators by round-to-nearest FADDs; bf16_3x's four cross-term
-//   products of a plane are summed per k16-step on the tensor cores, then
-//   added likewise (tests/test_torch_pair_split.py replays it).
+//   (one mma for each of the two terms of a plane) start from a zero
+//   accumulator apart and go to the FP32 accumulators by round-to-nearest
+//   FADDs; bf16_3x's four cross-term products of a plane are summed per
+//   k16-step on the tensor cores, then added likewise
+//   (tests/test_torch_pair_split.py replays it).  A pair so rounds as its
+//   two windows do.
 // - One block an SM.  A walker (the m-tiles of its IN rows of a slab, or
 //   of several slabs where D1 < 64) has its own ring and named barrier.
 //   Y's D2 accumulators a lane hold the registers to 200-255 a thread at
@@ -216,7 +218,7 @@ __global__ void __launch_bounds__((PairBf16Tile<D1, D2, MIDDLE, PREC>::NT), 1)
     w2s[base] = hi;
     if constexpr (T::PARTS == 2) w2s[base + 128] = lo;
   }
-  diag_tables<D1>(diag, jshift, jtab, comb, cmask, cwant);
+  diag_tables<D1, false>(diag, jshift, jtab, comb, cmask, cwant);
   // the table entries a column's m bits match (mtab, as jtab for j); the
   // entries' other bits (cmask, cwant without the m bits) are matched once
   // a unit and slab
@@ -315,8 +317,8 @@ __global__ void __launch_bounds__((PairBf16Tile<D1, D2, MIDDLE, PREC>::NT), 1)
       for (int e = 0; e < 4; ++e) {
         const int j = 16 * ks + slot_j(e);
         if (j >= D1) continue;
-        const float2 z = comb[hit & jtab[j]];
-        cmul(xr[e], xi[e], z.x, z.y);
+        apply_hit(xr[e], xi[e], hit & jtab[j], comb);
+        apply_several_hits(xr[e], xi[e], hit & jtab[j], comb);
         if (ndiag > TABLE) {
           const int64_t mflat =
               col_base(u, slot_sl, m) | (int64_t(j) << jshift);
@@ -398,15 +400,17 @@ __global__ void __launch_bounds__((PairBf16Tile<D1, D2, MIDDLE, PREC>::NT), 1)
           float(&y)[2][4] = acc[mcc * T::NTI + ntl];
           const uint4 xh = st[fc * 64 + lane];
           const uint32_t xrh[2] = {xh.x, xh.y}, xih[2] = {xh.z, xh.w};
-          float e[2][4];
-          mma16_0(e[0], wrh, xrh);
-          mma16_0(e[1], wih, xrh);
-          mma16(e[0], nwih, xih);
-          mma16(e[1], wrh, xih);
+          // each plane's two hi hi sums from zero, apart: [plane][term]
+          float e[2][2][4];
+          mma16_0(e[0][0], wrh, xrh);
+          mma16_0(e[1][0], wih, xrh);
+          mma16_0(e[0][1], nwih, xih);
+          mma16_0(e[1][1], wrh, xih);
 #pragma unroll
           for (int p = 0; p < 2; ++p) {
 #pragma unroll
-            for (int qq = 0; qq < 4; ++qq) y[p][qq] += e[p][qq];
+            for (int qq = 0; qq < 4; ++qq)
+              y[p][qq] = y[p][qq] + e[p][0][qq] + e[p][1][qq];
           }
           if constexpr (T::PARTS == 2) {
             const uint4 xl = st[fc * 64 + 32 + lane];
@@ -474,15 +478,17 @@ __global__ void __launch_bounds__((PairBf16Tile<D1, D2, MIDDLE, PREC>::NT), 1)
         const uint4 bh = w2f[f2 * 32 + lane];
         const uint32_t brh[2] = {bh.x, bh.y}, bih[2] = {bh.z, bh.w};
         const uint32_t nbih[2] = {bh.z ^ 0x80008000u, bh.w ^ 0x80008000u};
-        float e[2][4];
-        mma16_0(e[0], yh[kk][0], brh);
-        mma16_0(e[1], yh[kk][0], bih);
-        mma16(e[0], yh[kk][1], nbih);
-        mma16(e[1], yh[kk][1], brh);
+        // each plane's two hi hi sums from zero, apart: [plane][term]
+        float e[2][2][4];
+        mma16_0(e[0][0], yh[kk][0], brh);
+        mma16_0(e[1][0], yh[kk][0], bih);
+        mma16_0(e[0][1], yh[kk][1], nbih);
+        mma16_0(e[1][1], yh[kk][1], brh);
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
 #pragma unroll
-          for (int qq = 0; qq < 4; ++qq) o[p][qq] += e[p][qq];
+          for (int qq = 0; qq < 4; ++qq)
+            o[p][qq] = o[p][qq] + e[p][0][qq] + e[p][1][qq];
         }
         if constexpr (T::PARTS == 2) {
           const uint4 bl = w2f[(f2 + 1) * 32 + lane];

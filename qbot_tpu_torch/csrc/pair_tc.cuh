@@ -216,7 +216,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     f[half] = w1h[e];
     f[2 + half] = w1h[D1 * D1 + e];
   }
-  diag_tables<D1>(diag, jshift, jtab, comb, cmask, cwant);
+  diag_tables<D1, true>(diag, jshift, jtab, comb, cmask, cwant);
 
   auto unit_of = [&](int64_t s) { return first + (s / T::ITEMS) * stride; };
   // middle: the flat index of unit u's (j, m, s) = (0, 0, 0) element, a D1

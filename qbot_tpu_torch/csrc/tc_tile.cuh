@@ -253,9 +253,14 @@ struct Diag {
 // The lookup tables of the first TABLE diagonal entries for a product over
 // the D window bits log_b.. of the flat index (block-wide): entry e hits
 // element (c, j) iff its window bits match j (bit e of jtab[j]) and its
-// other bits match the column (bit e of col_hits); comb[h] is the product
-// of the entries of the hit set h.
-template <int D>
+// other bits match the column (bit e of col_hits); comb[h] is the factor of
+// the hit set h.  COMBINE (the F32 kernels): the product of its entries'
+// factors, one lookup and one complex product an element; an amplitude so
+// moves by an ulp from the plain version's, far below their limits.  Else
+// (the reduced modes, where the bf16 rounding of an amplitude an ulp apart
+// moves by 2^-8): entry e's factor for h = {e}, 1 for no entry and for
+// several, whose factors go on one by one (apply_hit, apply_several_hits).
+template <int D, bool COMBINE>
 __device__ __forceinline__ void diag_tables(const Diag& diag, int log_b,
                                             uint32_t* jtab, float2* comb,
                                             long long* cmask,
@@ -276,16 +281,16 @@ __device__ __forceinline__ void diag_tables(const Diag& diag, int log_b,
     jtab[j] = bits;
   }
   for (int h = tid; h < (1 << ntab); h += blockDim.x) {
-    float zr = 1.f, zi = 0.f;
+    float2 z = make_float2(1.f, 0.f);
     for (int e = 0; e < ntab; ++e) {
-      if ((h >> e) & 1) {
+      if (((h >> e) & 1) && (COMBINE || h == (1 << e))) {
         int64_t mask, want;
         float er, ei;
         diag.entry(e, mask, want, er, ei);
-        cmul(zr, zi, er, ei);
+        cmul(z.x, z.y, er, ei);
       }
     }
-    comb[h] = make_float2(zr, zi);
+    comb[h] = z;
   }
   if (tid < ntab) {
     int64_t mask, want;
@@ -293,6 +298,30 @@ __device__ __forceinline__ void diag_tables(const Diag& diag, int log_b,
     diag.entry(tid, mask, want, zr, zi);
     cmask[tid] = mask & ~jbits;
     cwant[tid] = want & ~jbits;
+  }
+}
+
+// x *= comb[h] (diag_tables).  In the reduced modes the factors of an
+// element hit by several entries then go on one by one in the entries'
+// order, as the plain versions apply them (apply_several_hits): a product of
+// two entries' factors would round otherwise, and the bf16 rounding of x
+// moves by 2^-8 with it: at D = 128 with 13 entries a combined factor puts
+// the bf16 window 0 to 3.05e-5 from its plain version, against its limit
+// of 1e-5 (tests/test_torch_window_split.py replays both orders, over 8
+// seeds).  The second pass runs only where an element has two or more.
+__device__ __forceinline__ void apply_hit(float& xr, float& xi, uint32_t h,
+                                          const float2* comb) {
+  const float2 z = comb[h];
+  cmul(xr, xi, z.x, z.y);
+}
+
+__device__ __forceinline__ void apply_several_hits(float& xr, float& xi,
+                                                   uint32_t h,
+                                                   const float2* comb) {
+  if (!(h & (h - 1))) return;
+  for (; h; h &= h - 1) {
+    const float2 z = comb[h & (0u - h)];
+    cmul(xr, xi, z.x, z.y);
   }
 }
 
@@ -318,10 +347,11 @@ __device__ __forceinline__ int k_of(int t, int e) {
   return PAIRED_K ? 2 * t + (e >> 1) : t + 4 * (e >> 1);
 }
 
-// Flips and phases on the A fragments of KC k-steps whose first j is j0:
-// one table lookup and one complex multiply an element, then the entries
-// past the tables tested on the flat index, base_of(r) | j << log_b for
-// column row g + 8 r.  Call only with diagonals (ndiag > 0).
+// Flips and phases on the A fragments of KC k-steps whose first j is j0 (the
+// F32 tile, its table COMBINE): one lookup and one complex product an
+// element, then the entries past the tables tested on the flat index,
+// base_of(r) | j << log_b for column row g + 8 r.  Call only with diagonals
+// (ndiag > 0).
 template <int KC, bool PAIRED_K, typename BaseOf>
 __device__ __forceinline__ void diag_fragments(
     float (&xr)[KC][4], float (&xi)[KC][4], const Diag& diag, int ndiag,
@@ -333,8 +363,7 @@ __device__ __forceinline__ void diag_fragments(
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int j = j0 + kc * 8 + k_of<PAIRED_K>(t, e);
-      const float2 z = comb[colhit[e & 1] & jtab[j]];
-      cmul(xr[kc][e], xi[kc][e], z.x, z.y);
+      apply_hit(xr[kc][e], xi[kc][e], colhit[e & 1] & jtab[j], comb);
     }
   }
   if (ndiag > TABLE) {
@@ -351,6 +380,195 @@ __device__ __forceinline__ void diag_fragments(
           if ((mflat & mask) == want) cmul(xr[kc][e], xi[kc][e], zr, zi);
         }
       }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the narrow pair: a D2 window whose operand is Y = W1 (Phi F X), W1 of
+// D1 = 2, 4 (window_tc.cuh, window_bf16.cuh with D1 > 1)
+// ---------------------------------------------------------------------------
+
+// The narrow pair's columns and its pass over a stage.  A tile of BN
+// columns holds BNB = BN / D1 base columns (a, b) times the D1 slots, j of
+// the staged X, which the pass turns into i of Y in place: slot-major in the
+// middle pair, so that a run of tile columns is a run of b; base-major in
+// the trailing pair, where column c = a D1 + slot is the D2 window's own.
+// The pass gives each thread Q base elements (base column, k) of a stage of
+// BK k, the k fastest in the trailing pair's [c][k] stage, the base column
+// in the middle pair's [k][c] stage.
+template <int BN, int BK, int PITCH, int D1, bool TRAIL, int NTHR>
+struct Narrow {
+  static constexpr int BNB = BN / D1;
+  static constexpr int Q = BNB * BK / NTHR;
+  static_assert(Q >= 1 && Q * NTHR == BNB * BK, "narrow pass");
+  // the D2 window's column, (a D1 + slot) B + b, of tile column c
+  static __device__ __forceinline__ int64_t window_col(int64_t c,
+                                                       int log_b) {
+    if constexpr (TRAIL) {
+      return c;
+    } else {
+      const int64_t cl = c & (BN - 1);
+      const int64_t base = (c - cl) / D1 + (cl & (BNB - 1));
+      return (((base >> log_b) * D1 + cl / BNB) << log_b) |
+             (base & ((int64_t(1) << log_b) - 1));
+    }
+  }
+  // the tile column of base column cb's slot j
+  static __device__ __forceinline__ int col(int cb, int j) {
+    return TRAIL ? cb * D1 + j : j * BNB + cb;
+  }
+  // the base column and k of a thread's element q
+  static __device__ __forceinline__ void element(int tid, int q, int& cb,
+                                                 int& k) {
+    const int e = tid + q * NTHR;
+    cb = TRAIL ? e / BK : e % BNB;
+    k = TRAIL ? e % BK : e / BNB;
+  }
+  static __device__ __forceinline__ int offset(int cl, int k) {
+    return TRAIL ? cl * PITCH + k : k * PITCH + cl;
+  }
+};
+
+// The narrow pair's table of its first window: bit e of j1tab[j] is set iff
+// table entry e's bits of that window (D1 values of j at bit shift of the
+// flat index) match j; the entries' column bits (diag_tables: cmask, cwant)
+// then lose those bits.  Call after diag_tables, from every thread of the
+// block (the thread that wrote an entry's cmask and cwant clears them).
+template <int D1>
+__device__ __forceinline__ void diag_tables_d1(const Diag& diag, int shift,
+                                               uint32_t* j1tab,
+                                               long long* cmask,
+                                               long long* cwant) {
+  const int tid = threadIdx.x;
+  const int64_t bits = int64_t(D1 - 1) << shift;
+  const int ndiag = diag.nphases + diag.nflips;
+  const int ntab = ndiag < TABLE ? ndiag : TABLE;
+  for (int j = tid; j < D1; j += blockDim.x) {
+    uint32_t hit = 0;
+    for (int e = 0; e < ntab; ++e) {
+      int64_t mask, want;
+      float zr, zi;
+      diag.entry(e, mask, want, zr, zi);
+      if (((int64_t(j) << shift) & mask & bits) == (want & bits))
+        hit |= 1u << e;
+    }
+    j1tab[j] = hit;
+  }
+  if (tid < ntab) {
+    cmask[tid] &= ~bits;
+    cwant[tid] &= ~bits;
+  }
+}
+
+// W1 (2, D1, D1) into shared memory, entry (i, j) as {re, im} of its parts:
+// W itself and 0 (F32), the reference's bf16 parts hi = bf16(w) to nearest
+// even and lo = bf16(w - hi) (BF16X3, BF16)
+template <int D1, int PREC>
+__device__ __forceinline__ void stage_w1(const float* w1, float4* w1s) {
+  for (int e = threadIdx.x; e < D1 * D1; e += blockDim.x) {
+    const float wr = w1[e], wi = w1[D1 * D1 + e];
+    if constexpr (PREC == F32) {
+      w1s[e] = make_float4(wr, wi, 0.f, 0.f);
+    } else {
+      uint32_t hi, lo;
+      split_bf16(wr, wi, hi, lo);
+      w1s[e] = make_float4(__uint_as_float(hi << 16),
+                           __uint_as_float(hi & 0xffff0000u),
+                           __uint_as_float(lo << 16),
+                           __uint_as_float(lo & 0xffff0000u));
+    }
+  }
+}
+
+// x *= the diagonal entries that hit one element: the table entries of its
+// hit set h (diag_tables<COMBINE>), then those past the tables that its
+// flat index, flat(), matches
+template <bool COMBINE, typename Flat>
+__device__ __forceinline__ void phase_element(float& xr, float& xi,
+                                              uint32_t h, const float2* comb,
+                                              const Diag& diag, int ndiag,
+                                              Flat flat) {
+  apply_hit(xr, xi, h, comb);
+  if constexpr (!COMBINE) apply_several_hits(xr, xi, h, comb);
+  if (ndiag > TABLE) {
+    const int64_t m = flat();
+    for (int q = TABLE; q < ndiag; ++q) {
+      int64_t mask, want;
+      float zr, zi;
+      diag.entry(q, mask, want, zr, zi);
+      if ((m & mask) == want) cmul(xr, xi, zr, zi);
+    }
+  }
+}
+
+// y += w x, complex, by two FMAs a plane: re first -wi xi then wr xr, im
+// first wi xr then wr xi (a product of bf16 parts is exact in FP32, so an
+// FMA rounds its sum once, as an add would)
+__device__ __forceinline__ void cfma2(float wr, float wi, float xr, float xi,
+                                      float& yr, float& yi) {
+  yr = fmaf(wr, xr, fmaf(-wi, xi, yr));
+  yi = fmaf(wr, xi, fmaf(wi, xr, yi));
+}
+
+// The narrow pair's pass over stage st (planes PLANE floats apart) of the
+// k16 (k8) step whose first m is m0: each of the thread's Q base elements
+// (N: Narrow) is read at its D1 slots j, phased (the table entries of hit
+// set phit[q] & j1tab[j] & jtab[m], then those past the tables on its flat
+// index, flat(tile column) | m << log_b), mixed into the D1 values of
+// Y[i] = sum_j W1[i, j] X_j in FP32 in the precision of the products, and
+// written back over its slots.  For each i the sum runs over j in order,
+// taking for each j the mode's products of W1's parts and x's: F32, W x;
+// BF16X3, hi hi, hi lo, lo hi (W's part first); BF16, hi hi: the order of
+// the reduced FMA window (window_apply.cu), so Y is its output bit for bit
+// (tests/test_torch_pair_split.py).
+template <class N, int D1, int PLANE, int PREC, typename Flat>
+__device__ __forceinline__ void narrow_pass(
+    float* st, int tid, const float4* w1s, const uint32_t (&phit)[N::Q],
+    const uint32_t* j1tab, const uint32_t* jtab, int m0, const float2* comb,
+    const Diag& diag, int ndiag, int log_b, Flat flat) {
+#pragma unroll 1
+  for (int q = 0; q < N::Q; ++q) {
+    int cb, k;
+    N::element(tid, q, cb, k);
+    float x[D1][4];  // [j]: re, im (hi parts), lo re, lo im
+#pragma unroll
+    for (int j = 0; j < D1; ++j) {
+      const int o = N::offset(N::col(cb, j), k);
+      x[j][0] = st[o];
+      x[j][1] = st[PLANE + o];
+      if (ndiag) {
+        phase_element<PREC == F32>(
+            x[j][0], x[j][1], phit[q] & j1tab[j] & jtab[m0 + k], comb, diag,
+            ndiag, [&] {
+                        return flat(N::col(cb, j)) |
+                               (int64_t(m0 + k) << log_b);
+                      });
+      }
+      if constexpr (PREC != F32) {
+        uint32_t hi, lo;
+        split_bf16(x[j][0], x[j][1], hi, lo);
+        x[j][0] = __uint_as_float(hi << 16);
+        x[j][1] = __uint_as_float(hi & 0xffff0000u);
+        x[j][2] = __uint_as_float(lo << 16);
+        x[j][3] = __uint_as_float(lo & 0xffff0000u);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < D1; ++i) {
+      float yr = 0.f, yi = 0.f;
+#pragma unroll
+      for (int j = 0; j < D1; ++j) {
+        const float4 w = w1s[i * D1 + j];
+        cfma2(w.x, w.y, x[j][0], x[j][1], yr, yi);
+        if constexpr (PREC == BF16X3) {
+          cfma2(w.x, w.y, x[j][2], x[j][3], yr, yi);
+          cfma2(w.z, w.w, x[j][0], x[j][1], yr, yi);
+        }
+      }
+      const int o = N::offset(N::col(cb, i), k);
+      st[o] = yr;
+      st[PLANE + o] = yi;
     }
   }
 }

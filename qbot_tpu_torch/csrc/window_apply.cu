@@ -55,8 +55,10 @@
 //   up: a bit per entry whose window bits match j (tabulated once per
 //   block), a bit per entry whose other bits match the column (once per
 //   column and tile), and the product of the hit entries from a table of
-//   256: one lookup and one complex multiply an element.  Further entries
-//   are tested on the flat index, element by element.
+//   256: one lookup and one complex multiply an element.  (The reduced
+//   modes apply several entries' factors one by one, as the plain version
+//   does: tc_tile.cuh, diag_tables.)  Further entries are tested on the
+//   flat index, element by element.
 // - D <= 4 is below the tensor-core tile's k-step of 8 and runs a plain FP32
 //   FMA variant from shared-memory tiles (f32), or a streaming FMA kernel
 //   that splits its operands in registers (bf16_3x, bf16).
@@ -241,7 +243,7 @@ __global__ void __launch_bounds__(THREADS, 3)
       ws[1][e] = make_float2(round_bf16(__fsub_rn(wr, hr)),
                              round_bf16(__fsub_rn(wi, hi)));
   }
-  diag_tables<D>(diag, log_b, jtab, comb, cmask, cwant);
+  diag_tables<D, false>(diag, log_b, jtab, comb, cmask, cwant);
   __syncthreads();
   const int ndiag = diag.nphases + diag.nflips;
   const int ntab = ndiag < TABLE ? ndiag : TABLE;
@@ -395,7 +397,7 @@ int launch(const WindowArgs& a) {
   switch (a.log_d) {
     case 1: return launch_fma<2, PREC>(a);
     case 2: return launch_fma<4, PREC>(a);
-    default: return window_tc_launch<PREC>(a);
+    default: return window_tc_launch<1, PREC>(a);
   }
 }
 

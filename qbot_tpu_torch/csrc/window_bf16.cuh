@@ -26,13 +26,19 @@
 //   unchanged), so a lane's x loads stay the conflict-free [k][c] / [c][k]
 //   ones of the F32 tile.
 // - The rounding structure of window_tc.cuh's BF16 form, at k = 16: each
-//   k16-step's hi·hi sums (both planes, two mma) start from a zero
-//   accumulator, and go to the FP32 accumulators by round-to-nearest FADDs;
-//   bf16_3x's four cross-term products of a plane are summed over the stage
-//   (one k16-step) on the tensor cores, then added likewise.  The tensor
-//   cores round their sums toward zero, and a sum of 16 bf16 products is
-//   exact less often than one of 8: tests/test_torch_window_split.py
-//   replays it, and chip_smoke.py phase 7 holds the drift it causes.
+//   k16-step's hi·hi sums, one mma for each of the two terms of a plane
+//   (x_re W_re and -x_im W_im, or x_re W_im and x_im W_re), start from a
+//   zero accumulator apart and go to the FP32 accumulators by
+//   round-to-nearest FADDs; bf16_3x's four cross-term products of a plane
+//   are summed over the stage (one k16-step) on the tensor cores, then
+//   added likewise.  The tensor cores round their sums toward zero, and a
+//   sum of 16 bf16 products is exact less often than one of 8, and one of
+//   32 less still: a plane's two terms chained into one sum drift the
+//   256-layer bf16_3x brickwork past 1e-6 per 100 gates at 22 and 23
+//   qubits (tools/drift_ab.py); apart, each truncated sum holds 16
+//   products, as the k8 tile's do, and the replay's shrink falls below the
+//   chained form's.  tests/test_torch_window_split.py replays it, and
+//   chip_smoke.py phases 7 and 8 hold the drift it causes.
 // - Persistent tile walkers stream the state through a 3- or 4-stage
 //   cp.async ring of 16-deep chunks (the F32 tile's loads and layouts), at least two
 //   walkers an SM, each with its own ring and barrier: with one an SM,
@@ -44,13 +50,22 @@
 //   __launch_bounds__ holds the registers to 128 a thread.
 // - D = 8 fills a quarter of the m16n8k16 tile: W's rows 8-15 and k slots
 //   8-15 are zero.
+//
+// The narrow pair (D1 = 2, 4; window_tc.cuh says how it runs as the D2
+// window with W = W2): a walker's pass over each stage turns X into Y in
+// place (tc_tile.cuh: narrow_pass), mixed in FP32 in the mode's products as
+// the reference's first _dot forms it; the fragments then take Y as the
+// window takes x, and split it into bf16 parts as the reference's second
+// _dot does.  bf16_3x at D2 = 128 runs two walkers of 8 warps (as B == 1
+// does), so that a middle pair's tile is 16 or 32 b of each slot: runs of
+// 64-128 bytes.
 #pragma once
 
 #include "window_tc.cuh"
 
 namespace {
 
-template <int D, bool TRAIL, int PREC>
+template <int D, bool TRAIL, int PREC, int D1 = 1>
 struct Bf16Tile {
   static_assert(PREC == BF16X3 || PREC == BF16, "a reduced dot mode");
   static constexpr int LOG_D = ilog2(D);
@@ -61,10 +76,10 @@ struct Bf16Tile {
   // tile walkers a block, each with its own ring and barrier: where W's
   // parts do not fit in shared memory twice (bf16_3x at D = 128), one
   // block an SM of four walkers of 4 warps (B > 1) or two of 8 (B = 1),
-  // the faster of the two in each orientation; else one walker of 8 warps
-  // a block, and two blocks an SM
+  // the faster of the two in each orientation (two of 8 for the narrow
+  // pair); else one walker of 8 warps a block, and two blocks an SM
   static constexpr int GROUPS =
-      PREC == BF16X3 && D == 128 ? (TRAIL ? 2 : 4) : 1;
+      PREC == BF16X3 && D == 128 ? (TRAIL || D1 > 1 ? 2 : 4) : 1;
   static constexpr int WW = GROUPS == 4 ? 4 : WARPS;  // warps a walker
   static constexpr int WT = 32 * WW;              // threads a walker
   static constexpr int NT = GROUPS * WT;          // threads a block
@@ -83,28 +98,34 @@ struct Bf16Tile {
   // W's fragments: [part][plane][m-tile][k16-step][lane] of uint4
   static constexpr int W_FRAGS = MT * KS;
   static constexpr int W_WORDS = PARTS * 2 * W_FRAGS * 128;
-  // W_WORDS, then each group's stages, jtab, comb, cmask and cwant
+  // W_WORDS, then each group's stages, jtab, comb, cmask and cwant, and
+  // the narrow pair's W1 and j1tab
   static constexpr int SMEM = 4 * (W_WORDS + GROUPS * RING * STAGE + D) +
-                              8 * (1 << TABLE) + 16 * TABLE;
+                              8 * (1 << TABLE) + 16 * TABLE +
+                              (D1 > 1 ? 16 * D1 * D1 + 4 * D1 : 0);
   // two blocks an SM (1 KiB of each block's share of 228 KiB is the
   // system's), or one block of several walkers
   static constexpr int MIN_BLOCKS = GROUPS == 1 ? 2 : 1;
   static_assert(MIN_BLOCKS * (SMEM + 1024) <= 228 * 1024, "shared memory");
 };
 
-template <int D, bool TRAIL, int PREC>
-__global__ void __launch_bounds__((Bf16Tile<D, TRAIL, PREC>::NT),
-                                  (Bf16Tile<D, TRAIL, PREC>::MIN_BLOCKS))
+template <int D, bool TRAIL, int PREC, int D1>
+__global__ void __launch_bounds__((Bf16Tile<D, TRAIL, PREC, D1>::NT),
+                                  (Bf16Tile<D, TRAIL, PREC, D1>::MIN_BLOCKS))
     window_bf16_kernel(const float* __restrict__ psi, float* __restrict__ out,
                        const float* __restrict__ w, int64_t n_amps,
-                       int log_b, const Diag diag) {
-  using T = Bf16Tile<D, TRAIL, PREC>;
+                       int log_b, const Diag diag,
+                       const float* __restrict__ w1) {
+  using T = Bf16Tile<D, TRAIL, PREC, D1>;
+  using N = Narrow<T::BN, T::BK, T::PITCH, D1, TRAIL, T::WT>;
   extern __shared__ __align__(16) float smem[];
   uint32_t* ws = reinterpret_cast<uint32_t*>(smem);
   uint32_t* jtab = ws + T::W_WORDS + T::GROUPS * T::RING * T::STAGE;
   float2* comb = reinterpret_cast<float2*>(jtab + D);
   long long* cmask = reinterpret_cast<long long*>(comb + (1 << TABLE));
   long long* cwant = cmask + TABLE;
+  float4* w1s = reinterpret_cast<float4*>(cwant + TABLE);
+  uint32_t* j1tab = reinterpret_cast<uint32_t*>(w1s + D1 * D1);
 
   // the thread's group, and its index and warp in it
   const int grp = threadIdx.x / T::WT, tid = threadIdx.x % T::WT;
@@ -138,7 +159,11 @@ __global__ void __launch_bounds__((Bf16Tile<D, TRAIL, PREC>::NT),
     ws[e] = hi;
     if constexpr (T::PARTS == 2) ws[2 * T::W_FRAGS * 128 + e] = lo;
   }
-  diag_tables<D>(diag, log_b, jtab, comb, cmask, cwant);
+  diag_tables<D, false>(diag, log_b, jtab, comb, cmask, cwant);
+  if constexpr (D1 > 1) {
+    diag_tables_d1<D1>(diag, log_b + T::LOG_D, j1tab, cmask, cwant);
+    stage_w1<D1, PREC>(w1, w1s);
+  }
   __syncthreads();
   // the group's barrier: the ring's stages are the group's alone
   auto group_sync = [&]() {
@@ -152,8 +177,10 @@ __global__ void __launch_bounds__((Bf16Tile<D, TRAIL, PREC>::NT),
   auto tile_c0 = [&](int64_t s) {
     return (walker + (s / T::CHUNKS) * walkers) * T::BN;
   };
-  // flat index of column c's j = 0 element: a * D * B + b
+  // flat index of column c's j = 0 element: a * D * B + b (the narrow pair:
+  // of its tile column's X or output element, tc_tile.cuh: Narrow)
   auto col_base = [&](int64_t c) {
+    if constexpr (D1 > 1) c = N::window_col(c, log_b);
     return ((c >> log_b) << (log_b + T::LOG_D)) | (c & (B - 1));
   };
 
@@ -202,6 +229,9 @@ __global__ void __launch_bounds__((Bf16Tile<D, TRAIL, PREC>::NT),
   float acc[T::MT][T::NN][2][4];
   uint32_t colhit[T::NN];
   const int cw = warp * 8 * T::NN;  // the warp's first column in the tile
+  // the narrow pair: the table entries the columns of the thread's base
+  // elements hit
+  uint32_t phit[N::Q];
   for (int64_t s = 0, stage = 0; s < items;
        ++s, stage = stage == T::RING - 1 ? 0 : stage + 1) {
     cp_async_wait<T::RING - 2>();
@@ -222,10 +252,30 @@ __global__ void __launch_bounds__((Bf16Tile<D, TRAIL, PREC>::NT),
       for (int nn = 0; nn < T::NN; ++nn)
         colhit[nn] = col_hits(col_base(c0 + cw + 8 * nn + g), ntab, cmask,
                               cwant);
+      if constexpr (D1 > 1) {
+#pragma unroll
+        for (int q = 0; q < N::Q; ++q) {
+          int cb, k;
+          N::element(tid, q, cb, k);
+          phit[q] = col_hits(col_base(c0 + N::col(cb, 0)), ntab, cmask,
+                             cwant);
+        }
+      }
+    }
+    float* st = xs + stage * T::STAGE;
+    if constexpr (D1 > 1) {
+      // item s + RING - 1 goes to the stage item s - 1 used
+      if (s + T::RING - 1 < items)
+        load(s + T::RING - 1, stage == 0 ? T::RING - 1 : int(stage) - 1);
+      cp_async_commit();
+      // the narrow pair: Y over X in place, then the window's loads of Y
+      narrow_pass<N, D1, T::PLANE, PREC>(
+          st, tid, w1s, phit, j1tab, jtab, j0, comb, diag, ndiag, log_b,
+          [&](int cl) { return col_base(c0 + cl); });
+      group_sync();
     }
     // the B fragments: element e of n-tile nn is column cw + 8 nn + g at
     // j = t + 4 e of the stage.  All loads first, so their latencies overlap.
-    const float* st = xs + stage * T::STAGE;
     float xr[T::NN][4], xi[T::NN][4];
 #pragma unroll
     for (int nn = 0; nn < T::NN; ++nn) {
@@ -237,31 +287,45 @@ __global__ void __launch_bounds__((Bf16Tile<D, TRAIL, PREC>::NT),
         xi[nn][e] = e < T::NE ? st[T::PLANE + off] : 0.f;
       }
     }
-    // item s + RING - 1 goes to the stage item s - 1 used
-    if (s + T::RING - 1 < items)
-      load(s + T::RING - 1, stage == 0 ? T::RING - 1 : int(stage) - 1);
-    cp_async_commit();
-    if (ndiag) {
-#pragma unroll
-      for (int nn = 0; nn < T::NN; ++nn) {
-#pragma unroll
-        for (int e = 0; e < T::NE; ++e) {
-          const float2 z = comb[colhit[nn] & jtab[j0 + t + 4 * e]];
-          cmul(xr[nn][e], xi[nn][e], z.x, z.y);
-        }
-      }
-      if (ndiag > TABLE) {
+    if constexpr (D1 == 1) {
+      // item s + RING - 1 goes to the stage item s - 1 used
+      if (s + T::RING - 1 < items)
+        load(s + T::RING - 1, stage == 0 ? T::RING - 1 : int(stage) - 1);
+      cp_async_commit();
+      if (ndiag) {
+        uint32_t several = 0;
 #pragma unroll
         for (int nn = 0; nn < T::NN; ++nn) {
-          const int64_t base = col_base(c0 + cw + 8 * nn + g);
 #pragma unroll
           for (int e = 0; e < T::NE; ++e) {
-            const int64_t mflat = base | (int64_t(j0 + t + 4 * e) << log_b);
-            for (int q = TABLE; q < ndiag; ++q) {
-              int64_t mask, want;
-              float zr, zi;
-              diag.entry(q, mask, want, zr, zi);
-              if ((mflat & mask) == want) cmul(xr[nn][e], xi[nn][e], zr, zi);
+            const uint32_t h = colhit[nn] & jtab[j0 + t + 4 * e];
+            apply_hit(xr[nn][e], xi[nn][e], h, comb);
+            several |= h & (h - 1);
+          }
+        }
+        if (several) {
+#pragma unroll
+          for (int nn = 0; nn < T::NN; ++nn) {
+#pragma unroll
+            for (int e = 0; e < T::NE; ++e) {
+              apply_several_hits(xr[nn][e], xi[nn][e],
+                                 colhit[nn] & jtab[j0 + t + 4 * e], comb);
+            }
+          }
+        }
+        if (ndiag > TABLE) {
+#pragma unroll
+          for (int nn = 0; nn < T::NN; ++nn) {
+            const int64_t base = col_base(c0 + cw + 8 * nn + g);
+#pragma unroll
+            for (int e = 0; e < T::NE; ++e) {
+              const int64_t mflat = base | (int64_t(j0 + t + 4 * e) << log_b);
+              for (int q = TABLE; q < ndiag; ++q) {
+                int64_t mask, want;
+                float zr, zi;
+                diag.entry(q, mask, want, zr, zi);
+                if ((mflat & mask) == want) cmul(xr[nn][e], xi[nn][e], zr, zi);
+              }
             }
           }
         }
@@ -290,15 +354,17 @@ __global__ void __launch_bounds__((Bf16Tile<D, TRAIL, PREC>::NT),
       const uint4 wih = wf[(T::W_FRAGS + f) * 32 + lane];
 #pragma unroll
       for (int nn = 0; nn < T::NN; ++nn) {
-        float e[2][4];
-        mma16_0(e[0], wrh, xh[nn][0]);
-        mma16_0(e[1], wih, xh[nn][0]);
-        mma16(e[0], wih, xh[nn][2]);
-        mma16(e[1], wrh, xh[nn][1]);
+        // each plane's two hi hi sums from zero, apart: [plane][term]
+        float e[2][2][4];
+        mma16_0(e[0][0], wrh, xh[nn][0]);
+        mma16_0(e[1][0], wih, xh[nn][0]);
+        mma16_0(e[0][1], wih, xh[nn][2]);
+        mma16_0(e[1][1], wrh, xh[nn][1]);
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
 #pragma unroll
-          for (int q = 0; q < 4; ++q) acc[mt][nn][p][q] += e[p][q];
+          for (int q = 0; q < 4; ++q)
+            acc[mt][nn][p][q] = acc[mt][nn][p][q] + e[p][0][q] + e[p][1][q];
         }
       }
       if constexpr (PREC == BF16X3) {
@@ -357,13 +423,13 @@ __global__ void __launch_bounds__((Bf16Tile<D, TRAIL, PREC>::NT),
   cp_async_wait<0>();
 }
 
-template <int D, bool TRAIL, int PREC>
+template <int D, bool TRAIL, int PREC, int D1>
 int launch_bf16(const WindowArgs& a) {
-  using T = Bf16Tile<D, TRAIL, PREC>;
+  using T = Bf16Tile<D, TRAIL, PREC, D1>;
   static int blocks_cap[MAX_DEVICES] = {};  // resident blocks, per device
   cudaError_t err;
-  const int cap = resident_blocks(window_bf16_kernel<D, TRAIL, PREC>, T::SMEM,
-                                  blocks_cap, err, T::NT);
+  const int cap = resident_blocks(window_bf16_kernel<D, TRAIL, PREC, D1>,
+                                  T::SMEM, blocks_cap, err, T::NT);
   if (cap == 0) return static_cast<int>(err);
   // GROUPS tile walkers a block
   const int64_t tiles = ((a.n_amps >> T::LOG_D) + T::BN - 1) / T::BN;
@@ -371,26 +437,28 @@ int launch_bf16(const WindowArgs& a) {
   const unsigned grid = static_cast<unsigned>(blocks < cap ? blocks : cap);
   const Diag diag{a.flips, a.nflips, a.masks, a.wants,
                   a.phase, a.nphases, a.n_amps - 1};
-  window_bf16_kernel<D, TRAIL, PREC><<<grid, T::NT, T::SMEM, a.stream>>>(
-      a.psi, a.out, a.w, a.n_amps, a.log_b, diag);
+  window_bf16_kernel<D, TRAIL, PREC, D1>
+      <<<grid, T::NT, T::SMEM, a.stream>>>(a.psi, a.out, a.w, a.n_amps,
+                                           a.log_b, diag, a.w1);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the body of window_tc_launch<PREC> for the reduced modes, in window_tc.cu
-template <int PREC>
+// the body of window_tc_launch<D1, PREC> for the reduced modes, in
+// window_tc.cu
+template <int D1, int PREC>
 int launch_bf16_d(const WindowArgs& a) {
   const bool trail = a.log_b == 0;
   switch (a.log_d) {
-    case 3: return trail ? launch_bf16<8, true, PREC>(a)
-                         : launch_bf16<8, false, PREC>(a);
-    case 4: return trail ? launch_bf16<16, true, PREC>(a)
-                         : launch_bf16<16, false, PREC>(a);
-    case 5: return trail ? launch_bf16<32, true, PREC>(a)
-                         : launch_bf16<32, false, PREC>(a);
-    case 6: return trail ? launch_bf16<64, true, PREC>(a)
-                         : launch_bf16<64, false, PREC>(a);
-    case 7: return trail ? launch_bf16<128, true, PREC>(a)
-                         : launch_bf16<128, false, PREC>(a);
+    case 3: return trail ? launch_bf16<8, true, PREC, D1>(a)
+                         : launch_bf16<8, false, PREC, D1>(a);
+    case 4: return trail ? launch_bf16<16, true, PREC, D1>(a)
+                         : launch_bf16<16, false, PREC, D1>(a);
+    case 5: return trail ? launch_bf16<32, true, PREC, D1>(a)
+                         : launch_bf16<32, false, PREC, D1>(a);
+    case 6: return trail ? launch_bf16<64, true, PREC, D1>(a)
+                         : launch_bf16<64, false, PREC, D1>(a);
+    case 7: return trail ? launch_bf16<128, true, PREC, D1>(a)
+                         : launch_bf16<128, false, PREC, D1>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

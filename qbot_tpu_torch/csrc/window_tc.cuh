@@ -3,11 +3,37 @@
 // F32 tile's products (tc_tile.cuh: Prec F32; the reduced modes' window is
 // window_bf16.cuh).
 //
-// Build: the kernel has one instantiation per (D, TRAIL, PREC).  So
-// window_tc.cu instantiates the launcher window_tc_launch<PREC> declared
-// below for one precision, given as a -D define, and nvcc compiles it once
-// per precision, in parallel with the pair's variants (tpu/kernels.py:
-// build_kernels); window_apply.cu calls the launchers.
+// The narrow pair (D1 = 2, 4 of the template's D1; D1 = 1 is the window):
+// the pair of a narrow first window and a D = D2 >= 8 second one, W1 first
+// as in the reference's _pair_bt (qbot_tpu/tpu/kernels.py:379-416) and
+// _pair_b1 (:304-348),
+//
+//   out[a, i, l, b] = sum_m W2[l, m] Y[a, i, m, b],
+//   Y[a, i, m, b] = sum_j W1[i, j] (Phi F p)[a, j, m, b],
+//
+// runs as the D2 window of the state viewed as (A D1, D2, B), W = W2, whose
+// operand is mixed by W1 as it is staged.  W1's work is 8 D1 FLOPs an
+// amplitude against W2's 8 D2, so the pair costs about one window: the
+// stage holds the same X elements the window would (a tile's columns are
+// BN / D1 base columns (a, b) times the D1 slots j, tc_tile.cuh: Narrow),
+// and once it has landed one pass over it (tc_tile.cuh: narrow_pass) turns
+// each base element's D1 values X[a, j, m, b] into the D1 values of
+// Y[a, i, m, b] in place: each X element read and phased once (a third
+// lookup table, of the first window's bits), Y mixed in FP32 FMAs with W1
+// from shared memory.  A barrier, and the window's fragment loads and
+// products run unchanged on Y, with no diagonals: the grids of the 3xTF32
+// split are taken on Y, so each k-step's hi*hi sums stay exact.  (Mixing Y
+// as each lane builds its fragment would read and phase every X element
+// once for each of the D1 warps that own its base column's slots, times
+// the two warps along the outputs: with diagonals, more than the products
+// cost.)
+//
+// Build: the kernel has one instantiation per (D, TRAIL, PREC, D1).  So
+// window_tc.cu instantiates the launcher window_tc_launch<D1, PREC>
+// declared below for one D1 and precision, given as -D defines, and nvcc
+// compiles it once per variant, in parallel with the pair's variants
+// (tpu/kernels.py: build_kernels); window_apply.cu (D1 = 1) and
+// pair_apply.cu (D1 = 2, 4) call the launchers.
 #pragma once
 
 #include "tc_tile.cuh"
@@ -28,17 +54,20 @@ struct WindowArgs {
   const float* phase;
   int nphases;
   cudaStream_t stream;
+  const float* w1 = nullptr;  // the narrow pair's (2, D1, D1) W1
 };
 
-// The launcher of the tensor-core window in one precision (every D of
-// 8-128); returns the launch's cudaGetLastError(), cudaErrorInvalidValue
-// for another D.  Defined in window_tc.cu, once per precision.
-template <int PREC>
+// The launcher of the tensor-core window (D1 = 1), or of the narrow pair
+// whose first window has D1 = 2, 4 (args.w1; args.w is W2), in one
+// precision, for every D = D2 of 8-128; returns the launch's
+// cudaGetLastError(), cudaErrorInvalidValue for another D.  Defined in
+// window_tc.cu, once per D1 and precision.
+template <int D1, int PREC>
 int window_tc_launch(const WindowArgs& args);
 
 namespace {
 
-template <int D, bool TRAIL, int PREC>
+template <int D, bool TRAIL, int PREC, int D1 = 1>
 struct Tile {
   static constexpr int LOG_D = ilog2(D);
   static constexpr int KS = D / 8;                // k-steps of 8 j
@@ -61,17 +90,19 @@ struct Tile {
   // tf32(W) re and im, each a float4
   static constexpr int W_FLOATS = SPLIT_W ? 6 * D * D : 2 * D * D;
   // W_FLOATS, then the stages, the grids of W ([k-step][i]), jtab, comb,
-  // cmask and cwant
+  // cmask and cwant, and the narrow pair's W1 and j1tab
   static constexpr int SMEM = 4 * (W_FLOATS + STAGES * STAGE + KS * D + D) +
-                              8 * (1 << TABLE) + 16 * TABLE;
+                              8 * (1 << TABLE) + 16 * TABLE +
+                              (D1 > 1 ? 16 * D1 * D1 + 4 * D1 : 0);
 };
 
-template <int D, bool TRAIL, int PREC>
+template <int D, bool TRAIL, int PREC, int D1>
 __global__ void __launch_bounds__(THREADS, 1)
     window_tc_kernel(const float* __restrict__ psi, float* __restrict__ out,
                      const float* __restrict__ w, int64_t n_amps, int log_b,
-                     const Diag diag) {
-  using T = Tile<D, TRAIL, PREC>;
+                     const Diag diag, const float* __restrict__ w1) {
+  using T = Tile<D, TRAIL, PREC, D1>;
+  using N = Narrow<T::BN, T::BK, T::PITCH, D1, TRAIL, THREADS>;
   extern __shared__ __align__(16) float smem[];
   float* ws = smem;
   float* xs = ws + T::W_FLOATS;
@@ -80,6 +111,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   float2* comb = reinterpret_cast<float2*>(jtab + D);
   long long* cmask = reinterpret_cast<long long*>(comb + (1 << TABLE));
   long long* cwant = cmask + TABLE;
+  float4* w1s = reinterpret_cast<float4*>(cwant + TABLE);
+  uint32_t* j1tab = reinterpret_cast<uint32_t*>(w1s + D1 * D1);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -121,13 +154,19 @@ __global__ void __launch_bounds__(THREADS, 1)
       f[2 + half] = wim;
     }
   }
-  diag_tables<D>(diag, log_b, jtab, comb, cmask, cwant);
+  diag_tables<D, true>(diag, log_b, jtab, comb, cmask, cwant);
+  if constexpr (D1 > 1) {
+    diag_tables_d1<D1>(diag, log_b + T::LOG_D, j1tab, cmask, cwant);
+    stage_w1<D1, PREC>(w1, w1s);
+  }
 
   auto tile_c0 = [&](int64_t s) {
     return (blockIdx.x + (s / T::CHUNKS) * gridDim.x) * T::BN;
   };
-  // flat index of column c's j = 0 element: a * D * B + b
+  // flat index of column c's j = 0 element: a * D * B + b (the narrow pair:
+  // of its tile column's X or output element, tc_tile.cuh: Narrow)
   auto col_base = [&](int64_t c) {
+    if constexpr (D1 > 1) c = N::window_col(c, log_b);
     return ((c >> log_b) << (log_b + T::LOG_D)) | (c & (B - 1));
   };
 
@@ -173,6 +212,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   float acc[T::NI][2][4];
   uint32_t colhit[2];
   const int cw = wc * 16;  // the warp's first column in the tile
+  // the narrow pair: the table entries the columns of the thread's base
+  // elements hit
+  uint32_t phit[N::Q];
   for (int64_t s = 0, stage = 0; s < items;
        ++s, stage = stage == STAGES - 1 ? 0 : stage + 1) {
     cp_async_wait<STAGES - 2>();
@@ -188,11 +230,31 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int r = 0; r < 2; ++r)
         colhit[r] = col_hits(col_base(c0 + cw + g + 8 * r), ntab, cmask, cwant);
+      if constexpr (D1 > 1) {
+#pragma unroll
+        for (int q = 0; q < N::Q; ++q) {
+          int cb, k;
+          N::element(tid, q, cb, k);
+          phit[q] = col_hits(col_base(c0 + N::col(cb, 0)), ntab, cmask,
+                             cwant);
+        }
+      }
+    }
+    float* st = xs + stage * T::STAGE;
+    if constexpr (D1 > 1) {
+      // item s + STAGES - 1 goes to the stage item s - 1 used
+      if (s + STAGES - 1 < items)
+        load(s + STAGES - 1, stage == 0 ? STAGES - 1 : int(stage) - 1);
+      cp_async_commit();
+      // the narrow pair: Y over X in place, then the window's loads of Y
+      narrow_pass<N, D1, T::PLANE, PREC>(
+          st, tid, w1s, phit, j1tab, jtab, chunk * T::BK, comb, diag, ndiag,
+          log_b, [&](int cl) { return col_base(c0 + cl); });
+      __syncthreads();
     }
     // the A fragments of the stage's k-steps: element e of k-step kc is
     // column row g (+ 8 for odd e) at j = 8 kc + t (+ 4 for e >= 2).  All
     // loads first, so their latencies overlap.
-    const float* st = xs + stage * T::STAGE;
     float xr[T::KC][4], xi[T::KC][4];
 #pragma unroll
     for (int kc = 0; kc < T::KC; ++kc) {
@@ -204,14 +266,16 @@ __global__ void __launch_bounds__(THREADS, 1)
         xi[kc][e] = st[T::PLANE + off];
       }
     }
-    // item s + STAGES - 1 goes to the stage item s - 1 used
-    if (s + STAGES - 1 < items)
-      load(s + STAGES - 1, stage == 0 ? STAGES - 1 : int(stage) - 1);
-    cp_async_commit();
-    if (ndiag) {
-      diag_fragments<T::KC, false>(
-          xr, xi, diag, ndiag, chunk * T::BK, log_b, jtab, comb, colhit,
-          [&](int r) { return col_base(c0 + cw + g + 8 * r); });
+    if constexpr (D1 == 1) {
+      // item s + STAGES - 1 goes to the stage item s - 1 used
+      if (s + STAGES - 1 < items)
+        load(s + STAGES - 1, stage == 0 ? STAGES - 1 : int(stage) - 1);
+      cp_async_commit();
+      if (ndiag) {
+        diag_fragments<T::KC, false>(
+            xr, xi, diag, ndiag, chunk * T::BK, log_b, jtab, comb, colhit,
+            [&](int r) { return col_base(c0 + cw + g + 8 * r); });
+      }
     }
     // F32: x = hi + lo on the grid of its column row and k-step, W likewise
     // on the grid of its row and k-step (wgrid): exact hi·hi k-step sums;
@@ -271,38 +335,39 @@ __global__ void __launch_bounds__(THREADS, 1)
   cp_async_wait<0>();
 }
 
-template <int D, bool TRAIL, int PREC>
+template <int D, bool TRAIL, int PREC, int D1>
 int launch_tc(const WindowArgs& a) {
-  using T = Tile<D, TRAIL, PREC>;
+  using T = Tile<D, TRAIL, PREC, D1>;
   static int blocks_cap[MAX_DEVICES] = {};  // resident blocks, per device
   cudaError_t err;
-  const int cap = resident_blocks(window_tc_kernel<D, TRAIL, PREC>, T::SMEM,
-                                  blocks_cap, err);
+  const int cap = resident_blocks(window_tc_kernel<D, TRAIL, PREC, D1>,
+                                  T::SMEM, blocks_cap, err);
   if (cap == 0) return static_cast<int>(err);
   const int64_t tiles = ((a.n_amps >> T::LOG_D) + T::BN - 1) / T::BN;
   const unsigned grid = static_cast<unsigned>(tiles < cap ? tiles : cap);
   const Diag diag{a.flips, a.nflips, a.masks, a.wants,
                   a.phase, a.nphases, a.n_amps - 1};
-  window_tc_kernel<D, TRAIL, PREC><<<grid, THREADS, T::SMEM, a.stream>>>(
-      a.psi, a.out, a.w, a.n_amps, a.log_b, diag);
+  window_tc_kernel<D, TRAIL, PREC, D1>
+      <<<grid, THREADS, T::SMEM, a.stream>>>(a.psi, a.out, a.w, a.n_amps,
+                                             a.log_b, diag, a.w1);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int PREC>
+template <int D, int PREC, int D1>
 int launch_tc_trail(const WindowArgs& a) {
-  return a.log_b == 0 ? launch_tc<D, true, PREC>(a)
-                      : launch_tc<D, false, PREC>(a);
+  return a.log_b == 0 ? launch_tc<D, true, PREC, D1>(a)
+                      : launch_tc<D, false, PREC, D1>(a);
 }
 
-// the body of window_tc_launch<PREC>, in window_tc.cu
-template <int PREC>
+// the body of window_tc_launch<D1, PREC> for f32, in window_tc.cu
+template <int D1, int PREC>
 int launch_tc_d(const WindowArgs& a) {
   switch (a.log_d) {
-    case 3: return launch_tc_trail<8, PREC>(a);
-    case 4: return launch_tc_trail<16, PREC>(a);
-    case 5: return launch_tc_trail<32, PREC>(a);
-    case 6: return launch_tc_trail<64, PREC>(a);
-    case 7: return launch_tc_trail<128, PREC>(a);
+    case 3: return launch_tc_trail<8, PREC, D1>(a);
+    case 4: return launch_tc_trail<16, PREC, D1>(a);
+    case 5: return launch_tc_trail<32, PREC, D1>(a);
+    case 6: return launch_tc_trail<64, PREC, D1>(a);
+    case 7: return launch_tc_trail<128, PREC, D1>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

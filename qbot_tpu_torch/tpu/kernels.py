@@ -24,8 +24,10 @@ and allocate nothing: the wrappers allocate outputs and scratch with
 Every wrapper counts its launches (:func:`launch_counts`) so a run can
 show that it went through the kernel.  ``window_apply`` and ``pair_apply``
 count their trailing launches (B = 1, the role of the TPU's
-``_right_multiply`` and ``_pair_b1``) apart, and the launches of each
-reduced mode apart, as ``window_apply[bf16_3x]`` and so on.
+``_right_multiply`` and ``_pair_b1``) apart, ``pair_apply`` its narrow
+pairs (D1 = 2, 4 with D2 >= 8, which run the window's tile) apart, and the
+launches of each reduced mode apart, as ``window_apply[bf16_3x]`` and so
+on.
 """
 from __future__ import annotations
 
@@ -59,13 +61,15 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lib = None
 
 # The sources nvcc compiles once per variant, with the variant's -D defines
-# (csrc/window_tc.cu, csrc/pair_tc.cu): the tensor-core window once per
-# precision of the products (csrc/tc_tile.cuh: Prec), the tensor-core pair
-# once per D1, orientation and precision, so that the longest compiles of
-# the library run side by side.  Every other source compiles once.
+# (csrc/window_tc.cu, csrc/pair_tc.cu): the tensor-core window (D1 = 1) and
+# the narrow pair (D1 = 2, 4) once per D1 and precision of the products
+# (csrc/tc_tile.cuh: Prec), the tensor-core pair once per D1, orientation
+# and precision, so that the longest compiles of the library run side by
+# side.  Every other source compiles once.
 _PRECS = (0, 1, 2)
 _VARIANTS = {
-    "window_tc.cu": [{"QBOT_PREC": p} for p in _PRECS],
+    "window_tc.cu": [{"QBOT_D1": d1, "QBOT_PREC": p} for p in _PRECS
+                     for d1 in (1, 2, 4)],
     "pair_tc.cu": [{"QBOT_D1": d1, "QBOT_MIDDLE": middle, "QBOT_PREC": p}
                    for p in _PRECS
                    for middle, widths in ((0, (8, 16, 32, 64, 128)),
@@ -222,13 +226,14 @@ def _fp32_matmul():
 
 
 # launch counts: one per TPU kernel replaced (window_apply and pair_apply
-# with B > 1 and with B = 1 apart), and one per reduced mode of each of the
-# four that run the products
+# with B > 1 and with B = 1 apart, the narrow pairs apart from the other
+# pairs), and one per reduced mode of each of those that run the products
 _PRODUCT_COUNTS = ("window_apply", "window_apply_trailing", "pair_apply",
-                   "pair_apply_trailing")
+                   "pair_apply_trailing", "pair_apply_narrow",
+                   "pair_apply_trailing_narrow")
 LAUNCH_COUNTS = (
-    "window_apply", "window_apply_trailing", "reflect_dot", "reflect_update",
-    "pair_apply", "pair_apply_trailing",
+    *_PRODUCT_COUNTS[:2], "reflect_dot", "reflect_update",
+    *_PRODUCT_COUNTS[2:],
     *(f"{name}[{mode}]" for mode in REDUCED_MODES for name in _PRODUCT_COUNTS))
 _launches: dict = {}
 
@@ -310,9 +315,15 @@ def fused_diagonals(n: int, pre_flips=(), pre_phases=(),
                     device="cpu") -> FusedDiagonals:
     """Device tables of a step's fused flips and (qubits, z, pattern)
     phases, as :class:`qbot_tpu_torch.tpu.compiler.WindowStep` carries
-    them."""
+    them.  A phase's float32 real part is 1 + (re - 1), rounded as the
+    reference's kernels form it (``qbot_tpu/tpu/kernels.py:_apply_phases``:
+    re - 1 in float64, rounded to float32, then 1 added in float32); it can
+    sit an ulp from re rounded once, and a cancelling complex product
+    carries that to several ulps of the amplitude, which a bf16 split
+    rounds apart."""
     bits = [phase_bits(n, q, pat) for q, _, pat in pre_phases]
     z = np.array([complex(z) for _, z, _ in pre_phases], np.complex128)
+    re = np.float32(1.0) + (z.real - 1.0).astype(np.float32)
     return FusedDiagonals(
         flips=torch.tensor(list(pre_flips), dtype=torch.int64,
                            device=device),
@@ -320,8 +331,8 @@ def fused_diagonals(n: int, pre_flips=(), pre_phases=(),
                           device=device),
         want=torch.tensor([w for _, w in bits], dtype=torch.int64,
                           device=device),
-        phase=torch.tensor(np.stack([z.real, z.imag]).reshape(2, -1),
-                           dtype=torch.float32, device=device))
+        phase=torch.tensor(np.stack([re, z.imag.astype(np.float32)]
+                                    ).reshape(2, -1), device=device))
 
 
 def _flip_signs(x: torch.Tensor, flips: torch.Tensor) -> torch.Tensor:
@@ -490,9 +501,12 @@ def pair_apply(psi, n: int, start: int, width1: int, width2: int, w1, w2,
     fused into the first (counted as window launches).  The trailing and
     middle pairs at D1, D2 >= 8 run on the tensor cores (3xTF32,
     ``csrc/pair_tc.cuh``; in the reduced modes BF16 ``mma.sync.m16n8k16``,
-    ``csrc/pair_bf16.cuh``), narrower widths in FP32 FMAs
-    (``csrc/pair_apply.cu``); all apply W1 first, as the plain version
-    does.
+    ``csrc/pair_bf16.cuh``); the narrow pairs, D1 = 2, 4 with D2 >= 8, on
+    the D2 window's tile with W1 mixed into its operand as it is staged
+    (``csrc/window_tc.cuh``, ``csrc/window_bf16.cuh``; counted as
+    ``pair_apply_narrow`` and ``pair_apply_trailing_narrow``); D2 = 2, 4 in
+    FP32 FMAs (``csrc/pair_apply.cu``).  All apply W1 first, as the plain
+    version does.
     """
     _require(1 <= width1 <= 7 and 1 <= width2 <= 7 and 0 <= start
              and start + width1 + width2 <= n,
@@ -523,7 +537,8 @@ def pair_apply(psi, n: int, start: int, width1: int, width2: int, w1, w2,
             diag.want.data_ptr(), diag.phase.data_ptr(), diag.mask.numel(),
             _PREC[_DOT_MODE], _stream(psi))
     _check_launch(lib, rc, "pair_apply")
-    _count("pair_apply_trailing" if route == "trailing" else "pair_apply")
+    name = "pair_apply_trailing" if route == "trailing" else "pair_apply"
+    _count(f"{name}_narrow" if width1 <= 2 and width2 >= 3 else name)
     return out
 
 

@@ -233,8 +233,127 @@ def test_pair_counts_its_routes(cuda):
         kernels.pair_apply(psi, n, start, width1, width2, w1, w2, diag)
     counts = kernels.launch_counts()
     assert counts["pair_apply_trailing"] == 1
-    assert counts["pair_apply"] == 1
+    assert counts["pair_apply_narrow"] == 1     # (4, 8): the narrow pair
+    assert counts["pair_apply"] == 0
     assert counts["window_apply"] == 2          # the two-window route
+
+
+def test_narrow_d2_counts_as_the_fma_pair(cuda):
+    """D2 = 2, 4 stays on the FP32 FMA pair (pair_apply, pair_apply_
+    trailing), at any D1; D1 = 2, 4 with D2 >= 8 counts as the narrow
+    pair."""
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(4)
+    for n, start, width1, width2 in ((14, 0, 5, 2), (9, 2, 5, 2),
+                                     (11, 0, 2, 2), (6, 2, 2, 2),
+                                     (10, 0, 1, 2), (10, 2, 1, 7)):
+        psi, w1, w2, diag = _pair_inputs(n, start, width1, width2, rng, cuda)
+        kernels.pair_apply(psi, n, start, width1, width2, w1, w2, diag)
+    counts = kernels.launch_counts()
+    assert counts["pair_apply"] == 3
+    assert counts["pair_apply_trailing"] == 2
+    assert counts["pair_apply_narrow"] == 0
+    assert counts["pair_apply_trailing_narrow"] == 1
+
+
+# dot mode -> (pair vs plain, vs float64)
+PAIR_TOL = {"f32": (TOL, F64_TOL), "bf16_3x": MODE_TOL["bf16_3x"][1:],
+            "bf16": MODE_TOL["bf16"][1:]}
+
+
+@pytest.fixture(params=list(PAIR_TOL))
+def any_mode(request):
+    """A dot mode for the test, f32 again after it."""
+    kernels.set_dot_mode(request.param)
+    try:
+        yield request.param
+    finally:
+        kernels.set_dot_mode("f32")
+
+
+def _narrow_check(n, start, width1, width2, mode, rng, device, diag=None):
+    psi, w1, w2, few = _pair_inputs(n, start, width1, width2, rng, device)
+    _pair_check(psi, n, start, width1, width2, w1, w2,
+                few if diag is None else diag, mode)
+
+
+@pytest.mark.parametrize("width2", range(3, 8))
+@pytest.mark.parametrize("width1", [1, 2])
+def test_narrow_pair_kernel(cuda, any_mode, width1, width2):
+    """The narrow pair (D1 = 2, 4; D2 = 8-128) in every dot mode against
+    its plain version and against float64: trailing with 1 a (fewer columns
+    than a tile) and with 8 and 512; middle at B = 2^7 and 2^10, with 4 a,
+    and at B = 2^7 with 1 a."""
+    geometries = [(width1 + width2 + k, k) for k in (0, 3, 9)]
+    geometries += [(2 + width1 + width2 + log_b, 2) for log_b in (7, 10)]
+    geometries += [(width1 + width2 + 7, 0)]
+    for n, start in geometries:
+        rng = np.random.default_rng(10 * width1 + width2 + n)
+        assert kernels.pair_route(n, start, width1, width2) != "two_windows"
+        _narrow_check(n, start, width1, width2, any_mode, rng, cuda)
+
+
+@pytest.mark.parametrize("geometry", [(18, 0, 2, 7), (16, 0, 1, 7),
+                                      (11, 2, 2, 7), (12, 5, 2, 5)],
+                         ids=lambda g: "n{}_s{}_{}x{}".format(*g))
+def test_narrow_pair_many_diagonals(cuda, any_mode, geometry):
+    """More flips and phases than the lookup tables hold (8): the narrow
+    pair tests the rest on each X element's flat index."""
+    n, start, width1, width2 = geometry
+    rng = np.random.default_rng(sum(geometry))
+    _narrow_check(n, start, width1, width2, any_mode, rng, cuda,
+                  _many_diagonals(n, rng, cuda))
+
+
+def test_narrow_pair_kernel_is_deterministic(cuda, any_mode):
+    """Bit for bit the same output in repeated launches: the brickwork's
+    narrow pairs, middle (2, 128) and (4, 128) at 19 qubits and trailing
+    (4, 128) at 9."""
+    for n, start, width1, width2 in ((19, 0, 1, 7), (19, 0, 2, 7),
+                                     (9, 0, 2, 7)):
+        rng = np.random.default_rng(n + width1)
+        psi, w1, w2, diag = _pair_inputs(n, start, width1, width2, rng, cuda)
+        first = kernels.pair_apply(psi, n, start, width1, width2, w1, w2,
+                                   diag)
+        for _ in range(3):
+            assert torch.equal(kernels.pair_apply(psi, n, start, width1,
+                                                  width2, w1, w2, diag),
+                               first)
+
+
+def test_narrow_pair_counts(cuda, any_mode):
+    """The narrow pairs count apart, in the mode's counters."""
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(6)
+    for n, start, width1, width2 in ((16, 0, 2, 7), (9, 0, 2, 7)):
+        psi, w1, w2, diag = _pair_inputs(n, start, width1, width2, rng, cuda)
+        kernels.pair_apply(psi, n, start, width1, width2, w1, w2, diag)
+    counts = kernels.launch_counts()
+    suffix = "" if any_mode == "f32" else f"[{any_mode}]"
+    assert counts[f"pair_apply_narrow{suffix}"] == 1
+    assert counts[f"pair_apply_trailing_narrow{suffix}"] == 1
+    assert counts[f"pair_apply{suffix}"] == 0
+    assert sum(counts.values()) == 2
+
+
+def test_layered_circuit_narrow_pairs_on_card(cuda, any_mode):
+    """Layers of 1-qubit gates and CX at 9 and 16 qubits, whose paired plans
+    hold a narrow trailing (4, 128) and middle (4, 128) pair: the card's
+    state against the plain versions' and the unpaired plan's (f32 within
+    1e-5, the reduced modes within the float64 limit of a launch)."""
+    tol = TOL if any_mode == "f32" else MODE_TOL[any_mode][2]
+    for n in (9, 16):
+        c = random_circuit(n, 4, seed=n)
+        psi0 = planar.zero_state_planar(n, cuda)
+        plan = compile_circuit(c)
+        kernels.reset_launch_counts()
+        got = planar.apply_plan_planar(psi0, plan)
+        counts = kernels.launch_counts()
+        assert sum(v for k, v in counts.items() if "narrow" in k) > 0
+        assert rel_l2(got, planar.apply_plan_planar_ref(psi0, plan)) <= tol
+        unpaired = planar.apply_plan_planar(psi0, compile_circuit(c,
+                                                                  pair=False))
+        assert rel_l2(got, unpaired) <= tol
 
 
 @pytest.mark.parametrize("H,T", [(1, 2), (8, 128), (4096, 128), (64, 300),
@@ -330,7 +449,11 @@ def test_density_plan_on_card_matches_cpu(cuda, window):
     kernels.reset_launch_counts()
     got = planar.make_planar_density_runner(plan)(rho.to(cuda))
     assert rel_l2(got, want) <= TOL
-    assert kernels.launch_counts()["pair_apply_trailing"] > 0
+    # the column side's trailing pair: (8, 128) at window 7, the narrow
+    # (4, 128) at window 2
+    counts = kernels.launch_counts()
+    assert counts["pair_apply_trailing"] + counts[
+        "pair_apply_trailing_narrow"] > 0
 
 
 def test_grover_loop_on_card(cuda):
@@ -435,10 +558,10 @@ def test_pair_kernel_reduced_modes(cuda, reduced_mode, geometry):
     assert rel_l2(got, exact) <= f64_tol
 
 
-def _reduced_pair_check(psi, n, start, width1, width2, w1, w2, diag, mode):
-    """The reduced pair kernel (csrc/pair_bf16.cuh at D1, D2 >= 8) against
-    the plain version of the mode and against float64."""
-    _, tol, f64_tol = MODE_TOL[mode]
+def _pair_check(psi, n, start, width1, width2, w1, w2, diag, mode):
+    """The pair kernel of dot ``mode`` against the plain version of the
+    mode and against float64."""
+    tol, f64_tol = PAIR_TOL[mode]
     got = kernels.pair_apply(psi, n, start, width1, width2, w1, w2, diag)
     want = kernels.pair_apply_ref(psi, n, start, width1, width2, w1, w2,
                                   diag)
@@ -465,7 +588,7 @@ def test_pair_kernel_reduced_modes_every_width(cuda, reduced_mode, width1,
         rng = np.random.default_rng(10 * width1 + width2 + n)
         psi, w1, w2, diag = _pair_inputs(n, start, width1, width2, rng, cuda)
         assert kernels.pair_route(n, start, width1, width2) != "two_windows"
-        _reduced_pair_check(psi, n, start, width1, width2, w1, w2, diag,
+        _pair_check(psi, n, start, width1, width2, w1, w2, diag,
                             reduced_mode)
 
 
@@ -477,7 +600,7 @@ def test_middle_pair_reduced_modes_b(cuda, reduced_mode, log_b):
     rng = np.random.default_rng(log_b)
     psi, w1, w2, diag = _pair_inputs(n, start, 5, 7, rng, cuda)
     assert kernels.pair_route(n, start, 5, 7) == "middle"
-    _reduced_pair_check(psi, n, start, 5, 7, w1, w2, diag, reduced_mode)
+    _pair_check(psi, n, start, 5, 7, w1, w2, diag, reduced_mode)
 
 
 def test_reduced_pair_kernel_is_deterministic(cuda, reduced_mode):

@@ -87,14 +87,23 @@ def test_window_apply_matches_pallas(geometry, fused, interpret_kernels):
 # B = 128 and for 1 < B < 128
 PAIR_GEOMETRIES = {"trailing": (10, 2, 4, 4), "middle": (12, 0, 2, 3),
                    "two_windows_wide": (14, 0, 6, 1),
-                   "two_windows_small_b": (12, 2, 3, 3)}
+                   "two_windows_small_b": (12, 2, 3, 3),
+                   # the narrow pairs: D1 = 2, 4 with D2 = 8, 32 ("middle"
+                   # is the middle (4, 8))
+                   "trailing_narrow_2x8": (8, 4, 1, 3),
+                   "trailing_narrow_2x32": (9, 3, 1, 5),
+                   "trailing_narrow_4x8": (8, 3, 2, 3),
+                   "trailing_narrow_4x32": (9, 2, 2, 5),
+                   "middle_narrow_2x8": (11, 0, 1, 3),
+                   "middle_narrow_2x32": (13, 0, 1, 5),
+                   "middle_narrow_4x32": (14, 0, 2, 5)}
 
 
 def _pair_diagonals(n, start, width1, width2, rng):
     """Flips, and phases on a-, j-, m- and b-bits whose want bits include
-    0."""
+    0 (the j-bits once each: a one-qubit first window has one)."""
     qa = list(range(start))[-1:]
-    qj = [start, start + width1 - 1]
+    qj = sorted({start, start + width1 - 1})
     qm = [start + width1 + width2 - 1]
     qb = list(range(start + width1 + width2, n))[:1]
     phases = ((tuple(qa + qj + qm + qb), complex(np.exp(0.9j)), 0b0100),
@@ -134,7 +143,8 @@ def test_pair_apply_matches_pallas(geometry, fused, interpret_kernels):
 @pytest.mark.parametrize("geometry,route", [
     ("trailing", "trailing"), ("middle", "middle"),
     ("two_windows_wide", "two_windows"),
-    ("two_windows_small_b", "two_windows")])
+    ("two_windows_small_b", "two_windows"),
+    ("trailing_narrow_4x32", "trailing"), ("middle_narrow_2x32", "middle")])
 def test_pair_route_matches_pallas_dispatch(geometry, route):
     assert tk.pair_route(*PAIR_GEOMETRIES[geometry]) == route
 

@@ -90,6 +90,52 @@ def test_programs_match_jax(name):
     _assert_same_run(PROGRAMS[name])
 
 
+def _brickwork_program(n, layers, seed):
+    """A DSL brickwork: y and z rotations of seeded angles on every qubit,
+    then CX on alternating neighbour pairs, per layer; every qubit
+    measured."""
+    rng = np.random.default_rng(seed)
+    lines = [f"qset tensorExp(comp.kets[0], {n})"]
+    for layer in range(layers):
+        for q in range(n):
+            a, b = rng.uniform(0, 2 * np.pi, size=2)
+            lines += [f"gate yRotGate({a:.6f}) ; {q}",
+                      f"gate zRotGate({b:.6f}) ; {q}"]
+        for q in range(layer % 2, n - 1, 2):
+            lines.append(f"gate pauliXGate ; {q + 1} ; {q}")
+    lines.append("meas out ; comp")
+    return "\n".join(lines)
+
+
+@pytest.mark.parametrize("n,window,route,widths", [
+    (9, 7, "trailing", (2, 7)), (12, 3, "middle", (2, 3)),
+    (12, 4, "middle", (1, 4))])
+def test_narrow_pair_slice_matches_jax(n, window, route, widths):
+    """The slice through a plan that holds a narrow pair (D1 = 2, 4 with
+    D2 >= 8: the trailing (4, 128) of 9 qubits at width 7, the middle
+    (4, 8) and (2, 16) of 12 qubits at widths 3 and 4): the plans equal
+    ``qbot_tpu``'s field by field, the probabilities within TOL."""
+    from _torch_parity import assert_same
+    from qbot_tpu.tpu.compiler import compile_circuit as jax_compile
+    from qbot_tpu_torch.tpu.compiler import compile_circuit
+    from qbot_tpu_torch.tpu.kernels import pair_route
+
+    src = _brickwork_program(n, 6, seed=n + window)
+    lp_t, lp_j = lower_program(src), jl.lower_program(src)
+    plan = compile_circuit(lp_t.circuit, window=window)
+    assert_same(plan, jax_compile(lp_j.circuit, window=window))
+    narrow = {(s.first.start, s.first.width, s.second.width)
+              for s in plan.steps if hasattr(s, "second")
+              and s.first.width <= 2 and s.second.width >= 3}
+    assert narrow and all(pair_route(n, *g) == route and g[1:] == widths
+                          for g in narrow)
+    probs_t, _ = run_lowered(lp_t, window=window, device="cpu")
+    probs_j, _ = jl.run_lowered(lp_j, window=window)
+    np.testing.assert_allclose(probs_t, np.asarray(probs_j), atol=TOL)
+    np.testing.assert_allclose(lp_t.namespace["out"].probs,
+                               lp_j.namespace["out"].probs, atol=TOL)
+
+
 def test_dense_fields_replay_on_the_host():
     lp, _ = _assert_same_run(PROGRAMS["bell_basis"])
     dense = lp.namespace["out"].newState

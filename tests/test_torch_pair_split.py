@@ -39,6 +39,17 @@ truncating sums against that of the k8 BF16 tile (``tc_product_bf16``)
 that the reduced pairs ran before, which these tests keep replaying as the
 yardstick of the drift.
 
+The narrow pairs (D1 = 2, 4 with D2 >= 8) run the D2 window's tile
+(``csrc/window_tc.cuh``, ``csrc/window_bf16.cuh`` with D1 > 1): a pass over
+each stage turns X into Y = W1 · (ΦF X) in place, mixed in FP32 FMAs, and
+the window's fragments split Y as they split x (3xTF32 grids, or the k16
+bf16 parts).  Their replays fix the kernel's column map (every amplitude
+once, the D1 slots of a base column at one (a, b), every base element of a
+stage to one thread of the pass), hold the arithmetic to
+``pair_apply_ref`` and to float64, and
+show that Y is bit for bit the output of the reduced FMA window, so the
+pair's truncation shrink is its two windows'.
+
     python3 tests/test_torch_pair_split.py
 
 prints the emulated relative L2 error against float64 at every (D1, D2).
@@ -49,8 +60,8 @@ import numpy as np
 import pytest
 
 from test_torch_window_split import BF16_F64_TOL, F32, F64_TOL, _bf16, \
-    _grid, _split, _tf32, _unitary, plain_model_bf16, tc_product_bf16, \
-    tc_product_bf16_k16
+    _fma, _grid, _split, _split_bf16, _tf32, _unitary, fma_window_model, \
+    plain_model_bf16, tc_product_bf16, tc_product_bf16_k16
 
 F64 = np.float64
 WIDTHS = [8, 16, 32, 64, 128]
@@ -134,8 +145,11 @@ def _random_pair(d1, d2, shape, rng):
 
 
 # the reduced modes' tiles: "k16", csrc/pair_bf16.cuh; "k8", the BF16
-# m16n8k8 tile of tc_tile.cuh that the reduced pairs ran before it
-REDUCED_TILES = {"k16": tc_product_bf16_k16, "k8": tc_product_bf16}
+# m16n8k8 tile of tc_tile.cuh that the reduced pairs ran before it;
+# "k16_chained", PR 9's pair, a plane's two hi·hi terms in one sum
+REDUCED_TILES = {"k16": tc_product_bf16_k16, "k8": tc_product_bf16,
+                 "k16_chained": lambda *args: tc_product_bf16_k16(
+                     *args, chained=True)}
 
 
 def tc_pair(xd, w1, w2, mode="f32", tile="k16", rounding=_rz):
@@ -447,16 +461,251 @@ def pair_shrink(d1: int, d2: int, tile: str, seed: int, passes: int = 8,
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_k16_pair_shrinks_the_norm_less_than_three_k8_pairs(seed):
     """A sum of 16 bf16 products is exact in float32 less often than one of
-    8, so the k16 pair's truncating sums shrink the norm more than the k8
-    tile's: 1.4-2.8 times over 8 seeds at (128, 128) and (32, 128), mean
-    1.9, which puts the bf16_3x 256-layer brickwork at 7.5-8.5e-7 per 100
-    gates (PERF.md §6, PR 9).  Held here between 1 and 3 times at (32, 64)
-    on 32 slabs (fewer slabs leave the difference of the two roundings to
-    chance);
-    chip_smoke.py phase 7 holds the card to 1e-6 per 100 gates."""
+    8: with a plane's two hi·hi terms chained into one k16 sum (PR 9's
+    pair) the truncating sums shrank the norm 1.4-2.8 times as much as the
+    k8 tile's over 8 seeds at (128, 128) and (32, 128), mean 1.9 (PERF.md
+    §6, PR 9), still asserted here between 1 and 3 times for the chained
+    form.  With the two terms summed apart, as the kernel sums them now,
+    each truncated sum is of 16 products, as in the k8 tile: the shrink
+    falls below the chained form's and stays below three k8 pairs' (0.64-
+    0.99 of the k8 tile's over 6 seeds), at (32, 64) on 32 slabs (fewer
+    slabs leave the difference of the two roundings to chance);
+    chip_smoke.py phases 7 and 8 hold the card to 1e-6 per 100 gates."""
     k8 = pair_shrink(32, 64, "k8", seed)
     k16 = pair_shrink(32, 64, "k16", seed)
-    assert 0 < k8 < k16 < 3 * k8
+    k16_chained = pair_shrink(32, 64, "k16_chained", seed)
+    assert 0 < k8 < k16_chained < 3 * k8
+    assert 0 < k16 < k16_chained and k16 < 3 * k8
+
+
+# ---------------------------------------------------------------------------
+# the narrow pairs: the D2 window's tile, W1 mixed into its operand
+# ---------------------------------------------------------------------------
+
+def narrow_cols(bn: int, d1: int, trailing: bool, log_b: int):
+    """(window_col, col) of csrc/tc_tile.cuh's Narrow<BN, BK, PITCH, D1,
+    TRAIL, NTHR>: the D2 window's column of a tile column, and the tile
+    column of base column cb's slot j."""
+    bnb = bn // d1
+
+    def window_col(c):
+        if trailing:
+            return c
+        cl = c & (bn - 1)
+        base = (c - cl) // d1 + (cl & (bnb - 1))
+        return (((base >> log_b) * d1 + cl // bnb) << log_b) | (
+            base & ((1 << log_b) - 1))
+
+    def col(cb, j):
+        return cb * d1 + j if trailing else j * bnb + cb
+    return window_col, col
+
+
+def narrow_elements(bn: int, bk: int, d1: int, trailing: bool, nthr: int):
+    """The (base column, k) of every thread's elements q < Q of a stage in
+    Narrow::element: the k fastest in the trailing pair, the base column in
+    the middle pair."""
+    bnb = bn // d1
+    q_count = bnb * bk // nthr
+    assert q_count >= 1 and q_count * nthr == bnb * bk
+    for tid in range(nthr):
+        for q in range(q_count):
+            e = tid + q * nthr
+            yield (e // bk, e % bk) if trailing else (e % bnb, e // bnb)
+
+
+# (D2, BN) of the tiles at D1 > 1: F32 128 columns at D2 <= 32, else 64;
+# BF16 walkers of 8 warps, 8 NN columns a warp (NN = 4, 2, 2, 1, 1)
+NARROW_TILES = {"f32": {8: 128, 16: 128, 32: 128, 64: 64, 128: 64},
+                "bf16": {8: 256, 16: 128, 32: 128, 64: 64, 128: 64}}
+
+
+@pytest.mark.parametrize("tile", list(NARROW_TILES))
+@pytest.mark.parametrize("d2", WIDTHS)
+@pytest.mark.parametrize("d1", [2, 4])
+@pytest.mark.parametrize("log_a,log_b", [(0, 0), (2, 0), (5, 0), (0, 7),
+                                         (1, 10)])
+def test_narrow_pair_columns(log_a, log_b, d1, d2, tile):
+    """The narrow pair's column map, as window_tc.cuh and window_bf16.cuh
+    take it: the tiles' columns give every (a, i, b) of the (A, D1, D2, B)
+    view once (a partial last tile at A D1 < BN); the D1 slots of a base
+    column are its own (a, b) at j = 0 .. D1 - 1; the pass's elements give
+    every base column and k of a stage to one thread; and the BF16 tile's
+    float2 stores of columns 2t, 2t + 1 (B > 1) land on b, b + 1."""
+    bn = NARROW_TILES[tile][d2]
+    trailing = log_b == 0
+    window_col, col = narrow_cols(bn, d1, trailing, log_b)
+    A, B = 1 << log_a, 1 << log_b
+    cols = A * d1 * B
+
+    def col_base(c):
+        c = window_col(c)
+        return ((c >> log_b) << (log_b + d2.bit_length() - 1)) | (c & (B - 1))
+
+    def decode(flat):
+        assert flat // B % d2 == 0
+        return flat // (d1 * d2 * B), flat // (d2 * B) % d1, flat % B
+
+    seen = set()
+    for c0 in range(0, cols, bn):
+        for cl in range(bn):
+            if c0 + cl >= cols:
+                continue
+            seen.add(decode(col_base(c0 + cl)))
+            if not trailing and cl % 2 == 0:
+                assert col_base(c0 + cl + 1) == col_base(c0 + cl) + 1
+        for cb in range(bn // d1):
+            if c0 + col(cb, 0) >= cols:
+                assert all(c0 + col(cb, j) >= cols for j in range(d1))
+                continue
+            a, _, b = decode(col_base(c0 + col(cb, 0)))
+            for j in range(d1):
+                assert decode(col_base(c0 + col(cb, j))) == (a, j, b)
+    assert len(seen) == cols
+    bk = min(d2, 16)
+    elements = list(narrow_elements(bn, bk, d1, trailing, 256))
+    assert sorted(elements) == [(cb, k) for cb in range(bn // d1)
+                                for k in range(bk)]
+
+
+def narrow_mix(xr, xi, w1, mode):
+    """Y = W1 · x over axis 1 of x (A, D1, R) float32 planes, as the
+    kernel's narrow_pass mixes it: for each j the mode's products of
+    W1[i, j] and x_j (f32: W x; bf16_3x: the bf16 parts hi·hi, hi·lo,
+    lo·hi, W's part first; bf16: hi·hi), each by two FMAs a plane, re
+    first −im·im then re·re, im first im·re then re·im."""
+    if mode == "f32":
+        ws, xs, products = [[w1[0]], [w1[1]]], [[xr], [xi]], ((0, 0),)
+    else:
+        ws = [_split_bf16(w1[0]), _split_bf16(w1[1])]
+        xs = [_split_bf16(xr), _split_bf16(xi)]
+        products = ((0, 0), (0, 1), (1, 0)) if mode == "bf16_3x" else (
+            (0, 0),)
+    yr = np.zeros(xr.shape, F32)
+    yi = np.zeros(xr.shape, F32)
+    for j in range(xr.shape[1]):
+        for pw, px in products:
+            w_r, w_i = ws[0][pw][None, :, j, None], ws[1][pw][None, :, j, None]
+            x_r, x_i = xs[0][px][:, None, j, :], xs[1][px][:, None, j, :]
+            yr = _fma(w_r, x_r, _fma(-w_i, x_i, yr))
+            yi = _fma(w_r, x_i, _fma(w_i, x_r, yi))
+    return yr, yi
+
+
+def narrow_pair(x, w1, w2, mode, rounding=_rz, mix=narrow_mix):
+    """(out, the f32 tile's k-step hi·hi sums exact) of the narrow pair on
+    the phased amplitudes x (A, D1, D2, B), complex64: Y by ``mix``, then
+    the D2 window's tile on the columns (a, i, b) of the float32 Y (the
+    3xTF32 tile, or the k16 tile with its sums rounded by ``rounding``)."""
+    A, d1, d2, B = x.shape
+    yr, yi = (mix(x.real.reshape(A, d1, -1).astype(F32),
+                  x.imag.reshape(A, d1, -1).astype(F32), w1, mode))
+
+    def cols(y):
+        return y.reshape(A, d1, d2, B).transpose(0, 1, 3, 2).reshape(-1, d2)
+    if mode == "f32":
+        outr, outi, exact = tc_product(cols(yr), cols(yi), *w2)
+    else:
+        outr, outi = tc_product_bf16_k16(cols(yr), cols(yi), *w2, mode,
+                                         rounding)
+        exact = False
+    out = (outr.astype(F64) + 1j * outi).reshape(A, d1, B, d2)
+    return out.transpose(0, 1, 3, 2), exact
+
+
+NARROW_PAIRS = [(orientation, d1, d2) for orientation in ("trailing",
+                                                          "middle")
+                for d1 in (2, 4) for d2 in (8, 32, 128)]
+# relative L2 of the narrow pair against pair_apply_ref in its mode, and
+# against float64 (chip_smoke.py's LIMITS)
+NARROW_TOL = {"f32": (1e-5, F64_TOL), "bf16_3x": (1e-5, 2e-5),
+              "bf16": (1e-4, 1e-2)}
+
+
+@pytest.mark.parametrize("mode", list(NARROW_TOL))
+@pytest.mark.parametrize("orientation,d1,d2", NARROW_PAIRS,
+                         ids=lambda v: str(v))
+def test_narrow_pair_replay(orientation, d1, d2, mode):
+    """The narrow pair's arithmetic, Y mixed in FP32 in the mode's order,
+    then the f32 tile's grids (every k-step's hi·hi sums exact) or the k16
+    split, against the port's plain version in the mode and against
+    float64, with flips and phases, in both orientations."""
+    import torch
+
+    from qbot_tpu_torch.tpu import kernels
+
+    w1w, w2w = d1.bit_length() - 1, d2.bit_length() - 1
+    start, log_b = (2, 0) if orientation == "trailing" else (1, 2)
+    n = start + w1w + w2w + log_b
+    rng = np.random.default_rng(7 * d1 + d2 + len(mode))
+    psi = rng.normal(size=(2, 2**n)) * np.exp(rng.normal(size=(2, 2**n)))
+    psi = torch.tensor(psi / np.linalg.norm(psi), dtype=torch.float32)
+    planes = [np.stack([u.real, u.imag]).astype(F32)
+              for u in (_unitary(d1, rng), _unitary(d2, rng))]
+    w1, w2 = (torch.from_numpy(p) for p in planes)
+    phases = (((max(start - 1, 0), start, start + w1w, n - 1),
+               complex(np.exp(0.7j)), 0b1010),
+              ((start + w1w - 1,), complex(np.exp(-1.3j)), -1))
+    diag = kernels.fused_diagonals(n, (3, 2**n - 5), phases)
+    x = kernels._apply_diagonals_ref(psi, diag).numpy()
+    x = (x[0] + 1j * x[1]).reshape(2**start, d1, d2, 2**log_b)
+    got, exact = narrow_pair(x, planes[0], planes[1], mode)
+    got = got.reshape(-1)
+    want = kernels.pair_apply_ref(psi, n, start, w1w, w2w, w1, w2, diag,
+                                  mode=mode).double().numpy()
+    f64 = kernels.pair_apply_ref(psi.double(), n, start, w1w, w2w,
+                                 w1.double(), w2.double(), diag,
+                                 mode="f32").numpy()
+    tol, f64_tol = NARROW_TOL[mode]
+    assert _rel(got, want[0] + 1j * want[1]) <= tol
+    assert _rel(got, f64[0] + 1j * f64[1]) <= f64_tol
+    assert exact or mode != "f32"
+
+
+@pytest.mark.parametrize("mode", ["bf16_3x", "bf16"])
+@pytest.mark.parametrize("d1", [2, 4])
+def test_narrow_pair_y_is_the_fma_window(d1, mode):
+    """In the reduced modes the pair's Y is bit for bit the output of the
+    reduced FMA window (csrc/window_apply.cu, fma_window_model, tied to
+    window_apply_ref by test_fma_window_order_matches_plain_version): the
+    pair rounds what its two windows round."""
+    rng = np.random.default_rng(d1)
+    u = _unitary(d1, rng)
+    w1 = [u.real.astype(F32), u.imag.astype(F32)]
+    x = rng.normal(size=(2, 3, d1, 40)) * np.exp(rng.normal(size=(2, 3, d1,
+                                                                  40)))
+    xr, xi = x.astype(F32)
+    got = narrow_mix(xr, xi, w1, mode)
+    want = fma_window_model(xr, xi, w1[0], w1[1], mode)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("d1", [2, 4])
+def test_narrow_pair_shrinks_the_norm_as_its_two_windows(d1, seed):
+    """bf16_3x: the truncation shrink of 8 narrow (D1, 64) pairs on 128
+    slabs, their sums rounded toward zero against to nearest, equals that
+    of their two windows (the reduced FMA window, then the k16 window on its
+    float32 output), over several seeds: the narrow pairs leave the
+    brickwork's drift where the unpaired plan has it (its sign, at this
+    size, is chance: the k16 sums' shrink is a few 1e-8)."""
+    def shrink(mix):
+        def norm_after(rounding):
+            r = np.random.default_rng(seed)
+            w1, w2, x = _random_pair(d1, 64, (128, d1, 64), r)
+            x = x[..., None]
+            n0 = np.sum(np.abs(x.astype(np.complex128)) ** 2)
+            for _ in range(8):
+                x = narrow_pair(x, w1, w2, "bf16_3x", rounding,
+                                mix)[0].astype(np.complex64)
+            return np.sum(np.abs(x.astype(np.complex128)) ** 2) / n0
+        return norm_after(lambda v: v.astype(F32)) - norm_after(_rz)
+
+    pair = shrink(narrow_mix)
+    windows = shrink(lambda xr, xi, w, mode: fma_window_model(
+        xr, xi, w[0], w[1], mode))
+    assert pair == windows
 
 if __name__ == "__main__":
     for d1 in WIDTHS:

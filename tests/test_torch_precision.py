@@ -58,9 +58,14 @@ BF16_VS_JAX = 1e-2
 WINDOWS = {"middle_d32": (12, 0, 5), "middle_d4": (11, 1, 2),
            "trailing_d128": (10, 3, 7), "trailing_d4": (10, 8, 2)}
 # (n, start, width1, width2): trailing pairs (_pair_b1) and middle pairs
-# (_pair_bt), at D1, D2 >= 8 and with D1 or D2 <= 4
+# (_pair_bt), at D1, D2 >= 8 and with D1 or D2 <= 4; the narrow pairs (D1 =
+# 2, 4 with D2 = 8, 32) in both orientations
 PAIRS = {"trailing_d16": (10, 2, 4, 4), "trailing_d4": (9, 3, 2, 4),
-         "middle_d8": (13, 0, 3, 3), "middle_d4": (12, 0, 2, 3)}
+         "middle_d8": (13, 0, 3, 3), "middle_d4": (12, 0, 2, 3),
+         "trailing_d2_8": (8, 4, 1, 3), "trailing_d2_32": (9, 3, 1, 5),
+         "trailing_d4_8": (8, 3, 2, 3), "trailing_d4_32": (9, 2, 2, 5),
+         "middle_d2_8": (11, 0, 1, 3), "middle_d2_32": (13, 0, 1, 5),
+         "middle_d4_32": (14, 0, 2, 5)}
 
 
 @pytest.fixture
