@@ -24,7 +24,7 @@ nonzero:
    diagonals, each pair also as the two window launches it replaces; and
    states each kernel's bound (section ``bound``).  Then every window and
    pair shape again in each reduced dot mode (``bf16_3x``, ``bf16``; the
-   FMA variants at D <= 4 included): each kernel against its plain version
+   FMA kernels at D <= 4 included): each kernel against its plain version
    in the same mode (relative L2 1e-5; a bf16 pair 1e-4, since it rounds
    its float32 Y to bf16 a second time, and a Y one ulp apart can round
    2^-8 apart) and against float64 (2e-5, 1e-2), timed beside the f32
@@ -35,6 +35,10 @@ nonzero:
    the two such calls of its windows chained (no one call re-splits the
    intermediate Y), their operands split and laid out before
    the timed call (``library_ms``) and inside it (``library_split_ms``).
+   The shapes are the ones plans produce (the windows at D <= 4 as the
+   first window of a plan at n = 1, 2 (mod 7) and in a ``window=2`` plan;
+   the pairs at D1, D2 <= 4 of ``window=1`` and ``window=2`` plans, on the
+   streaming kernels) and a few that no plan reaches, printed so.
 3. runs the example programs through the port's CLI and holds the readout
    to the dense host interpreter's within 1e-6; then a generated 24-qubit
    program (Hadamards and a CX chain; qubit 0 reads [0.5, 0.5]).
@@ -72,17 +76,27 @@ nonzero:
    hold the narrow pairs (D1 = 2, 4 with D2 = 128), in every dot mode: at
    8, 9, 22 and 23 qubits against the plain versions and the unpaired plan
    (``runs_limit``); at 23 qubits the 256-layer drift (f32 as phase 5
-   holds it, bf16_3x at most 1e-6 per 100 gates); at 29 and 30 qubits (4
-   and 8 GiB planar states) one body paired and unpaired, timed (gates/s,
-   device milliseconds between CUDA events), the norm within 1e-4 of 1 (f32,
-   bf16_3x) and paired against unpaired.
+   holds it, bf16_3x at most 1e-6 per 100 gates); at 22 qubits, whose first
+   window is one qubit wide, the bf16_3x drift within 10% of the plain
+   versions' drift in the same run (SPLIT_DRIFT_MARGIN); at 29 and 30
+   qubits (4 and 8 GiB planar states) one body paired and unpaired, timed
+   (gates/s, device milliseconds between CUDA events), the norm within
+   1e-4 of 1 (f32, bf16_3x), paired against unpaired, and their launches
+   of the D <= 4 window.
+9. the 26-qubit brickwork of 16 layers compiled at ``window=2`` and at
+   ``window=1`` (their plans pair D1, D2 <= 4 windows and run the D = 4
+   windows), paired, in every dot mode: against the plain versions and the
+   unpaired plan (as phase 8 holds them), the norm within 1e-4 of 1 (f32,
+   bf16_3x), timed (gates/s, device milliseconds).
 
 Launch counts are reset before phase 3 and read after phase 6: every f32
 kernel must have launched on that path; they are reset again before
 phase 7, after which every reduced-mode counter (``window_apply[bf16_3x]``
 and so on) must have moved, and before phase 8, after which every narrow
 pair's counter (``pair_apply_narrow``, ``pair_apply_trailing_narrow``, in
-each mode) must have moved.  The timed run of Grover, of each brickwork
+each mode) must have moved, and before phase 9, after which the streaming
+kernels' counters (``window_apply_stream``, ``pair_apply_stream``, in each
+mode) must have moved.  The timed run of Grover, of each brickwork
 plan and of the density bodies also reports its own launches.
 The line before the last is one JSON object of per-kernel results; the
 last is the run's verdict.
@@ -98,9 +112,10 @@ a product) and the reflections' arithmetic at the 67 TFLOP/s FP32 rate.
     python3 chip_smoke.py --profile chiprun_out [--precision bf16_3x]
 
 runs phases 0 and 1, then profiles phases 4, 5 (paired and unpaired), 8
-(the 23-qubit body) and 6 with torch.profiler (device busy share, the table of device time per
-kernel, Chrome traces written to the directory), in the dot mode
-``--precision`` (default f32), and nothing else.
+(the 23-qubit body), 9 (the ``window=2`` body) and 6 with torch.profiler
+(device busy share, the table of device time per kernel, Chrome traces
+written to the directory), in the dot mode ``--precision`` (default f32),
+and nothing else.
 """
 from __future__ import annotations
 
@@ -180,6 +195,20 @@ DENSITY_TOL = 1e-4         # relative Frobenius, ρ vs ψψ† after 16 bodies
 NARROW_QUBITS = (8, 9, 22, 23)
 NARROW_DRIFT_QUBITS = 23
 LARGE_QUBITS = (29, 30)
+# the bf16_3x drift at 22 qubits, whose first window is one qubit wide: the
+# mode's split leaves each window's W_hi + W_lo off unitary, and the one-
+# qubit window's deviation (4 entries) does not average out as a D = 128
+# window's does, so the plain versions drift 2.9644e-06 per 100 gates
+# there (on the card and on the CPU alike; 6.2262e-07 at 23 qubits,
+# 1.8706e-07 at 26).  The kernels add the truncating k16 sums of their
+# D = 128 windows, 2.2-2.5e-7 at 22, 23 and 26 qubits alike (PERF.md §2):
+# the kernels' drift is held within 10% of the plain versions' in the
+# same run, the band within which the two drift alike
+SPLIT_DRIFT_QUBITS = 22
+SPLIT_DRIFT_MARGIN = 0.1
+# phase 9: the 26-qubit brickwork compiled at these widths, whose plans
+# pair D1, D2 <= 4 windows on the streaming pair and run D = 4 windows
+STREAM_WINDOWS = (2, 1)
 
 # launch count name -> (source, TPU kernel it replaces); window_apply and
 # pair_apply are one CUDA kernel each serving two TPU kernels, counted apart
@@ -203,20 +232,31 @@ KERNEL_SOURCES = {
                           "qbot_tpu/tpu/kernels.py:420"),
     "pair_apply_trailing_narrow": ("qbot_tpu_torch/csrc/window_tc.cuh",
                                    "qbot_tpu/tpu/kernels.py:352"),
+    # the streaming FMA kernels of the narrow widths, in every dot mode:
+    # windows at D = 2, 4 and pairs at D1, D2 = 2, 4 (plans reach them with
+    # B > 1)
+    "window_apply_stream": ("qbot_tpu_torch/csrc/window_apply.cu",
+                            "qbot_tpu/tpu/kernels.py:209"),
+    "pair_apply_stream": ("qbot_tpu_torch/csrc/pair_stream.cu",
+                          "qbot_tpu/tpu/kernels.py:420"),
 }
-PRODUCT_KERNELS = ("window_apply", "window_apply_trailing", "pair_apply",
-                   "pair_apply_trailing", "pair_apply_narrow",
-                   "pair_apply_trailing_narrow")
+# the kernels of check_window's and check_pair's result groups, in order
+WINDOW_KERNELS = ("window_apply", "window_apply_trailing",
+                  "window_apply_stream")
+PAIR_KERNELS = ("pair_apply", "pair_apply_trailing", "pair_apply_narrow",
+                "pair_apply_trailing_narrow", "pair_apply_stream")
+PRODUCT_KERNELS = WINDOW_KERNELS + PAIR_KERNELS
 NARROW_KERNELS = tuple(k for k in PRODUCT_KERNELS if k.endswith("narrow"))
+STREAM_KERNELS = tuple(k for k in PRODUCT_KERNELS if k.endswith("stream"))
 # the reduced modes' windows and narrow pairs run csrc/window_bf16.cuh, their
-# other pairs csrc/pair_bf16.cuh (the FMA variants of widths below 8 in
-# csrc/window_apply.cu and csrc/pair_apply.cu)
+# other pairs csrc/pair_bf16.cuh, the streaming kernels their own sources
 for _mode in REDUCED_MODES:
     for _name in PRODUCT_KERNELS:
         src, rep = KERNEL_SOURCES[_name]
-        src = ("qbot_tpu_torch/csrc/window_bf16.cuh"
-               if src.endswith("window_tc.cuh")
-               else "qbot_tpu_torch/csrc/pair_bf16.cuh")
+        if src.endswith("window_tc.cuh"):
+            src = "qbot_tpu_torch/csrc/window_bf16.cuh"
+        elif src.endswith("pair_tc.cuh"):
+            src = "qbot_tpu_torch/csrc/pair_bf16.cuh"
         KERNEL_SOURCES[f"{_name}[{_mode}]"] = (src, rep)
 
 
@@ -293,7 +333,7 @@ _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores")
 # a window or pair kernel in a mangled name (after its length prefix; an
 # anonymous namespace may put a source's name before it)
 _PTXAS_KERNEL = re.compile(
-    r"\d((?:window|pair)_(?:tc|bf16|fma|fma_stream|apply)_kernel)I(\w*?)EEv")
+    r"\d((?:window|pair)_(?:tc|bf16|fma_stream|apply)_kernel)I(\w*?)EEv")
 
 
 def ptxas_report(log: Path) -> list[tuple[str, int, int]]:
@@ -458,22 +498,31 @@ def check_window(n: int, device, rng, gen, mode: str = "f32",
     """window_apply vs window_apply_ref in dot ``mode`` (set by the caller)
     at the --compile path's geometries: the first and middle windows of the
     26-qubit partition (B >= 128), the trailing window (B = 1), a window
-    with small B, the density path's D = 64 row window, and the FMA
-    variant's D = 2 and 4 (middle and trailing), with 3 flips and 3 phases.
-    Also vs a float64 product of the same inputs, and timed with and
-    without the diagonals, beside the plain version and one library call;
-    ``f32``, the f32 run's results, puts each shape's f32 time beside.
-    Returns the results of the B > 1 shapes (timed at the middle window) and
-    of the trailing ones."""
+    with small B, the density path's D = 64 row window, on the tensor
+    cores; and on the streaming kernel at D = 2, 4 the first window of a
+    plan at n = 1, 2 (mod 7) (A = 1), the D = 4 windows of the ``window=2``
+    partition (A = 8, and B = 128), a D = 2 window of an unpaired
+    ``window=1`` plan, and two shapes no plan reaches (the trailing window
+    is min(n, 7) wide, the ``window=2`` starts odd at 26 qubits), with 3
+    flips and 3 phases.  Also vs a float64 product of the same inputs, and
+    timed with and without the diagonals, beside the plain version and one
+    library call; ``f32``, the f32 run's results, puts each shape's f32
+    time beside.  Returns the results of the tensor-core B > 1 shapes
+    (timed at the middle window), of the trailing ones, and of the
+    streaming ones (timed at the D = 4 first window)."""
     width = 7
     geoms = {"first": (0, 5),
              "middle": (n - 3 * width, width),
              "trailing": (n - width, width),
              "small_b": (n - width - 3, width),
              "density_rows": (0, 6),
-             "fma_d2": (n - 10, 1),
-             "fma_d4": (n - 10, 2),
-             "fma_d4_trailing": (n - 2, 2)}
+             "first_d2": (0, 1),
+             "first_d4": (0, 2),
+             "window2_a8": (3, 2),
+             "window2_b128": (n - 9, 2),
+             "window1_d2": (n - 10, 1),
+             "unreached_d4": (n - 10, 2),
+             "unreached_d4_trailing": (n - 2, 2)}
     tol, _, f64_tol = LIMITS[mode]
     f32_ms = {s["window"]: s["ms"] for g in (f32 or {}).values()
               for s in g["shapes"]}
@@ -521,6 +570,7 @@ def check_window(n: int, device, rng, gen, mode: str = "f32",
         bound_ms, bound_by = product_bound(2 * psi.nbytes + wt.nbytes,
                                            8 * 2**w * 2**n, mode, w >= 3)
         shapes.append({"window": label, "A": A, "D": 2**w, "B": B,
+                       "reached": not label.startswith("unreached"),
                        "rel_l2": rel, "max_abs_err": max_abs,
                        "rel_l2_f64": f64, "plain_rel_l2_f64": plain_f64,
                        "ms": ms, "ms_no_diagonals": no_diag_ms,
@@ -531,6 +581,8 @@ def check_window(n: int, device, rng, gen, mode: str = "f32",
                   else "")
         split = ("" if library_split_ms is None
                  else f" (split inside {library_split_ms:.4f} ms)")
+        if label.startswith("unreached"):
+            beside += "; no plan reaches this"
         say(f"window_apply[{mode}] {label}: (A, D, B) = ({A}, {2**w}, {B}), "
             f"rel L2 {rel:.3e}, max abs {max_abs:.3e}; vs float64 "
             f"{f64:.3e} (plain {plain_f64:.3e}); kernel {ms:.4f} ms "
@@ -547,10 +599,13 @@ def check_window(n: int, device, rng, gen, mode: str = "f32",
                                          "library_split_ms", "bound_ms",
                                          "bound_by")}}
 
-    trailing = [s for s in shapes if s["B"] == 1]
-    wide = [s for s in shapes if s["B"] > 1]
+    stream = [s for s in shapes if s["D"] <= 4]
+    trailing = [s for s in shapes if s["B"] == 1 and s["D"] >= 8]
+    wide = [s for s in shapes if s["B"] > 1 and s["D"] >= 8]
     middle = next(s for s in wide if s["window"] == "middle")
-    return summary(wide, middle), summary(trailing, trailing[0])
+    first = next(s for s in stream if s["window"] == "first_d4")
+    return (summary(wide, middle), summary(trailing, trailing[0]),
+            summary(stream, first))
 
 
 def library_reflect_dot(psi, a):
@@ -577,8 +632,12 @@ def check_pair(n: int, device, rng, gen, mode: str = "f32",
     2^10: the same work with 16x shorter strides between the slab rows);
     the narrow pairs of the brickwork at n = 1, 2 (mod 7) at 26 qubits,
     middle (0,2)+(2,7) and (0,1)+(1,7), trailing (17,2)+(19,7) and
-    (18,1)+(19,7), on the window's tile; a middle pair (0,5)+(5,2) and a
-    trailing pair (17,7)+(24,2), whose D2 = 4 takes the FP32 FMA variant.
+    (18,1)+(19,7), on the window's tile; the pairs of ``window=2`` and
+    ``window=1`` plans on the streaming kernel, (0,1)+(1,2) and
+    (3,2)+(5,2), (0,1)+(1,1) and (17,1)+(18,1) (B = 128), and its trailing
+    form (22,2)+(24,2), which no plan reaches; a middle pair (0,5)+(5,2) and
+    a trailing pair (17,7)+(24,2), whose D1 >= 8 with D2 = 4 takes the FMA
+    variant from shared memory, which no plan reaches either.
     Each is also held to a float64 product of the same inputs, and timed as
     the kernel, its plain version, one einsum (empty diagonals; in a
     reduced mode the two library calls of its windows,
@@ -586,13 +645,18 @@ def check_pair(n: int, device, rng, gen, mode: str = "f32",
     replaces; ``f32``, the f32 run's results, puts each shape's f32 time
     beside.  Returns the results of the middle pairs (timed at (32, 128)),
     the trailing pairs (timed at (128, 128)), the narrow middle and the
-    narrow trailing pairs (timed at D1 = 4)."""
+    narrow trailing pairs (timed at D1 = 4) and the streaming pairs (timed
+    at (4, 4))."""
     geoms = {"middle": (0, 5, 7), "trailing": (n - 14, 7, 7),
              "density_columns": (n - 13, 6, 7), "middle_b1024": (4, 5, 7),
-             "middle_fma": (0, 5, 2), "trailing_fma": (n - 9, 7, 2),
+             "unreached_fma_middle": (0, 5, 2),
+             "unreached_fma_trailing": (n - 9, 7, 2),
              "middle_narrow": (0, 2, 7), "middle_narrow_d2": (0, 1, 7),
              "trailing_narrow": (n - 9, 2, 7),
-             "trailing_narrow_d2": (n - 8, 1, 7)}
+             "trailing_narrow_d2": (n - 8, 1, 7),
+             "stream_2x2": (3, 2, 2), "stream_1x2": (0, 1, 2),
+             "stream_1x1": (0, 1, 1), "stream_1x1_b128": (n - 9, 1, 1),
+             "unreached_stream_trailing": (n - 4, 2, 2)}
     _, tol, f64_tol = LIMITS[mode]
     f32_ms = {s["pair"]: s["ms"] for g in (f32 or {}).values()
               for s in g["shapes"]}
@@ -664,7 +728,9 @@ def check_pair(n: int, device, rng, gen, mode: str = "f32",
         bound_ms, bound_by = pair_bound(
             2 * psi.nbytes + w1.nbytes + w2.nbytes, 2**n, 2**width1,
             2**width2, mode)
-        shapes.append({"pair": label, "A": A, "D1": 2**width1,
+        shapes.append({"pair": label, "reached":
+                       not label.startswith("unreached"), "A": A,
+                       "D1": 2**width1,
                        "D2": 2**width2, "B": B, "rel_l2": rel,
                        "max_abs_err": max_abs, "rel_l2_f64": f64,
                        "plain_rel_l2_f64": plain_f64, "ms": ms,
@@ -681,6 +747,8 @@ def check_pair(n: int, device, rng, gen, mode: str = "f32",
                    f"{library_split_ms:.4f} ms)")
         beside = (f"; f32 kernel {f32_ms[label]:.4f} ms" if label in f32_ms
                   else "")
+        if label.startswith("unreached"):
+            beside += "; no plan reaches this"
         say(f"pair_apply[{mode}] {label}: (A, D1, D2, B) = ({A}, "
             f"{2**width1}, {2**width2}, {B}), rel L2 {rel:.3e}, max abs "
             f"{max_abs:.3e}; vs float64 "
@@ -699,12 +767,17 @@ def check_pair(n: int, device, rng, gen, mode: str = "f32",
                                             "two_window_ms", "bound_ms",
                                             "bound_by")}}
 
-    def narrow(s):
-        return s["D1"] <= 4 and s["D2"] >= 8
-    return (summary([s for s in shapes if s["B"] > 1 and not narrow(s)]),
-            summary([s for s in shapes if s["B"] == 1 and not narrow(s)]),
-            summary([s for s in shapes if s["B"] > 1 and narrow(s)]),
-            summary([s for s in shapes if s["B"] == 1 and narrow(s)]))
+    def kind(s):
+        return ("stream" if s["D1"] <= 4 and s["D2"] <= 4 else
+                "narrow" if s["D1"] <= 4 else "wide")
+    return (summary([s for s in shapes if s["B"] > 1 and kind(s) == "wide"]),
+            summary([s for s in shapes
+                     if s["B"] == 1 and kind(s) == "wide"]),
+            summary([s for s in shapes
+                     if s["B"] > 1 and kind(s) == "narrow"]),
+            summary([s for s in shapes
+                     if s["B"] == 1 and kind(s) == "narrow"]),
+            summary([s for s in shapes if kind(s) == "stream"]))
 
 
 def check_reflect(n: int, device, rng, gen) -> tuple[dict, dict]:
@@ -1177,6 +1250,72 @@ def runs_limit(mode: str, launches: int) -> float:
     return launches * LIMITS[mode][2]
 
 
+def counter(name: str, mode: str) -> str:
+    """The launch count name of kernel ``name`` in dot ``mode``."""
+    return name if mode == "f32" else f"{name}[{mode}]"
+
+
+def hold_plans(n: int, c: Circuit, paired, unpaired, device, mode: str,
+               against_plain: bool = True) -> tuple[dict, str]:
+    """One run of circuit ``c``'s paired plan and one of its unpaired plan
+    in dot ``mode`` (set by the caller), each timed after a warm-up: the
+    paired state against the unpaired one within ``runs_limit``, and (when
+    ``against_plain``) against the same plan through the plain versions
+    (f32 within KERNEL_TOL, bf16_3x within its launches' pair limits as
+    phase 7 holds a density body, bf16 within ``runs_limit``); the norm
+    within NORM_TOL of 1 (bf16's rounded W are not unitary: printed).
+    Returns the paired run's launches and a line that reports both runs."""
+    psi0 = product_state_planar([np.array([1.0, 0.0])] * n, device)
+    out, elapsed, span, launches = timed_run(
+        lambda: apply_plan_planar(psi0, paired), device)
+    alone, _, alone_span, launches_u = timed_run(
+        lambda: apply_plan_planar(psi0, unpaired), device)
+    between = sum(launches.values()) + sum(launches_u.values())
+    rel_u = rel_l2(out, alone)
+    norm = float(planar_norm(out))
+    del alone
+
+    def device_ms(ms):
+        return "not measured" if ms is None else f"{ms:.3f} ms"
+    line = (f"paired {elapsed:.4f} s ({c.gate_count / elapsed:.1f} gates/s, "
+            f"device {device_ms(span)}), unpaired device "
+            f"{device_ms(alone_span)}; norm {norm:.8f}, paired vs unpaired "
+            f"rel L2 {rel_u:.3e}")
+    if mode != "bf16" and not abs(norm - 1.0) <= NORM_TOL:
+        raise AssertionError(f"[{mode}] brickwork {n}q: norm {norm}")
+    if against_plain:
+        plain = (KERNEL_TOL if mode == "f32" else
+                 sum(launches.values()) * LIMITS[mode][1]
+                 if mode == "bf16_3x" else
+                 runs_limit(mode, 2 * sum(launches.values())))
+        rel, _ = compare(f"[{mode}] brickwork {n}q vs plain", out,
+                         apply_plan_planar_ref(psi0, paired), plain)
+        line += f", vs plain {rel:.3e}"
+    if not rel_u <= runs_limit(mode, between):
+        raise AssertionError(f"[{mode}] brickwork {n}q: paired vs "
+                             f"unpaired rel L2 {rel_u:.3e}")
+    return launches, line
+
+
+def bf16x3_drift(n: int, device, plain: bool = False) -> tuple[float, dict]:
+    """((1 - norm) per 100 gates, launches) of the brickwork body x 16 on
+    the scanned runner in bf16_3x (set by the caller), or of the same 256
+    layers through the plain versions (``plain``)."""
+    c = brickwork_circuit(n, BRICKWORK_LAYERS)
+    repeats = DRIFT_LAYERS // BRICKWORK_LAYERS
+    body = compile_circuit(c)
+    psi = product_state_planar([np.array([1.0, 0.0])] * n, device)
+    if plain:
+        for _ in range(repeats):
+            psi = apply_plan_planar_ref(psi, body)
+        launches = {}
+    else:
+        psi, launches = _launch_delta(
+            lambda: make_scanned_planar_runner(body, repeats)(psi))
+    norm = float(torch.sum(torch.square(psi), dtype=torch.float64))
+    return (1.0 - norm) / (c.gate_count * repeats / 100), launches
+
+
 def narrow_path(device, mode: str) -> dict:
     """The brickwork of 16 layers at n = 1, 2 (mod 7) in dot ``mode`` (set
     by the caller): at 8, 9, 22 and 23 qubits paired, its state against the
@@ -1185,69 +1324,72 @@ def narrow_path(device, mode: str) -> dict:
     bf16 within ``runs_limit``) and against the unpaired plan (within
     ``runs_limit``); at 23 qubits the 256-layer drift, f32 paired and
     unpaired as phase 5 holds it, bf16_3x on the scanned runner at most
-    BF16X3_DRIFT_TOL per 100 gates; at 29 and 30 qubits one body paired and
-    unpaired, timed, its norm within NORM_TOL of 1 (bf16's rounded W are not
-    unitary: printed) and paired against unpaired within ``runs_limit``.
-    Returns the launches of each run."""
+    BF16X3_DRIFT_TOL per 100 gates, and at 22 qubits within
+    SPLIT_DRIFT_MARGIN of the plain versions' drift; at 29 and 30 qubits
+    one body paired and unpaired, timed, its norm within NORM_TOL of 1
+    (bf16's rounded W are not unitary: printed) and paired against unpaired
+    within ``runs_limit`` (``hold_plans``), and their launches of the D <= 4
+    window.  Returns the launches of each run."""
     runs = {}
     for n in NARROW_QUBITS + LARGE_QUBITS:
         c = brickwork_circuit(n, BRICKWORK_LAYERS)
-        psi0 = product_state_planar([np.array([1.0, 0.0])] * n, device)
         paired, unpaired = compile_circuit(c), compile_circuit(c, pair=False)
         pairs = narrow_pairs(paired)
         if not pairs:
             raise AssertionError(f"brickwork {n}q: no narrow pair in "
                                  f"{paired.steps}")
-        out, elapsed, span, launches = timed_run(
-            lambda: apply_plan_planar(psi0, paired), device)
+        launches, line = hold_plans(n, c, paired, unpaired, device, mode,
+                                    against_plain=n not in LARGE_QUBITS)
         runs[f"brickwork_{n}q"] = launches
-        alone, _, alone_span, launches_u = timed_run(
-            lambda: apply_plan_planar(psi0, unpaired), device)
-        between = sum(launches.values()) + sum(launches_u.values())
-        rel_u = rel_l2(out, alone)
-        norm = float(planar_norm(out))
-        del alone
-        def device_ms(ms):
-            return "not measured" if ms is None else f"{ms:.3f} ms"
-        line = (f"[{mode}] brickwork {n}q x {BRICKWORK_LAYERS} layers, "
-                f"narrow pairs {sorted(set(pairs))}: paired {elapsed:.4f} s "
-                f"({c.gate_count / elapsed:.1f} gates/s, device "
-                f"{device_ms(span)}), unpaired device "
-                f"{device_ms(alone_span)}; norm {norm:.8f}, paired vs "
-                f"unpaired rel L2 {rel_u:.3e}")
-        if n in LARGE_QUBITS:
-            if mode != "bf16" and not abs(norm - 1.0) <= NORM_TOL:
-                raise AssertionError(f"[{mode}] brickwork {n}q: norm {norm}")
-        else:
-            plain = (KERNEL_TOL if mode == "f32" else
-                     sum(launches.values()) * LIMITS[mode][1]
-                     if mode == "bf16_3x" else
-                     runs_limit(mode, 2 * sum(launches.values())))
-            rel, _ = compare(f"[{mode}] brickwork {n}q vs plain", out,
-                             apply_plan_planar_ref(psi0, paired), plain)
-            line += f", vs plain {rel:.3e}"
-        if not rel_u <= runs_limit(mode, between):
-            raise AssertionError(f"[{mode}] brickwork {n}q: paired vs "
-                                 f"unpaired rel L2 {rel_u:.3e}")
-        say(f"{line}; launches {launches}")
-        del out, psi0
-    n = NARROW_DRIFT_QUBITS
+        narrow_windows = launches.get(counter("window_apply_stream", mode),
+                                      0)
+        say(f"[{mode}] brickwork {n}q x {BRICKWORK_LAYERS} layers, narrow "
+            f"pairs {sorted(set(pairs))}, {narrow_windows} D <= 4 windows: "
+            f"{line}; launches {launches}")
     if mode == "f32":
-        brickwork_drift(n, DRIFT_LAYERS, device)
+        brickwork_drift(NARROW_DRIFT_QUBITS, DRIFT_LAYERS, device)
     elif mode == "bf16_3x":
-        c = brickwork_circuit(n, BRICKWORK_LAYERS)
-        repeats = DRIFT_LAYERS // BRICKWORK_LAYERS
-        psi0 = product_state_planar([np.array([1.0, 0.0])] * n, device)
-        out, runs[f"scanned_{n}q"] = _launch_delta(
-            lambda: make_scanned_planar_runner(compile_circuit(c),
-                                               repeats)(psi0))
-        drift = (1.0 - float(planar_norm(out))) / (c.gate_count * repeats
-                                                   / 100)
-        say(f"[{mode}] brickwork {n}q x {BRICKWORK_LAYERS} layers x "
-            f"{repeats} (scanned): drift {drift:.4e} per 100 gates")
-        if not abs(drift) <= BF16X3_DRIFT_TOL:
-            raise AssertionError(f"[{mode}] {n}q norm drift {drift:.4e} per "
-                                 f"100 gates > {BF16X3_DRIFT_TOL:g}")
+        for n in (SPLIT_DRIFT_QUBITS, NARROW_DRIFT_QUBITS):
+            drift, runs[f"scanned_{n}q"] = bf16x3_drift(n, device)
+            if n == SPLIT_DRIFT_QUBITS:
+                plain, _ = bf16x3_drift(n, device, plain=True)
+                limit = (1 + SPLIT_DRIFT_MARGIN) * abs(plain)
+                against = f" (plain versions {plain:.4e}, limit {limit:.4e})"
+            else:
+                limit = BF16X3_DRIFT_TOL
+                against = f" (limit {limit:g})"
+            say(f"[{mode}] brickwork {n}q x {BRICKWORK_LAYERS} layers x "
+                f"{DRIFT_LAYERS // BRICKWORK_LAYERS} (scanned): drift "
+                f"{drift:.4e} per 100 gates{against}")
+            if not abs(drift) <= limit:
+                raise AssertionError(f"[{mode}] {n}q norm drift {drift:.4e} "
+                                     f"per 100 gates > {limit:.4e}")
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the streaming kernels on the main path
+# ---------------------------------------------------------------------------
+
+def stream_path(device, mode: str) -> dict:
+    """The 26-qubit brickwork of 16 layers compiled at each of
+    STREAM_WINDOWS in dot ``mode`` (set by the caller), paired (the D1, D2
+    <= 4 pairs on the streaming pair, the D = 4 windows of ``window=2`` on
+    the streaming window) against the plain versions and the unpaired plan,
+    timed (``hold_plans``).  Returns the launches of each run."""
+    runs = {}
+    c = brickwork_circuit(N, BRICKWORK_LAYERS)
+    for window in STREAM_WINDOWS:
+        paired = compile_circuit(c, window=window)
+        unpaired = compile_circuit(c, window=window, pair=False)
+        launches, line = hold_plans(N, c, paired, unpaired, device, mode)
+        runs[f"brickwork_window{window}"] = launches
+        say(f"[{mode}] brickwork {N}q x {BRICKWORK_LAYERS} layers at "
+            f"window={window}: {len(paired.steps)} passes, "
+            f"{launches.get(counter('pair_apply_stream', mode), 0)} "
+            f"streaming pairs, "
+            f"{launches.get(counter('window_apply_stream', mode), 0)} "
+            f"streaming windows; {line}; launches {launches}")
     return runs
 
 
@@ -1271,9 +1413,10 @@ def _device_busy_ms(prof) -> float:
 
 def profile(n: int, device, out_dir: Path) -> None:
     """Runs Grover (phase 4), the brickwork paired and unpaired (phase 5),
-    the 23-qubit brickwork whose plan holds the narrow pairs (phase 8) and
-    the density run (phase 6) once untimed, once timed on the host clock,
-    and once under torch.profiler.  Prints each run's wall times,
+    the 23-qubit brickwork whose plan holds the narrow pairs (phase 8), the
+    brickwork compiled at ``window=2`` (phase 9) and the density run (phase
+    6) once untimed, once timed on the host clock, and once under
+    torch.profiler.  Prints each run's wall times,
     its device busy share (device-busy time over the traced wall time) and
     the profiler's table by device time, and writes the Chrome traces to
     ``out_dir``."""
@@ -1293,6 +1436,7 @@ def profile(n: int, device, out_dir: Path) -> None:
                                                BRICKWORK_LAYERS))
     narrow_psi0 = product_state_planar(
         [np.array([1.0, 0.0])] * NARROW_DRIFT_QUBITS, device)
+    window2 = compile_circuit(brick, window=STREAM_WINDOWS[0])
     _, _, run_density, rho0 = density_runner(device)
     cases = {"grover": lambda: run(grover_psi0),
              "brickwork": lambda: apply_plan_planar(brick_psi0, paired),
@@ -1300,6 +1444,8 @@ def profile(n: int, device, out_dir: Path) -> None:
                                                              unpaired),
              f"brickwork_{NARROW_DRIFT_QUBITS}q": lambda: apply_plan_planar(
                  narrow_psi0, narrow),
+             f"brickwork_window{STREAM_WINDOWS[0]}": lambda: apply_plan_planar(
+                 brick_psi0, window2),
              "density": lambda: run_density(rho0)}
     for name, fn in cases.items():
         fn()
@@ -1330,8 +1476,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR", type=Path,
                         help="after the build, profile Grover, the "
-                             "brickwork (paired and unpaired, and at 23 "
-                             "qubits) and the density run with "
+                             "brickwork (paired and unpaired, at 23 "
+                             "qubits, and at window=2) and the density "
+                             "run with "
                              "torch.profiler, write their traces to DIR, "
                              "and run no other phase")
     parser.add_argument("--precision", choices=kernels.DOT_MODES,
@@ -1366,21 +1513,20 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=device).manual_seed(0)
     results = {}
-    results["window_apply"], results["window_apply_trailing"] = \
-        check_window(N, device, rng, gen)
+    results.update(zip(WINDOW_KERNELS, check_window(N, device, rng, gen)))
     results["reflect_dot"], results["reflect_update"] = check_reflect(
         N, device, rng, gen)
-    results.update(zip(PRODUCT_KERNELS[2:], check_pair(N, device, rng,
-                                                       gen)))
+    results.update(zip(PAIR_KERNELS, check_pair(N, device, rng, gen)))
     for mode in REDUCED_MODES:
         kernels.set_dot_mode(mode)
-        names = [f"{k}[{mode}]" for k in PRODUCT_KERNELS]
-        results[names[0]], results[names[1]] = check_window(
-            N, device, rng, gen, mode,
-            {k: results[k] for k in PRODUCT_KERNELS[:2]})
-        results.update(zip(names[2:], check_pair(
-            N, device, rng, gen, mode,
-            {k: results[k] for k in PRODUCT_KERNELS[2:]})))
+        results.update(zip(
+            (counter(k, mode) for k in WINDOW_KERNELS),
+            check_window(N, device, rng, gen, mode,
+                         {k: results[k] for k in WINDOW_KERNELS})))
+        results.update(zip(
+            (counter(k, mode) for k in PAIR_KERNELS),
+            check_pair(N, device, rng, gen, mode,
+                       {k: results[k] for k in PAIR_KERNELS})))
     kernels.set_dot_mode("f32")
     say("phase 2: every kernel agrees with its plain version, in every dot "
         "mode")
@@ -1433,6 +1579,21 @@ def main(argv=None) -> int:
     say(f"phase 8: the brickwork at n = 1, 2 (mod 7) runs its narrow pairs "
         f"in every dot mode; launches "
         f"{ {k: v for k, v in narrow_counts.items() if v} }")
+
+    kernels.reset_launch_counts()
+    for mode in ("f32", *REDUCED_MODES):
+        kernels.set_dot_mode(mode)
+        for run, launches in stream_path(device, mode).items():
+            runs[run if mode == "f32" else f"{run}[{mode}]"] = launches
+    kernels.set_dot_mode("f32")
+    stream_counts = kernels.launch_counts()
+    for name in KERNEL_SOURCES:
+        if name.split("[")[0] in STREAM_KERNELS:
+            counts[name] = stream_counts[name]
+    say(f"phase 9: the {N}-qubit brickwork at window = "
+        f"{', '.join(map(str, STREAM_WINDOWS))} runs the streaming kernels "
+        f"in every dot mode; launches "
+        f"{ {k: v for k, v in stream_counts.items() if v} }")
     missing = [k for k in KERNEL_SOURCES if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "

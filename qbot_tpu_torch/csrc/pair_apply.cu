@@ -21,14 +21,20 @@
 //   (mod 7): the D2 window's tensor-core tile with W1 mixed into its
 //   operand as it is staged (window_tc.cuh in f32 and f32_mix,
 //   window_bf16.cuh in bf16_3x and bf16, instantiated with D1 > 1);
-// - D2 in {2, 4}, below the tile's k-step and n-tile of 8:
-//   pair_apply_kernel, FP32 FMAs.
+// - D1 and D2 in {2, 4}, below the tile's k-step and n-tile of 8: the
+//   streaming pair_fma_stream_kernel (pair_stream.cu), FP32 FMAs on
+//   registers (plans at window = 1, 2 reach it as middle pairs);
+// - D1 >= 8 with D2 in {2, 4}: pair_apply_kernel, FP32 FMAs from slabs in
+//   shared memory.  No plan produces this geometry (the compiler's last
+//   window is min(n, 7) wide and its narrow windows come first), so only a
+//   direct pair_apply call reaches it.
 // Each in the precision of the products the caller asks for (tc_tile.cuh:
 // Prec): F32 for the f32 and f32_mix modes, BF16X3 and BF16 for bf16_3x and
-// bf16, whose FMA variant splits its operands into bf16 parts in registers.
+// bf16, whose FMA variants split their operands into bf16 parts in
+// registers.
 //
-// The FP32 FMA variant (pair_apply_kernel, D2 = 2, 4; no path of the
-// brickwork reaches it), bound by the card's 67 TFLOP/s FP32 rate: every
+// The shared-memory FMA variant (pair_apply_kernel, D1 >= 8 with D2 = 2,
+// 4; no plan reaches it), bound by the card's 67 TFLOP/s FP32 rate: every
 // output amplitude depends on the whole (D1, D2) slab of its (a, b), so a
 // block holds S whole slabs in shared memory (S * D1 * D2 <= 16384 complex
 // amplitudes, at most 32 slabs).  Trailing pair: S consecutive a, each
@@ -50,10 +56,17 @@
 #include "pair_tc.cuh"
 #include "window_tc.cuh"
 
+// The launcher of the streaming pair at D1 = 2^log_d1 and D2 = 2^args.
+// log_d2, both 2 or 4, in one precision of the products (tc_tile.cuh:
+// Prec), trailing (args.log_b == 0) or middle; returns the launch's
+// cudaGetLastError().  Defined in pair_stream.cu, once per precision.
+template <int PREC>
+int pair_stream_launch(int log_d1, const PairArgs& args);
+
 namespace {
 
 // ---------------------------------------------------------------------------
-// D2 < 8: FP32 FMAs
+// D1 >= 8 with D2 < 8: FP32 FMAs from shared-memory slabs
 // ---------------------------------------------------------------------------
 
 constexpr int NT = 256;          // threads per block
@@ -468,12 +481,12 @@ int launch_pair(const float* psi, float* out, const float* w1,
                 int log_b, const int64_t* flips, int nflips,
                 const int64_t* masks, const int64_t* wants,
                 const float* phase, int nphases, cudaStream_t s) {
-  if (log_d1 >= 3 && log_d2 >= 3) {
-    return launch_tc_any<PREC>(log_d1, log_b != 0,
-                               {psi, out, w1, w2, n_amps, log_d2, log_b,
-                                flips, nflips, masks, wants, phase, nphases,
-                                s});
-  }
+  const PairArgs args{psi,   out,    w1,    w2,    n_amps, log_d2, log_b,
+                      flips, nflips, masks, wants, phase,  nphases, s};
+  if (log_d1 >= 3 && log_d2 >= 3)
+    return launch_tc_any<PREC>(log_d1, log_b != 0, args);
+  if (log_d1 <= 2 && log_d2 <= 2)
+    return pair_stream_launch<PREC>(log_d1, args);
   if (log_d2 >= 3) {
     // the narrow pair: the D2 window with W = W2, W1 mixed in as it stages
     const WindowArgs a{psi,    out,   w2,    n_amps, log_d2, log_b,

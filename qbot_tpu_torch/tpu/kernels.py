@@ -25,9 +25,10 @@ Every wrapper counts its launches (:func:`launch_counts`) so a run can
 show that it went through the kernel.  ``window_apply`` and ``pair_apply``
 count their trailing launches (B = 1, the role of the TPU's
 ``_right_multiply`` and ``_pair_b1``) apart, ``pair_apply`` its narrow
-pairs (D1 = 2, 4 with D2 >= 8, which run the window's tile) apart, and the
-launches of each reduced mode apart, as ``window_apply[bf16_3x]`` and so
-on.
+pairs (D1 = 2, 4 with D2 >= 8, which run the window's tile) apart, the
+streaming FMA kernels of the narrow widths (windows at D = 2, 4, pairs at
+D1, D2 = 2, 4) apart, and the launches of each reduced mode apart, as
+``window_apply[bf16_3x]`` and so on.
 """
 from __future__ import annotations
 
@@ -61,11 +62,12 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lib = None
 
 # The sources nvcc compiles once per variant, with the variant's -D defines
-# (csrc/window_tc.cu, csrc/pair_tc.cu): the tensor-core window (D1 = 1) and
-# the narrow pair (D1 = 2, 4) once per D1 and precision of the products
-# (csrc/tc_tile.cuh: Prec), the tensor-core pair once per D1, orientation
-# and precision, so that the longest compiles of the library run side by
-# side.  Every other source compiles once.
+# (csrc/window_tc.cu, csrc/pair_tc.cu, csrc/pair_stream.cu): the
+# tensor-core window (D1 = 1) and the narrow pair (D1 = 2, 4) once per D1
+# and precision of the products (csrc/tc_tile.cuh: Prec), the tensor-core
+# pair once per D1, orientation and precision, the streaming pair once per
+# precision, so that the longest compiles of the library run side by side.
+# Every other source compiles once.
 _PRECS = (0, 1, 2)
 _VARIANTS = {
     "window_tc.cu": [{"QBOT_D1": d1, "QBOT_PREC": p} for p in _PRECS
@@ -75,6 +77,7 @@ _VARIANTS = {
                    for middle, widths in ((0, (8, 16, 32, 64, 128)),
                                           (1, (8, 16, 32)))
                    for d1 in widths],
+    "pair_stream.cu": [{"QBOT_PREC": p} for p in _PRECS],
 }
 
 # The dot modes of qbot_tpu/tpu/kernels.py:41-52, and the precision of the
@@ -227,13 +230,16 @@ def _fp32_matmul():
 
 # launch counts: one per TPU kernel replaced (window_apply and pair_apply
 # with B > 1 and with B = 1 apart, the narrow pairs apart from the other
-# pairs), and one per reduced mode of each of those that run the products
-_PRODUCT_COUNTS = ("window_apply", "window_apply_trailing", "pair_apply",
+# pairs, the streaming kernels of D <= 4 windows and D1, D2 <= 4 pairs, at
+# any B, apart), and one per reduced mode of each of those that run the
+# products
+_PRODUCT_COUNTS = ("window_apply", "window_apply_trailing",
+                   "window_apply_stream", "pair_apply",
                    "pair_apply_trailing", "pair_apply_narrow",
-                   "pair_apply_trailing_narrow")
+                   "pair_apply_trailing_narrow", "pair_apply_stream")
 LAUNCH_COUNTS = (
-    *_PRODUCT_COUNTS[:2], "reflect_dot", "reflect_update",
-    *_PRODUCT_COUNTS[2:],
+    *_PRODUCT_COUNTS[:3], "reflect_dot", "reflect_update",
+    *_PRODUCT_COUNTS[3:],
     *(f"{name}[{mode}]" for mode in REDUCED_MODES for name in _PRODUCT_COUNTS))
 _launches: dict = {}
 
@@ -446,7 +452,8 @@ def window_apply(psi, n: int, start: int, width: int, w,
             diag.phase.data_ptr(), diag.mask.numel(), _PREC[_DOT_MODE],
             _stream(psi))
     _check_launch(lib, rc, "window_apply")
-    _count("window_apply_trailing" if start + width == n else "window_apply")
+    _count("window_apply_stream" if width <= 2 else
+           "window_apply_trailing" if start + width == n else "window_apply")
     return out
 
 
@@ -504,9 +511,11 @@ def pair_apply(psi, n: int, start: int, width1: int, width2: int, w1, w2,
     ``csrc/pair_bf16.cuh``); the narrow pairs, D1 = 2, 4 with D2 >= 8, on
     the D2 window's tile with W1 mixed into its operand as it is staged
     (``csrc/window_tc.cuh``, ``csrc/window_bf16.cuh``; counted as
-    ``pair_apply_narrow`` and ``pair_apply_trailing_narrow``); D2 = 2, 4 in
-    FP32 FMAs (``csrc/pair_apply.cu``).  All apply W1 first, as the plain
-    version does.
+    ``pair_apply_narrow`` and ``pair_apply_trailing_narrow``); D1, D2 = 2,
+    4 on a streaming kernel of FP32 FMAs (``csrc/pair_stream.cu``, counted
+    as ``pair_apply_stream``), D1 >= 8 with D2 = 2, 4 on FP32 FMAs from
+    slabs in shared memory (a geometry no plan produces).  All apply W1
+    first, as the plain version does.
     """
     _require(1 <= width1 <= 7 and 1 <= width2 <= 7 and 0 <= start
              and start + width1 + width2 <= n,
@@ -538,7 +547,8 @@ def pair_apply(psi, n: int, start: int, width1: int, width2: int, w1, w2,
             _PREC[_DOT_MODE], _stream(psi))
     _check_launch(lib, rc, "pair_apply")
     name = "pair_apply_trailing" if route == "trailing" else "pair_apply"
-    _count(f"{name}_narrow" if width1 <= 2 and width2 >= 3 else name)
+    _count("pair_apply_stream" if width1 <= 2 and width2 <= 2 else
+           f"{name}_narrow" if width1 <= 2 else name)
     return out
 
 

@@ -239,9 +239,10 @@ def test_pair_counts_its_routes(cuda):
 
 
 def test_narrow_d2_counts_as_the_fma_pair(cuda):
-    """D2 = 2, 4 stays on the FP32 FMA pair (pair_apply, pair_apply_
-    trailing), at any D1; D1 = 2, 4 with D2 >= 8 counts as the narrow
-    pair."""
+    """D2 = 2, 4 at D1 >= 8 stays on the shared-memory FMA pair
+    (pair_apply, pair_apply_trailing); D1, D2 = 2, 4 counts as the
+    streaming pair (pair_apply_stream, either orientation); D1 = 2, 4 with
+    D2 >= 8 as the narrow pair."""
     kernels.reset_launch_counts()
     rng = np.random.default_rng(4)
     for n, start, width1, width2 in ((14, 0, 5, 2), (9, 2, 5, 2),
@@ -250,8 +251,9 @@ def test_narrow_d2_counts_as_the_fma_pair(cuda):
         psi, w1, w2, diag = _pair_inputs(n, start, width1, width2, rng, cuda)
         kernels.pair_apply(psi, n, start, width1, width2, w1, w2, diag)
     counts = kernels.launch_counts()
-    assert counts["pair_apply"] == 3
-    assert counts["pair_apply_trailing"] == 2
+    assert counts["pair_apply"] == 1
+    assert counts["pair_apply_trailing"] == 1
+    assert counts["pair_apply_stream"] == 3
     assert counts["pair_apply_narrow"] == 0
     assert counts["pair_apply_trailing_narrow"] == 1
 
@@ -356,6 +358,118 @@ def test_layered_circuit_narrow_pairs_on_card(cuda, any_mode):
         assert rel_l2(got, unpaired) <= tol
 
 
+@pytest.mark.parametrize("width2", [1, 2])
+@pytest.mark.parametrize("width1", [1, 2])
+def test_stream_pair_kernel(cuda, any_mode, width1, width2):
+    """The streaming pair (D1, D2 = 2, 4) in every dot mode against its
+    plain version and against float64: middle at B = 2^7 and 2^10 with 4 a,
+    at B = 2^7 with 1 a and at B = 2^18 (more columns than the resident
+    threads); trailing with 1, 8 and 2^18 slabs."""
+    geometries = [(2 + width1 + width2 + log_b, 2) for log_b in (7, 10, 18)]
+    geometries += [(width1 + width2 + 7, 0)]
+    geometries += [(width1 + width2 + k, k) for k in (0, 3, 18)]
+    for n, start in geometries:
+        rng = np.random.default_rng(10 * width1 + width2 + n)
+        assert kernels.pair_route(n, start, width1, width2) != "two_windows"
+        _narrow_check(n, start, width1, width2, any_mode, rng, cuda)
+
+
+@pytest.mark.parametrize("geometry", [(12, 2, 2, 2), (11, 0, 1, 2),
+                                      (12, 1, 2, 1), (9, 5, 2, 2)],
+                         ids=lambda g: "n{}_s{}_{}x{}".format(*g))
+def test_stream_pair_many_diagonals(cuda, any_mode, geometry):
+    """More flips and phases than the lookup tables hold (8): the streaming
+    pair tests the rest on each element's flat index."""
+    n, start, width1, width2 = geometry
+    rng = np.random.default_rng(sum(geometry))
+    _narrow_check(n, start, width1, width2, any_mode, rng, cuda,
+                  _many_diagonals(n, rng, cuda))
+
+
+def test_stream_pair_kernel_is_deterministic(cuda, any_mode):
+    """Bit for bit the same output in repeated launches: the pairs of
+    window=2 and window=1 plans, (2, 4) and (4, 4) at 22 qubits, (2, 2) at
+    B = 128, and the trailing (4, 4)."""
+    for n, start, width1, width2 in ((22, 0, 1, 2), (22, 3, 2, 2),
+                                     (20, 11, 1, 1), (14, 10, 2, 2)):
+        rng = np.random.default_rng(n + width1)
+        psi, w1, w2, diag = _pair_inputs(n, start, width1, width2, rng, cuda)
+        first = kernels.pair_apply(psi, n, start, width1, width2, w1, w2,
+                                   diag)
+        for _ in range(3):
+            assert torch.equal(kernels.pair_apply(psi, n, start, width1,
+                                                  width2, w1, w2, diag),
+                               first)
+
+
+def test_stream_kernels_count(cuda, any_mode):
+    """The streaming window and pair count apart, in the mode's counters,
+    in either orientation."""
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(7)
+    for n, start, width in ((12, 0, 1), (12, 3, 2), (12, 10, 2)):
+        w = _unitary(2**width, rng, cuda)
+        kernels.window_apply(_state(n, rng, cuda), n, start, width, w,
+                             kernels.fused_diagonals(n, device=cuda))
+    for n, start, width1, width2 in ((12, 0, 2, 2), (11, 7, 2, 2)):
+        psi, w1, w2, diag = _pair_inputs(n, start, width1, width2, rng, cuda)
+        kernels.pair_apply(psi, n, start, width1, width2, w1, w2, diag)
+    counts = kernels.launch_counts()
+    suffix = "" if any_mode == "f32" else f"[{any_mode}]"
+    assert counts[f"window_apply_stream{suffix}"] == 3
+    assert counts[f"pair_apply_stream{suffix}"] == 2
+    assert sum(counts.values()) == 5
+
+
+@pytest.mark.parametrize("diagonals", ["few", "many"])
+@pytest.mark.parametrize("width", [1, 2])
+def test_stream_window_first_window(cuda, any_mode, width, diagonals):
+    """The streaming window at D = 2, 4 as plans place it first (A = 1),
+    at 22 qubits (more columns than the resident threads), in every dot
+    mode: against its plain version and float64 (f32 at 1e-5 and 2e-6),
+    and bit for bit the same in a second launch."""
+    tol = TOL if any_mode == "f32" else MODE_TOL[any_mode][0]
+    f64_tol = F64_TOL if any_mode == "f32" else MODE_TOL[any_mode][2]
+    n = 22
+    rng = np.random.default_rng(width + len(diagonals))
+    psi = _state(n, rng, cuda)
+    w = _unitary(2**width, rng, cuda)
+    if diagonals == "many":
+        diag = _many_diagonals(n, rng, cuda)
+    else:
+        diag = kernels.fused_diagonals(
+            n, (3, 2**n - 5), (((0, n - 1), complex(np.exp(0.5j)), 1),),
+            cuda)
+    got = kernels.window_apply(psi, n, 0, width, w, diag)
+    want = kernels.window_apply_ref(psi, n, 0, width, w, diag)
+    exact = kernels.window_apply_ref(psi.double(), n, 0, width, w.double(),
+                                     diag, mode="f32")
+    assert torch.equal(got, kernels.window_apply(psi, n, 0, width, w, diag))
+    assert rel_l2(got, want) <= tol
+    assert rel_l2(got, exact) <= f64_tol
+
+
+@pytest.mark.parametrize("window", [1, 2])
+def test_stream_plans_on_card(cuda, any_mode, window):
+    """A layered circuit at 16 qubits compiled at window=1 and window=2,
+    whose paired plans run the streaming pair: the card's state against the
+    plain versions' and the unpaired plan's (f32 within 1e-5, the reduced
+    modes within the float64 limit of a launch)."""
+    tol = TOL if any_mode == "f32" else MODE_TOL[any_mode][2]
+    n = 16
+    c = random_circuit(n, 4, seed=window)
+    psi0 = planar.zero_state_planar(n, cuda)
+    plan = compile_circuit(c, window=window)
+    kernels.reset_launch_counts()
+    got = planar.apply_plan_planar(psi0, plan)
+    counts = kernels.launch_counts()
+    assert sum(v for k, v in counts.items() if "pair_apply_stream" in k) > 0
+    assert rel_l2(got, planar.apply_plan_planar_ref(psi0, plan)) <= tol
+    unpaired = planar.apply_plan_planar(
+        psi0, compile_circuit(c, window=window, pair=False))
+    assert rel_l2(got, unpaired) <= tol
+
+
 @pytest.mark.parametrize("H,T", [(1, 2), (8, 128), (4096, 128), (64, 300),
                                  (1000, 7)])
 def test_reflect_kernels(cuda, H, T):
@@ -392,16 +506,21 @@ def test_reflect_sums_are_deterministic(cuda):
 
 
 def test_wrappers_count_launches(cuda):
+    """A window of D >= 8 counts as window_apply (B > 1) or
+    window_apply_trailing (B = 1); one of D <= 4, on the streaming kernel,
+    as window_apply_stream in either orientation; a plain version never."""
     kernels.reset_launch_counts()
     n = 9
     psi = _state(n, np.random.default_rng(1), cuda)
-    w = _unitary(4, np.random.default_rng(2), cuda)
     diag = kernels.fused_diagonals(n, device=cuda)
-    kernels.window_apply(psi, n, 3, 2, w, diag)
-    kernels.window_apply(psi, n, 7, 2, w, diag)
-    kernels.window_apply(psi, n, 7, 2, w, diag)
-    kernels.window_apply_ref(psi, n, 3, 2, w, diag)
+    for width in (2, 3):
+        w = _unitary(2**width, np.random.default_rng(2), cuda)
+        kernels.window_apply(psi, n, 3, width, w, diag)
+        kernels.window_apply(psi, n, n - width, width, w, diag)
+        kernels.window_apply(psi, n, n - width, width, w, diag)
+        kernels.window_apply_ref(psi, n, 3, width, w, diag)
     counts = kernels.launch_counts()
+    assert counts["window_apply_stream"] == 3
     assert counts["window_apply"] == 1
     assert counts["window_apply_trailing"] == 2
 

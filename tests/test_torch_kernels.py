@@ -43,8 +43,11 @@ def _rand_unitary(d, rng):
 # (n, start, width): middle window (B >= 128, the left-multiply kernel),
 # trailing window (B == 1, right-multiply) and small B (XLA fallback)
 GEOMETRIES = {"middle": (10, 1, 2), "trailing": (10, 3, 7),
-              "small_b": (10, 0, 7)}
-SEEDS = {"middle": 1, "trailing": 2, "small_b": 3}
+              "small_b": (10, 0, 7),
+              # the streaming window as plans place it first (A = 1)
+              "first_d2": (10, 0, 1), "first_d4": (10, 0, 2)}
+SEEDS = {"middle": 1, "trailing": 2, "small_b": 3, "first_d2": 4,
+         "first_d4": 5}
 
 
 def _diagonals(n, start, width, rng):
@@ -53,10 +56,10 @@ def _diagonals(n, start, width, rng):
     j_bits = list(range(start, start + width))
     b_bits = list(range(start + width, n))
     qa = a_bits[-1:]
-    qj = [j_bits[0], j_bits[-1]]
+    qj = sorted({j_bits[0], j_bits[-1]})    # one j-bit at width 1
     qb = b_bits[:1]
     phases = [(tuple(qa + qj + qb), complex(np.exp(0.9j)), 0),
-              (tuple(qj), complex(np.exp(-0.4j)), 0b10),
+              (tuple(qj), complex(np.exp(-0.4j)), 0b10 % 2 ** len(qj)),
               (tuple(qa + qb) or (j_bits[0],), -1.0 + 0j, -1)]
     flips = tuple(int(m) for m in rng.integers(0, 2**n, size=3))
     return flips, tuple(phases)
@@ -96,7 +99,14 @@ PAIR_GEOMETRIES = {"trailing": (10, 2, 4, 4), "middle": (12, 0, 2, 3),
                    "trailing_narrow_4x32": (9, 2, 2, 5),
                    "middle_narrow_2x8": (11, 0, 1, 3),
                    "middle_narrow_2x32": (13, 0, 1, 5),
-                   "middle_narrow_4x32": (14, 0, 2, 5)}
+                   "middle_narrow_4x32": (14, 0, 2, 5),
+                   # the streaming pairs: D1, D2 = 2, 4, as window=1 and
+                   # window=2 plans place them (middle), and trailing
+                   "middle_stream_2x2": (10, 1, 1, 1),
+                   "middle_stream_2x4": (11, 1, 1, 2),
+                   "middle_stream_4x2": (11, 0, 2, 1),
+                   "middle_stream_4x4": (12, 1, 2, 2),
+                   "trailing_stream_4x4": (7, 3, 2, 2)}
 
 
 def _pair_diagonals(n, start, width1, width2, rng):
@@ -144,7 +154,8 @@ def test_pair_apply_matches_pallas(geometry, fused, interpret_kernels):
     ("trailing", "trailing"), ("middle", "middle"),
     ("two_windows_wide", "two_windows"),
     ("two_windows_small_b", "two_windows"),
-    ("trailing_narrow_4x32", "trailing"), ("middle_narrow_2x32", "middle")])
+    ("trailing_narrow_4x32", "trailing"), ("middle_narrow_2x32", "middle"),
+    ("middle_stream_4x4", "middle"), ("trailing_stream_4x4", "trailing")])
 def test_pair_route_matches_pallas_dispatch(geometry, route):
     assert tk.pair_route(*PAIR_GEOMETRIES[geometry]) == route
 

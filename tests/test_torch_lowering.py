@@ -136,6 +136,31 @@ def test_narrow_pair_slice_matches_jax(n, window, route, widths):
                                lp_j.namespace["out"].probs, atol=TOL)
 
 
+@pytest.mark.parametrize("n,window", [(9, 1), (10, 2), (11, 2), (12, 1)])
+def test_stream_pair_slice_matches_jax(n, window):
+    """The slice through plans compiled at window=1 and window=2, whose
+    pairs of D1, D2 = 2, 4 run the streaming pair on the card and whose
+    D = 2, 4 windows the streaming window: the plans equal ``qbot_tpu``'s
+    field by field, the probabilities within TOL."""
+    from _torch_parity import assert_same
+    from qbot_tpu.tpu.compiler import compile_circuit as jax_compile
+    from qbot_tpu_torch.tpu.compiler import compile_circuit
+    from qbot_tpu_torch.tpu.kernels import pair_route
+
+    src = _brickwork_program(n, 4, seed=n + window)
+    lp_t, lp_j = lower_program(src), jl.lower_program(src)
+    plan = compile_circuit(lp_t.circuit, window=window)
+    assert_same(plan, jax_compile(lp_j.circuit, window=window))
+    stream = {(s.first.start, s.first.width, s.second.width)
+              for s in plan.steps if hasattr(s, "second")
+              and s.first.width <= 2 and s.second.width <= 2}
+    assert stream and all(pair_route(n, *g) == "middle" for g in stream)
+    probs_t, _ = run_lowered(lp_t, window=window, device="cpu")
+    probs_j, _ = jl.run_lowered(lp_j, window=window)
+    np.testing.assert_allclose(probs_t, np.asarray(probs_j), atol=TOL)
+    np.testing.assert_allclose(lp_t.namespace["out"].probs,
+                               lp_j.namespace["out"].probs, atol=TOL)
+
 def test_dense_fields_replay_on_the_host():
     lp, _ = _assert_same_run(PROGRAMS["bell_basis"])
     dense = lp.namespace["out"].newState

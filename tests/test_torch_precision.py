@@ -56,16 +56,20 @@ BF16_VS_JAX = 1e-2
 # (n, start, width): middle windows (B >= 128, _left_multiply) and trailing
 # windows (B = 1, _right_multiply), at D >= 8 and at D <= 4
 WINDOWS = {"middle_d32": (12, 0, 5), "middle_d4": (11, 1, 2),
-           "trailing_d128": (10, 3, 7), "trailing_d4": (10, 8, 2)}
+           "trailing_d128": (10, 3, 7), "trailing_d4": (10, 8, 2),
+           "first_d2": (11, 0, 1)}
 # (n, start, width1, width2): trailing pairs (_pair_b1) and middle pairs
 # (_pair_bt), at D1, D2 >= 8 and with D1 or D2 <= 4; the narrow pairs (D1 =
-# 2, 4 with D2 = 8, 32) in both orientations
+# 2, 4 with D2 = 8, 32) in both orientations; the streaming pairs (D1, D2
+# = 2, 4) of window=1 and window=2 plans, and one trailing
 PAIRS = {"trailing_d16": (10, 2, 4, 4), "trailing_d4": (9, 3, 2, 4),
          "middle_d8": (13, 0, 3, 3), "middle_d4": (12, 0, 2, 3),
          "trailing_d2_8": (8, 4, 1, 3), "trailing_d2_32": (9, 3, 1, 5),
          "trailing_d4_8": (8, 3, 2, 3), "trailing_d4_32": (9, 2, 2, 5),
          "middle_d2_8": (11, 0, 1, 3), "middle_d2_32": (13, 0, 1, 5),
-         "middle_d4_32": (14, 0, 2, 5)}
+         "middle_d4_32": (14, 0, 2, 5),
+         "middle_s2x2": (10, 1, 1, 1), "middle_s2x4": (11, 0, 1, 2),
+         "middle_s4x4": (12, 1, 2, 2), "trailing_s4x2": (7, 4, 2, 1)}
 
 
 @pytest.fixture

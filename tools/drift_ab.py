@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Measures the bf16_3x norm drift of two source trees of this repository on
 one card: ``bench.py``'s brickwork body (16 layers) x 16 on the scanned
-runner, paired and unpaired, at 22, 23 and 26 qubits.
+runner, paired and unpaired, at 22, 23 and 26 qubits; the same 256 layers
+of the unpaired plan through the kernels' plain versions (the reference's
+split, ``apply_plan_planar_ref``); and through the kernels with the plain
+versions in place of the windows of D <= 4 (``narrow windows plain``) or of
+the wider ones (``wide windows plain``), which tells whose rounding the
+drift is.
 
     python3 tools/drift_ab.py PARENT_TREE [CHANGE_TREE]
 
@@ -33,22 +38,38 @@ def worker() -> None:
 
     from chip_smoke import brickwork_circuit
     from qbot_tpu_torch import compile_circuit
-    from qbot_tpu_torch.tpu import kernels
-    from qbot_tpu_torch.tpu.planar import (make_scanned_planar_runner,
-                                           product_state_planar)
+    from qbot_tpu_torch.tpu import kernels, planar
+    from qbot_tpu_torch.tpu.planar import product_state_planar
 
+    def mixed(narrow_plain: bool):
+        """The kernels, with the plain window in place of the windows of
+        D <= 4 (``narrow_plain``) or of the wider ones."""
+        def window(psi, n, start, width, w, diag):
+            plain = (width <= 2) == narrow_plain
+            return (kernels.window_apply_ref if plain else
+                    kernels.window_apply)(psi, n, start, width, w, diag)
+        return planar._KERNELS._replace(window=window)
+
+    ops = {"unpaired": planar._KERNELS, "plain": planar._PLAIN,
+           "narrow windows plain": mixed(True),
+           "wide windows plain": mixed(False)}
     kernels.set_dot_mode("bf16_3x")
     device = torch.device("cuda", 0)
     drifts = {}
     for n in QUBITS:
         c = brickwork_circuit(n, LAYERS)
         psi0 = product_state_planar([np.array([1.0, 0.0])] * n, device)
-        for pair in (True, False):
-            psi = make_scanned_planar_runner(compile_circuit(c, pair=pair),
-                                             REPEATS)(psi0)
+        runs = {"paired": (compile_circuit(c), planar._KERNELS)}
+        runs.update((label, (compile_circuit(c, pair=False), o))
+                    for label, o in ops.items())
+        for label, (plan, o) in runs.items():
+            fns = planar._step_fns(plan, device, o)
+            psi = psi0
+            for _ in range(REPEATS):
+                psi = planar._run(psi, fns)
             norm = float(torch.sum(torch.square(psi), dtype=torch.float64))
-            key = f"{n}q {'paired' if pair else 'unpaired'}"
-            drifts[key] = (1.0 - norm) / (c.gate_count * REPEATS / 100)
+            drifts[f"{n}q {label}"] = (1.0 - norm) / (c.gate_count * REPEATS
+                                                      / 100)
     print(json.dumps(drifts))
 
 

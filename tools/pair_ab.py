@@ -25,14 +25,17 @@ N = 26
 MODES = ("f32", "bf16_3x", "bf16")
 # chip_smoke.py check_pair's shapes: label -> (start, width1, width2); the
 # worker of this tree times every tree, so a parent whose pair_apply ran
-# the narrow shapes (D1 = 2, 4 with D2 = 128) on its FP32 FMA kernel is
-# timed there too
+# the D1, D2 <= 4 shapes on its shared-memory FMA kernel is timed there too
 SHAPES = {"middle": (0, 5, 7), "trailing": (N - 14, 7, 7),
           "density_columns": (N - 13, 6, 7), "middle_b1024": (4, 5, 7),
-          "middle_fma": (0, 5, 2), "trailing_fma": (N - 9, 7, 2),
+          "unreached_fma_middle": (0, 5, 2),
+          "unreached_fma_trailing": (N - 9, 7, 2),
           "middle_narrow": (0, 2, 7), "middle_narrow_d2": (0, 1, 7),
           "trailing_narrow": (N - 9, 2, 7),
-          "trailing_narrow_d2": (N - 8, 1, 7)}
+          "trailing_narrow_d2": (N - 8, 1, 7),
+          "stream_2x2": (3, 2, 2), "stream_1x2": (0, 1, 2),
+          "stream_1x1": (0, 1, 1), "stream_1x1_b128": (N - 9, 1, 1),
+          "unreached_stream_trailing": (N - 4, 2, 2)}
 
 
 def worker() -> None:

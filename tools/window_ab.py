@@ -27,8 +27,9 @@ MODES = ("f32", "bf16_3x", "bf16")
 # chip_smoke.py check_window's shapes: label -> (start, width)
 SHAPES = {"first": (0, 5), "middle": (N - 21, 7), "trailing": (N - 7, 7),
           "small_b": (N - 10, 7), "density_rows": (0, 6),
-          "fma_d2": (N - 10, 1), "fma_d4": (N - 10, 2),
-          "fma_d4_trailing": (N - 2, 2)}
+          "first_d2": (0, 1), "first_d4": (0, 2), "window2_a8": (3, 2),
+          "window2_b128": (N - 9, 2), "window1_d2": (N - 10, 1),
+          "unreached_d4": (N - 10, 2), "unreached_d4_trailing": (N - 2, 2)}
 
 
 def worker() -> None:
