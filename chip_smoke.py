@@ -88,6 +88,27 @@ nonzero:
    windows), paired, in every dot mode: against the plain versions and the
    unpaired plan (as phase 8 holds them), the norm within 1e-4 of 1 (f32,
    bf16_3x), timed (gates/s, device milliseconds).
+10. the device ensemble.  First the kernels' particle axis: every launcher
+   (the D = 128 windows, middle and trailing, the streaming window, the
+   D1 >= 8 pairs, middle and trailing, the narrow and the streaming pairs,
+   the two reflections) at phase 2's 26-qubit shapes, in every dot mode
+   (the reflections have none), on a batch of 3 states: one launch for the
+   batch, each particle bit for bit its own single launch, the batch
+   within LIMITS of the plain version; and one launch for 32 states at 24
+   qubits timed in turns against 32 single launches, with its bound.  Then
+   the ensemble path, with the launch counts reset before it: ``bench.py``'s
+   SMC program (24 qubits, 32 particles, 4 collapse events; bench.py:
+   396-470) through ``run_lowered_ensemble(sample=32, seed=0)`` three times
+   (each result sums to 1 within 1e-3, bench.py's check; ``a``, drawn
+   before any sampling, within 1e-5 of a run through the plain versions;
+   warm wall time, samples/s, peak allocated memory); the same program's
+   exact fan-out (every result within 1e-5 of the plain versions', the
+   final particle count and ``lost_mass`` equal, peak memory); a 20-qubit
+   Grover init and 4 bodies (one ReflectStep each, under the particle
+   axis) on 8 sampled particles, then a measurement (state and pre-sampling
+   distribution against the plain versions); every example through ``python
+   -m qbot_tpu_torch FILE --compile --ensemble`` on the card against the
+   same on ``--device cpu``.  It fails unless each of PHASE10_KERNELS moved.
 
 Launch counts are reset before phase 3 and read after phase 6: every f32
 kernel must have launched on that path; they are reset again before
@@ -96,7 +117,9 @@ and so on) must have moved, and before phase 8, after which every narrow
 pair's counter (``pair_apply_narrow``, ``pair_apply_trailing_narrow``, in
 each mode) must have moved, and before phase 9, after which the streaming
 kernels' counters (``window_apply_stream``, ``pair_apply_stream``, in each
-mode) must have moved.  The timed run of Grover, of each brickwork
+mode) must have moved, and before phase 10's ensemble runs (after its
+particle-axis checks), after which each of PHASE10_KERNELS must have
+moved.  The timed run of Grover, of each brickwork
 plan and of the density bodies also reports its own launches.
 The line before the last is one JSON object of per-kernel results; the
 last is the run's verdict.
@@ -112,7 +135,8 @@ a product) and the reflections' arithmetic at the 67 TFLOP/s FP32 rate.
     python3 chip_smoke.py --profile chiprun_out [--precision bf16_3x]
 
 runs phases 0 and 1, then profiles phases 4, 5 (paired and unpaired), 8
-(the 23-qubit body), 9 (the ``window=2`` body) and 6 with torch.profiler
+(the 23-qubit body), 9 (the ``window=2`` body), 6 and 10 (the SMC
+program, sampled, one run) with torch.profiler
 (device busy share, the table of device time per kernel, Chrome traces
 written to the directory), in the dot mode ``--precision`` (default f32),
 and nothing else.
@@ -1397,6 +1421,385 @@ def stream_path(device, mode: str) -> dict:
 # --profile: where the time goes in phases 4 and 5
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 10: the device ensemble (mid-circuit measurement, SMC) and the
+# kernels' particle axis
+# ---------------------------------------------------------------------------
+
+BATCH = 3                  # particles of the bit-for-bit launches
+BATCH_TIMED = 32           # particles of the timed launches (bench.py's SMC)
+BATCH_TIMED_QUBITS = 24
+SMC_QUBITS = 24            # bench.py:396-470: 24 qubits, 32 particles,
+SMC_PARTICLES = 32         # 4 collapse events
+SMC_RUNS = 3               # the first, then the warm runs
+SMC_SUM_TOL = 1e-3         # bench.py's own check: each result sums to 1
+ENSEMBLE_TOL = 1e-5        # deterministic readouts, kernels vs plain
+GROVER_SMC_QUBITS = 20
+GROVER_SMC_REPEATS = 4
+GROVER_SMC_PARTICLES = 8
+# the f32 kernels phase 10's runs launch: the SMC program's windows and
+# trailing pair, the Grover body's reflections, the examples' trailing and
+# streaming windows
+PHASE10_KERNELS = ("window_apply", "window_apply_trailing",
+                   "window_apply_stream", "pair_apply_trailing",
+                   "reflect_dot", "reflect_update")
+
+
+def batch_geometries(n: int) -> dict:
+    """Launch count name -> the window (start, width) or pair (start,
+    width1, width2) of phase 2's shapes at ``n`` qubits that reaches it."""
+    return {"window_apply": (n - 21, 7), "window_apply_trailing": (n - 7, 7),
+            "window_apply_stream": (n - 9, 2),
+            "pair_apply": (0, 5, 7), "pair_apply_trailing": (n - 14, 7, 7),
+            "pair_apply_narrow": (0, 2, 7),
+            "pair_apply_trailing_narrow": (n - 9, 2, 7),
+            "pair_apply_stream": (3, 2, 2)}
+
+
+def _batch_diag(n: int, start: int, width: int, rng, device):
+    """3 flips and 2 phases, on bits of a, of the window and of b."""
+    qubits = sorted({max(start - 1, 0), start, start + width - 1, n - 1})
+    phases = ((tuple(qubits), complex(np.exp(0.7j)), 0b0101 % 2**len(qubits)),
+              ((start,), complex(np.exp(-1.3j)), -1))
+    flips = tuple(int(m) for m in rng.integers(0, 2**n, size=3))
+    return kernels.fused_diagonals(n, flips, phases, device)
+
+
+def _launcher(name: str, n: int, rng, device):
+    """(fn(state or batch, particle) launching ``name``'s kernel, its plain
+    version, the geometry, the bytes of its matrices)."""
+    geom = batch_geometries(n)[name]
+    diag = _batch_diag(n, geom[0], sum(geom[1:]), rng, device)
+    if len(geom) == 2:
+        start, w = geom
+        wt = _planar_unitary(2**w, rng, device)
+        return (lambda x, p=None: kernels.window_apply(x, n, start, w, wt,
+                                                       diag),
+                lambda x: kernels.window_apply_ref(x, n, start, w, wt, diag),
+                geom, wt.nbytes)
+    start, w1, w2 = geom
+    u1, u2 = (_planar_unitary(2**w, rng, device) for w in (w1, w2))
+    return (lambda x, p=None: kernels.pair_apply(x, n, start, w1, w2, u1, u2,
+                                                 diag),
+            lambda x: kernels.pair_apply_ref(x, n, start, w1, w2, u1, u2,
+                                             diag),
+            geom, u1.nbytes + u2.nbytes)
+
+
+def _reflect_launchers(n: int, P: int, rng, device):
+    """((H, T, table bytes), {name: (fn(a (P, 2, H, T) batch, or particle
+    p's (2, H, T) view with p), plain version)}) of the two reflections at
+    the Grover geometry, one c a particle."""
+    T = 2 ** min(7, n - 1)
+    H = 2**n // T
+
+    def unit(d):
+        v = rng.normal(size=d) + 1j * rng.normal(size=d)
+        v /= np.linalg.norm(v)
+        return torch.from_numpy(np.stack([v.real, v.imag]).astype(
+            np.float32)).to(device)
+
+    a, b = unit(H).reshape(2, H, 1), unit(T).reshape(2, 1, T)
+    c = torch.tensor(rng.normal(size=(P, 2)) * 2.0**(-n / 2),
+                     dtype=torch.float32, device=device)
+    flips = torch.tensor(rng.integers(0, 2**n, size=2), dtype=torch.int64,
+                         device=device)
+
+    return (H, T, a.nbytes + b.nbytes), {
+        "reflect_dot": (lambda x, p=None: kernels.reflect_dot(x, a, b),
+                        lambda x: kernels.reflect_dot_ref(x, a, b)),
+        "reflect_update": (
+            lambda x, p=None: kernels.reflect_update(
+                x, c if p is None else c[p], a, b, flips),
+            lambda x: kernels.reflect_update_ref(x, c, a, b, flips))}
+
+
+def _flat(out):
+    """A reflection's (out, D) or a window's output, as one tensor list."""
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def _batch_random(n: int, P: int, gen, device, view=None):
+    psi = torch.randn((P, 2, 2**n), generator=gen, device=device)
+    psi = psi / torch.sqrt(torch.sum(psi * psi, dim=(1, 2), keepdim=True))
+    return psi if view is None else psi.reshape(P, 2, *view)
+
+
+def check_particle_axis(n: int, device, rng, gen, mode: str) -> dict:
+    """Every launcher at phase 2's ``n``-qubit shapes on a batch of BATCH
+    states, in dot ``mode`` (set by the caller; the reflections in f32
+    only, which have no mode): one launch for the batch, each particle the
+    bits of its own launch, the batch within LIMITS of the plain version
+    on the batch.  Returns {launch count name: result}."""
+    results = {}
+    window_tol, pair_tol, _ = LIMITS[mode]
+    cases = {}
+    for name in batch_geometries(n):
+        fn, plain, geom, _ = _launcher(name, n, rng, device)
+        cases[name] = (fn, plain, geom, window_tol if len(geom) == 2
+                       else pair_tol, None)
+    if mode == "f32":
+        (H, T, _), refl = _reflect_launchers(n, BATCH, rng, device)
+        for name, (fn, plain) in refl.items():
+            cases[name] = (fn, plain, (H, T), KERNEL_TOL, (H, T))
+    for name, (fn, plain, geom, tol, view) in cases.items():
+        psi = _batch_random(n, BATCH, gen, device, view)
+        singles = [_flat(fn(psi[p], p)) for p in range(BATCH)]
+        got, launches = _launch_delta(lambda: _flat(fn(psi)))
+        key = counter(name, mode) if "reflect" not in name else name
+        if launches != {key: 1}:
+            raise AssertionError(f"{key}: a batch of {BATCH} launched "
+                                 f"{launches}, not one {key}")
+        for p in range(BATCH):
+            for g, s in zip(got, singles[p]):
+                if not torch.equal(g[p], s):
+                    raise AssertionError(f"{key}: particle {p} of the batch "
+                                         f"differs from its own launch")
+        rel = max_abs = 0.0
+        for g, w in zip(got, _flat(plain(psi))):
+            r, m = compare(f"{key} batch of {BATCH}", g, w, tol)
+            rel, max_abs = max(rel, r), max(max_abs, m)
+        del got, singles
+        results[key] = {"geometry": list(geom), "n": n, "particles": BATCH,
+                        "bit_for_bit": True, "rel_l2": rel,
+                        "max_abs_err": max_abs}
+        say(f"{key} particle axis: {n}q {tuple(geom)}, a batch of {BATCH} "
+            f"in one launch, each particle bit for bit its own launch; rel "
+            f"L2 vs plain {rel:.3e}, max abs {max_abs:.3e}")
+    return results
+
+
+def time_particle_axis(n: int, device, rng, gen, mode: str,
+                       results: dict) -> None:
+    """One launch for BATCH_TIMED states at ``n`` qubits against
+    BATCH_TIMED single launches, in turns, with the batch's bound; into
+    ``results``."""
+    cases = {}
+    for name in batch_geometries(n):
+        fn, _, geom, w_bytes = _launcher(name, n, rng, device)
+        d1 = 2 ** geom[1]
+        d2 = 2 ** geom[2] if len(geom) == 3 else 0
+        cases[name] = (fn, None, w_bytes, d1, d2)
+    if mode == "f32":
+        (H, T, tables), refl = _reflect_launchers(n, BATCH_TIMED, rng,
+                                                  device)
+        for name, (fn, _) in refl.items():
+            cases[name] = (fn, (H, T), tables, 0, 0)
+    for name, (fn, view, w_bytes, d1, d2) in cases.items():
+        psi = _batch_random(n, BATCH_TIMED, gen, device, view)
+        batched_ms, singles_ms = timed_in_turns(
+            [lambda: fn(psi),
+             lambda: [fn(psi[p], p) for p in range(BATCH_TIMED)]], device)
+        amps = BATCH_TIMED * 2**n
+        # a reflection writes each particle's float64 (2, T) D
+        d_bytes = 16 * BATCH_TIMED * view[1] if view else 0
+        if name == "reflect_dot":
+            bnd = bound(psi.nbytes + w_bytes + d_bytes, fp32_flops=8 * amps)
+        elif name == "reflect_update":
+            bnd = bound(2 * psi.nbytes + w_bytes + d_bytes,
+                        fp32_flops=16 * amps)
+        elif d2:
+            bnd = pair_bound(2 * psi.nbytes + w_bytes, amps, d1, d2, mode)
+        else:
+            bnd = product_bound(2 * psi.nbytes + w_bytes, 8 * d1 * amps,
+                                mode, d1 >= 8)
+        del psi
+        key = counter(name, mode) if "reflect" not in name else name
+        results[key].update({"timed_n": n, "timed_particles": BATCH_TIMED,
+                             "ms": batched_ms, "singles_ms": singles_ms,
+                             "bound_ms": bnd[0], "bound_by": bnd[1]})
+        say(f"{key} particle axis: {n}q x {BATCH_TIMED} particles, one "
+            f"launch {batched_ms:.4f} ms, {BATCH_TIMED} single launches "
+            f"{singles_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, share "
+            f"{bnd[0] / batched_ms:.3f})")
+
+
+def smc_program(n: int) -> str:
+    """``bench.py``'s SMC workload (``bench.py:421-436``): layers of
+    Hadamards and CX on every third qubit around three measurements and a
+    disc (4 collapse events)."""
+    def layers():
+        return ([f"gate hadamardGate ; {q}" for q in range(0, n, 3)]
+                + [f"gate pauliXGate ; {q + 1} ; [{q}]"
+                   for q in range(0, n - 1, 3)])
+    lines = [f"qset tensorExp(computation.kets[0], {n})", *layers(),
+             "meas a ; computation ; [0]", *layers(),
+             f"gate hadamardGate ; {n // 2}",
+             f"meas b ; computation ; [{n // 2}]", *layers(),
+             f"disc [{n - 1}]", "meas c ; computation ; [1, 2]"]
+    return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The ensemble executor's plans through the kernels' plain versions
+    (on the same device): the reference of a kernel run."""
+    from qbot_tpu_torch.inference import ensemble_exec
+    from qbot_tpu_torch.tpu import planar
+
+    ensemble_exec.apply_plan_planar = planar.apply_plan_planar_ref
+    try:
+        yield
+    finally:
+        ensemble_exec.apply_plan_planar = planar.apply_plan_planar
+
+
+def _ensemble_run(src: str, device, sample: int, plain: bool = False):
+    """(results {name: probs}, final ensemble's particles and lost mass,
+    host seconds, peak device bytes, launches) of one run_lowered_ensemble
+    of ``src``."""
+    import warnings
+
+    from qbot_tpu_torch import run_lowered_ensemble
+
+    lp = lower_program(src, mid_measure=True)
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        if plain:
+            stack.enter_context(plain_versions())
+        stack.enter_context(warnings.catch_warnings())
+        warnings.simplefilter("ignore", RuntimeWarning)
+        t0 = time.perf_counter()
+        (res, ens), launches = _launch_delta(
+            lambda: run_lowered_ensemble(lp, sample=sample, seed=0,
+                                         device=device))
+        elapsed = time.perf_counter() - t0
+    if plain and launches:
+        raise AssertionError(f"the plain versions' run launched {launches}")
+    probs = {k: np.asarray(v.probs) for k, v in res.items()}
+    return (probs, (ens.num_particles, float(ens.lost_mass)), elapsed,
+            torch.cuda.max_memory_allocated(), launches)
+
+
+def _results_within(label: str, got: dict, want: dict, names,
+                    tol: float = ENSEMBLE_TOL) -> float:
+    err = max(float(np.max(np.abs(got[k] - want[k]))) for k in names)
+    if not err <= tol:
+        raise AssertionError(f"{label}: readouts off the plain versions' by "
+                             f"{err:.3e} > {tol:g}")
+    return err
+
+
+def smc_path(device, card: str) -> tuple[dict, dict]:
+    """``bench.py``'s SMC program at SMC_QUBITS through
+    run_lowered_ensemble(sample=SMC_PARTICLES, seed=0), SMC_RUNS times, and
+    once through the plain versions: each result sums to 1 within 1e-3;
+    ``a``, drawn before any sampling, within 1e-5 of the plain versions'.
+    Then the exact fan-out of the same program, every result within 1e-5 of
+    the plain versions'.  Returns ({run: launches}, numbers)."""
+    src = smc_program(SMC_QUBITS)
+    walls, runs = [], {}
+    for i in range(SMC_RUNS):
+        probs, (parts, lost), wall, peak, launches = _ensemble_run(
+            src, device, SMC_PARTICLES)
+        walls.append(wall)
+        if i == 0:
+            runs["smc_24q"] = launches
+    for name, p in probs.items():
+        if abs(float(np.sum(p)) - 1.0) > SMC_SUM_TOL:
+            raise AssertionError(f"SMC: {name} sums to {np.sum(p)}")
+    plain, *_ = _ensemble_run(src, device, SMC_PARTICLES, plain=True)
+    err = _results_within("SMC", probs, plain, ["a"])
+    warm = min(walls[1:])
+    numbers = {"smc_wall_s": warm, "smc_first_run_s": walls[0],
+               "smc_samples_per_s": SMC_PARTICLES / warm,
+               "smc_peak_bytes": peak}
+    say(f"SMC {SMC_QUBITS}q x {SMC_PARTICLES} particles (bench.py's "
+        f"program, 4 collapse events): warm wall {warm:.4f} s (first run "
+        f"{walls[0]:.4f} s), {SMC_PARTICLES / warm:.2f} samples/s, peak "
+        f"{peak / 2**30:.3f} GiB allocated; a within {err:.1e} of the "
+        f"plain versions; readouts { {k: v.tolist() for k, v in probs.items()} }; "
+        f"launches {runs['smc_24q']} ({card})")
+
+    exact, (parts, lost), wall, peak, launches = _ensemble_run(src, device,
+                                                               0)
+    runs["exact_24q"] = launches
+    want, (w_parts, w_lost), *_ = _ensemble_run(src, device, 0, plain=True)
+    err = _results_within("exact fan-out", exact, want, list(want))
+    if parts != w_parts or abs(lost - w_lost) > ENSEMBLE_TOL:
+        raise AssertionError(f"exact fan-out: {parts} particles, lost "
+                             f"{lost} against {w_parts}, {w_lost}")
+    numbers.update({"exact_wall_s": wall, "exact_peak_bytes": peak,
+                    "exact_particles": parts, "exact_lost_mass": lost})
+    say(f"exact fan-out {SMC_QUBITS}q: {parts} particles at the end, "
+        f"lost_mass {lost:.6e}, every readout within {err:.1e} of the "
+        f"plain versions; {wall:.4f} s, peak {peak / 2**30:.3f} GiB "
+        f"allocated; launches {launches} ({card})")
+    return runs, numbers
+
+
+def grover_smc(device) -> dict:
+    """A GROVER_SMC_QUBITS-qubit Grover init and GROVER_SMC_REPEATS bodies
+    (one ReflectStep each, under the particle axis) on a sampled ensemble
+    of GROVER_SMC_PARTICLES, then a measurement of qubits 0 and 1: the
+    pre-sampling distribution and the state before it within KERNEL_TOL of
+    the plain versions'.  Returns its launches."""
+    from qbot_tpu_torch.inference import ensemble_exec as ee
+
+    n = GROVER_SMC_QUBITS
+    marked, init, body = grover_circuits(n)
+    init_plan, body_plan = compile_circuit(init), compile_circuit(body)
+    if [type(s).__name__ for s in body_plan.steps] != ["ReflectStep"]:
+        raise AssertionError(f"Grover body compiled to {body_plan.steps}")
+
+    def run():
+        ens = ee.init_product_ensemble([np.array([1.0, 0.0])] * n,
+                                       B=GROVER_SMC_PARTICLES, device=device)
+        ens = ee.apply_plan_ensemble(ens, init_plan)
+        for _ in range(GROVER_SMC_REPEATS):
+            ens = ee.apply_plan_ensemble(ens, body_plan)
+        gen = torch.Generator(device=device).manual_seed(0)
+        return ens.psi, ee.measure_sample(gen, ens, n, [0, 1])[1]
+
+    (psi, dist), launches = _launch_delta(run)
+    with plain_versions():
+        (psi_ref, dist_ref), plain_launches = _launch_delta(run)
+    if plain_launches:
+        raise AssertionError(f"the plain versions' run launched "
+                             f"{plain_launches}")
+    rel, _ = compare("Grover SMC state", psi, psi_ref)
+    err = float(torch.max(torch.abs(dist - dist_ref)))
+    if not err <= ENSEMBLE_TOL:
+        raise AssertionError(f"Grover SMC: distribution off by {err:.3e}")
+    say(f"Grover {n}q x {GROVER_SMC_REPEATS} bodies on {GROVER_SMC_PARTICLES}"
+        f" particles, then meas [0, 1] sampled: distribution "
+        f"{dist.tolist()} within {err:.1e} of the plain versions, state rel "
+        f"L2 {rel:.3e}; launches {launches}")
+    return launches
+
+
+def ensemble_examples(device) -> dict:
+    """Every example through ``python -m qbot_tpu_torch FILE --compile
+    --ensemble`` on the card, against the port's own ``--device cpu``
+    output (readouts within 1e-6, the same stderr line).  Returns their
+    launches."""
+    total: dict = {}
+    card = torch.device(device).type
+    for path in sorted((ROOT / "examples").glob("*.qb")):
+        outs = {}
+        for dev in (card, "cpu"):
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                (rc, out), launches = _launch_delta(lambda: _capture(
+                    cli_main, [str(path), "--compile", "--ensemble",
+                               "--device", dev]))
+            if rc != 0:
+                raise AssertionError(f"{path.name} --compile --ensemble "
+                                     f"--device {dev}: rc {rc}")
+            outs[dev] = (out, err.getvalue().strip())
+            if dev == card:
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+        _same_readout(f"{path.name} --compile --ensemble", outs[card][0],
+                      outs["cpu"][0])
+        if outs[card][1] != outs["cpu"][1]:
+            raise AssertionError(f"{path.name}: {outs[card][1]} against "
+                                 f"{outs['cpu'][1]}")
+        say(f"example {path.name} --compile --ensemble: the card's readout "
+            f"matches --device cpu ({outs[card][1]})")
+    return total
+
+
 def _device_busy_ms(prof) -> float:
     """Milliseconds in which at least one device activity (kernel or copy)
     of the traced run was running: the union of their intervals."""
@@ -1414,8 +1817,8 @@ def _device_busy_ms(prof) -> float:
 def profile(n: int, device, out_dir: Path) -> None:
     """Runs Grover (phase 4), the brickwork paired and unpaired (phase 5),
     the 23-qubit brickwork whose plan holds the narrow pairs (phase 8), the
-    brickwork compiled at ``window=2`` (phase 9) and the density run (phase
-    6) once untimed, once timed on the host clock, and once under
+    brickwork compiled at ``window=2`` (phase 9), the density run (phase
+    6) and the SMC program (phase 10) once untimed, once timed on the host clock, and once under
     torch.profiler.  Prints each run's wall times,
     its device busy share (device-busy time over the traced wall time) and
     the profiler's table by device time, and writes the Chrome traces to
@@ -1438,15 +1841,20 @@ def profile(n: int, device, out_dir: Path) -> None:
         [np.array([1.0, 0.0])] * NARROW_DRIFT_QUBITS, device)
     window2 = compile_circuit(brick, window=STREAM_WINDOWS[0])
     _, _, run_density, rho0 = density_runner(device)
-    cases = {"grover": lambda: run(grover_psi0),
-             "brickwork": lambda: apply_plan_planar(brick_psi0, paired),
-             "brickwork_unpaired": lambda: apply_plan_planar(brick_psi0,
-                                                             unpaired),
+    smc_src = smc_program(SMC_QUBITS)
+    cases = {f"grover_{n}q": lambda: run(grover_psi0),
+             f"brickwork_{n}q": lambda: apply_plan_planar(brick_psi0,
+                                                          paired),
+             f"brickwork_unpaired_{n}q": lambda: apply_plan_planar(
+                 brick_psi0, unpaired),
              f"brickwork_{NARROW_DRIFT_QUBITS}q": lambda: apply_plan_planar(
                  narrow_psi0, narrow),
-             f"brickwork_window{STREAM_WINDOWS[0]}": lambda: apply_plan_planar(
-                 brick_psi0, window2),
-             "density": lambda: run_density(rho0)}
+             f"brickwork_window{STREAM_WINDOWS[0]}_{n}q":
+                 lambda: apply_plan_planar(brick_psi0, window2),
+             f"density_{DENSITY_N}q": lambda: run_density(rho0),
+             f"smc_{SMC_QUBITS}q": lambda: qbot_tpu_torch.run_lowered_ensemble(
+                 lower_program(smc_src, mid_measure=True),
+                 sample=SMC_PARTICLES, seed=0, device=device)}
     for name, fn in cases.items():
         fn()
         sync(device)
@@ -1462,12 +1870,16 @@ def profile(n: int, device, out_dir: Path) -> None:
         busy_ms = _device_busy_ms(prof)
         trace = out_dir / f"trace_{name}.json"
         prof.export_chrome_trace(str(trace))
-        say(f"profile [{kernels.dot_mode()}] {name} {n}q: wall "
+        say(f"profile [{kernels.dot_mode()}] {name}: wall "
             f"{wall_ms:.3f} ms untraced, "
             f"{traced_ms:.3f} ms traced; device busy {busy_ms:.3f} ms, "
             f"busy share {busy_ms / traced_ms:.3f}; trace {trace}")
         print(prof.key_averages().table(sort_by="self_device_time_total",
                                         row_limit=12), flush=True)
+        if name.startswith("smc"):
+            # a host-bound run: where its host time goes
+            print(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                            row_limit=12), flush=True)
 
 
 def main(argv=None) -> int:
@@ -1477,8 +1889,8 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", metavar="DIR", type=Path,
                         help="after the build, profile Grover, the "
                              "brickwork (paired and unpaired, at 23 "
-                             "qubits, and at window=2) and the density "
-                             "run with "
+                             "qubits, and at window=2), the density "
+                             "run and the SMC program with "
                              "torch.profiler, write their traces to DIR, "
                              "and run no other phase")
     parser.add_argument("--precision", choices=kernels.DOT_MODES,
@@ -1594,6 +2006,31 @@ def main(argv=None) -> int:
         f"{', '.join(map(str, STREAM_WINDOWS))} runs the streaming kernels "
         f"in every dot mode; launches "
         f"{ {k: v for k, v in stream_counts.items() if v} }")
+
+    particle = {}
+    for mode in ("f32", *REDUCED_MODES):
+        kernels.set_dot_mode(mode)
+        particle.update(check_particle_axis(N, device, rng, gen, mode))
+        time_particle_axis(BATCH_TIMED_QUBITS, device, rng, gen, mode,
+                           particle)
+    kernels.set_dot_mode("f32")
+    kernels.reset_launch_counts()
+    ensemble_runs, ensemble_numbers = smc_path(device, card)
+    ensemble_runs["grover_smc_20q"] = grover_smc(device)
+    ensemble_runs["examples_ensemble"] = ensemble_examples(device)
+    ensemble_counts = kernels.launch_counts()
+    missing = [k for k in PHASE10_KERNELS if ensemble_counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"phase 10 never launched {missing}")
+    for name in KERNEL_SOURCES:
+        counts[name] += ensemble_counts[name]
+    runs.update(ensemble_runs)
+    say(f"ensemble numbers: {json.dumps(ensemble_numbers)}")
+    say(f"phase 10: every launcher serves a batch in one launch, bit for "
+        f"bit its single launches, in every dot mode; the SMC and exact "
+        f"ensembles, Grover under the particle axis and the examples with "
+        f"--compile --ensemble agree with the plain versions; launches "
+        f"{ {k: v for k, v in ensemble_counts.items() if v} }")
     missing = [k for k in KERNEL_SOURCES if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -1604,7 +2041,11 @@ def main(argv=None) -> int:
     say(f"Grover {N}q: {grover_rate:.1f} gates/s; brickwork {N}q: "
         f"{brick_rates['paired']:.1f} gates/s paired, "
         f"{brick_rates['unpaired']:.1f} unpaired; density {DENSITY_N}q: "
-        f"{density_rate:.1f} gates/s ({card})")
+        f"{density_rate:.1f} gates/s; SMC {SMC_QUBITS}q x {SMC_PARTICLES}: "
+        f"{ensemble_numbers['smc_samples_per_s']:.2f} samples/s, peak "
+        f"{ensemble_numbers['smc_peak_bytes'] / 2**30:.3f} GiB; exact "
+        f"fan-out peak {ensemble_numbers['exact_peak_bytes'] / 2**30:.3f} "
+        f"GiB ({card})")
 
     print(smi)
     print(json.dumps({"kernels": [
@@ -1621,7 +2062,8 @@ def main(argv=None) -> int:
          "library_split_ms": results[name].get("library_split_ms"),
          "two_window_ms": results[name].get("two_window_ms"),
          "rel_l2_f64": results[name].get("rel_l2_f64"),
-         "shapes": results[name]["shapes"]}
+         "shapes": results[name]["shapes"],
+         "particle_axis": particle[name]}
         for name, (src, rep) in KERNEL_SOURCES.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ passes) under the same module names.
 Entry points: :func:`executeTxt` / :func:`executeFile` (the dense host
 interpreter), :func:`executeTxtEnsemble` (its exact probabilistic-branching
 ensemble), :func:`lower_program` and :func:`run_lowered` (a .qb program
-on the planar executor),
+on the planar executor), :func:`run_lowered_ensemble` and
+:func:`executeTxtDeviceEnsemble` (mid-circuit measurement and
+probabilistic control flow on the device particle ensemble, exact or SMC),
 :func:`compile_circuit` (circuit IR to a plan, paired by default), and the
 statevector and density-matrix executors in
 :mod:`qbot_tpu_torch.tpu.planar`.  :func:`planar_from_numpy` and
@@ -19,9 +21,14 @@ statevector and density-matrix executors in
 import numpy as np
 import torch
 
+from qbot_tpu_torch.frontend.device_ensemble import executeTxtDeviceEnsemble
 from qbot_tpu_torch.frontend.ensemble import executeTxtEnsemble
 from qbot_tpu_torch.frontend.interpreter import executeFile, executeTxt
-from qbot_tpu_torch.frontend.lowering import lower_program, run_lowered
+from qbot_tpu_torch.frontend.lowering import (
+    lower_program,
+    run_lowered,
+    run_lowered_ensemble,
+)
 from qbot_tpu_torch.tpu.compiler import compile_circuit
 
 __version__ = "0.1.0"
@@ -46,6 +53,7 @@ def main():
 
 
 __all__ = ["executeTxt", "executeFile", "executeTxtEnsemble",
-           "lower_program", "run_lowered",
+           "executeTxtDeviceEnsemble", "lower_program", "run_lowered",
+           "run_lowered_ensemble",
            "compile_circuit", "planar_from_numpy",
            "planar_to_numpy", "main", "__version__"]

@@ -3,16 +3,19 @@
 ``python -m qbot_tpu_torch FILE --compile [--device cuda|cpu]
 [--precision f32|f32_mix|bf16_3x|bf16]`` runs a .qb program's unitary
 fragment on the planar executor, with the same output as ``python -m
-qbot_tpu FILE --compile`` (``qbot_tpu/cli.py:193-247``).  Without
-``--compile`` the program runs on the port's copy of the dense host
-interpreter, as it does under ``qbot_tpu``, ``--ensemble`` on its copy of
-the exact host ensemble.
+qbot_tpu FILE --compile`` (``qbot_tpu/cli.py:193-247``).  ``--compile
+--ensemble [--smc B] [--seed S]`` runs it on the device particle ensemble
+(mid-circuit ``meas``, ``disc``, targeted ``qset`` and ProbVal control
+flow; exact fan-out, or B sampled SMC particles), as ``qbot_tpu/cli.py:
+123-191`` does without its mesh.  Without ``--compile`` the program runs
+on the port's copy of the dense host interpreter, as it does under
+``qbot_tpu``, ``--ensemble`` on its copy of the exact host ensemble, and
+``--smc`` is ignored there, as under ``qbot_tpu``.
 
 The parser takes every flag of ``qbot_tpu/cli.py:22-75``, with the same
 names, choices and defaults, and ``--device``.  The flags whose slice has
-not landed (``--backend jax``, ``--smc``, ``--shard``, ``--mesh``,
-``--compile --ensemble``) print the ROADMAP item that brings them and
-exit 1.
+not landed (``--backend jax``, ``--shard``, ``--mesh``) print the ROADMAP
+item that brings them and exit 1.
 """
 from __future__ import annotations
 
@@ -68,7 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "execution branches")
     parser.add_argument("--smc", type=int, default=0, metavar="B",
                         help="with --compile --ensemble: run B sampled SMC "
-                             "particles (not ported yet)")
+                             "particles")
     parser.add_argument("--mesh", type=str, default=None, metavar="PxQ",
                         help="device mesh shape for --shard runs (not "
                              "ported yet)")
@@ -98,16 +101,42 @@ def _not_ported(args) -> str | None:
     if args.backend == "jax":
         return ("--backend jax: the port has no jax engine and imports no "
                 "jax (ROADMAP, North star); use --backend numpy")
-    if args.smc:
-        return ("--smc is not ported yet (ROADMAP queue 1, item 7: the "
-                "device ensemble and SMC)")
     if args.shard or args.mesh:
         return ("--shard and --mesh are not ported yet (ROADMAP queue 1, "
                 "item 10: multi-GPU)")
-    if args.compile_mode and args.ensemble:
-        return ("--compile --ensemble is not ported yet (ROADMAP queue 1, "
-                "item 7: the device ensemble)")
     return None
+
+
+def _run_device_ensemble(path: str, args) -> int:
+    """``--compile --ensemble``: quantum registers live on the device
+    particle axis; ProbVal control flow forks host-side particles that
+    share device tensors; mid-circuit meas/disc fan (or, with --smc,
+    sample) device particles."""
+    from qbot_tpu_torch.frontend.device_ensemble import (
+        execute_lines_device_ensemble,
+    )
+    from qbot_tpu_torch.frontend.interpreter import peek_opcode
+    from qbot_tpu_torch.ops.measurement import MeasurementResult
+
+    with open(path, "r") as f:
+        lines = f.read().splitlines()
+    res, particles = execute_lines_device_ensemble(
+        lines, sample=args.smc, seed=args.seed, device=args.device)
+    n_dev = sum(p.qreg.num_particles for p in particles
+                if p.qreg is not None)
+    extra = (f", pruned mass <= {res.lost_mass:.3e}"
+             if res.lost_mass > 0 else "")
+    print(f"device ensemble: {len(particles)} branches, "
+          f"{n_dev} device particles{extra}", file=sys.stderr)
+    # programs that print their own output did so during execution;
+    # otherwise show every bound measurement result
+    if not any(peek_opcode(line) == "cout" for line in lines):
+        for name, val in res.namespace.items():
+            if not name.startswith("__") and isinstance(
+                    val, MeasurementResult):
+                print(f"{name}:")
+                print(val, end="")
+    return 0
 
 
 def main(argv=None) -> int:
@@ -165,6 +194,8 @@ def main(argv=None) -> int:
         if args.device == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available: pass --device cpu to "
                                "run the --compile engine on the CPU")
+        if args.ensemble:
+            return _run_device_ensemble(path, args)
         with open(path, "r") as f:
             lp = lower_program(f.read())
         plan = compile_circuit(lp.circuit)

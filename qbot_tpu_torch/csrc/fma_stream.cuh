@@ -118,16 +118,17 @@ __device__ __forceinline__ void stream_phases(
   }
 }
 
-// Resident blocks of a streaming kernel and the grid that walks groups
-// of its columns with THREADS threads a block: at most one block a group
-// of THREADS, at most the resident ones.  Returns 0 with err set on failure.
+// Resident blocks of a streaming kernel and the x extent of the grid that
+// walks groups of its columns with THREADS threads a block, for each of
+// `particles` states: at most one block a group of THREADS, at most the
+// resident ones shared out among the particles (particle_grid).  Returns 0
+// with err set on failure.
 template <typename Kernel>
-unsigned stream_grid(Kernel kernel, int64_t groups, int* blocks_cap,
-                     cudaError_t& err) {
+unsigned stream_grid(Kernel kernel, int64_t groups, int particles,
+                     int* blocks_cap, cudaError_t& err) {
   const int cap = resident_blocks(kernel, 0, blocks_cap, err);
   if (cap == 0) return 0;
-  const int64_t blocks = (groups + THREADS - 1) / THREADS;
-  return static_cast<unsigned>(blocks < cap ? blocks : cap);
+  return particle_grid((groups + THREADS - 1) / THREADS, cap, particles);
 }
 
 }  // namespace

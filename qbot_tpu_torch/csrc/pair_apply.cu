@@ -206,6 +206,8 @@ __global__ void __launch_bounds__(NT, 1)
   float* xi = smem + plane;
   float* wbuf = smem + 2 * plane;  // two [2][BK][WROW] matrix chunks
   const int tid = threadIdx.x;
+  psi += particle_offset(n_amps);
+  out += particle_offset(n_amps);
 
   int64_t base, sl_step, el_step;
   if (TRAILING) {
@@ -432,7 +434,7 @@ int smem_bytes(bool trailing, int log_d1, int log_d2, int log_s) {
 template <bool TRAILING, int PREC>
 int launch(const float* psi, float* out, const float* w1, const float* w2,
            int64_t n_amps, int log_d1, int log_d2, int log_b, int log_s,
-           int64_t blocks, const int64_t* flips, int nflips,
+           int64_t blocks, int particles, const int64_t* flips, int nflips,
            const int64_t* masks, const int64_t* wants, const float* phase,
            int nphases, cudaStream_t stream) {
   // above 48 KB of dynamic shared memory only once the kernel allows it
@@ -443,7 +445,7 @@ int launch(const float* psi, float* out, const float* w1, const float* w2,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   pair_apply_kernel<TRAILING, PREC>
-      <<<static_cast<unsigned>(blocks), NT, smem, stream>>>(
+      <<<dim3(static_cast<unsigned>(blocks), particles), NT, smem, stream>>>(
           psi, out, w1, w2, n_amps, log_d1, log_d2, log_b, log_s, flips,
           nflips, masks, wants, phase, nphases);
   return static_cast<int>(cudaGetLastError());
@@ -477,12 +479,13 @@ int launch_tc_any(int log_d1, bool middle, const PairArgs& args) {
 
 template <int PREC>
 int launch_pair(const float* psi, float* out, const float* w1,
-                const float* w2, int64_t n_amps, int log_d1, int log_d2,
-                int log_b, const int64_t* flips, int nflips,
+                const float* w2, int64_t n_amps, int particles, int log_d1,
+                int log_d2, int log_b, const int64_t* flips, int nflips,
                 const int64_t* masks, const int64_t* wants,
                 const float* phase, int nphases, cudaStream_t s) {
-  const PairArgs args{psi,   out,    w1,    w2,    n_amps, log_d2, log_b,
-                      flips, nflips, masks, wants, phase,  nphases, s};
+  const PairArgs args{psi,   out,    w1,    w2,      n_amps, log_d2,
+                      log_b, flips,  nflips, masks,  wants,  phase,
+                      nphases, s,    particles};
   if (log_d1 >= 3 && log_d2 >= 3)
     return launch_tc_any<PREC>(log_d1, log_b != 0, args);
   if (log_d1 <= 2 && log_d2 <= 2)
@@ -491,7 +494,7 @@ int launch_pair(const float* psi, float* out, const float* w1,
     // the narrow pair: the D2 window with W = W2, W1 mixed in as it stages
     const WindowArgs a{psi,    out,   w2,    n_amps, log_d2, log_b,
                        flips,  nflips, masks, wants, phase,  nphases,
-                       s,      w1};
+                       s,      w1,    particles};
     return log_d1 == 1 ? window_tc_launch<2, PREC>(a)
                        : window_tc_launch<4, PREC>(a);
   }
@@ -507,46 +510,51 @@ int launch_pair(const float* psi, float* out, const float* w1,
     --log_s;
   if (log_b == 0)
     return launch<true, PREC>(psi, out, w1, w2, n_amps, log_d1, log_d2, 0,
-                              log_s, int64_t(1) << (log_a - log_s), flips,
-                              nflips, masks, wants, phase, nphases, s);
+                              log_s, int64_t(1) << (log_a - log_s),
+                              particles, flips, nflips, masks, wants, phase,
+                              nphases, s);
   return launch<false, PREC>(psi, out, w1, w2, n_amps, log_d1, log_d2, log_b,
                              log_s, int64_t(1) << (log_a + log_b - log_s),
-                             flips, nflips, masks, wants, phase, nphases, s);
+                             particles, flips, nflips, masks, wants, phase,
+                             nphases, s);
 }
 
 }  // namespace
 
-// psi, out: (2, n_amps) float32, 16-byte aligned; w1: (2, D1, D1), w2:
+// psi, out: (particles, 2, n_amps) float32, 16-byte aligned, one launch for
+// all the particles (tc_tile.cuh: particle_offset); w1: (2, D1, D1), w2:
 // (2, D2, D2) float32, w2 16-byte aligned, with Di = 2^log_di; B = 2^log_b;
 // prec: the precision of the products (tc_tile.cuh: Prec).  B == 1 runs the
 // trailing pair, B >= 128 with D1 <= 32 the middle pair; other geometries
 // are refused (the caller runs two windows).  Returns the launch's
 // cudaGetLastError().
 extern "C" int qbot_pair_apply(const float* psi, float* out, const float* w1,
-                               const float* w2, int64_t n_amps, int log_d1,
-                               int log_d2, int log_b, const int64_t* flips,
-                               int nflips, const int64_t* masks,
-                               const int64_t* wants, const float* phase,
-                               int nphases, int prec, void* stream) {
+                               const float* w2, int64_t n_amps,
+                               int particles, int log_d1, int log_d2,
+                               int log_b, const int64_t* flips, int nflips,
+                               const int64_t* masks, const int64_t* wants,
+                               const float* phase, int nphases, int prec,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (log_d1 < 1 || log_d1 > 7 || log_d2 < 1 || log_d2 > 7 ||
-      (n_amps >> (log_d1 + log_d2 + log_b)) < 1)
+      (n_amps >> (log_d1 + log_d2 + log_b)) < 1 || particles < 1 ||
+      particles > MAX_PARTICLES)
     return static_cast<int>(cudaErrorInvalidValue);
   if (log_b != 0 && (log_b < 7 || log_d1 > 5))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (prec) {
     case F32:
-      return launch_pair<F32>(psi, out, w1, w2, n_amps, log_d1, log_d2,
-                              log_b, flips, nflips, masks, wants, phase,
-                              nphases, s);
+      return launch_pair<F32>(psi, out, w1, w2, n_amps, particles, log_d1,
+                              log_d2, log_b, flips, nflips, masks, wants,
+                              phase, nphases, s);
     case BF16X3:
-      return launch_pair<BF16X3>(psi, out, w1, w2, n_amps, log_d1, log_d2,
-                                 log_b, flips, nflips, masks, wants, phase,
-                                 nphases, s);
+      return launch_pair<BF16X3>(psi, out, w1, w2, n_amps, particles, log_d1,
+                                 log_d2, log_b, flips, nflips, masks, wants,
+                                 phase, nphases, s);
     case BF16:
-      return launch_pair<BF16>(psi, out, w1, w2, n_amps, log_d1, log_d2,
-                               log_b, flips, nflips, masks, wants, phase,
-                               nphases, s);
+      return launch_pair<BF16>(psi, out, w1, w2, n_amps, particles, log_d1,
+                               log_d2, log_b, flips, nflips, masks, wants,
+                               phase, nphases, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -163,6 +163,7 @@ __global__ void __launch_bounds__((PairBf16Tile<D1, D2, MIDDLE, PREC>::NT), 1)
   long long* cmask = reinterpret_cast<long long*>(comb + (1 << TABLE));
   long long* cwant = cmask + TABLE;
   uint32_t* mtab = reinterpret_cast<uint32_t*>(cwant + TABLE);
+  const int pl0 = particle_plane();
 
   // the thread's walker, and its index, warp and lane in it
   const int wid = threadIdx.x / T::WT, tid = threadIdx.x % T::WT;
@@ -288,7 +289,8 @@ __global__ void __launch_bounds__((PairBf16Tile<D1, D2, MIDDLE, PREC>::NT), 1)
         const int j = 16 * ks + slot_j(e);
         const bool v = ok && j < D1;
         cp_async4(dst + pl * 128 + e,
-                  psi + pl * n_amps + (v ? base + (int64_t(j) << jshift) : 0),
+                  psi + (pl0 + pl) * n_amps +
+                      (v ? base + (int64_t(j) << jshift) : 0),
                   v);
       }
     }
@@ -531,7 +533,7 @@ __global__ void __launch_bounds__((PairBf16Tile<D1, D2, MIDDLE, PREC>::NT), 1)
         const int64_t ub = unit_base(u);
         for (int e = tid; e < 2 * T::IN * 8; e += T::WT) {
           const int lc = e & 7, il = (e >> 3) % T::IN, p = e / (8 * T::IN);
-          float* dst = out + p * n_amps + ub +
+          float* dst = out + (pl0 + p) * n_amps + ub +
                        ((int64_t((il << T::LOG_D2) + 8 * lt + lc)) << log_b);
           const float* src = sb + e * T::SG;
           if constexpr (T::SG >= 4) {
@@ -552,7 +554,7 @@ __global__ void __launch_bounds__((PairBf16Tile<D1, D2, MIDDLE, PREC>::NT), 1)
         for (int hh = 0; hh < (T::IN < 16 ? 1 : 2); ++hh) {
 #pragma unroll
           for (int p = 0; p < 2; ++p) {
-            *reinterpret_cast<float2*>(out + p * n_amps + obase +
+            *reinterpret_cast<float2*>(out + (pl0 + p) * n_amps + obase +
                                        (int64_t(8 * hh) << T::LOG_D2) +
                                        8 * lt) =
                 make_float2(o[p][2 * hh], o[p][2 * hh + 1]);
@@ -572,19 +574,20 @@ int launch_bf16_pair(const PairArgs& a) {
     return static_cast<int>(cudaErrorInvalidValue);
   static int blocks_cap[MAX_DEVICES] = {};  // resident blocks, per device
   cudaError_t err;
-  int cap = resident_blocks(pair_bf16_kernel<D1, D2, MIDDLE, PREC>, T::SMEM,
-                            blocks_cap, err, T::NT);
+  const int cap =
+      resident_blocks(pair_bf16_kernel<D1, D2, MIDDLE, PREC>, T::SMEM,
+                      blocks_cap, err, T::NT);
   if (cap == 0) return static_cast<int>(err);
-  cap -= cap % T::H;  // every part of a unit in the same round
   const int64_t slabs = a.n_amps >> (T::LOG_D1 + T::LOG_D2);
   const int64_t units = (slabs + T::SG - 1) / T::SG;
   const int64_t work = (units + T::NW - 1) / T::NW * T::H;
-  const unsigned grid = static_cast<unsigned>(work < cap ? work : cap);
+  // every part of a unit in the same round: whole units of H blocks
+  const unsigned grid = particle_grid(work, cap, a.particles, T::H);
   const Diag diag{a.flips, a.nflips, a.masks, a.wants,
                   a.phase, a.nphases, a.n_amps - 1};
   pair_bf16_kernel<D1, D2, MIDDLE, PREC>
-      <<<grid, T::NT, T::SMEM, a.stream>>>(a.psi, a.out, a.w1, a.w2,
-                                           a.n_amps, a.log_b, diag);
+      <<<dim3(grid, a.particles), T::NT, T::SMEM, a.stream>>>(
+          a.psi, a.out, a.w1, a.w2, a.n_amps, a.log_b, diag);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,7 +9,7 @@
 namespace {
 
 // One element of a product in a dot mode as the plain version forms it
-// (tpu/kernels.py: pair_apply_ref, _mode_einsum): for the row w[part][k] =
+// (tpu/kernels.py: pair_apply_ref, _mode_bmm): for the row w[part][k] =
 // (re, im) of W's parts and the K values x[part][plane][k],
 //   re = M(Wr, xr) - M(Wi, xi),  im = M(Wr, xi) + M(Wi, xr),
 //   M(a, b) = (E(a_hi, b_hi) + E(a_hi, b_lo)) + E(a_lo, b_hi)   (BF16X3),
@@ -99,6 +99,8 @@ __global__ void __launch_bounds__(THREADS, D1 * D2 >= 8 ? 2 : 3)
   __shared__ uint32_t jtab[S];
   __shared__ float2 comb[1 << TABLE];
   __shared__ long long cmask[TABLE], cwant[TABLE];
+  psi += particle_offset(n_amps);
+  out += particle_offset(n_amps);
   stage_parts<D1, PREC>(w1, w1s);
   stage_parts<D2, PREC>(w2, w2s);
   diag_tables<S, false>(diag, log_b, jtab, comb, cmask, cwant);
@@ -213,19 +215,19 @@ int launch_pair_stream(const PairArgs& a) {
   if (a.log_b == 0) {
     const unsigned grid =
         stream_grid(pair_fma_stream_kernel<D1, D2, 1, true, PREC>,
-                    a.n_amps / S, cap_trail, err);
+                    a.n_amps / S, a.particles, cap_trail, err);
     if (grid == 0) return static_cast<int>(err);
     pair_fma_stream_kernel<D1, D2, 1, true, PREC>
-        <<<grid, THREADS, 0, a.stream>>>(a.psi, a.out, a.w1, a.w2, a.n_amps,
-                                         0, diag);
+        <<<dim3(grid, a.particles), THREADS, 0, a.stream>>>(
+            a.psi, a.out, a.w1, a.w2, a.n_amps, 0, diag);
   } else {
     const unsigned grid =
         stream_grid(pair_fma_stream_kernel<D1, D2, V, false, PREC>,
-                    a.n_amps / S / V, cap_middle, err);
+                    a.n_amps / S / V, a.particles, cap_middle, err);
     if (grid == 0) return static_cast<int>(err);
     pair_fma_stream_kernel<D1, D2, V, false, PREC>
-        <<<grid, THREADS, 0, a.stream>>>(a.psi, a.out, a.w1, a.w2, a.n_amps,
-                                         a.log_b, diag);
+        <<<dim3(grid, a.particles), THREADS, 0, a.stream>>>(
+            a.psi, a.out, a.w1, a.w2, a.n_amps, a.log_b, diag);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -93,6 +93,7 @@ struct PairArgs {
   const float* phase;
   int nphases;
   cudaStream_t stream;
+  int particles = 1;  // states of the launch (tc_tile.cuh)
 };
 
 // The launcher of the tensor-core pair at one D1, orientation and
@@ -180,6 +181,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   float2* comb = reinterpret_cast<float2*>(jtab + D1);
   long long* cmask = reinterpret_cast<long long*>(comb + (1 << TABLE));
   long long* cwant = cmask + TABLE;
+  const int pl0 = particle_plane();
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -253,7 +255,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int rl = r0 + 4 * rq;
         const bool ok = MIDDLE || slab_of(u, rl) < slabs;
         cp_async(st + pl * T::PLANE + k * T::P1 + 4 * rq,
-                 psi + pl * n_amps +
+                 psi + (pl0 + pl) * n_amps +
                      (ok ? row_base(u, rl) + (int64_t(j0 + k) << jshift) : 0),
                  16, ok);
       }
@@ -430,7 +432,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             const int l = (wi * T::NI2 + it) * 8 + 2 * t;
 #pragma unroll
             for (int pl = 0; pl < 2; ++pl) {
-              float* o = out + pl * n_amps + base;
+              float* o = out + (pl0 + pl) * n_amps + base;
               if constexpr (MIDDLE) {
                 o[int64_t(l) << log_b] = acc[it][pl][2 * rr];
                 o[int64_t(l + 1) << log_b] = acc[it][pl][2 * rr + 1];
@@ -455,17 +457,19 @@ int launch_tc(const PairArgs& a) {
     return static_cast<int>(cudaErrorInvalidValue);
   static int blocks_cap[MAX_DEVICES] = {};  // resident blocks, per device
   cudaError_t err;
-  int cap = resident_blocks(pair_tc_kernel<D1, D2, MIDDLE, PREC>, T::SMEM,
-                            blocks_cap, err);
+  const int cap =
+      resident_blocks(pair_tc_kernel<D1, D2, MIDDLE, PREC>, T::SMEM,
+                      blocks_cap, err);
   if (cap == 0) return static_cast<int>(err);
-  cap -= cap % T::H;  // every part of a unit in the same round
   const int64_t slabs = a.n_amps >> (T::LOG_D1 + T::LOG_D2);
   const int64_t work = (slabs + T::S - 1) / T::S * T::H;
-  const unsigned grid = static_cast<unsigned>(work < cap ? work : cap);
+  // every part of a unit in the same round: whole units of H blocks
+  const unsigned grid = particle_grid(work, cap, a.particles, T::H);
   const Diag diag{a.flips, a.nflips, a.masks, a.wants,
                   a.phase, a.nphases, a.n_amps - 1};
-  pair_tc_kernel<D1, D2, MIDDLE, PREC><<<grid, THREADS, T::SMEM, a.stream>>>(
-      a.psi, a.out, a.w1, a.w2, a.n_amps, a.log_b, diag);
+  pair_tc_kernel<D1, D2, MIDDLE, PREC>
+      <<<dim3(grid, a.particles), THREADS, T::SMEM, a.stream>>>(
+          a.psi, a.out, a.w1, a.w2, a.n_amps, a.log_b, diag);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,12 +30,19 @@
 // kernel gives each lane t a block whose threads sum strided chunks, then
 // a fixed-shape tree: one thread per lane summing 1024 chunks in a row took
 // 129 us a call at 26 qubits, a fifth of the Grover loop.
+//
+// The particle axis: one launch of each kernel serves P states of one shape,
+// (P, 2, H, T), each with its own c, partials and D.  The row chunks hold
+// the grid's y axis, so the particle is blockIdx.z (the reduction's
+// blockIdx.y); every kernel advances its pointers to its particle on entry,
+// and each particle's sums are those of its own launch.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int MAX_PARTICLES = 65535;  // gridDim.y and gridDim.z
 
 template <bool UPDATE>
 __global__ void __launch_bounds__(THREADS) reflect_pass(
@@ -52,6 +59,13 @@ __global__ void __launch_bounds__(THREADS) reflect_pass(
   const int64_t h_lo = int64_t(blockIdx.y) * rows_per_block;
   const int64_t h_hi = h_lo + rows_per_block < H ? h_lo + rows_per_block : H;
   const int64_t n_amps = H * T;
+  const int64_t p = blockIdx.z;  // the particle
+  psi += p * 2 * n_amps;
+  if (UPDATE) {
+    out += p * 2 * n_amps;
+    c += 2 * p;
+  }
+  partial += p * 2 * T * gridDim.y;
 
   double dr = 0.0, di = 0.0;
   if (t < T) {
@@ -108,6 +122,8 @@ __global__ void __launch_bounds__(REDUCE_THREADS) reduce_partials(
     int nchunks) {
   __shared__ double red[2][REDUCE_THREADS];
   const int64_t t = blockIdx.x;
+  partial += int64_t(blockIdx.y) * 2 * T * nchunks;  // the particle's
+  d += int64_t(blockIdx.y) * 2 * T;
   double dr = 0.0, di = 0.0;
   for (int k = threadIdx.x; k < nchunks; k += REDUCE_THREADS) {
     dr += partial[t * nchunks + k];
@@ -132,41 +148,48 @@ __global__ void __launch_bounds__(REDUCE_THREADS) reduce_partials(
 template <bool UPDATE>
 int run(const float* psi, float* out, const float* a, const float* b,
         const float* c, const int64_t* flips, int nflips, int64_t H,
-        int64_t T, int64_t rows_per_block, int nchunks, double* partial,
-        double* d, cudaStream_t stream) {
+        int64_t T, int64_t rows_per_block, int nchunks, int particles,
+        double* partial, double* d, cudaStream_t stream) {
+  if (particles < 1 || particles > MAX_PARTICLES)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int tt = T < THREADS ? static_cast<int>(T) : THREADS;
   const dim3 grid(static_cast<unsigned>((T + tt - 1) / tt),
-                  static_cast<unsigned>(nchunks));
+                  static_cast<unsigned>(nchunks),
+                  static_cast<unsigned>(particles));
   reflect_pass<UPDATE><<<grid, (THREADS / tt) * tt, 0, stream>>>(
       psi, out, a, b, c, flips, nflips, H, T, tt, rows_per_block, partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_partials<<<static_cast<unsigned>(T), REDUCE_THREADS, 0, stream>>>(
-      partial, d, T, nchunks);
+  reduce_partials<<<dim3(static_cast<unsigned>(T),
+                         static_cast<unsigned>(particles)),
+                    REDUCE_THREADS, 0, stream>>>(partial, d, T, nchunks);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// psi: (2, H, T) float32; a: (2, H); partial: (2, T, nchunks) float64
-// scratch with nchunks = ceil(H / rows_per_block); d: (2, T) float64.
+// psi: (particles, 2, H, T) float32; a: (2, H); partial: (particles, 2, T,
+// nchunks) float64 scratch with nchunks = ceil(H / rows_per_block); d:
+// (particles, 2, T) float64.
 extern "C" int qbot_reflect_dot(const float* psi, const float* a, int64_t H,
                                 int64_t T, int64_t rows_per_block,
-                                int nchunks, double* partial, double* d,
-                                void* stream) {
+                                int nchunks, int particles, double* partial,
+                                double* d, void* stream) {
   return run<false>(psi, nullptr, a, nullptr, nullptr, nullptr, 0, H, T,
-                    rows_per_block, nchunks, partial, d,
+                    rows_per_block, nchunks, particles, partial, d,
                     static_cast<cudaStream_t>(stream));
 }
 
-// As qbot_reflect_dot, plus out: (2, H, T), b: (2, T), c: (2,) and flips.
+// As qbot_reflect_dot, plus out: (particles, 2, H, T), b: (2, T), c:
+// (particles, 2) and flips.
 extern "C" int qbot_reflect_update(const float* psi, float* out,
                                    const float* a, const float* b,
                                    const float* c, const int64_t* flips,
                                    int nflips, int64_t H, int64_t T,
                                    int64_t rows_per_block, int nchunks,
-                                   double* partial, double* d,
+                                   int particles, double* partial, double* d,
                                    void* stream) {
   return run<true>(psi, out, a, b, c, flips, nflips, H, T, rows_per_block,
-                   nchunks, partial, d, static_cast<cudaStream_t>(stream));
+                   nchunks, particles, partial, d,
+                   static_cast<cudaStream_t>(stream));
 }

@@ -758,4 +758,39 @@ int resident_blocks(Kernel kernel, int smem, int* cache, cudaError_t& err,
   return cache[dev];
 }
 
+// The particle axis.  A batched launch serves P states of one shape, laid
+// out one after another as (P, 2, n_amps) (the ensemble's (B, 2, 2^n)):
+// blockIdx.y is the particle, and a kernel advances its state and output
+// pointers by particle_offset(n_amps) on entry, so that all its index
+// arithmetic, the flat indices of the fused flips and phases included, is
+// that of one state.  The tensor-core kernels (window_tc.cuh,
+// pair_tc.cuh, window_bf16.cuh, pair_bf16.cuh) sit at their register
+// limits, where the two moved pointers (4 registers) spilled the f32
+// trailing D = 128 window (11% slower on an H100) and slowed the reduced
+// windows by 5-17%: they index the batch's planes from particle_plane()
+// instead, one register.  gridDim.y holds at most MAX_PARTICLES.
+constexpr int MAX_PARTICLES = 65535;
+
+__device__ __forceinline__ int64_t particle_offset(int64_t n_amps) {
+  return int64_t(blockIdx.y) * 2 * n_amps;
+}
+
+// the batch's plane of this particle's real part; its imaginary part is
+// the next one
+__device__ __forceinline__ int particle_plane() { return 2 * blockIdx.y; }
+
+// The x extent of a persistent grid whose y axis holds `particles` states:
+// at most `work` blocks, and the `cap` resident blocks shared out among the
+// particles in multiples of `unit` (one unit at least), so that a batched
+// launch fills the card as one state's launch does.  Which block computes
+// an element changes with it, how the element is computed does not: a
+// batched launch gives each particle the bits of its own launch.
+inline unsigned particle_grid(int64_t work, int cap, int particles,
+                              int unit = 1) {
+  int64_t per = cap / (particles > 0 ? particles : 1);
+  per -= per % unit;
+  if (per < unit) per = unit;
+  return static_cast<unsigned>(work < per ? work : per);
+}
+
 }  // namespace

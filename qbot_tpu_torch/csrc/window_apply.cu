@@ -110,6 +110,8 @@ __global__ void __launch_bounds__(THREADS, 3)
   __shared__ uint32_t jtab[D];
   __shared__ float2 comb[1 << TABLE];
   __shared__ long long cmask[TABLE], cwant[TABLE];
+  psi += particle_offset(n_amps);
+  out += particle_offset(n_amps);
   stage_parts<D, PREC>(w, ws);
   diag_tables<D, false>(diag, log_b, jtab, comb, cmask, cwant);
   __syncthreads();
@@ -199,12 +201,13 @@ int launch_fma_stream(const WindowArgs& a) {
   cudaError_t err;
   const unsigned grid =
       stream_grid(window_fma_stream_kernel<D, V, TRAIL, PREC>,
-                  a.n_amps / D / V, blocks_cap, err);
+                  a.n_amps / D / V, a.particles, blocks_cap, err);
   if (grid == 0) return static_cast<int>(err);
   const Diag diag{a.flips, a.nflips, a.masks, a.wants,
                   a.phase, a.nphases, a.n_amps - 1};
-  window_fma_stream_kernel<D, V, TRAIL, PREC><<<grid, THREADS, 0, a.stream>>>(
-      a.psi, a.out, a.w, a.n_amps, a.log_b, diag);
+  window_fma_stream_kernel<D, V, TRAIL, PREC>
+      <<<dim3(grid, a.particles), THREADS, 0, a.stream>>>(
+          a.psi, a.out, a.w, a.n_amps, a.log_b, diag);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -233,19 +236,22 @@ int launch(const WindowArgs& a) {
 
 }  // namespace
 
-// psi, out: (2, n_amps) float32, 16-byte aligned; w: (2, D, D) float32 with
-// D = 2^log_d; B = 2^log_b; prec: the precision of the products
+// psi, out: (particles, 2, n_amps) float32, 16-byte aligned, one launch for
+// all the particles (tc_tile.cuh: particle_offset); w: (2, D, D) float32
+// with D = 2^log_d; B = 2^log_b; prec: the precision of the products
 // (tc_tile.cuh: Prec).  Returns the launch's cudaGetLastError().
 extern "C" int qbot_window_apply(const float* psi, float* out, const float* w,
-                                 int64_t n_amps, int log_d, int log_b,
-                                 const int64_t* flips, int nflips,
+                                 int64_t n_amps, int particles, int log_d,
+                                 int log_b, const int64_t* flips, int nflips,
                                  const int64_t* masks, const int64_t* wants,
                                  const float* phase, int nphases, int prec,
                                  void* stream) {
-  if (log_d < 1 || log_d > 7) return static_cast<int>(cudaErrorInvalidValue);
-  const WindowArgs a{psi,   out,   w,     n_amps,  log_d,
-                     log_b, flips, nflips, masks, wants,
-                     phase, nphases, static_cast<cudaStream_t>(stream)};
+  if (log_d < 1 || log_d > 7 || particles < 1 || particles > MAX_PARTICLES)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const WindowArgs a{psi,     out,   w,      n_amps,
+                     log_d,   log_b, flips,  nflips,
+                     masks,   wants, phase,  nphases,
+                     static_cast<cudaStream_t>(stream), nullptr, particles};
   switch (prec) {
     case F32: return launch<F32>(a);
     case BF16X3: return launch<BF16X3>(a);

@@ -126,6 +126,7 @@ __global__ void __launch_bounds__((Bf16Tile<D, TRAIL, PREC, D1>::NT),
   long long* cwant = cmask + TABLE;
   float4* w1s = reinterpret_cast<float4*>(cwant + TABLE);
   uint32_t* j1tab = reinterpret_cast<uint32_t*>(w1s + D1 * D1);
+  const int pl0 = particle_plane();
 
   // the thread's group, and its index and warp in it
   const int grp = threadIdx.x / T::WT, tid = threadIdx.x % T::WT;
@@ -195,7 +196,9 @@ __global__ void __launch_bounds__((Bf16Tile<D, TRAIL, PREC, D1>::NT),
         const int64_t c = c0 + cl;
         const bool ok = c < cols;
         cp_async(st + pl * T::PLANE + cl * T::PITCH + kq * 4,
-                 psi + pl * n_amps + (ok ? c * D + j0 + kq * 4 : 0), 16, ok);
+                 psi + (pl0 + pl) * n_amps +
+                     (ok ? c * D + j0 + kq * 4 : 0),
+                 16, ok);
       }
     } else {
       const int lv = log_b < 2 ? log_b : 2;  // 2^lv columns per copy
@@ -207,7 +210,7 @@ __global__ void __launch_bounds__((Bf16Tile<D, TRAIL, PREC, D1>::NT),
         const int64_t c = c0 + cl;
         const bool ok = c < cols;
         cp_async(st + pl * T::PLANE + k * T::PITCH + cl,
-                 psi + pl * n_amps +
+                 psi + (pl0 + pl) * n_amps +
                      (ok ? col_base(c) + (int64_t(j0 + k) << log_b) : 0),
                  4 << lv, ok);
       }
@@ -405,7 +408,7 @@ __global__ void __launch_bounds__((Bf16Tile<D, TRAIL, PREC, D1>::NT),
             for (int pl = 0; pl < 2; ++pl) {
               const float v0 = acc[mt][nn][pl][2 * h];
               const float v1 = acc[mt][nn][pl][2 * h + 1];
-              float* o = out + pl * n_amps;
+              float* o = out + (pl0 + pl) * n_amps;
               if (TRAIL) {
                 o[c * D + i] = v0;
                 if (c + 1 < cols) o[(c + 1) * D + i] = v1;
@@ -434,12 +437,12 @@ int launch_bf16(const WindowArgs& a) {
   // GROUPS tile walkers a block
   const int64_t tiles = ((a.n_amps >> T::LOG_D) + T::BN - 1) / T::BN;
   const int64_t blocks = (tiles + T::GROUPS - 1) / T::GROUPS;
-  const unsigned grid = static_cast<unsigned>(blocks < cap ? blocks : cap);
+  const unsigned grid = particle_grid(blocks, cap, a.particles);
   const Diag diag{a.flips, a.nflips, a.masks, a.wants,
                   a.phase, a.nphases, a.n_amps - 1};
   window_bf16_kernel<D, TRAIL, PREC, D1>
-      <<<grid, T::NT, T::SMEM, a.stream>>>(a.psi, a.out, a.w, a.n_amps,
-                                           a.log_b, diag, a.w1);
+      <<<dim3(grid, a.particles), T::NT, T::SMEM, a.stream>>>(
+          a.psi, a.out, a.w, a.n_amps, a.log_b, diag, a.w1);
   return static_cast<int>(cudaGetLastError());
 }
 

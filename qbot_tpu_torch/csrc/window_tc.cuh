@@ -55,6 +55,7 @@ struct WindowArgs {
   int nphases;
   cudaStream_t stream;
   const float* w1 = nullptr;  // the narrow pair's (2, D1, D1) W1
+  int particles = 1;          // states of the launch (tc_tile.cuh)
 };
 
 // The launcher of the tensor-core window (D1 = 1), or of the narrow pair
@@ -113,6 +114,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   long long* cwant = cmask + TABLE;
   float4* w1s = reinterpret_cast<float4*>(cwant + TABLE);
   uint32_t* j1tab = reinterpret_cast<uint32_t*>(w1s + D1 * D1);
+  const int pl0 = particle_plane();
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -181,7 +183,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int64_t c = c0 + cl;
         const bool ok = c < cols;
         cp_async(st + pl * T::PLANE + cl * T::PITCH + kq * 4,
-                 psi + pl * n_amps + (ok ? c * D + j0 + kq * 4 : 0), 16, ok);
+                 psi + (pl0 + pl) * n_amps +
+                     (ok ? c * D + j0 + kq * 4 : 0),
+                 16, ok);
       }
     } else {
       const int lv = log_b < 2 ? log_b : 2;  // 2^lv columns per copy
@@ -193,7 +197,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int64_t c = c0 + cl;
         const bool ok = c < cols;
         cp_async(st + pl * T::PLANE + k * T::PITCH + cl,
-                 psi + pl * n_amps +
+                 psi + (pl0 + pl) * n_amps +
                      (ok ? col_base(c) + (int64_t(j0 + k) << log_b) : 0),
                  4 << lv, ok);
       }
@@ -320,7 +324,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           for (int pl = 0; pl < 2; ++pl) {
             const float v0 = acc[it][pl][2 * r];
             const float v1 = acc[it][pl][2 * r + 1];
-            float* o = out + pl * n_amps + base;
+            float* o = out + (pl0 + pl) * n_amps + base;
             if (TRAIL) {
               *reinterpret_cast<float2*>(o + i) = make_float2(v0, v1);
             } else {
@@ -344,12 +348,12 @@ int launch_tc(const WindowArgs& a) {
                                   T::SMEM, blocks_cap, err);
   if (cap == 0) return static_cast<int>(err);
   const int64_t tiles = ((a.n_amps >> T::LOG_D) + T::BN - 1) / T::BN;
-  const unsigned grid = static_cast<unsigned>(tiles < cap ? tiles : cap);
+  const unsigned grid = particle_grid(tiles, cap, a.particles);
   const Diag diag{a.flips, a.nflips, a.masks, a.wants,
                   a.phase, a.nphases, a.n_amps - 1};
   window_tc_kernel<D, TRAIL, PREC, D1>
-      <<<grid, THREADS, T::SMEM, a.stream>>>(a.psi, a.out, a.w, a.n_amps,
-                                             a.log_b, diag, a.w1);
+      <<<dim3(grid, a.particles), THREADS, T::SMEM, a.stream>>>(
+          a.psi, a.out, a.w, a.n_amps, a.log_b, diag, a.w1);
   return static_cast<int>(cudaGetLastError());
 }
 

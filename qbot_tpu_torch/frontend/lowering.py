@@ -2,14 +2,15 @@
 PyTorch planar executor.
 
 A copy of the host part of :mod:`qbot_tpu.frontend.lowering`
-(``qbot_tpu/frontend/lowering.py:40-574, 850-882``): the program runs
+(``qbot_tpu/frontend/lowering.py:40-611, 850-882``): the program runs
 through the normal front end (expressions, marks, classical control flow;
 loops simply unroll) but *records* the unitary schedule into a
 :class:`~qbot_tpu_torch.tpu.circuit.Circuit` instead of mutating a dense
 host-side density matrix.  :func:`run_lowered` is the port of
 ``qbot_tpu.frontend.lowering.run_lowered`` on its planar route
-(``qbot_tpu/frontend/lowering.py:1702-1767``); the ensemble and sharded
-runners are not ported yet.
+(``qbot_tpu/frontend/lowering.py:1702-1767``), :func:`run_lowered_ensemble`
+of its mid-measurement runner on the device ensemble (:614-847); the
+sharded runners belong to the multi-GPU slice (ROADMAP queue 1, item 10).
 
 Lowerable surface: an initial pure-product ``qset``, then ``gate``/``swap``
 with concrete (non-ProbVal) operands, classical ops (``cdef``, ``pydo``,
@@ -43,7 +44,8 @@ from qbot_tpu_torch.tpu.planar import (
 )
 
 __all__ = ["LoweredProgram", "LoweringError", "lower_program",
-           "run_lowered", "finish_lowered", "MeasSpec"]
+           "run_lowered", "run_lowered_ensemble", "finish_lowered",
+           "MeasSpec"]
 
 
 class LoweringError(err.QbotScriptError):
@@ -581,6 +583,232 @@ def _run_epilogue(lp: LoweredProgram) -> None:
     run_lines(lp.namespace, lp.lines, start_line=lp.resume_line)
 
 
+def _basis_rotation_plans(basis: Basis, targets, n: int, window: int):
+    """(rotate-into-basis plan, inverse plan) or (None, None) for the
+    computation basis; rotation is B† per contiguous target block."""
+    if _is_computational(basis):
+        return None, None
+    rot = np.stack(basis.kets).conj()
+    bq = basis.numQubits
+    fwd, inv = Circuit(n), Circuit(n)
+    for i in range(0, len(targets), bq):
+        # blocks are consecutive sorted targets; the gate IR takes arbitrary
+        # target lists, so non-contiguous blocks (e.g. a bell measurement of
+        # qubits 0 and 5) lower to a cross-window contraction
+        block = list(targets[i:i + bq])
+        fwd.gate(rot, block)
+        inv.gate(rot.conj().T, block)
+    return (compile_circuit(fwd, window=window),
+            compile_circuit(inv, window=window))
+
+
+def _save_ensemble_checkpoint(mgr, event: int, ens, cur_n: int, prev: int,
+                              results: dict, gen) -> None:
+    """Snapshot the ensemble + event cursor (and the sampler's generator
+    state) for elastic recovery."""
+    arrays = {"log_w": ens.log_w, "psi": ens.psi}
+    if gen is not None:
+        arrays["key"] = gen.get_state()
+    mgr.save(event, arrays, {
+        "event": event, "cur_n": cur_n, "prev": prev,
+        "lost_mass": float(ens.lost_mass),
+        "results": {name: [float(p) for p in r.probs]
+                    for name, r in results.items()},
+    })
+
+
+def warn_lost_mass(lost: float, prune_tol: float) -> None:
+    """The warning of a run whose pruning dropped more than
+    ``prune_tol`` of the probability mass."""
+    if lost > prune_tol:
+        import warnings
+        warnings.warn(
+            f"ensemble pruning dropped {lost:.3e} probability mass "
+            f"(> prune_tol={prune_tol:g}); reported outcome probabilities "
+            f"carry up to that much total-variation error — raise "
+            f"max_particles or switch to sampling mode (sample > 0)",
+            RuntimeWarning, stacklevel=3)
+
+
+def run_lowered_ensemble(lp: LoweredProgram, max_particles: int = 256,
+                         window: int = 7, collapse_mode: str = "reference",
+                         sample: int = 0, seed: int = 0,
+                         checkpoint_dir: Optional[str] = None,
+                         checkpoint_every: int = 1,
+                         prune_tol: float = 1e-6, device="cuda"):
+    """Execute a mid-measurement program on the device ensemble engine.
+
+    Requires ``lower_program(text, mid_measure=True)``.  Each ``meas`` fans
+    the particle ensemble over its outcomes (exact ProbVal semantics, capped
+    at ``max_particles`` branches); ``peek`` reads the marginal without
+    collapse.  Binds every MeasurementResult, runs the classical epilogue,
+    and returns (results dict, final QuantumEnsemble on ``device``).
+
+    ``sample > 0`` switches to the SMC regime: a fixed population of
+    ``sample`` particles each SAMPLES one outcome per measurement (optimal
+    Born proposal, :func:`~qbot_tpu_torch.inference.ensemble_exec.
+    measure_sample`) instead of fanning out — memory stays constant however
+    deep the measurement sequence.  ``seed`` seeds the sampler, a
+    :class:`torch.Generator` on ``device`` (CLI ``--seed``); its draws are
+    not the reference's.
+
+    Exact fan-out mode tracks the probability mass dropped by the
+    ``max_particles`` prune (``QuantumEnsemble.lost_mass``, an exact
+    total-variation error bound on every reported distribution); if it
+    exceeds ``prune_tol`` a ``RuntimeWarning`` is emitted.
+
+    ``checkpoint_dir`` enables elastic recovery: the ensemble (log-weights,
+    planar states, generator state) plus the event cursor and bound
+    outcome distributions are snapshotted every ``checkpoint_every``
+    measurement/discard events.  A re-invocation with the same directory
+    resumes from the latest snapshot.
+    """
+    from qbot_tpu_torch.inference import ensemble_exec as ee
+
+    device = torch.device(device)
+    if lp.initial_density is not None:
+        ens = ee.init_mixed_ensemble(lp.initial_density, device=device)
+        if sample:
+            reps = max(1, sample // ens.num_particles)
+            ens = ee.QuantumEnsemble(
+                torch.repeat_interleave(ens.log_w, reps) - np.log(reps),
+                torch.repeat_interleave(ens.psi, reps, dim=0))
+    else:
+        # the product state and its SMC copies are built on the device
+        ens = ee.init_product_ensemble(lp.initial_kets, B=max(1, sample),
+                                       device=device)
+    gen = None
+    if sample:
+        gen = torch.Generator(device=device).manual_seed(seed)
+
+    all_ops = list(lp.circuit.ops)
+    cur_n = lp.n
+    prev = 0
+    results: dict[str, object] = {}
+
+    mgr = None
+    start_event = 0
+    saved_probs: dict = {}
+    if checkpoint_dir is not None:
+        from qbot_tpu_torch.utils.checkpoint import CheckpointManager
+
+        mgr = CheckpointManager(checkpoint_dir)
+        if mgr.latest_step() is not None:
+            arrays, meta = mgr.restore()
+            ens = ee.QuantumEnsemble.from_numpy(
+                arrays["log_w"], arrays["psi"],
+                float(meta.get("lost_mass", 0.0)), device)
+            if sample and "key" in arrays:
+                gen.set_state(torch.from_numpy(arrays["key"]))
+            cur_n = int(meta["cur_n"])
+            prev = int(meta["prev"])
+            start_event = int(meta["event"])
+            saved_probs = meta.get("results", {})
+
+    def run_segment(ens, ops, n):
+        if not ops:
+            return ens
+        seg = Circuit(n)
+        seg.ops = list(ops)
+        seg.num_params = lp.circuit.num_params
+        return ee.apply_plan_ensemble(ens, compile_circuit(seg,
+                                                           window=window))
+
+    def snapshot(ei):
+        if mgr is not None and (ei + 1) % checkpoint_every == 0:
+            _save_ensemble_checkpoint(mgr, ei + 1, ens, cur_n, prev,
+                                      results, gen)
+
+    for ei, spec in enumerate(lp.mid_measurements):
+        if ei < start_event:
+            # already executed before the snapshot: re-bind the recorded
+            # outcome distributions, skip the device work
+            if isinstance(spec, MeasSpec):
+                results[spec.name] = _make_result(
+                    spec.basis, sorted(spec.targets),
+                    saved_probs[spec.name])
+            continue
+        ens = run_segment(ens, all_ops[prev:spec.at_op], cur_n)
+        prev = spec.at_op
+        if isinstance(spec, QSetSpec):
+            # targeted qset: per-particle partial trace + tensor insert
+            # (reference replaceArbitrary semantics; target order kept);
+            # ProbVal target-set branches fan out (exact: pruned concat;
+            # sampled: resampled back down)
+            if spec.branches and len(spec.branches) > 1:
+                if sample:
+                    ens = ee.concat_resampled(
+                        gen, [(p, ee.replace_sample(gen, ens, cur_n, list(t),
+                                                    spec.new_states))
+                              for p, t in spec.branches],
+                        ens.num_particles)
+                else:
+                    ens = ee.concat_weighted(
+                        [(p, ee.replace_fanout(ens, cur_n, list(t),
+                                               spec.new_states,
+                                               max_particles))
+                         for p, t in spec.branches], max_particles)
+            elif sample:
+                ens = ee.replace_sample(gen, ens, cur_n, list(spec.targets),
+                                        spec.new_states)
+            else:
+                ens = ee.replace_fanout(ens, cur_n, list(spec.targets),
+                                        spec.new_states, max_particles)
+            snapshot(ei)
+            continue
+        targets = sorted(spec.targets)
+        if isinstance(spec, DiscSpec):
+            if spec.branches and len(spec.branches) > 1:
+                # ProbVal target sets (all the same size by lowering)
+                if sample:
+                    ens = ee.concat_resampled(
+                        gen, [(p, ee.discard_sample(gen, ens, cur_n,
+                                                    sorted(t)))
+                              for p, t in spec.branches],
+                        ens.num_particles)
+                else:
+                    ens = ee.concat_weighted(
+                        [(p, ee.discard_fanout(ens, cur_n, sorted(t),
+                                               max_particles))
+                         for p, t in spec.branches], max_particles)
+            elif sample:
+                ens = ee.discard_sample(gen, ens, cur_n, targets)
+            else:
+                ens = ee.discard_fanout(ens, cur_n, targets, max_particles)
+            cur_n -= len(targets)
+            snapshot(ei)
+            continue
+        rot, inv = _basis_rotation_plans(spec.basis, list(targets), cur_n,
+                                         window)
+        # lazy dense-field provider: the PRE-measurement mixture (gathered
+        # on first .newState/.basisDensity access at small n)
+        if cur_n <= _DENSE_REPLAY_LIMIT:
+            provider = (lambda e=ens: ee.ensemble_mixture(e))
+        else:
+            provider = _too_large_provider(cur_n)
+        ens_m = ee.apply_plan_ensemble(ens, rot) if rot else ens
+        if spec.collapse:
+            if sample:
+                ens_m, dist, _ = ee.measure_sample(gen, ens_m, cur_n,
+                                                   targets)
+            else:
+                ens_m, dist = ee.measure_fanout(ens_m, cur_n, targets,
+                                                max_particles,
+                                                mode=collapse_mode)
+            ens = ee.apply_plan_ensemble(ens_m, inv) if inv else ens_m
+        else:
+            dist = ee.peek_probs(ens_m, cur_n, targets)
+        results[spec.name] = _make_result(spec.basis, targets,
+                                          dist.cpu().numpy(),
+                                          provider=provider)
+        snapshot(ei)
+
+    ens = run_segment(ens, all_ops[prev:], cur_n)
+    warn_lost_mass(float(ens.lost_mass), prune_tol)
+    for name, res in results.items():
+        lp.namespace[name] = res
+    _run_epilogue(lp)
+    return results, ens
 
 
 def finish_lowered(lp: LoweredProgram, probs,

@@ -21,8 +21,20 @@ link) into ``qbot_tpu_torch/_build/<hash of the sources>/`` and loaded with
 and allocate nothing: the wrappers allocate outputs and scratch with
 ``torch.empty``.
 
-Every wrapper counts its launches (:func:`launch_counts`) so a run can
-show that it went through the kernel.  ``window_apply`` and ``pair_apply``
+Every wrapper takes one planar state, ``(2, 2^n)`` (a reflection's
+``(2, H, T)`` view), or a batch of them with a leading particle axis,
+``(P, 2, 2^n)``, the layout of the ensemble executor's
+``QuantumEnsemble.psi`` (``qbot_tpu/inference/ensemble_exec.py:43-62``):
+one launch serves the whole batch, as the reference's ``pallas_call`` under
+``jax.vmap`` gains a batch grid axis.  The CUDA kernels put the particle on
+a grid axis of its own and advance to its state on entry
+(``csrc/tc_tile.cuh``: ``particle_offset``), so each particle's bits are
+those of its own launch; the plain versions take the batch as a leading
+dimension of the same operations.
+
+Every wrapper counts its launches (:func:`launch_counts`), one a call
+whatever the number of particles, so a run can show that it went through
+the kernel.  ``window_apply`` and ``pair_apply``
 count their trailing launches (B = 1, the role of the TPU's
 ``_right_multiply`` and ``_pair_b1``) apart, ``pair_apply`` its narrow
 pairs (D1 = 2, 4 with D2 >= 8, which run the window's tile) apart, the
@@ -188,16 +200,16 @@ def _library():
         return _lib
     lib = ctypes.CDLL(str(build_kernels()))
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.qbot_window_apply.argtypes = [p, p, p, i64, i32, i32, p, i32,
+    lib.qbot_window_apply.argtypes = [p, p, p, i64, i32, i32, i32, p, i32,
                                       p, p, p, i32, i32, p]
     lib.qbot_window_apply.restype = i32
-    lib.qbot_pair_apply.argtypes = [p, p, p, p, i64, i32, i32, i32,
+    lib.qbot_pair_apply.argtypes = [p, p, p, p, i64, i32, i32, i32, i32,
                                     p, i32, p, p, p, i32, i32, p]
     lib.qbot_pair_apply.restype = i32
-    lib.qbot_reflect_dot.argtypes = [p, p, i64, i64, i64, i32, p, p, p]
+    lib.qbot_reflect_dot.argtypes = [p, p, i64, i64, i64, i32, i32, p, p, p]
     lib.qbot_reflect_dot.restype = i32
     lib.qbot_reflect_update.argtypes = [p, p, p, p, p, p, i32, i64, i64,
-                                        i64, i32, p, p, p]
+                                        i64, i32, i32, p, p, p]
     lib.qbot_reflect_update.restype = i32
     lib.qbot_error_string.argtypes = [i32]
     lib.qbot_error_string.restype = ctypes.c_char_p
@@ -275,6 +287,25 @@ def _check_f32(name: str, t: torch.Tensor, shape, device) -> None:
              f"{device}")
 
 
+# the kernels' particle axis lies on a grid axis of at most 65535 blocks
+# (csrc/tc_tile.cuh: MAX_PARTICLES)
+MAX_PARTICLES = 65535
+
+
+def _particles(psi: torch.Tensor, state_dims: int) -> tuple:
+    """(leading shape, particle count) of a state or a batch of states whose
+    own shape has ``state_dims`` dimensions: ``()`` and 1 for one state,
+    ``(P,)`` and P for a batch."""
+    _require(psi.dim() in (state_dims, state_dims + 1),
+             f"psi must be one state of {state_dims} dimensions or a batch "
+             f"of them, got shape {tuple(psi.shape)}")
+    lead = tuple(psi.shape[:psi.dim() - state_dims])
+    P = lead[0] if lead else 1
+    _require(1 <= P <= MAX_PARTICLES,
+             f"a batch holds 1..{MAX_PARTICLES} particles, got {P}")
+    return lead, P
+
+
 def _dispatch(psi: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (plain version); anything else raises."""
@@ -342,25 +373,27 @@ def fused_diagonals(n: int, pre_flips=(), pre_phases=(),
 
 
 def _flip_signs(x: torch.Tensor, flips: torch.Tensor) -> torch.Tensor:
-    """x (2, N) with the listed flat indices negated (an index listed twice
-    flips back), out of place."""
+    """x (..., 2, N) with the listed flat indices negated (an index listed
+    twice flips back), out of place."""
     if flips.numel() == 0:
         return x
-    hits = torch.zeros(x.shape[1], dtype=torch.int64, device=x.device)
+    hits = torch.zeros(x.shape[-1], dtype=torch.int64, device=x.device)
     hits.index_add_(0, flips, torch.ones_like(flips))
     return x * (1 - 2 * (hits % 2)).to(x.dtype)
 
 
 def _apply_diagonals_ref(psi: torch.Tensor, diag: FusedDiagonals):
+    """ΦF psi of a (..., 2, N) state or batch, out of place."""
     x = psi
     if diag.mask.numel():
-        idx = torch.arange(psi.shape[1], dtype=torch.int64,
+        idx = torch.arange(psi.shape[-1], dtype=torch.int64,
                            device=psi.device)
         for p in range(diag.mask.shape[0]):
             hit = (idx & diag.mask[p]) == diag.want[p]
             fr = torch.where(hit, diag.phase[0, p], 1.0)
             fi = torch.where(hit, diag.phase[1, p], 0.0)
-            x = torch.stack([x[0] * fr - x[1] * fi, x[0] * fi + x[1] * fr])
+            xr, xi = x[..., 0, :], x[..., 1, :]
+            x = torch.stack([xr * fr - xi * fi, xr * fi + xi * fr], dim=-2)
     return _flip_signs(x, diag.flips)
 
 
@@ -383,20 +416,40 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(x.dtype)
 
 
-def _mode_einsum(spec: str, a, b, mode: str):
-    """``torch.einsum(spec, a, b)`` with the products of ``mode``, as the
-    reference's ``_dot``: full precision (f32, f32_mix); both operands split
-    as hi = bf16(x), lo = bf16(x − hi), summed as hi·hi + hi·lo + lo·hi
-    (bf16_3x); both rounded to bf16, one product (bf16).  Products of
-    bf16 values are exact in float32, their sums float32's."""
+def _mode_bmm(w, x, mode: str):
+    """``w @ x[p]`` for each particle p of x (P, K, N), w (M, K), with the
+    products of ``mode``, as the reference's ``_dot``: full precision (f32,
+    f32_mix); both operands split as hi = bf16(x), lo = bf16(x − hi), summed
+    as hi·hi + hi·lo + lo·hi (bf16_3x); both rounded to bf16, one product
+    (bf16).  Products of bf16 values are exact in float32, their sums
+    float32's.  One batched product whose every batch entry is the product
+    of one state, so a particle's bits do not depend on how many others
+    share the call."""
+    if x.shape[-1] == 1:
+        # a one-column product of one particle runs as a matrix-vector
+        # product, of several as a batched GEMM, and the two round apart:
+        # a zero second column makes both a GEMM
+        return _mode_bmm(w, torch.nn.functional.pad(x, (0, 1)), mode)[..., :1]
+
+    def bmm(a, b):
+        return torch.bmm(a.expand(b.shape[0], *a.shape), b)
+
     if _PREC[mode] == 0:
-        return torch.einsum(spec, a, b)
-    ah, bh = _bf16(a), _bf16(b)
+        return bmm(w, x)
+    wh, xh = _bf16(w), _bf16(x)
     if mode == "bf16":
-        return torch.einsum(spec, ah, bh)
-    al, bl = _bf16(a - ah), _bf16(b - bh)
-    return (torch.einsum(spec, ah, bh) + torch.einsum(spec, ah, bl)
-            + torch.einsum(spec, al, bh))
+        return bmm(wh, xh)
+    wl, xl = _bf16(w - wh), _bf16(x - xh)
+    return bmm(wh, xh) + bmm(wh, xl) + bmm(wl, xh)
+
+
+def _complex_bmm(w, xr, xi, mode: str):
+    """(re, im) of the planar complex product ``w @ x[p]`` (``_mode_bmm``)."""
+    def mm(a, b):
+        return _mode_bmm(a, b, mode)
+
+    with _fp32_matmul():
+        return (mm(w[0], xr) - mm(w[1], xi), mm(w[0], xi) + mm(w[1], xr))
 
 
 def _resolve_mode(mode) -> str:
@@ -416,27 +469,29 @@ def window_apply_ref(psi, n: int, start: int, width: int, w,
     the current one)."""
     mode = _resolve_mode(mode)
     A, D = 2**start, 2**width
-    x = _apply_diagonals_ref(psi, diag).reshape(2, A, D, -1)
-    with _fp32_matmul():
-        def mm(W, p):
-            return _mode_einsum("ij,ajb->aib", W, p, mode)
-
-        out_r = mm(w[0], x[0]) - mm(w[1], x[1])
-        out_i = mm(w[0], x[1]) + mm(w[1], x[0])
-    return torch.stack([out_r, out_i]).reshape(psi.shape)
+    P = psi.shape[0] if psi.dim() == 3 else 1
+    # x[plane, p, j, (a, b)]: W contracts j of each particle's columns
+    x = _apply_diagonals_ref(psi, diag).reshape(P, 2, A, D, -1)
+    B = x.shape[-1]
+    x = x.permute(1, 0, 3, 2, 4).reshape(2, P, D, A * B)
+    out_r, out_i = _complex_bmm(w, x[0], x[1], mode)
+    out = torch.stack([out_r, out_i]).reshape(2, P, D, A, B)
+    return out.permute(1, 0, 3, 2, 4).contiguous().reshape(psi.shape)
 
 
 def window_apply(psi, n: int, start: int, width: int, w,
                  diag: FusedDiagonals):
     """Apply a (2, D, D) planar window unitary to qubits
-    [start, start + width) of a (2, 2^n) planar float32 state, after the
-    fused flips and phases of ``diag``, with the products of the current
-    dot mode.  Out of place."""
+    [start, start + width) of a (2, 2^n) planar float32 state, or of each
+    state of a (P, 2, 2^n) batch in one launch, after the fused flips and
+    phases of ``diag``, with the products of the current dot mode.  Out of
+    place."""
     _require(1 <= width <= 7 and 0 <= start and start + width <= n,
              f"window [{start}, {start + width}) does not fit 1..7 qubits "
              f"of a {n}-qubit register")
     D = 2**width
-    _check_f32("psi", psi, (2, 2**n), psi.device)
+    lead, P = _particles(psi, 2)
+    _check_f32("psi", psi, (*lead, 2, 2**n), psi.device)
     _check_f32("w", w, (2, D, D), psi.device)
     _check_diag(diag, psi.device)
     if not _dispatch(psi):
@@ -446,7 +501,7 @@ def window_apply(psi, n: int, start: int, width: int, w,
     out = torch.empty_like(psi)
     with torch.cuda.device(psi.device):
         rc = lib.qbot_window_apply(
-            psi.data_ptr(), out.data_ptr(), w.data_ptr(), 2**n, width,
+            psi.data_ptr(), out.data_ptr(), w.data_ptr(), 2**n, P, width,
             n - start - width, diag.flips.data_ptr(), diag.flips.numel(),
             diag.mask.data_ptr(), diag.want.data_ptr(),
             diag.phase.data_ptr(), diag.mask.numel(), _PREC[_DOT_MODE],
@@ -469,17 +524,18 @@ def pair_apply_ref(psi, n: int, start: int, width1: int, width2: int, w1, w2,
     kernels; the second product splits the float32 intermediate Y anew."""
     mode = _resolve_mode(mode)
     A, D1, D2 = 2**start, 2**width1, 2**width2
-    x = _apply_diagonals_ref(psi, diag).reshape(2, A, D1, D2, -1)
-    with _fp32_matmul():
-        def cmm(spec, w, xr, xi):
-            def mm(a, b):
-                return _mode_einsum(spec, a, b, mode)
-
-            return (mm(w[0], xr) - mm(w[1], xi), mm(w[0], xi) + mm(w[1], xr))
-
-        yr, yi = cmm("ij,ajmb->aimb", w1, x[0], x[1])
-        out_r, out_i = cmm("lm,aimb->ailb", w2, yr, yi)
-    return torch.stack([out_r, out_i]).reshape(psi.shape)
+    P = psi.shape[0] if psi.dim() == 3 else 1
+    x = _apply_diagonals_ref(psi, diag).reshape(P, 2, A, D1, D2, -1)
+    B = x.shape[-1]
+    # Y[p, i, (a, m, b)] = Σ_j W1[i, j]·X[p, a, j, m, b]
+    x = x.permute(1, 0, 3, 2, 4, 5).reshape(2, P, D1, A * D2 * B)
+    yr, yi = _complex_bmm(w1, x[0], x[1], mode)
+    # out[p, l, (a, i, b)] = Σ_m W2[l, m]·Y[p, a, i, m, b]
+    y = torch.stack([yr, yi]).reshape(2, P, D1, A, D2, B)
+    y = y.permute(0, 1, 4, 3, 2, 5).reshape(2, P, D2, A * D1 * B)
+    out_r, out_i = _complex_bmm(w2, y[0], y[1], mode)
+    out = torch.stack([out_r, out_i]).reshape(2, P, D2, A, D1, B)
+    return out.permute(1, 0, 3, 4, 2, 5).contiguous().reshape(psi.shape)
 
 
 def pair_route(n: int, start: int, width1: int, width2: int) -> str:
@@ -499,9 +555,10 @@ def pair_apply(psi, n: int, start: int, width1: int, width2: int, w1, w2,
                diag: FusedDiagonals):
     """Apply (2, D1, D1) and (2, D2, D2) planar window unitaries to the
     adjacent windows [start, start + width1) and [start + width1,
-    start + width1 + width2) of a (2, 2^n) planar float32 state, in one
-    pass, after the fused flips and phases of ``diag``, with the products
-    of the current dot mode.  Out of place.
+    start + width1 + width2) of a (2, 2^n) planar float32 state, or of each
+    state of a (P, 2, 2^n) batch in one launch, in one pass, after the
+    fused flips and phases of ``diag``, with the products of the current
+    dot mode.  Out of place.
 
     On a CUDA tensor, :func:`pair_route` picks the trailing or the middle
     pair kernel, or two :func:`window_apply` launches with the diagonals
@@ -523,7 +580,8 @@ def pair_apply(psi, n: int, start: int, width1: int, width2: int, w1, w2,
              f"{start + width1 + width2}) do not fit 1..7 qubits each of a "
              f"{n}-qubit register")
     D1, D2 = 2**width1, 2**width2
-    _check_f32("psi", psi, (2, 2**n), psi.device)
+    lead, P = _particles(psi, 2)
+    _check_f32("psi", psi, (*lead, 2, 2**n), psi.device)
     _check_f32("w1", w1, (2, D1, D1), psi.device)
     _check_f32("w2", w2, (2, D2, D2), psi.device)
     _check_diag(diag, psi.device)
@@ -541,7 +599,7 @@ def pair_apply(psi, n: int, start: int, width1: int, width2: int, w1, w2,
     with torch.cuda.device(psi.device):
         rc = lib.qbot_pair_apply(
             psi.data_ptr(), out.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-            2**n, width1, width2, n - start - width1 - width2,
+            2**n, P, width1, width2, n - start - width1 - width2,
             diag.flips.data_ptr(), diag.flips.numel(), diag.mask.data_ptr(),
             diag.want.data_ptr(), diag.phase.data_ptr(), diag.mask.numel(),
             _PREC[_DOT_MODE], _stream(psi))
@@ -569,44 +627,49 @@ def _reflect_chunks(H: int, T: int) -> tuple[int, int]:
 
 
 def _check_reflect(psi, a, b):
-    _require(psi.dim() == 3 and psi.shape[0] == 2,
-             f"psi must be a (2, H, T) view, got {tuple(psi.shape)}")
-    _, H, T = psi.shape
-    _check_f32("psi", psi, (2, H, T), psi.device)
+    """(leading shape, particles, H, T) of a (2, H, T) view or a (P, 2, H,
+    T) batch of them."""
+    lead, P = _particles(psi, 3)
+    _require(psi.shape[-3] == 2,
+             f"psi must be a (2, H, T) view or a batch of them, got "
+             f"{tuple(psi.shape)}")
+    H, T = psi.shape[-2:]
+    _check_f32("psi", psi, (*lead, 2, H, T), psi.device)
     _check_f32("a", a, (2, H, 1), psi.device)
     _check_f32("b", b, (2, 1, T), psi.device)
-    return H, T
+    return lead, P, H, T
 
 
 def reflect_dot_ref(psi, a, b):
     """Plain version of :func:`reflect_dot`."""
-    pr, pi = psi[0].double(), psi[1].double()
+    pr, pi = psi[..., 0, :, :].double(), psi[..., 1, :, :].double()
     ar, ai = a[0].double(), a[1].double()
-    dr = torch.sum(ar * pr + ai * pi, dim=0, keepdim=True)
-    di = torch.sum(ar * pi - ai * pr, dim=0, keepdim=True)
-    return torch.stack([dr, di])
+    dr = torch.sum(ar * pr + ai * pi, dim=-2, keepdim=True)
+    di = torch.sum(ar * pi - ai * pr, dim=-2, keepdim=True)
+    return torch.stack([dr, di], dim=-3)
 
 
 def reflect_dot(psi, a, b):
     """Per-lane dot D[t] = Σ_h conj(A_h)·ψ[h, t] of a (2, H, T) planar
-    view, in one read pass.  ⟨v|ψ⟩ = Σ_t conj(B_t)·D[t].
+    view, or of each view of a (P, 2, H, T) batch in one launch, in one
+    read pass.  ⟨v|ψ⟩ = Σ_t conj(B_t)·D[t].
 
-    D is a (2, 1, T) float64 tensor, its products and sums taken in
-    float64: float32 roundings in ⟨v|ψ⟩ are biased on a state of nearly
-    equal amplitudes and drift a Grover loop's norm.
+    D is a (2, 1, T) float64 tensor (a batch: (P, 2, 1, T)), its products
+    and sums taken in float64: float32 roundings in ⟨v|ψ⟩ are biased on a
+    state of nearly equal amplitudes and drift a Grover loop's norm.
     """
-    H, T = _check_reflect(psi, a, b)
+    lead, P, H, T = _check_reflect(psi, a, b)
     if not _dispatch(psi):
         return reflect_dot_ref(psi, a, b)
     lib = _library()
     rows, chunks = _reflect_chunks(H, T)
-    partial = torch.empty((2, T, chunks), dtype=torch.float64,
+    partial = torch.empty((P, 2, T, chunks), dtype=torch.float64,
                           device=psi.device)
-    d = torch.empty((2, 1, T), dtype=torch.float64, device=psi.device)
+    d = torch.empty((*lead, 2, 1, T), dtype=torch.float64, device=psi.device)
     with torch.cuda.device(psi.device):
         rc = lib.qbot_reflect_dot(psi.data_ptr(), a.data_ptr(), H, T, rows,
-                                  chunks, partial.data_ptr(), d.data_ptr(),
-                                  _stream(psi))
+                                  chunks, P, partial.data_ptr(),
+                                  d.data_ptr(), _stream(psi))
     _check_launch(lib, rc, "reflect_dot")
     _launches["reflect_dot"] += 1
     return d
@@ -614,24 +677,29 @@ def reflect_dot(psi, a, b):
 
 def reflect_update_ref(psi, c, a, b, flips):
     """Plain version of :func:`reflect_update`."""
-    x = _flip_signs(psi.reshape(2, -1), flips).reshape(psi.shape)
-    qr = c[0] * b[0] - c[1] * b[1]
-    qi = c[0] * b[1] + c[1] * b[0]
-    out = torch.stack([x[0] - 2.0 * (a[0] * qr - a[1] * qi),
-                       x[1] - 2.0 * (a[0] * qi + a[1] * qr)])
+    lead = tuple(psi.shape[:-3])
+    x = _flip_signs(psi.reshape(*lead, 2, -1), flips).reshape(psi.shape)
+    cr, ci = c[..., 0, None, None], c[..., 1, None, None]
+    qr = cr * b[0] - ci * b[1]
+    qi = cr * b[1] + ci * b[0]
+    out = torch.stack([x[..., 0, :, :] - 2.0 * (a[0] * qr - a[1] * qi),
+                       x[..., 1, :, :] - 2.0 * (a[0] * qi + a[1] * qr)],
+                      dim=-3)
     return out, reflect_dot_ref(out, a, b)
 
 
 def reflect_update(psi, c, a, b, flips):
     """One-pass reflection update out = Fψ − 2c·(A⊗B) of a (2, H, T)
-    planar view, plus the float64 per-lane dot D of ``out`` (for
-    chaining; see :func:`reflect_dot`).
+    planar view, or of each view of a (P, 2, H, T) batch in one launch,
+    plus the float64 per-lane dot D of ``out`` (for chaining; see
+    :func:`reflect_dot`).
 
-    ``c``: (2,) float32 device tensor holding ⟨v|Fψ⟩; ``flips``: (F,)
-    int64 flat indices sign-flipped before the update.  Out of place.
+    ``c``: (2,) float32 device tensor holding ⟨v|Fψ⟩ (a batch: (P, 2), one
+    c a particle); ``flips``: (F,) int64 flat indices sign-flipped before
+    the update.  Out of place.
     """
-    H, T = _check_reflect(psi, a, b)
-    _check_f32("c", c, (2,), psi.device)
+    lead, P, H, T = _check_reflect(psi, a, b)
+    _check_f32("c", c, (*lead, 2), psi.device)
     _require(flips.dtype == torch.int64 and flips.dim() == 1
              and flips.device == psi.device and flips.is_contiguous(),
              f"flips must be a contiguous 1-D int64 on {psi.device}")
@@ -640,14 +708,14 @@ def reflect_update(psi, c, a, b, flips):
     lib = _library()
     rows, chunks = _reflect_chunks(H, T)
     out = torch.empty_like(psi)
-    partial = torch.empty((2, T, chunks), dtype=torch.float64,
+    partial = torch.empty((P, 2, T, chunks), dtype=torch.float64,
                           device=psi.device)
-    d = torch.empty((2, 1, T), dtype=torch.float64, device=psi.device)
+    d = torch.empty((*lead, 2, 1, T), dtype=torch.float64, device=psi.device)
     with torch.cuda.device(psi.device):
         rc = lib.qbot_reflect_update(
             psi.data_ptr(), out.data_ptr(), a.data_ptr(), b.data_ptr(),
             c.data_ptr(), flips.data_ptr(), flips.numel(), H, T, rows,
-            chunks, partial.data_ptr(), d.data_ptr(), _stream(psi))
+            chunks, P, partial.data_ptr(), d.data_ptr(), _stream(psi))
     _check_launch(lib, rc, "reflect_update")
     _launches["reflect_update"] += 1
     return out, d

@@ -3,7 +3,11 @@
 Port of :mod:`qbot_tpu.tpu.planar`.  A state is a float32 tensor of shape
 ``(2, 2^n)`` holding (real, imag) planes, a density matrix one of shape
 ``(2, 2^n, 2^n)``, on any device; every entry point takes or returns
-tensors on the caller's device.  Window, pair and reflection steps go
+tensors on the caller's device.  The statevector executor also takes a
+batch of states with a leading particle axis, ``(P, 2, 2^n)`` (the
+ensemble executor's layout; the reference runs ``apply_plan_planar`` under
+``jax.vmap`` over it): every step serves the whole batch at once, each
+kernel in one launch.  Window, pair and reflection steps go
 through the kernels of :mod:`qbot_tpu_torch.tpu.kernels`; diagonal, phase,
 flip and contraction steps are plain PyTorch, as they are XLA outside
 Pallas in the JAX package.  Every step is out of place: the caller's state
@@ -226,11 +230,12 @@ class _Reflection:
     def c_from_lane_dot(self, d, psi3):
         """⟨v|Fψ⟩/⟨v|v⟩ from the float64 lane dot D of ψ and the fused
         flips' values in ψ, in float64 on the device, as the (2,) float32
-        tensor the update kernel reads."""
-        c = torch.einsum("ijt,jt->i", self.lane, d[:, 0])
+        tensor the update kernel reads; of a (P, 2, H, T) batch, one c a
+        particle, (P, 2)."""
+        c = torch.einsum("ijt,...jt->...i", self.lane, d[..., 0, :])
         if self.flips.numel():
-            vals = psi3.reshape(2, -1)[:, self.flips].double()
-            c = c + torch.einsum("ijf,jf->i", self.flip, vals)
+            vals = psi3.reshape(*psi3.shape[:-2], -1)[..., self.flips]
+            c = c + torch.einsum("ijf,...jf->...i", self.flip, vals.double())
         return c.float()
 
 
@@ -239,11 +244,19 @@ def _reflect_fn(step: ReflectStep, device, ops: _Ops):
     refl = _Reflection(step, device)
 
     def apply(psi):
-        p3 = psi.reshape(2, refl.H, refl.T)
+        p3 = psi.reshape(*psi.shape[:-1], refl.H, refl.T)
         c = refl.c_from_lane_dot(ops.reflect_dot(p3, refl.a, refl.b), p3)
         out, _ = ops.reflect_update(p3, c, refl.a, refl.b, refl.flips)
         return out.reshape(psi.shape)
     return apply
+
+
+def _planes(psi, shape):
+    """(plane axis, re, im) of a (..., 2, 2^n) state or batch viewed as
+    (..., 2, *shape)."""
+    pl = psi.dim() - 2
+    t = psi.reshape(*psi.shape[:pl], 2, *shape)
+    return pl, t.select(pl, 0), t.select(pl, 1)
 
 
 def _diag_fn(n: int, targets, diag, device):
@@ -258,17 +271,16 @@ def _diag_fn(n: int, targets, diag, device):
     dr, di = dt[0], dt[1]
 
     def apply(psi):
-        t = psi.reshape([2] + shape)
-        pr, pi = t[0], t[1]
-        return torch.stack([dr * pr - di * pi,
-                            dr * pi + di * pr]).reshape(psi.shape)
+        pl, pr, pi = _planes(psi, shape)
+        return torch.stack([dr * pr - di * pi, dr * pi + di * pr],
+                           dim=pl).reshape(psi.shape)
     return apply
 
 
 def _flip_fn(index: int):
     def apply(psi):
         out = psi.clone()
-        out[:, index] = -out[:, index]
+        out[..., index] = -out[..., index]
         return out
     return apply
 
@@ -283,17 +295,17 @@ def _contract_fn(n: int, step: ContractStep, device):
     gr = g[0].reshape((2,) * (2 * k))
     gi = g[1].reshape((2,) * (2 * k))
 
-    def con(gm, x):
-        out = torch.tensordot(gm, x, dims=(list(range(k, 2 * k)), axes))
-        return torch.movedim(out, list(range(k)), axes)
+    def con(gm, x, lead):
+        at = [lead + a for a in axes]
+        out = torch.tensordot(gm, x, dims=(list(range(k, 2 * k)), at))
+        return torch.movedim(out, list(range(k)), at)
 
     def apply(psi):
-        t = psi.reshape([2] + shape)
-        pr, pi = t[0], t[1]
+        pl, pr, pi = _planes(psi, shape)
         with _fp32_matmul():
-            out_r = con(gr, pr) - con(gi, pi)
-            out_i = con(gr, pi) + con(gi, pr)
-        return torch.stack([out_r, out_i]).reshape(psi.shape)
+            out_r = con(gr, pr, pl) - con(gi, pi, pl)
+            out_i = con(gr, pi, pl) + con(gi, pr, pl)
+        return torch.stack([out_r, out_i], dim=pl).reshape(psi.shape)
     return apply
 
 
@@ -326,10 +338,12 @@ def _run(psi, fns):
 
 
 def apply_plan_planar(psi: torch.Tensor, plan: Plan) -> torch.Tensor:
-    """Run a compiled plan over a planar (2, 2^n) float32 statevector.
+    """Run a compiled plan over a planar (2, 2^n) float32 statevector, or
+    over each state of a (P, 2, 2^n) batch.
 
     On a CUDA tensor every window, pair and reflection runs its CUDA
-    kernel; on a CPU tensor, the kernels' plain versions.
+    kernel, one launch for the whole batch; on a CPU tensor, the kernels'
+    plain versions.
     """
     return _run(psi, _step_fns(plan, psi.device, _KERNELS))
 
@@ -378,7 +392,7 @@ def make_scanned_planar_runner(body_plan: Plan, repeats: int,
                     psi = _renormalize(psi)
             return psi
         refl = _Reflection(body_plan.steps[0], psi.device)
-        p3 = psi.reshape(2, refl.H, refl.T)
+        p3 = psi.reshape(*psi.shape[:-1], refl.H, refl.T)
         c = refl.c_from_lane_dot(kernels.reflect_dot(p3, refl.a, refl.b), p3)
         for _ in range(repeats):
             p3, d = kernels.reflect_update(p3, c, refl.a, refl.b, refl.flips)
@@ -394,25 +408,29 @@ def make_scanned_planar_runner(body_plan: Plan, repeats: int,
 def planar_probs(psi: torch.Tensor, targets=None,
                  n: Optional[int] = None) -> torch.Tensor:
     """Outcome probabilities of ``targets`` (sorted qubit order), or of the
-    whole register, as a tensor on the state's device."""
+    whole register, as a tensor on the state's device; of a (P, 2, 2^n)
+    batch, one row a particle."""
     if n is None:
         n = psi.shape[-1].bit_length() - 1
-    return _marginal(psi[0] ** 2 + psi[1] ** 2, targets, n)
+    return _marginal(psi[..., 0, :] ** 2 + psi[..., 1, :] ** 2, targets, n)
 
 
 def _marginal(p: torch.Tensor, targets, n: int) -> torch.Tensor:
-    """Marginal of the 2^n outcome probabilities ``p`` on ``targets``."""
+    """Marginal of the 2^n outcome probabilities ``p`` (..., 2^n) on
+    ``targets``."""
     if targets is None:
         return p
     shape, _, rest = _grouped_view(n, targets)
-    p = p.reshape(shape)
+    lead = p.shape[:-1]
+    p = p.reshape(*lead, *shape)
     if rest:
-        p = torch.sum(p, dim=rest)
-    return p.reshape(-1)
+        p = torch.sum(p, dim=[len(lead) + r for r in rest])
+    return p.reshape(*lead, -1)
 
 
 def planar_norm(psi: torch.Tensor) -> torch.Tensor:
-    return torch.sum(psi[0] ** 2 + psi[1] ** 2)
+    """⟨ψ|ψ⟩; of a (P, 2, 2^n) batch, one a particle."""
+    return torch.sum(psi[..., 0, :] ** 2 + psi[..., 1, :] ** 2, dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -768,3 +768,155 @@ def test_renormalised_bf16_3x_runner_on_card(cuda):
         kernels.set_dot_mode("f32")
     assert abs(float(planar.planar_norm(got)) - 1.0) <= 1e-5
     assert rel_l2(got, want) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the particle axis: one launch for a (P, 2, 2^n) batch
+# ---------------------------------------------------------------------------
+
+PARTICLES = 3
+
+
+def _batch(n, rng, device, P=PARTICLES):
+    psi = rng.normal(size=(P, 2, 2**n))
+    psi /= np.linalg.norm(psi, axis=(1, 2), keepdims=True)
+    return torch.tensor(psi, dtype=torch.float32, device=device)
+
+
+def _one_launch_each(fn, batch):
+    """(fn(batch), [fn(batch[p]) for each p]) with the launches of the
+    batched call counted: one, whatever P is."""
+    singles = [fn(batch[p].contiguous()) for p in range(batch.shape[0])]
+    kernels.reset_launch_counts()
+    got = fn(batch)
+    launches = sum(kernels.launch_counts().values())
+    return got, singles, launches
+
+
+@pytest.mark.parametrize("where", ["first", "middle", "trailing"])
+@pytest.mark.parametrize("width", range(1, 8))
+def test_window_particle_axis_bit_for_bit(cuda, any_mode, width, where):
+    """A batch of 3 in one launch gives each particle the bits of its own
+    launch, in every dot mode, with flips and phases; at 20 qubits the
+    persistent kernels' grid is shared out among the particles."""
+    for n in (12, 20):
+        start = {"first": 0, "middle": (n - width) // 2,
+                 "trailing": n - width}[where]
+        rng = np.random.default_rng(width + n)
+        psi = _batch(n, rng, cuda)
+        w = _unitary(2**width, rng, cuda)
+        phases = (((0, start, n - 1), complex(np.exp(0.5j)), 0),)
+        flips = tuple(int(m) for m in rng.integers(0, 2**n, size=3))
+        diag = kernels.fused_diagonals(n, flips, phases, cuda)
+
+        def fn(x):
+            return kernels.window_apply(x, n, start, width, w, diag)
+        got, singles, launches = _one_launch_each(fn, psi)
+        assert launches == 1
+        for p, one in enumerate(singles):
+            assert torch.equal(got[p], one), (n, p)
+        want = kernels.window_apply_ref(psi, n, start, width, w, diag)
+        assert rel_l2(got, want) <= MODE_TOL.get(any_mode, (TOL,))[0]
+
+
+# (n, start, width1, width2): the tensor-core trailing and middle pairs, the
+# narrow pairs, the streaming pairs, the shared-memory FMA pair (D1 >= 8,
+# D2 <= 4) and two windows
+BATCH_PAIRS = [(12, 0, 3, 7), (18, 4, 7, 7), (20, 0, 5, 7), (12, 2, 3, 3),
+               (18, 9, 2, 7), (12, 3, 2, 7), (14, 6, 2, 2), (12, 8, 2, 2),
+               (14, 5, 7, 2), (14, 0, 6, 1)]
+
+
+@pytest.mark.parametrize("geometry", BATCH_PAIRS,
+                         ids=lambda g: "n{}_s{}_{}x{}".format(*g))
+def test_pair_particle_axis_bit_for_bit(cuda, any_mode, geometry):
+    n, start, width1, width2 = geometry
+    rng = np.random.default_rng(sum(geometry))
+    _, w1, w2, diag = _pair_inputs(n, start, width1, width2, rng, cuda)
+    psi = _batch(n, rng, cuda)
+
+    def fn(x):
+        return kernels.pair_apply(x, n, start, width1, width2, w1, w2, diag)
+    got, singles, launches = _one_launch_each(fn, psi)
+    two = kernels.pair_route(n, start, width1, width2) == "two_windows"
+    assert launches == (2 if two else 1)
+    for p, one in enumerate(singles):
+        assert torch.equal(got[p], one), p
+    want = kernels.pair_apply_ref(psi, n, start, width1, width2, w1, w2,
+                                  diag)
+    assert rel_l2(got, want) <= PAIR_TOL[any_mode][0]
+
+
+@pytest.mark.parametrize("H,T", [(8, 128), (4096, 128), (1000, 7)])
+def test_reflect_particle_axis_bit_for_bit(cuda, H, T):
+    """Each particle its own c, partials and lane dot D."""
+    rng = np.random.default_rng(H + T)
+    psi = torch.tensor(rng.normal(size=(PARTICLES, 2, H, T)),
+                       dtype=torch.float32, device=cuda)
+    a = torch.tensor(rng.normal(size=(2, H, 1)), dtype=torch.float32,
+                     device=cuda)
+    b = torch.tensor(rng.normal(size=(2, 1, T)), dtype=torch.float32,
+                     device=cuda)
+    c = torch.tensor(rng.normal(size=(PARTICLES, 2)), dtype=torch.float32,
+                     device=cuda)
+    flips = torch.tensor(rng.integers(0, H * T, size=2), dtype=torch.int64,
+                         device=cuda)
+    d, singles, launches = _one_launch_each(
+        lambda x: kernels.reflect_dot(x, a, b), psi)
+    assert launches == 1 and d.shape == (PARTICLES, 2, 1, T)
+    for p, one in enumerate(singles):
+        assert torch.equal(d[p], one)
+    kernels.reset_launch_counts()
+    out, d2 = kernels.reflect_update(psi, c, a, b, flips)
+    assert kernels.launch_counts()["reflect_update"] == 1
+    for p in range(PARTICLES):
+        o1, e1 = kernels.reflect_update(psi[p].contiguous(), c[p], a, b,
+                                        flips)
+        assert torch.equal(out[p], o1) and torch.equal(d2[p], e1)
+    out_ref, d_ref = kernels.reflect_update_ref(psi, c, a, b, flips)
+    assert rel_l2(out, out_ref) <= TOL and rel_l2(d2, d_ref) <= TOL
+
+
+def test_launch_counts_do_not_depend_on_particles(cuda):
+    """A plan over 1, 3 and 17 particles launches the same kernels the same
+    number of times."""
+    n = 11
+    plan = compile_circuit(random_circuit(n, 3, seed=9))
+    counts = []
+    for P in (1, 3, 17):
+        psi = _batch(n, np.random.default_rng(P), cuda, P)
+        kernels.reset_launch_counts()
+        planar.apply_plan_planar(psi, plan)
+        counts.append(kernels.launch_counts())
+    assert counts[0] == counts[1] == counts[2]
+    assert sum(counts[0].values()) > 0
+
+
+def test_device_ensemble_on_card_matches_cpu(cuda):
+    """The exact fan-out of a 10-qubit program with mid-circuit meas, disc
+    and targeted qset, on the card and on the CPU; the sampled run twice
+    from one seed (the CUDA generator is seeded)."""
+    from qbot_tpu_torch import lower_program, run_lowered_ensemble
+    from qbot_tpu_torch.inference.ensemble_exec import ensemble_mixture
+
+    src = "\n".join(
+        ["qset tensorExp(comp[0], 10)"]
+        + [f"gate hadamardGate ; {q}" for q in range(10)]
+        + ["meas a ; computation ; [0, 3]", "gate pauliXGate ; 5 ; [3]",
+           "disc [9]", "qset hadamard.kets[1] ; [2]",
+           "gate hadamardGate ; 4", "meas b ; computation ; [4, 5]"])
+    runs = {}
+    for device in ("cpu", cuda):
+        res, ens = run_lowered_ensemble(lower_program(src, mid_measure=True),
+                                        device=device)
+        runs[str(device)] = ({k: np.asarray(v.probs) for k, v in res.items()},
+                             ensemble_mixture(ens))
+    (pc, mc), (pg, mg) = runs.values()
+    for name in pc:
+        np.testing.assert_allclose(pg[name], pc[name], atol=1e-5)
+    np.testing.assert_allclose(mg, mc, atol=1e-5)
+    sampled = [run_lowered_ensemble(lower_program(src, mid_measure=True),
+                                    device=cuda, sample=16, seed=3)[0]
+               for _ in range(2)]
+    for name in sampled[0]:
+        assert sampled[0][name].probs == sampled[1][name].probs

@@ -10,9 +10,13 @@ paired plan on the statevector and density executors, a lowered program,
 and the port's CLI on ``examples/grover.qb`` with and without
 ``--compile``, and with ``--compile --precision bf16_3x``, then the exact
 host ensemble (``frontend/ensemble.py``, with ``utils/config.py`` read by
-the CLI) through ``--ensemble``.  Tolerance: 1e-5 on the marked
+the CLI) through ``--ensemble``, and the device ensemble
+(``frontend/device_ensemble.py``, ``inference/``, ``utils/checkpoint.py``)
+through ``--compile --ensemble`` and ``--compile --ensemble --smc 4`` on
+``examples/mid_measurement.qb``.  Tolerance: 1e-5 on the marked
 probability and on ρ against ψψ† (float32); the two CLI modes print the
-same readout within 1e-6, the bf16_3x run within 1e-4.
+same readout within 1e-6, the bf16_3x run within 1e-4, the exact device
+ensemble within 1e-6 of the dense interpreter.
 """
 import re
 import subprocess
@@ -79,6 +83,18 @@ assert runtime_config().seed == 5
 ns = qbot_tpu_torch.executeTxtEnsemble(
     open("examples/probabilistic_branching.qb").read())
 assert np.allclose(np.diag(ns["state"]).real, [0.75, 0.25])
+outs = []
+for extra in ([], ["--compile", "--ensemble", "--device", "cpu"],
+              ["--compile", "--ensemble", "--device", "cpu", "--smc", "4"]):
+    buf, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        assert cli_main(["examples/mid_measurement.qb", *extra]) == 0
+    outs.append((line.findall(buf.getvalue()), err.getvalue()))
+(dense, _), (exact, exact_err), (smc, smc_err) = outs
+assert len(dense) == len(exact) == len(smc) == 6, outs
+for (kd, pd, _), (ke, pe, _), (ks, ps, _) in zip(dense, exact, smc):
+    assert kd == ke == ks and abs(float(pd) - float(pe)) <= 1e-6, outs
+assert "64 device particles" in exact_err and "4 device particles" in smc_err
 assert not any(m.split(".")[0] in ("jax", "qbot_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print("ok")
@@ -92,10 +108,18 @@ def test_port_runs_without_jax():
     assert proc.stdout.strip() == "ok"
 
 
+# the device ensemble's modules, which the scans below must reach
+ENSEMBLE_MODULES = ("inference/__init__.py", "inference/smc.py",
+                    "inference/ensemble_exec.py", "utils/checkpoint.py",
+                    "frontend/device_ensemble.py")
+
+
 def test_port_sources_never_import_jax():
     pattern = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
     sources = sorted((ROOT / "qbot_tpu_torch").rglob("*.py"))
     assert sources
+    for module in ENSEMBLE_MODULES:
+        assert ROOT / "qbot_tpu_torch" / module in sources, module
     for path in sources + [ROOT / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
 

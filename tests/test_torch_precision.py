@@ -15,9 +15,10 @@ package, on the CPU.
   and to the JAX result only within 1e-2.
 - ``renorm_every`` in {1, 2}: the port's scanned runner against
   ``qbot_tpu``'s, within relative L2 1e-6.
-- The CLI: ``--precision``, ``--ensemble``, ``--profile``, ``--dtype`` and
-  ``--seed`` as ``qbot_tpu``'s CLI takes them; the flags whose slice has not
-  landed exit 1 naming their ROADMAP item.
+- The CLI: ``--precision``, ``--ensemble``, ``--profile``, ``--dtype``,
+  ``--seed``, ``--smc`` and ``--compile --ensemble`` as ``qbot_tpu``'s CLI
+  takes them; the flags whose slice has not landed exit 1 naming their
+  ROADMAP item.
 
 The geometries are those on which the reference reaches its Pallas kernels
 (B >= 128 or a trailing window with at least 8 rows; trailing pairs, and
@@ -467,10 +468,23 @@ def test_cli_dtype_c64_runs_the_registers_in_complex64():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--smc", "4"], "item 7"), (["--shard", "1"], "item 10"),
-    (["--mesh", "2x2"], "item 10"), (["--compile", "--ensemble"], "item 7"),
+    (["--shard", "1"], "item 10"), (["--mesh", "2x2"], "item 10"),
     (["--backend", "jax"], "North star")])
 def test_cli_flags_not_ported_exit_1_naming_their_item(flags, item, capsys):
     assert torch_cli(["examples/grover.qb", *flags]) == 1
     err = capsys.readouterr().err.strip().splitlines()
     assert len(err) == 1 and item in err[0] and "ROADMAP" in err[0]
+
+
+@pytest.mark.parametrize("flags", [["--smc", "4"],
+                                   ["--compile", "--ensemble"]])
+def test_cli_device_ensemble_flags_do_what_the_reference_does(flags):
+    """``--smc`` alone is ignored (the dense interpreter runs), ``--compile
+    --ensemble`` runs the device ensemble: the exit code, the readout and
+    the stderr line as ``qbot_tpu``'s."""
+    got = _run("qbot_tpu_torch", "examples/grover.qb", *flags,
+               "--device", "cpu")
+    want = _run("qbot_tpu", "examples/grover.qb", *flags)
+    assert got.returncode == want.returncode == 0, got.stderr + want.stderr
+    _same_numbers(got.stdout, want.stdout, 1e-6)
+    assert got.stderr.strip() == want.stderr.strip()
