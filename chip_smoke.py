@@ -109,6 +109,36 @@ nonzero:
    distribution against the plain versions); every example through ``python
    -m qbot_tpu_torch FILE --compile --ensemble`` on the card against the
    same on ``--device cpu``.  It fails unless each of PHASE10_KERNELS moved.
+11. gradients and HMC/NUTS over gate angles (``qbot_tpu_torch.inference``)
+   at 24 qubits: ``benchmarks/smc_bench.py``'s posterior, the ansatz
+   ``parameterized_layers(24, 4)`` (96 angles, a 128 MiB planar state),
+   64 counts at outcome 0 and 32 at outcome 1, θ0 = linspace(0.1, 1.0),
+   compiled paired (the default) and unpaired, and the same posterior
+   over ``complex_ansatz(24, 2)`` (RX and RZ angles, so complex
+   parameterised windows, with controlled phases e^{0.7i} and a phase
+   flip fused into them), paired and unpaired.  In every dot mode, each
+   plan's log-prob value and 96-angle gradient through the kernels (the
+   window, pair and reflection Functions, whose backward runs the same
+   kernels with W†) against the plain versions' autograd in the mode
+   (GRAD_LIMITS: value 1e-5 / 1e-4 / 1e-6 relative, gradient 1e-4 / 1e-4 /
+   3e-2 relative L2 in f32 / bf16_3x / bf16; the reasons beside them);
+   every step after the first launches its kernel once more in the
+   backward (the launch counts of a value-and-gradient are twice the
+   forward's less the first step's, whose input needs no cotangent), and
+   each of ``window_apply``, ``window_apply_trailing``, ``pair_apply`` and
+   ``pair_apply_trailing`` has backward launches in every mode.  Each
+   circuit's f32 gradients against the complex64 simulator's (rtol 2e-3, atol 1e-3,
+   ``tests/test_inference.py``'s limits); a 20-qubit Grover-in-the-loss
+   gradient (its reflection's adjoint through ``reflect_dot`` and
+   ``reflect_update``) against the plain versions.  Timed: forward and
+   value-and-gradient (wall and device milliseconds between CUDA events);
+   for each window and pair geometry of the two plans the forward launch,
+   the W† launch, the matrix cotangents' products and the whole backward,
+   in turns, with the bound; ``run_hmc_chains`` with 4 chains x 8 samples,
+   step 0.05, 5 leapfrogs (samples/s, gradients/s, acceptance, peak
+   allocated memory); ``nuts_warmup`` 4 + ``run_nuts`` 4 transitions at
+   ``max_tree_depth=4`` (leaves, finiteness).  Each kernel's entry of the
+   JSON line gains ``backward_launches``.
 
 Launch counts are reset before phase 3 and read after phase 6: every f32
 kernel must have launched on that path; they are reset again before
@@ -119,7 +149,8 @@ each mode) must have moved, and before phase 9, after which the streaming
 kernels' counters (``window_apply_stream``, ``pair_apply_stream``, in each
 mode) must have moved, and before phase 10's ensemble runs (after its
 particle-axis checks), after which each of PHASE10_KERNELS must have
-moved.  The timed run of Grover, of each brickwork
+moved, and before phase 11, whose launches are added to the line's.
+The timed run of Grover, of each brickwork
 plan and of the density bodies also reports its own launches.
 The line before the last is one JSON object of per-kernel results; the
 last is the run's verdict.
@@ -135,8 +166,9 @@ a product) and the reflections' arithmetic at the 67 TFLOP/s FP32 rate.
     python3 chip_smoke.py --profile chiprun_out [--precision bf16_3x]
 
 runs phases 0 and 1, then profiles phases 4, 5 (paired and unpaired), 8
-(the 23-qubit body), 9 (the ``window=2`` body), 6 and 10 (the SMC
-program, sampled, one run) with torch.profiler
+(the 23-qubit body), 9 (the ``window=2`` body), 6, 10 (the SMC
+program, sampled, one run) and 11 (one value-and-gradient of the paired
+24-qubit ansatz) with torch.profiler
 (device busy share, the table of device time per kernel, Chrome traces
 written to the directory), in the dot mode ``--precision`` (default f32),
 and nothing else.
@@ -169,6 +201,7 @@ from qbot_tpu_torch.tpu.planar import (
     make_planar_density_runner,
     make_scanned_planar_runner,
     planar_norm,
+    planar_probs,
     product_state_planar,
     zero_density_planar,
     zero_state_planar,
@@ -1800,6 +1833,425 @@ def ensemble_examples(device) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 11: gradients through the kernels, and HMC/NUTS over gate angles
+# ---------------------------------------------------------------------------
+
+HMC_QUBITS = 24            # benchmarks/smc_bench.py: parameterized_layers(24,
+HMC_DEPTH = 4              # 4), 96 angles, 64 counts at outcome 0 and 32 at
+HMC_COUNTS = {0: 64.0, 1: 32.0}        # outcome 1 over all qubits (:47)
+HMC_STEP = 0.05            # smc_bench.py:66-72: step 0.05, 5 leapfrogs,
+HMC_LEAPFROG = 5           # θ0 = linspace(0.1, 1.0) over chains x angles
+HMC_CHAINS = 4
+HMC_SAMPLES = 8
+NUTS_WARMUP = 4
+NUTS_SAMPLES = 4
+NUTS_DEPTH = 4
+GRAD_GROVER_QUBITS = 20
+COMPLEX_DEPTH = 2          # complex_ansatz(24, 2): 96 angles, as the ansatz
+# dot mode -> (value relative, gradient relative L2) of the log-prob through
+# the kernels against the plain versions' autograd in the mode.  f32: the
+# kernels' products are the plain versions' (phase 2: KERNEL_TOL a launch):
+# 1e-5 and 1e-4.  The reduced modes from this phase's readings over the
+# four plans (H100 80GB HBM3, 700 W), with the headroom stated.  A reduced
+# backward rounds W† and the cotangent to bf16 before its product, where
+# the plain versions' autograd rounds the product's result, so the two
+# gradients differ on the CPU too.  bf16_3x read values 8.5e-7-1.32e-5 and
+# gradients 1.11-2.38e-5: 1e-4 (7.6x) and 1e-4 (4.2x); bf16 read values
+# 0-8.0e-8 and gradients 2.88-8.61e-3: 1e-6 (12x) and 3e-2 (3.5x)
+GRAD_LIMITS = {"f32": (1e-5, 1e-4), "bf16_3x": (1e-4, 1e-4),
+               "bf16": (1e-6, 3e-2)}
+SIM_GRAD_TOL = {"rtol": 2e-3, "atol": 1e-3}   # tests/test_inference.py's
+GRAD_KERNELS = ("window_apply", "window_apply_trailing", "pair_apply",
+                "pair_apply_trailing")
+
+
+def hmc_ansatz(device):
+    """(circuit, {label: plan} paired and unpaired, counts, θ0 (chains,
+    angles)) of smc_bench.py's posterior."""
+    from qbot_tpu_torch.tpu.circuit import parameterized_layers
+
+    circ = parameterized_layers(HMC_QUBITS, HMC_DEPTH)
+    counts = np.zeros(2**HMC_QUBITS, np.float32)
+    for k, v in HMC_COUNTS.items():
+        counts[k] = v
+    plans = {"paired": compile_circuit(circ),
+             "unpaired": compile_circuit(circ, pair=False)}
+    theta0 = torch.linspace(0.1, 1.0, HMC_CHAINS * circ.num_params,
+                            device=device).reshape(HMC_CHAINS, -1)
+    return circ, plans, counts, theta0
+
+
+def complex_ansatz(n: int, depth: int) -> Circuit:
+    """RX and RZ angles on every qubit (complex parameterised windows), then
+    controlled phases e^{0.7i} on neighbours (those across two windows
+    fuse into the next window as phases) and a phase flip (fused as a
+    flip), ``depth`` times: 4n angles at depth 2."""
+    cphase = np.array([1, 1, 1, np.exp(0.7j)])
+    c, k = Circuit(n), 0
+    for layer in range(depth):
+        for q in range(n):
+            c.prx(q, k)
+            c.prz(q, k + 1)
+            k += 2
+        for q in range(layer % 2, n - 1, 2):
+            c.diagonal(cphase, [q, q + 1])
+        c.phase_flip((2**n) // 3 + layer)
+    return c
+
+
+def complex_plans() -> dict:
+    """{label: plan} of the complex ansatz, paired and unpaired; each fuses
+    phases and a flip into a window with angles, and the paired plan
+    phases into a pair."""
+    from qbot_tpu_torch.tpu.compiler import PairStep
+
+    circ = complex_ansatz(HMC_QUBITS, COMPLEX_DEPTH)
+    plans = {}
+    for label, pair in (("complex paired", True),
+                        ("complex unpaired", False)):
+        plan = compile_circuit(circ, pair=pair)
+        windows = [w for st in plan.steps
+                   for w in ((st.first, st.second)
+                             if isinstance(st, PairStep) else (st,))
+                   if hasattr(w, "pre_phases")]
+        angled = [w for w in windows
+                  if any(t.matrix is None for t in w.terms)]
+        if not (any(w.pre_flips for w in angled)
+                and any(w.pre_phases for w in angled)
+                and (not pair or any(
+                    st.first.pre_phases or st.second.pre_phases
+                    for st in plan.steps if isinstance(st, PairStep)))):
+            raise AssertionError(f"{label}: no fused phase or flip on an "
+                                 f"angled window: {plan.steps}")
+        plans[label] = plan
+    return plans
+
+
+def plain_log_prob(plan, counts, device):
+    """The planar posterior through the kernels' plain versions and
+    PyTorch's own autograd: the reference of a gradient through the
+    kernels."""
+    from qbot_tpu_torch.inference import hmc
+
+    def probs_of(theta):
+        psi = apply_plan_planar_ref(zero_state_planar(plan.n, device), plan,
+                                    theta)
+        return planar_probs(psi, None, plan.n)
+    return hmc._posterior(probs_of, counts, 10.0, device, torch.float32)
+
+
+def first_step_launches(plan, theta, device) -> dict:
+    """Launches of a plan's first step alone: its input, |0⟩, needs no
+    cotangent, so its kernel runs once in a value-and-gradient."""
+    from qbot_tpu_torch.tpu.compiler import Plan
+
+    first = Plan(plan.n, plan.window, plan.steps[:1], plan.num_params)
+    return _launch_delta(lambda: apply_plan_planar(
+        zero_state_planar(plan.n, device), first, theta))[1]
+
+
+def check_gradient(label: str, plan, lp, plain, theta, device,
+                   mode: str) -> tuple[torch.Tensor, dict]:
+    """The value and gradient of ``lp`` at ``theta`` through the kernels
+    against ``plain``'s (GRAD_LIMITS); every step after the first launches
+    its kernel once more in the backward, W† in the current mode.  Returns
+    (gradient, backward launches)."""
+    from qbot_tpu_torch.inference import hmc
+
+    _, forward = _launch_delta(lambda: lp(theta))
+    (value, grad), both = _launch_delta(
+        lambda: hmc.value_and_grad(lp)(theta))
+    first = first_step_launches(plan, theta, device)
+    want = {k: 2 * v - first.get(k, 0) for k, v in forward.items()}
+    if both != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"{label}: forward {forward}, first step "
+                             f"{first}, value-and-gradient {both}")
+    want_v, want_g = hmc.value_and_grad(plain)(theta)
+    value_tol, grad_tol = GRAD_LIMITS[mode]
+    rel_v = abs(float(value) - float(want_v)) / abs(float(want_v))
+    rel_g = rel_l2(grad, want_g)
+    if not (rel_v <= value_tol and rel_g <= grad_tol
+            and torch.isfinite(grad).all()):
+        raise AssertionError(f"{label} [{mode}]: value {float(value)} vs "
+                             f"{float(want_v)} (rel {rel_v:.3e}), gradient "
+                             f"rel L2 {rel_g:.3e} > {grad_tol:g}")
+    backward = {k: both[k] - forward.get(k, 0) for k in both}
+    say(f"gradient {label} [{mode}]: value {float(value):.6f} (rel "
+        f"{rel_v:.3e} of the plain versions), gradient rel L2 {rel_g:.3e} "
+        f"(limit {grad_tol:g}), |g| "
+        f"{float(torch.linalg.vector_norm(grad)):.4f}; launches forward "
+        f"{forward}, backward {backward}")
+    return grad, backward
+
+
+def grover_loss(n: int, marked: int) -> Circuit:
+    """tests/test_inference.py:180-213 at ``n`` qubits: an RY on every
+    qubit, then one Grover body, which compiles to a ReflectStep."""
+    H = np.array([[1, 1], [1, -1]], dtype=complex) / np.sqrt(2)
+    c = Circuit(n)
+    for q in range(n):
+        c.pry(q, q)
+    for q in range(n):
+        c.gate(H, [q])
+    c.phase_flip(marked)
+    for q in range(n):
+        c.gate(H, [q])
+    c.phase_flip(0)
+    for q in range(n):
+        c.gate(H, [q])
+    return c
+
+
+def time_value_and_grad(lp, theta, device) -> dict:
+    """Wall and device milliseconds (CUDA events around the run) of one
+    forward and of one value-and-gradient, each after a warm-up."""
+    from qbot_tpu_torch.inference import hmc
+
+    out = {}
+    for label, fn in (("forward", lambda: lp(theta)),
+                      ("value_and_grad",
+                       lambda: hmc.value_and_grad(lp)(theta))):
+        _, wall, device_ms, _ = timed_run(fn, device)
+        out[f"{label}_wall_ms"] = wall * 1e3
+        out[f"{label}_device_ms"] = device_ms
+    return out
+
+
+def backward_parts(plan, device) -> list:
+    """For each distinct window and pair geometry of ``plan`` at its
+    shapes: ms of the forward launch, of the backward's W† launch, of its
+    matrix-cotangent products (one float32 GEMM of the stacked planes; a
+    pair's intermediates Z = W2·y and V = W1·y too) and of the forward and
+    backward through autograd, timed in turns, with the forward launch's
+    bound and the launches a gradient makes of it."""
+    from qbot_tpu_torch.tpu.compiler import PairStep
+
+    n, gen = plan.n, torch.Generator(device=device).manual_seed(11)
+    rng = np.random.default_rng(11)
+    psi = _random_state(n, gen, device)
+    cot = _random_state(n, gen, device)
+    none = kernels.fused_diagonals(n, device=device)
+    rows, seen = [], {}
+    for i, step in enumerate(plan.steps):
+        pair = isinstance(step, PairStep)
+        if pair:
+            start, w1, w2 = (step.first.start, step.first.width,
+                             step.second.width)
+            key = ("pair", start, w1, w2)
+        else:
+            start, w1, w2 = step.start, step.width, 0
+            key = ("window", start, w1)
+        seen.setdefault(key, [0, 0])
+        seen[key][0] += 1
+        seen[key][1] += 1 if i else 0
+        if seen[key][0] > 1:
+            continue
+        ws = [_planar_unitary(2**w, rng, device) for w in (w1, w2) if w]
+        adj = [kernels._adjoint(w) for w in ws]
+        split = ((2**start, 2**w1, 2**w2, -1) if pair
+                 else (2**start, 2**w1, -1))
+        if pair:
+            def launch(x, m):
+                return kernels.pair_apply(x, n, start, w1, w2, *m, none)
+
+            def cotangents():
+                z = kernels.window_apply_ref(psi, n, start + w1, w2, ws[1],
+                                             none, mode="f32")
+                v = kernels.window_apply_ref(psi, n, start, w1, ws[0], none,
+                                             mode="f32")
+                return (kernels._matrix_cotangent(cot, z, split, 1),
+                        kernels._matrix_cotangent(cot, v, split, 2))
+            nbytes = 2 * psi.numel() * 4
+            bound_ms, bound_by = pair_bound(nbytes, 2**n, 2**w1, 2**w2,
+                                            "f32")
+        else:
+            def launch(x, m):
+                return kernels.window_apply(x, n, start, w1, m[0], none)
+
+            def cotangents():
+                return kernels._matrix_cotangent(cot, psi, split, 1)
+            bound_ms, bound_by = product_bound(
+                2 * psi.numel() * 4, 8 * 2**w1 * 2**n, "f32", w1 > 2)
+
+        def forward_and_backward():
+            x = psi.detach().requires_grad_()
+            ms = [w.detach().requires_grad_() for w in ws]
+            return torch.autograd.grad(launch(x, ms), [x, *ms], cot)
+
+        fwd, adj_ms, cot_ms, both = timed_in_turns(
+            [lambda: launch(psi, ws), lambda: launch(cot, adj),
+             cotangents, forward_and_backward], device)
+        rows.append({"step": key, "forward_ms": fwd, "adjoint_ms": adj_ms,
+                     "cotangent_ms": cot_ms, "forward_backward_ms": both,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "ratio": both / fwd})
+    for row in rows:
+        row["forward_launches"], row["adjoint_launches"] = seen[row["step"]]
+    return rows
+
+
+def time_folds(plan, theta, device) -> dict:
+    """Wall ms (ended by a synchronise) of folding every parameterised
+    window of ``plan`` once at ``theta``, and of the folds with their
+    backward: the host work a value-and-gradient does besides its
+    launches."""
+    from qbot_tpu_torch.tpu.compiler import PairStep
+    from qbot_tpu_torch.tpu.planar import fold_window_planar
+
+    windows = [w for s in plan.steps
+               for w in ((s.first, s.second) if isinstance(s, PairStep)
+                         else (s,))
+               if any(t.matrix is None for t in w.terms)]
+
+    def folds(grad: bool):
+        t = theta.detach().requires_grad_(grad)
+        with torch.set_grad_enabled(grad):
+            total = sum(torch.sum(fold_window_planar(w, t)) for w in windows)
+        if grad:
+            torch.autograd.grad(total, t)
+    out = {"windows": len(windows)}
+    for label, grad in (("fold_ms", False), ("fold_and_backward_ms", True)):
+        _, wall, _, _ = timed_run(lambda: folds(grad), device)
+        out[label] = wall * 1e3
+    return out
+
+
+def gradient_path(device, card: str) -> tuple[dict, dict, dict]:
+    """Phase 11.  Returns ({run: launches}, {counter: backward launches},
+    numbers)."""
+    from qbot_tpu_torch.inference import hmc, nuts
+
+    circ, plans, counts, theta0 = hmc_ansatz(device)
+    theta = theta0[0]
+    checked = {**plans, **complex_plans()}
+    runs, backward, numbers = {}, {}, {}
+    grads = {}
+    for mode in ("f32", *REDUCED_MODES):
+        kernels.set_dot_mode(mode)
+        moved = dict.fromkeys(GRAD_KERNELS, 0)
+        for label, plan in checked.items():
+            lp = hmc.make_circuit_log_prob_planar(plan, counts, device=device)
+            grad, back = check_gradient(
+                f"ansatz {HMC_QUBITS}q {label}", plan, lp,
+                plain_log_prob(plan, counts, device), theta, device, mode)
+            for k, v in back.items():
+                backward[k] = backward.get(k, 0) + v
+                if k.split("[")[0] in moved:
+                    moved[k.split("[")[0]] += v
+            if mode == "f32":
+                grads[label] = grad
+            if mode == "f32" and label in plans:
+                numbers[f"grad_{label}"] = time_value_and_grad(lp, theta,
+                                                               device)
+        missing = [k for k, v in moved.items() if v <= 0]
+        if missing:
+            raise AssertionError(f"phase 11 [{mode}]: no backward launch of "
+                                 f"{missing}")
+    kernels.set_dot_mode("f32")
+
+    simulated = {}      # one simulator gradient a circuit
+    for label, grad in grads.items():
+        circuit = label.split()[0] == "complex"
+        if circuit not in simulated:
+            simulated[circuit] = hmc.value_and_grad(hmc.make_circuit_log_prob(
+                checked[label], counts, dtype=torch.complex64,
+                device=device))(theta)[1]
+        want = simulated[circuit]
+        err = float(torch.max(torch.abs(grad - want)))
+        if not torch.allclose(grad, want, **SIM_GRAD_TOL):
+            raise AssertionError(f"ansatz {label}: gradient off the "
+                                 f"complex64 simulator's by {err:.3e}")
+        say(f"ansatz {HMC_QUBITS}q {label}: gradient within {err:.3e} of "
+            f"the complex64 simulator's (rtol 2e-3, atol 1e-3)")
+
+    n = GRAD_GROVER_QUBITS
+    marked = (2**n) // 3
+    plan = compile_circuit(grover_loss(n, marked))
+    if not any(type(s).__name__ == "ReflectStep" for s in plan.steps):
+        raise AssertionError(f"Grover-in-the-loss compiled to {plan.steps}")
+    g_counts = np.zeros(2**n, np.float32)
+    g_counts[0], g_counts[marked] = 10.0, 6.0
+    lp = hmc.make_circuit_log_prob_planar(plan, g_counts, device=device)
+    _, back = check_gradient(f"Grover-in-the-loss {n}q", plan, lp,
+                             plain_log_prob(plan, g_counts, device),
+                             torch.linspace(0.3, 1.1, n, device=device),
+                             device, "f32")
+    for k, v in back.items():
+        backward[k] = backward.get(k, 0) + v
+    if not (back.get("reflect_dot", 0) and back.get("reflect_update", 0)):
+        raise AssertionError(f"Grover-in-the-loss: backward {back}")
+
+    parts = {label: backward_parts(plan, device)
+             for label, plan in plans.items()}
+    for label, rows in parts.items():
+        for row in rows:
+            say(f"backward {label} {row['step']}: forward "
+                f"{row['forward_ms']:.4f} ms, W† launch "
+                f"{row['adjoint_ms']:.4f}, matrix cotangents "
+                f"{row['cotangent_ms']:.4f}, forward and backward "
+                f"{row['forward_backward_ms']:.4f}, ratio to the forward "
+                f"{row['ratio']:.3f}; bound {row['bound_ms']:.4f} "
+                f"({row['bound_by']}); launches {row['forward_launches']} "
+                f"forward, {row['adjoint_launches']} W† a gradient")
+    numbers["backward_parts"] = parts
+    numbers["fold"] = time_folds(plans["paired"], theta, device)
+    say(f"parameterised folds of the paired plan: {numbers['fold']}")
+
+    lp = hmc.make_circuit_log_prob_planar(plans["paired"], counts,
+                                          device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (qs, lps), runs["hmc_chains"] = _launch_delta(lambda: hmc.run_hmc_chains(
+        gen, lp, theta0, HMC_SAMPLES, HMC_STEP, HMC_LEAPFROG))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not (torch.isfinite(qs).all() and torch.isfinite(lps).all()):
+        raise AssertionError("HMC: a position or log-prob is not finite")
+    moved = torch.any(qs != torch.cat([theta0[:, None], qs[:, :-1]], 1),
+                      dim=-1)
+    samples = HMC_CHAINS * HMC_SAMPLES
+    grads_run = HMC_CHAINS * (1 + HMC_SAMPLES * HMC_LEAPFROG)
+    numbers["hmc"] = {"wall_s": wall, "samples_per_s": samples / wall,
+                      "gradients_per_s": grads_run / wall,
+                      "acceptance": float(moved.double().mean()),
+                      "peak_bytes": peak,
+                      "final_log_probs": lps[:, -1].tolist()}
+    say(f"HMC {HMC_QUBITS}q, {circ.num_params} angles, {HMC_CHAINS} chains "
+        f"x {HMC_SAMPLES} samples, step {HMC_STEP}, {HMC_LEAPFROG} "
+        f"leapfrogs: {wall:.3f} s, {samples / wall:.3f} samples/s, "
+        f"{grads_run / wall:.2f} gradients/s, acceptance "
+        f"{float(moved.double().mean()):.3f}, peak {peak / 2**30:.3f} GiB "
+        f"allocated; final log-probs {lps[:, -1].tolist()}; launches "
+        f"{runs['hmc_chains']} ({card})")
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    t0 = time.perf_counter()
+
+    def run_nuts():
+        eps, warm = nuts.nuts_warmup(gen, lp, theta, NUTS_WARMUP, 0.8,
+                                     HMC_STEP, NUTS_DEPTH)
+        return eps, nuts.run_nuts(gen, lp, warm.position, NUTS_SAMPLES,
+                                  eps, NUTS_DEPTH)
+
+    (eps, (qs, lps, stats)), runs["nuts"] = _launch_delta(run_nuts)
+    wall = time.perf_counter() - t0
+    if not (torch.isfinite(qs).all() and torch.isfinite(lps).all()):
+        raise AssertionError("NUTS: a position or log-prob is not finite")
+    leaves = int(stats.num_leaves.sum())
+    numbers["nuts"] = {"wall_s": wall, "step_size": eps, "leaves": leaves,
+                       "depths": stats.depth.tolist(),
+                       "accept_prob": stats.accept_prob.tolist(),
+                       "diverged": int(stats.diverged.sum())}
+    say(f"NUTS {HMC_QUBITS}q: warm-up {NUTS_WARMUP} + {NUTS_SAMPLES} "
+        f"transitions at max_tree_depth {NUTS_DEPTH}: step size {eps:.4f}, "
+        f"{leaves} leaves in the samples, depths {stats.depth.tolist()}, "
+        f"{int(stats.diverged.sum())} divergent, {wall:.3f} s; launches "
+        f"{runs['nuts']} ({card})")
+    return runs, backward, numbers
+
+
 def _device_busy_ms(prof) -> float:
     """Milliseconds in which at least one device activity (kernel or copy)
     of the traced run was running: the union of their intervals."""
@@ -1818,13 +2270,16 @@ def profile(n: int, device, out_dir: Path) -> None:
     """Runs Grover (phase 4), the brickwork paired and unpaired (phase 5),
     the 23-qubit brickwork whose plan holds the narrow pairs (phase 8), the
     brickwork compiled at ``window=2`` (phase 9), the density run (phase
-    6) and the SMC program (phase 10) once untimed, once timed on the host clock, and once under
-    torch.profiler.  Prints each run's wall times,
+    6), the SMC program (phase 10) and a value-and-gradient of the paired
+    24-qubit ansatz (phase 11) once untimed, once timed on the host
+    clock, and once under torch.profiler.  Prints each run's wall times,
     its device busy share (device-busy time over the traced wall time) and
     the profiler's table by device time, and writes the Chrome traces to
     ``out_dir``."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
+
+    from qbot_tpu_torch.inference import hmc
 
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
@@ -1842,6 +2297,9 @@ def profile(n: int, device, out_dir: Path) -> None:
     window2 = compile_circuit(brick, window=STREAM_WINDOWS[0])
     _, _, run_density, rho0 = density_runner(device)
     smc_src = smc_program(SMC_QUBITS)
+    _, hmc_plans, hmc_counts, hmc_theta = hmc_ansatz(device)
+    grad_lp = hmc.make_circuit_log_prob_planar(hmc_plans["paired"],
+                                               hmc_counts, device=device)
     cases = {f"grover_{n}q": lambda: run(grover_psi0),
              f"brickwork_{n}q": lambda: apply_plan_planar(brick_psi0,
                                                           paired),
@@ -1854,7 +2312,9 @@ def profile(n: int, device, out_dir: Path) -> None:
              f"density_{DENSITY_N}q": lambda: run_density(rho0),
              f"smc_{SMC_QUBITS}q": lambda: qbot_tpu_torch.run_lowered_ensemble(
                  lower_program(smc_src, mid_measure=True),
-                 sample=SMC_PARTICLES, seed=0, device=device)}
+                 sample=SMC_PARTICLES, seed=0, device=device),
+             f"value_and_grad_{HMC_QUBITS}q": lambda: hmc.value_and_grad(
+                 grad_lp)(hmc_theta[0])}
     for name, fn in cases.items():
         fn()
         sync(device)
@@ -1876,7 +2336,7 @@ def profile(n: int, device, out_dir: Path) -> None:
             f"busy share {busy_ms / traced_ms:.3f}; trace {trace}")
         print(prof.key_averages().table(sort_by="self_device_time_total",
                                         row_limit=12), flush=True)
-        if name.startswith("smc"):
+        if name.startswith(("smc", "value_and_grad")):
             # a host-bound run: where its host time goes
             print(prof.key_averages().table(sort_by="self_cpu_time_total",
                                             row_limit=12), flush=True)
@@ -1890,7 +2350,8 @@ def main(argv=None) -> int:
                         help="after the build, profile Grover, the "
                              "brickwork (paired and unpaired, at 23 "
                              "qubits, and at window=2), the density "
-                             "run and the SMC program with "
+                             "run, the SMC program and a 24-qubit "
+                             "value-and-gradient with "
                              "torch.profiler, write their traces to DIR, "
                              "and run no other phase")
     parser.add_argument("--precision", choices=kernels.DOT_MODES,
@@ -2031,6 +2492,21 @@ def main(argv=None) -> int:
         f"ensembles, Grover under the particle axis and the examples with "
         f"--compile --ensemble agree with the plain versions; launches "
         f"{ {k: v for k, v in ensemble_counts.items() if v} }")
+
+    kernels.reset_launch_counts()
+    grad_runs, backward, grad_numbers = gradient_path(device, card)
+    grad_counts = kernels.launch_counts()
+    for name in KERNEL_SOURCES:
+        counts[name] += grad_counts[name]
+    runs.update(grad_runs)
+    say(f"gradient numbers: {json.dumps(grad_numbers)}")
+    say(f"phase 11: the {HMC_QUBITS}-qubit ansatz's and complex ansatz's "
+        f"values and gradients through the kernels agree with the plain "
+        f"versions in every dot mode, paired and unpaired, and with the "
+        f"complex64 simulator; the "
+        f"{GRAD_GROVER_QUBITS}-qubit Grover-in-the-loss gradient with the "
+        f"plain versions; HMC and NUTS chains ran; backward launches "
+        f"{ {k: v for k, v in backward.items() if v} }")
     missing = [k for k in KERNEL_SOURCES if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -2045,7 +2521,10 @@ def main(argv=None) -> int:
         f"{ensemble_numbers['smc_samples_per_s']:.2f} samples/s, peak "
         f"{ensemble_numbers['smc_peak_bytes'] / 2**30:.3f} GiB; exact "
         f"fan-out peak {ensemble_numbers['exact_peak_bytes'] / 2**30:.3f} "
-        f"GiB ({card})")
+        f"GiB ({card}); HMC {HMC_QUBITS}q x {HMC_CHAINS} chains: "
+        f"{grad_numbers['hmc']['samples_per_s']:.3f} samples/s, "
+        f"{grad_numbers['hmc']['gradients_per_s']:.2f} gradients/s, peak "
+        f"{grad_numbers['hmc']['peak_bytes'] / 2**30:.3f} GiB")
 
     print(smi)
     print(json.dumps({"kernels": [
@@ -2063,7 +2542,8 @@ def main(argv=None) -> int:
          "two_window_ms": results[name].get("two_window_ms"),
          "rel_l2_f64": results[name].get("rel_l2_f64"),
          "shapes": results[name]["shapes"],
-         "particle_axis": particle[name]}
+         "particle_axis": particle[name],
+         "backward_launches": backward.get(name, 0)}
         for name, (src, rep) in KERNEL_SOURCES.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,9 +12,12 @@ ensemble), :func:`lower_program` and :func:`run_lowered` (a .qb program
 on the planar executor), :func:`run_lowered_ensemble` and
 :func:`executeTxtDeviceEnsemble` (mid-circuit measurement and
 probabilistic control flow on the device particle ensemble, exact or SMC),
-:func:`compile_circuit` (circuit IR to a plan, paired by default), and the
+:func:`compile_circuit` (circuit IR to a plan, paired by default), the
 statevector and density-matrix executors in
-:mod:`qbot_tpu_torch.tpu.planar`.  :func:`planar_from_numpy` and
+:mod:`qbot_tpu_torch.tpu.planar` (differentiable in the state and in the
+angles of parameterised gates, through the kernels' backward) and the
+complex ones of :mod:`qbot_tpu_torch.tpu.simulator`, and HMC/NUTS over
+gate angles in :mod:`qbot_tpu_torch.inference`.  :func:`planar_from_numpy` and
 :func:`planar_to_numpy` carry a planar ``(2, 2^n)`` state or ``(2, 2^n,
 2^n)`` density matrix across from and to the JAX package as numpy.
 """

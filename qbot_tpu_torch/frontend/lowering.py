@@ -35,6 +35,7 @@ from qbot_tpu_torch.frontend.interpreter import record_marks, tokenize_line
 from qbot_tpu_torch.helpers import int_log2
 from qbot_tpu_torch.ops.measurement import MeasurementResult
 from qbot_tpu_torch.probval import ProbVal
+from qbot_tpu_torch.tpu import simulator
 from qbot_tpu_torch.tpu.circuit import Circuit
 from qbot_tpu_torch.tpu.compiler import Plan, compile_circuit
 from qbot_tpu_torch.tpu.planar import (
@@ -842,21 +843,41 @@ def _is_computational(basis) -> bool:
                                           np.eye(2, dtype=complex)))
 
 
-def run_lowered(lp: LoweredProgram, window: int = 7, device="cuda",
-                plan: Optional[Plan] = None):
+def run_lowered(lp: LoweredProgram, window: int = 7, use_planar: bool = True,
+                device="cuda", plan: Optional[Plan] = None):
     """Execute a lowered program on ``device``.
 
-    ``plan`` is ``compile_circuit(lp.circuit, window)`` (paired) when the
-    caller has compiled it already; it is compiled here when None.
+    ``use_planar`` runs the planar executor (the kernels on a CUDA device);
+    ``use_planar=False`` the complex ``complex64`` simulator
+    (:mod:`qbot_tpu_torch.tpu.simulator`, plain PyTorch), from the product
+    of the initial kets, as ``qbot_tpu``'s ``run_lowered`` does
+    (``qbot_tpu/frontend/lowering.py:1702-1767``).  ``plan`` is
+    ``compile_circuit(lp.circuit, window)`` (paired) when the caller has
+    compiled it already; it is compiled here when None.
 
     Returns (outcome probabilities as numpy, or None without a final
-    measurement; final planar state tensor on ``device``).
+    measurement; final state tensor on ``device``: planar ``(2, 2^n)``
+    float32, or a flat complex vector with ``use_planar=False``).
     """
     device = torch.device(device)
     if plan is None:
         plan = compile_circuit(lp.circuit, window=window)
-    psi = apply_plan_planar(product_state_planar(lp.initial_kets, device),
-                            plan)
+    if use_planar:
+        apply = apply_plan_planar
+        psi = apply(product_state_planar(lp.initial_kets, device), plan)
+
+        def probs_of(state, targets):
+            return planar_probs(state, targets, lp.n)
+    else:
+        apply = simulator.apply_plan
+        psi0 = np.array([1.0 + 0j])
+        for ket in lp.initial_kets:
+            psi0 = np.kron(psi0, ket)
+        psi = apply(torch.as_tensor(psi0, device=device).to(
+            simulator.DTYPE), plan)
+
+        def probs_of(state, targets):
+            return simulator.computation_probs(state, targets, lp.n)
     if lp.measure_basis is None:
         return None, psi
 
@@ -867,11 +888,11 @@ def run_lowered(lp: LoweredProgram, window: int = 7, device="cuda",
         if n > _DENSE_REPLAY_LIMIT:
             _too_large_provider(n)()
         host = psi.cpu().numpy()
-        ket = host[0] + 1j * host[1]
+        ket = (host[0] + 1j * host[1]) if use_planar else host
         return np.outer(ket, np.conj(ket))
 
     if _is_computational(basis):
-        probs = planar_probs(psi, targets, lp.n).cpu().numpy()
+        probs = probs_of(psi, targets).cpu().numpy()
         finish_lowered(lp, probs, provider=provider)
         return probs, psi
 
@@ -882,7 +903,7 @@ def run_lowered(lp: LoweredProgram, window: int = 7, device="cuda",
     post = Circuit(lp.n)
     for i in range(0, len(targets), bq):
         post.gate(rot, list(targets[i:i + bq]))
-    psi_rot = apply_plan_planar(psi, compile_circuit(post, window=window))
-    probs = planar_probs(psi_rot, targets, lp.n).cpu().numpy()
+    psi_rot = apply(psi, compile_circuit(post, window=window))
+    probs = probs_of(psi_rot, targets).cpu().numpy()
     finish_lowered(lp, probs, provider=provider)
     return probs, psi

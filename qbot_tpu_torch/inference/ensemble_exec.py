@@ -173,12 +173,11 @@ def init_mixed_ensemble(rho: np.ndarray, tol: float = 1e-12,
 
 def apply_plan_ensemble(ens: QuantumEnsemble, plan: Plan,
                         params=None) -> QuantumEnsemble:
-    """Run ``plan`` on every particle: each of its kernels launches once
-    for the whole batch."""
-    if params is not None:
-        from qbot_tpu_torch.tpu.circuit import PARAM_TODO
-        raise NotImplementedError(PARAM_TODO)
-    return QuantumEnsemble(ens.log_w, apply_plan_planar(ens.psi, plan),
+    """Run ``plan`` on every particle, with the angles ``params`` shared by
+    all (``qbot_tpu/inference/ensemble_exec.py:158``): each of its kernels
+    launches once for the whole batch."""
+    return QuantumEnsemble(ens.log_w, apply_plan_planar(ens.psi, plan,
+                                                        params),
                            ens.lost_mass)
 
 

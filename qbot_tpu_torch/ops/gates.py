@@ -16,9 +16,9 @@ Design differences from the reference (TPU-first):
   API compatibility and small registers; the engine applies gates by axis
   contraction (:mod:`qbot_tpu_torch.ops.core`) and never needs full-space
   operators.
-* Rotation constructors take the array namespace ``xp`` (numpy here);
-  the planar rotation of parameterised circuits is not copied, since
-  ``Circuit.prx/pry/prz`` raise until they are ported.
+* Rotation constructors take the array namespace ``xp``: numpy, or
+  ``torch`` with a 0-d tensor angle, whose autograd graph the result then
+  carries (:func:`rot_planar`, the maker of ``Circuit.prx/pry/prz``).
 """
 from __future__ import annotations
 
@@ -37,6 +37,7 @@ __all__ = [
     "rot_x",
     "rot_y",
     "rot_z",
+    "rot_planar",
     "phase",
     "qft",
     "simons_oracle",
@@ -96,6 +97,29 @@ def rot_z(theta, xp=np):
     e = xp.exp(-1j * theta / 2)
     zero = xp.zeros_like(e)
     return xp.stack([xp.stack([e, zero]), xp.stack([zero, xp.conj(e)])])
+
+
+def rot_planar(axis: str, theta, xp=np):
+    """Planar (stacked real/imag) rotation matrix: shape (2, 2, 2).
+
+    The planar executors take gates as (re, im) stacked on the leading
+    axis; with ``xp=torch`` and a 0-d tensor ``theta`` the stack is a real
+    tensor of θ's dtype and device that carries θ's autograd graph.
+    """
+    c, s = xp.cos(theta / 2), xp.sin(theta / 2)
+    z = xp.zeros_like(c)
+    if axis == "x":
+        re = xp.stack([xp.stack([c, z]), xp.stack([z, c])])
+        im = xp.stack([xp.stack([z, -s]), xp.stack([-s, z])])
+    elif axis == "y":
+        re = xp.stack([xp.stack([c, -s]), xp.stack([s, c])])
+        im = xp.stack([xp.stack([z, z]), xp.stack([z, z])])
+    elif axis == "z":
+        re = xp.stack([xp.stack([c, z]), xp.stack([z, c])])
+        im = xp.stack([xp.stack([-s, z]), xp.stack([z, s])])
+    else:
+        raise ValueError(f"unknown rotation axis {axis!r}")
+    return xp.stack([re, im])
 
 
 def phase(theta, xp=np):

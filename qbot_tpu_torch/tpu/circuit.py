@@ -19,16 +19,12 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
 
 import numpy as np
+import torch
 
 from qbot_tpu_torch.ops import gates as g
 
 __all__ = ["CircuitOp", "Circuit", "grover_circuit", "qft_circuit",
-           "random_circuit", "parameterized_layers", "PARAM_TODO"]
-
-# the JAX package's parameterised builders trace their matrices with
-# jax.numpy; the port brings them with the kernels' backward
-PARAM_TODO = ("parameterised gates are not ported yet "
-              "(ROADMAP queue 1, item 8: inference and the kernels' backward)")
+           "random_circuit", "parameterized_layers"]
 
 
 @dataclass(frozen=True)
@@ -38,7 +34,7 @@ class CircuitOp:
     controls: tuple[int, ...] = ()
     matrix: Optional[np.ndarray] = None      # static unitary / diag vector
     param_idx: Optional[int] = None          # index into the params vector
-    maker: Optional[Callable] = None         # theta -> matrix (jnp-traceable)
+    maker: Optional[Callable] = None         # theta -> planar matrix (torch)
     index: Optional[int] = None              # basis state for 'flip'
 
 
@@ -104,13 +100,16 @@ class Circuit:
         return self.gate(np.asarray(g.rot_z(theta)), [q])
 
     def prx(self, q: int, param_idx: Optional[int] = None):
-        raise NotImplementedError(PARAM_TODO)
+        return self.param_gate(lambda t: g.rot_planar("x", t, xp=torch),
+                               [q], param_idx=param_idx)
 
     def pry(self, q: int, param_idx: Optional[int] = None):
-        raise NotImplementedError(PARAM_TODO)
+        return self.param_gate(lambda t: g.rot_planar("y", t, xp=torch),
+                               [q], param_idx=param_idx)
 
     def prz(self, q: int, param_idx: Optional[int] = None):
-        raise NotImplementedError(PARAM_TODO)
+        return self.param_gate(lambda t: g.rot_planar("z", t, xp=torch),
+                               [q], param_idx=param_idx)
 
     def cx(self, control: int, target: int):
         return self.gate(g.pauli_x(), [target], [control])

@@ -32,6 +32,15 @@ a grid axis of its own and advance to its state on entry
 those of its own launch; the plain versions take the batch as a leading
 dimension of the same operations.
 
+``window_apply`` and ``pair_apply`` are differentiable in the state and
+the matrices (``torch.autograd.Function``s, the reference's
+``jax.custom_vjp``s, ``qbot_tpu/tpu/kernels.py:806-912``): the state
+cotangent is the same wrapper again with W† (so the same CUDA kernel in
+the current dot mode on a CUDA tensor), then the conjugate diagonals; the
+matrix cotangents are float32 matrix products against the recomputed
+y = ΦFψ, as the reference's einsums outside any Pallas kernel are.  A call
+whose inputs need no gradient launches directly.
+
 Every wrapper counts its launches (:func:`launch_counts`), one a call
 whatever the number of particles, so a run can show that it went through
 the kernel.  ``window_apply`` and ``pair_apply``
@@ -46,6 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -485,7 +495,14 @@ def window_apply(psi, n: int, start: int, width: int, w,
     [start, start + width) of a (2, 2^n) planar float32 state, or of each
     state of a (P, 2, 2^n) batch in one launch, after the fused flips and
     phases of ``diag``, with the products of the current dot mode.  Out of
-    place."""
+    place; differentiable in ``psi`` and ``w`` (:class:`_WindowApply`)."""
+    if _needs_grad(psi, w):
+        return _WindowApply.apply(psi, w, n, start, width, diag)
+    return _window_launch(psi, n, start, width, w, diag)
+
+
+def _window_launch(psi, n: int, start: int, width: int, w,
+                   diag: FusedDiagonals):
     _require(1 <= width <= 7 and 0 <= start and start + width <= n,
              f"window [{start}, {start + width}) does not fit 1..7 qubits "
              f"of a {n}-qubit register")
@@ -558,9 +575,16 @@ def pair_apply(psi, n: int, start: int, width1: int, width2: int, w1, w2,
     start + width1 + width2) of a (2, 2^n) planar float32 state, or of each
     state of a (P, 2, 2^n) batch in one launch, in one pass, after the
     fused flips and phases of ``diag``, with the products of the current
-    dot mode.  Out of place.
+    dot mode.  Out of place; differentiable in ``psi``, ``w1`` and ``w2``
+    (:class:`_PairApply`).  :func:`_pair_launch` says how it runs."""
+    if _needs_grad(psi, w1, w2):
+        return _PairApply.apply(psi, w1, w2, n, start, width1, width2, diag)
+    return _pair_launch(psi, n, start, width1, width2, w1, w2, diag)
 
-    On a CUDA tensor, :func:`pair_route` picks the trailing or the middle
+
+def _pair_launch(psi, n: int, start: int, width1: int, width2: int, w1, w2,
+                 diag: FusedDiagonals):
+    """The launch of :func:`pair_apply`.  On a CUDA tensor, :func:`pair_route` picks the trailing or the middle
     pair kernel, or two :func:`window_apply` launches with the diagonals
     fused into the first (counted as window launches).  The trailing and
     middle pairs at D1, D2 >= 8 run on the tensor cores (3xTF32,
@@ -589,9 +613,9 @@ def pair_apply(psi, n: int, start: int, width1: int, width2: int, w1, w2,
         return pair_apply_ref(psi, n, start, width1, width2, w1, w2, diag)
     route = pair_route(n, start, width1, width2)
     if route == "two_windows":
-        psi = window_apply(psi, n, start, width1, w1, diag)
-        return window_apply(psi, n, start + width1, width2, w2,
-                            fused_diagonals(n, device=psi.device))
+        psi = _window_launch(psi, n, start, width1, w1, diag)
+        return _window_launch(psi, n, start + width1, width2, w2,
+                              _no_diagonals(n, psi.device))
     _require(psi.data_ptr() % 16 == 0 and w2.data_ptr() % 16 == 0,
              "psi and w2 must be 16-byte aligned")
     lib = _library()
@@ -608,6 +632,125 @@ def pair_apply(psi, n: int, start: int, width1: int, width2: int, w1, w2,
     _count("pair_apply_stream" if width1 <= 2 and width2 <= 2 else
            f"{name}_narrow" if width1 <= 2 else name)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the backward of the window and the pair: qbot_tpu/tpu/kernels.py:806-912
+# ---------------------------------------------------------------------------
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _adjoint(w: torch.Tensor) -> torch.Tensor:
+    """W† of a planar (2, D, D) matrix, contiguous: (Wr.T, −Wi.T)."""
+    return torch.stack([w[0].t(), -w[1].t()]).contiguous()
+
+
+def _conj_diagonals(diag: FusedDiagonals) -> FusedDiagonals:
+    """(ΦF)† = F Φ*: the flips as they are, each phase's imaginary part
+    negated."""
+    return FusedDiagonals(diag.flips, diag.mask, diag.want,
+                          torch.stack([diag.phase[0], -diag.phase[1]]))
+
+
+@functools.lru_cache(maxsize=None)
+def _no_diagonals(n: int, device: torch.device) -> FusedDiagonals:
+    """Empty diagonals of an n-qubit launch, made once per device (the W†
+    launch of a backward and a pair's second window carry none)."""
+    return fused_diagonals(n, device=device)
+
+
+def _planes_by(x: torch.Tensor, split, axis: int) -> torch.Tensor:
+    """(2D, K) view of a (…, 2, N) state or batch: its flat index split as
+    ``split`` (the (…, 2) axes first), the rows the planes × axis
+    ``axis`` of the split, the columns every other index."""
+    lead = x.dim() - 1
+    x = x.reshape(*x.shape[:lead], *split)
+    plane, ax = lead - 1, lead + axis
+    rest = [d for d in range(x.dim()) if d not in (plane, ax)]
+    x = x.permute(plane, ax, *rest)
+    return x.reshape(2 * split[axis], -1)
+
+
+def _matrix_cotangent(g, z, split, axis: int) -> torch.Tensor:
+    """W̄ (2, D, D) of out = W·z on axis ``axis`` of the flat split:
+    W̄r = gr·zrᵀ + gi·ziᵀ, W̄i = gi·zrᵀ − gr·ziᵀ, summed over every other
+    index and the particle axis, as one float32 product of the stacked
+    planes (TF32 off)."""
+    D = split[axis]
+    with _fp32_matmul():
+        m = _planes_by(g, split, axis) @ _planes_by(z, split, axis).t()
+    m = m.reshape(2, D, 2, D)
+    return torch.stack([m[0, :, 0] + m[1, :, 1], m[1, :, 0] - m[0, :, 1]])
+
+
+class _WindowApply(torch.autograd.Function):
+    """out = W·ΦFψ and its adjoint (``_window_apply_bwd``,
+    ``qbot_tpu/tpu/kernels.py:818-845``): ψ̄ = FΦ*·(W†ḡ), W†ḡ through
+    :func:`window_apply` itself with empty diagonals; W̄ against
+    y = ΦFψ, recomputed."""
+
+    @staticmethod
+    def forward(ctx, psi, w, n, start, width, diag):
+        ctx.save_for_backward(psi, w)
+        ctx.geometry = (n, start, width, diag)
+        return _window_launch(psi, n, start, width, w, diag)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        psi, w = ctx.saved_tensors
+        n, start, width, diag = ctx.geometry
+        g = g.contiguous()
+        d_psi = d_w = None
+        if ctx.needs_input_grad[0]:
+            gw = _window_launch(g, n, start, width, _adjoint(w),
+                                _no_diagonals(n, g.device))
+            d_psi = _apply_diagonals_ref(gw, _conj_diagonals(diag))
+        if ctx.needs_input_grad[1]:
+            split = (2**start, 2**width, -1)
+            y = _apply_diagonals_ref(psi, diag)
+            d_w = _matrix_cotangent(g, y, split, 1)
+        return d_psi, d_w, None, None, None, None
+
+
+class _PairApply(torch.autograd.Function):
+    """out = (W1 ⊗ W2)·ΦFψ and its adjoint (``_pair_apply_bwd``,
+    ``qbot_tpu/tpu/kernels.py:865-912``): ψ̄ = FΦ*·(W1† ⊗ W2†)ḡ through
+    :func:`pair_apply` itself (the same route), W̄1 against Z = W2·y and
+    W̄2 against V = W1·y, y = ΦFψ recomputed."""
+
+    @staticmethod
+    def forward(ctx, psi, w1, w2, n, start, width1, width2, diag):
+        ctx.save_for_backward(psi, w1, w2)
+        ctx.geometry = (n, start, width1, width2, diag)
+        return _pair_launch(psi, n, start, width1, width2, w1, w2, diag)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        psi, w1, w2 = ctx.saved_tensors
+        n, start, width1, width2, diag = ctx.geometry
+        g = g.contiguous()
+        d_psi = d_w1 = d_w2 = None
+        if ctx.needs_input_grad[0]:
+            gw = _pair_launch(g, n, start, width1, width2, _adjoint(w1),
+                              _adjoint(w2), _no_diagonals(n, g.device))
+            d_psi = _apply_diagonals_ref(gw, _conj_diagonals(diag))
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            split = (2**start, 2**width1, 2**width2, -1)
+            y = _apply_diagonals_ref(psi, diag)
+            none = _no_diagonals(n, y.device)
+            if ctx.needs_input_grad[1]:
+                z = window_apply_ref(y, n, start + width1, width2, w2, none,
+                                     mode="f32")
+                d_w1 = _matrix_cotangent(g, z, split, 1)
+            if ctx.needs_input_grad[2]:
+                v = window_apply_ref(y, n, start, width1, w1, none,
+                                     mode="f32")
+                d_w2 = _matrix_cotangent(g, v, split, 2)
+        return d_psi, d_w1, d_w2, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------

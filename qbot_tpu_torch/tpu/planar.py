@@ -18,9 +18,16 @@ The window and pair products run in the dot mode of
 ``--precision``); the reduced modes shrink the norm a little every pass,
 and :func:`make_scanned_planar_runner`'s ``renorm_every`` renormalises.
 
-Not ported yet: parameterised gates (they raise ``NotImplementedError``
-naming the ROADMAP item that brings them) and the dot engine (every plan
-runs on the window and pair kernels, ``f32_mix`` as full float32).
+Parameterised gates (``Circuit.prx/pry/prz``, ``param_gate``) take their
+angles from ``params``, a 1-D tensor on the state's device: their windows
+fold per call (:func:`fold_window_planar`), with autograd, and every
+window, pair and reflection step is differentiable through the kernels'
+``torch.autograd.Function``s, whose backward runs the same kernels with
+W† (:mod:`qbot_tpu_torch.tpu.kernels`; the reflection's below).
+:func:`make_planar_runner` prepares the static steps once per device.
+
+Not ported yet: the dot engine (every plan runs on the window and pair
+kernels, ``f32_mix`` as full float32).
 """
 from __future__ import annotations
 
@@ -30,7 +37,6 @@ import numpy as np
 import torch
 
 from qbot_tpu_torch.tpu import kernels
-from qbot_tpu_torch.tpu.circuit import PARAM_TODO
 from qbot_tpu_torch.tpu.compiler import (
     ContractStep,
     DiagStep,
@@ -49,7 +55,8 @@ from qbot_tpu_torch.tpu.kernels import _fp32_matmul
 
 __all__ = ["zero_state_planar", "to_planar", "from_planar",
            "product_state_planar", "fold_window_static",
-           "apply_plan_planar", "apply_plan_planar_ref",
+           "fold_window_planar", "apply_plan_planar",
+           "apply_plan_planar_ref", "make_planar_runner",
            "make_scanned_planar_runner", "planar_probs", "planar_norm",
            "zero_density_planar", "apply_plan_density_planar",
            "apply_plan_density_planar_ref", "make_planar_density_runner",
@@ -131,7 +138,110 @@ def _grouped_view(n: int, qubits):
 
 
 # ---------------------------------------------------------------------------
-# steps: each prepares its device tables once and returns psi -> psi
+# parameterised terms: qbot_tpu/tpu/planar.py:164-217, folded per call on
+# the angles' device, with autograd
+# ---------------------------------------------------------------------------
+
+def _planar_controlled(m: torch.Tensor, num_controls: int) -> torch.Tensor:
+    """The planar (2, d, d) matrix ``m`` under ``num_controls`` leading
+    controls: the identity but for its last d × d block."""
+    dim = 2**num_controls * m.shape[-1]
+    eye = torch.eye(dim - m.shape[-1], dtype=m.dtype, device=m.device)
+    return torch.stack([torch.block_diag(eye, m[0]),
+                        torch.block_diag(torch.zeros_like(eye), m[1])])
+
+
+def _require_params(params) -> None:
+    if params is None:
+        raise ValueError("the plan has parameterised gates: pass params")
+
+
+def _term_planar(term, params) -> torch.Tensor:
+    """A parameterised term's planar (2, d, d) float64 matrix: its maker's
+    output at ``params[term.param_idx]`` (float64 angles) under its
+    controls."""
+    _require_params(params)
+    m = term.maker(params[term.param_idx]).to(torch.float64)
+    if term.num_controls:
+        m = _planar_controlled(m, term.num_controls)
+    return m
+
+
+def _fold_contract(g: torch.Tensor, W: torch.Tensor, positions
+                   ) -> torch.Tensor:
+    """One contraction of the window fold: the complex k-qubit gate ``g``
+    (2^k, 2^k) on the row axes ``positions`` of W ((2,)*w + (2^w,))."""
+    k = len(positions)
+    out = torch.tensordot(g.reshape((2,) * (2 * k)), W,
+                          dims=(list(range(k, 2 * k)), list(positions)))
+    return torch.movedim(out, list(range(k)), list(positions))
+
+
+def _static_terms(step: WindowStep, device) -> list:
+    """The complex128 matrix of each static term of a window on ``device``
+    (None for a parameterised one), uploaded once."""
+    return [None if t.matrix is None else torch.from_numpy(
+        np.asarray(t.matrix, np.complex128)).to(device) for t in step.terms]
+
+
+def _fold(step: WindowStep, static: list, params) -> torch.Tensor:
+    _require_params(params)
+    w, dim = step.width, 2**step.width
+    W = torch.eye(dim, dtype=torch.complex128, device=params.device)
+    W = W.reshape((2,) * w + (dim,))
+    for term, g in zip(step.terms, static):
+        if g is None:
+            m = _term_planar(term, params)
+            g = torch.complex(m[0], m[1])
+        W = _fold_contract(g, W, term.positions)
+    W = W.reshape(dim, dim)
+    return torch.stack([W.real, W.imag]).to(torch.float32).contiguous()
+
+
+def fold_window_planar(step: WindowStep, params) -> torch.Tensor:
+    """The planar (2, D, D) float32 unitary of a window whose terms may be
+    parameterised, on the angles' device, differentiable in ``params``.
+
+    The fold runs in float64 (complex128: each term one contraction of its
+    float64 planes) and rounds once to float32, as the static fold does in
+    numpy; the reference folds in float32 (``fold_window_planar``,
+    ``qbot_tpu/tpu/planar.py:203-213``), from which it differs by a few
+    float32 roundings of the entries.
+    """
+    _require_params(params)
+    params = params.to(torch.float64)
+    return _fold(step, _static_terms(step, params.device), params)
+
+
+def _conj_planar(w: torch.Tensor) -> torch.Tensor:
+    return torch.stack([w[0], -w[1]])
+
+
+def _window_tables(step: WindowStep, device) -> Callable:
+    """``params -> W`` of a window: its static matrix, folded and uploaded
+    once; or, parameterised, the fold of each call (its static terms
+    uploaded once)."""
+    folded = fold_window_static(step)
+    if folded is None:
+        static = _static_terms(step, device)
+        return lambda params: _fold(step, static, params)
+    w = _planar_tensor(folded, device)
+    return lambda params: w
+
+
+def _as_params(params, device):
+    """``params`` as a float64 tensor on ``device``, differentiable in the
+    caller's tensor."""
+    if params is None:
+        return None
+    if not isinstance(params, torch.Tensor):
+        params = torch.as_tensor(np.asarray(params))
+    return params.to(device=device, dtype=torch.float64)
+
+
+# ---------------------------------------------------------------------------
+# steps: each prepares its device tables once and returns
+# (psi, params) -> psi
 # ---------------------------------------------------------------------------
 
 class _Ops(NamedTuple):
@@ -147,37 +257,32 @@ _PLAIN = _Ops(kernels.window_apply_ref, kernels.pair_apply_ref,
               kernels.reflect_dot_ref, kernels.reflect_update_ref)
 
 
-def _window_matrix(step: WindowStep) -> np.ndarray:
-    static = fold_window_static(step)
-    if static is None:
-        raise NotImplementedError(PARAM_TODO)
-    return static
-
-
 def _window_fn(n: int, step: WindowStep, device, ops: _Ops):
-    w = _planar_tensor(_window_matrix(step), device)
+    w = _window_tables(step, device)
     diag = kernels.fused_diagonals(n, step.pre_flips, step.pre_phases,
                                    device)
-    return lambda psi: ops.window(psi, n, step.start, step.width, w, diag)
+    return lambda psi, params: ops.window(psi, n, step.start, step.width,
+                                          w(params), diag)
 
 
-def _pair_parts(step: PairStep):
-    """(start, width1, width2, W1, W2) of a pair of adjacent windows."""
+def _pair_parts(step: PairStep, device):
+    """(start, width1, width2, params -> W1, params -> W2) of a pair of
+    adjacent windows."""
     first, second = step.first, step.second
     if first.start + first.width != second.start:
         raise ValueError("pair windows must be qubit-contiguous")
-    return (first.start, first.width, second.width, _window_matrix(first),
-            _window_matrix(second))
+    return (first.start, first.width, second.width,
+            _window_tables(first, device), _window_tables(second, device))
 
 
 def _pair_fn(n: int, step: PairStep, device, ops: _Ops):
     """Both windows of a PairStep in one pass, after the first window's
     fused flips and phases."""
-    start, width1, width2, m1, m2 = _pair_parts(step)
-    w1, w2 = _planar_tensor(m1, device), _planar_tensor(m2, device)
+    start, width1, width2, w1, w2 = _pair_parts(step, device)
     diag = kernels.fused_diagonals(n, step.first.pre_flips,
                                    step.first.pre_phases, device)
-    return lambda psi: ops.pair(psi, n, start, width1, width2, w1, w2, diag)
+    return lambda psi, params: ops.pair(psi, n, start, width1, width2,
+                                        w1(params), w2(params), diag)
 
 
 def reflect_component(factors, index: int) -> complex:
@@ -226,28 +331,60 @@ class _Reflection:
             flip.reshape(2, 2, -1) * inv_vv).to(device)
         self.flips = torch.tensor(list(step.pre_flips), dtype=torch.int64,
                                   device=device)
+        self.no_flips = self.flips[:0]
 
-    def c_from_lane_dot(self, d, psi3):
+    def c_from_lane_dot(self, d, psi3=None):
         """⟨v|Fψ⟩/⟨v|v⟩ from the float64 lane dot D of ψ and the fused
         flips' values in ψ, in float64 on the device, as the (2,) float32
         tensor the update kernel reads; of a (P, 2, H, T) batch, one c a
-        particle, (P, 2)."""
+        particle, (P, 2).  Without ``psi3``, ⟨v|ψ⟩/⟨v|v⟩, no flip
+        corrected."""
         c = torch.einsum("ijt,...jt->...i", self.lane, d[..., 0, :])
-        if self.flips.numel():
+        if psi3 is not None and self.flips.numel():
             vals = psi3.reshape(*psi3.shape[:-2], -1)[..., self.flips]
             c = c + torch.einsum("ijf,...jf->...i", self.flip, vals.double())
         return c.float()
 
 
-def _reflect_fn(step: ReflectStep, device, ops: _Ops):
+def _reflect(psi, refl: _Reflection, ops: _Ops):
     """ψ → Fψ − 2⟨v|Fψ⟩v: one read pass (dot) and one read+write pass."""
+    p3 = psi.reshape(*psi.shape[:-1], refl.H, refl.T)
+    c = refl.c_from_lane_dot(ops.reflect_dot(p3, refl.a, refl.b), p3)
+    out, _ = ops.reflect_update(p3, c, refl.a, refl.b, refl.flips)
+    return out.reshape(psi.shape)
+
+
+class _ReflectApply(torch.autograd.Function):
+    """The reflection R = (I − 2vv†/⟨v|v⟩)F through the reflection kernels,
+    and its adjoint (``qbot_tpu/tpu/planar.py:343-370``) through them too:
+    R†ḡ = F(ḡ − 2⟨v|ḡ⟩v/⟨v|v⟩), ⟨v|ḡ⟩ from ``reflect_dot`` in float64
+    without the flips' corrections, ``reflect_update`` with no flips, then
+    the flips.  ⟨v|v⟩ is the float32 tables' own, as in the forward, so
+    the backward is its exact adjoint."""
+
+    @staticmethod
+    def forward(ctx, psi, refl):
+        ctx.refl = refl
+        return _reflect(psi, refl, _KERNELS)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        refl = ctx.refl
+        g3 = g.contiguous().reshape(*g.shape[:-1], refl.H, refl.T)
+        c = refl.c_from_lane_dot(kernels.reflect_dot(g3, refl.a, refl.b))
+        out, _ = kernels.reflect_update(g3, c, refl.a, refl.b,
+                                        refl.no_flips)
+        return kernels._flip_signs(out.reshape(g.shape), refl.flips), None
+
+
+def _reflect_fn(step: ReflectStep, device, ops: _Ops):
     refl = _Reflection(step, device)
 
-    def apply(psi):
-        p3 = psi.reshape(*psi.shape[:-1], refl.H, refl.T)
-        c = refl.c_from_lane_dot(ops.reflect_dot(p3, refl.a, refl.b), p3)
-        out, _ = ops.reflect_update(p3, c, refl.a, refl.b, refl.flips)
-        return out.reshape(psi.shape)
+    def apply(psi, params):
+        if ops is _KERNELS and kernels._needs_grad(psi):
+            return _ReflectApply.apply(psi, refl)
+        return _reflect(psi, refl, ops)
     return apply
 
 
@@ -270,7 +407,7 @@ def _diag_fn(n: int, targets, diag, device):
     dt = _planar_tensor(d, device).reshape([2] + bshape)
     dr, di = dt[0], dt[1]
 
-    def apply(psi):
+    def apply(psi, params):
         pl, pr, pi = _planes(psi, shape)
         return torch.stack([dr * pr - di * pi, dr * pi + di * pr],
                            dim=pl).reshape(psi.shape)
@@ -278,33 +415,50 @@ def _diag_fn(n: int, targets, diag, device):
 
 
 def _flip_fn(index: int):
-    def apply(psi):
+    def apply(psi, params):
         out = psi.clone()
         out[..., index] = -out[..., index]
         return out
     return apply
 
 
-def _contract_fn(n: int, step: ContractStep, device):
-    """Cross-window gate as a tensor contraction over its target axes."""
-    if step.matrix is None:
-        raise NotImplementedError(PARAM_TODO)
-    g = _planar_tensor(step.matrix, device)
-    k = len(step.targets)
-    shape, axes, _ = _grouped_view(n, step.targets)
-    gr = g[0].reshape((2,) * (2 * k))
-    gi = g[1].reshape((2,) * (2 * k))
+def _contract_tables(step: ContractStep, device, conj: bool = False
+                     ) -> Callable:
+    """``params -> (2, d, d)`` planar float32 matrix of a contraction step
+    (conjugated for the columns of a density matrix): static, uploaded
+    once, or its maker's output per call under its controls."""
+    if step.matrix is not None:
+        m = np.asarray(step.matrix)
+        g = _planar_tensor(m.conj() if conj else m, device)
+        return lambda params: g
+
+    def make(params):
+        m = _term_planar(step, params).to(torch.float32)
+        return _conj_planar(m) if conj else m
+    return make
+
+
+def _contract_fn(n: int, step: ContractStep, device, conj: bool = False,
+                 offset: int = 0):
+    """Cross-window gate as a tensor contraction over its target axes
+    (shifted by ``offset``: a density matrix's columns)."""
+    matrix = _contract_tables(step, device, conj)
+    targets = [offset + q for q in step.targets]
+    k = len(targets)
+    shape, axes, _ = _grouped_view(n, targets)
 
     def con(gm, x, lead):
         at = [lead + a for a in axes]
-        out = torch.tensordot(gm, x, dims=(list(range(k, 2 * k)), at))
+        out = torch.tensordot(gm.reshape((2,) * (2 * k)), x,
+                              dims=(list(range(k, 2 * k)), at))
         return torch.movedim(out, list(range(k)), at)
 
-    def apply(psi):
+    def apply(psi, params):
+        g = matrix(params)
         pl, pr, pi = _planes(psi, shape)
         with _fp32_matmul():
-            out_r = con(gr, pr, pl) - con(gi, pi, pl)
-            out_i = con(gr, pi, pl) + con(gi, pr, pl)
+            out_r = con(g[0], pr, pl) - con(g[1], pi, pl)
+            out_i = con(g[0], pi, pl) + con(g[1], pr, pl)
         return torch.stack([out_r, out_i], dim=pl).reshape(psi.shape)
     return apply
 
@@ -331,28 +485,57 @@ def _step_fns(plan: Plan, device, ops: _Ops) -> list:
     return fns
 
 
-def _run(psi, fns):
+def _run(psi, fns, params=None):
+    params = _as_params(params, psi.device)
     for fn in fns:
-        psi = fn(psi)
+        psi = fn(psi, params)
     return psi
 
 
-def apply_plan_planar(psi: torch.Tensor, plan: Plan) -> torch.Tensor:
+def apply_plan_planar(psi: torch.Tensor, plan: Plan,
+                      params=None) -> torch.Tensor:
     """Run a compiled plan over a planar (2, 2^n) float32 statevector, or
-    over each state of a (P, 2, 2^n) batch.
+    over each state of a (P, 2, 2^n) batch (one ``params`` for all).
 
     On a CUDA tensor every window, pair and reflection runs its CUDA
     kernel, one launch for the whole batch; on a CPU tensor, the kernels'
-    plain versions.
+    plain versions.  ``params`` (1-D, on the state's device) holds the
+    angles of the plan's parameterised gates; the result is differentiable
+    in it and in ``psi``.  Prepares every step anew:
+    :func:`make_planar_runner` prepares them once.
     """
-    return _run(psi, _step_fns(plan, psi.device, _KERNELS))
+    return _run(psi, _step_fns(plan, psi.device, _KERNELS), params)
 
 
-def apply_plan_planar_ref(psi: torch.Tensor, plan: Plan) -> torch.Tensor:
+def apply_plan_planar_ref(psi: torch.Tensor, plan: Plan,
+                          params=None) -> torch.Tensor:
     """:func:`apply_plan_planar` through the kernels' plain PyTorch
-    versions on any device: the reference a kernel run is checked
-    against on the card."""
-    return _run(psi, _step_fns(plan, psi.device, _PLAIN))
+    versions on any device (differentiable by PyTorch's own autograd): the
+    reference a kernel run is checked against on the card."""
+    return _run(psi, _step_fns(plan, psi.device, _PLAIN), params)
+
+
+class _Prepared:
+    """Step functions of a plan, prepared once per device."""
+
+    def __init__(self, make):
+        self.make, self.fns = make, {}
+
+    def __call__(self, device) -> list:
+        if device not in self.fns:
+            self.fns[device] = self.make(device)
+        return self.fns[device]
+
+
+def make_planar_runner(plan: Plan):
+    """``run(psi, params=None)``: :func:`apply_plan_planar` with the static
+    steps' tables (folded matrices, fused diagonals, reflection tables)
+    prepared once per device; a parameterised window folds per call."""
+    prepared = _Prepared(lambda device: _step_fns(plan, device, _KERNELS))
+
+    def run(psi: torch.Tensor, params=None) -> torch.Tensor:
+        return _run(psi, prepared(psi.device), params)
+    return run
 
 
 def _renormalize(psi: torch.Tensor) -> torch.Tensor:
@@ -371,23 +554,27 @@ def make_scanned_planar_runner(body_plan: Plan, repeats: int,
     norm drift of the reduced dot modes).
 
     A body that is one ReflectStep (Grover's oracle and diffusion), without
-    ``renorm_every``, runs one ``reflect_dot`` prologue, then one
-    ``reflect_update`` per iteration: each update also returns the lane dot
-    of its result, from which the next ⟨v|Fψ⟩ is formed on the device, so
-    the loop never waits for the host.  Other bodies loop over
-    :func:`apply_plan_planar`.
+    ``renorm_every`` and with nothing that requires a gradient, runs one
+    ``reflect_dot`` prologue, then one ``reflect_update`` per iteration:
+    each update also returns the lane dot of its result, from which the
+    next ⟨v|Fψ⟩ is formed on the device, so the loop never waits for the
+    host.  Other bodies, and a reflection body under autograd, loop over
+    the body's prepared steps (each reflection then through its
+    differentiable kernels).
     """
     reflect_body = (len(body_plan.steps) == 1
                     and isinstance(body_plan.steps[0], ReflectStep)
                     and not renorm_every)
+    init = None if init_plan is None else make_planar_runner(init_plan)
+    body = _Prepared(lambda device: _step_fns(body_plan, device, _KERNELS))
 
-    def run(psi: torch.Tensor) -> torch.Tensor:
-        if init_plan is not None:
-            psi = apply_plan_planar(psi, init_plan)
-        if not reflect_body:
-            fns = _step_fns(body_plan, psi.device, _KERNELS)
+    def run(psi: torch.Tensor, params=None) -> torch.Tensor:
+        if init is not None:
+            psi = init(psi, params)
+        if not reflect_body or kernels._needs_grad(psi):
+            fns = body(psi.device)
             for i in range(repeats):
-                psi = _run(psi, fns)
+                psi = _run(psi, fns, params)
                 if renorm_every and (i + 1) % renorm_every == 0:
                     psi = _renormalize(psi)
             return psi
@@ -456,18 +643,34 @@ def _density_flip_phases(n: int, flips) -> tuple:
     return tuple(p for m in flips for p in ((rows, -1.0, m), (cols, -1.0, m)))
 
 
+def _density_tables(step: WindowStep, device) -> Callable:
+    """``params -> (W, conj(W))`` of a window: static, both uploaded once;
+    parameterised, the fold of each call and its conjugate."""
+    folded = fold_window_static(step)
+    if folded is None:
+        fold = _window_tables(step, device)
+
+        def both(params):
+            w = fold(params)
+            return w, _conj_planar(w).contiguous()
+        return both
+    tables = (_planar_tensor(folded, device),
+              _planar_tensor(folded.conj(), device))
+    return lambda params: tables
+
+
 def _density_window_fn(n: int, step: WindowStep, device, ops: _Ops):
     """W at s on the rows (after the step's flips on rows and columns,
     fused into the row pass), conj(W) at n + s on the columns."""
-    m = _window_matrix(step)
-    w, wc = _planar_tensor(m, device), _planar_tensor(m.conj(), device)
+    tables = _density_tables(step, device)
     diag = kernels.fused_diagonals(
         2 * n, pre_phases=_density_flip_phases(n, step.pre_flips),
         device=device)
     none = kernels.fused_diagonals(2 * n, device=device)
     start, width = step.start, step.width
 
-    def apply(flat):
+    def apply(flat, params):
+        w, wc = tables(params)
         flat = ops.window(flat, 2 * n, start, width, w, diag)
         return ops.window(flat, 2 * n, n + start, width, wc, none)
     return apply
@@ -475,16 +678,17 @@ def _density_window_fn(n: int, step: WindowStep, device, ops: _Ops):
 
 def _density_pair_fn(n: int, step: PairStep, device, ops: _Ops):
     """(W1, W2) at s on the rows, conjugated at n + s on the columns."""
-    start, width1, width2, m1, m2 = _pair_parts(step)
-    w1, w2 = _planar_tensor(m1, device), _planar_tensor(m2, device)
-    w1c = _planar_tensor(m1.conj(), device)
-    w2c = _planar_tensor(m2.conj(), device)
+    start, width1, width2 = (step.first.start, step.first.width,
+                             step.second.width)
+    first = _density_tables(step.first, device)
+    second = _density_tables(step.second, device)
     diag = kernels.fused_diagonals(
         2 * n, pre_phases=_density_flip_phases(n, step.first.pre_flips),
         device=device)
     none = kernels.fused_diagonals(2 * n, device=device)
 
-    def apply(flat):
+    def apply(flat, params):
+        (w1, w1c), (w2, w2c) = first(params), second(params)
         flat = ops.pair(flat, 2 * n, start, width1, width2, w1, w2, diag)
         return ops.pair(flat, 2 * n, n + start, width1, width2, w1c, w2c,
                         none)
@@ -492,7 +696,7 @@ def _density_pair_fn(n: int, step: PairStep, device, ops: _Ops):
 
 
 def _density_flip_fn(n: int, index: int):
-    def apply(flat):
+    def apply(flat, params):
         rho = flat.reshape(2, 2**n, 2**n).clone()
         rho[:, index, :] = -rho[:, index, :]
         rho[:, :, index] = -rho[:, :, index]
@@ -501,7 +705,7 @@ def _density_flip_fn(n: int, index: int):
 
 
 def _both_sides(row, col):
-    return lambda flat: col(row(flat))
+    return lambda flat, params: col(row(flat, params), params)
 
 
 def _density_step_fns(plan: Plan, device, ops: _Ops) -> list:
@@ -524,47 +728,48 @@ def _density_step_fns(plan: Plan, device, ops: _Ops) -> list:
         elif isinstance(step, FlipStep):
             fns.append(_density_flip_fn(n, step.index))
         else:
-            if step.matrix is None:
-                raise NotImplementedError(PARAM_TODO)
-            col = ContractStep(tuple(n + q for q in step.targets),
-                               np.conj(np.asarray(step.matrix)))
-            fns.append(_both_sides(_contract_fn(2 * n, step, device),
-                                   _contract_fn(2 * n, col, device)))
+            fns.append(_both_sides(
+                _contract_fn(2 * n, step, device),
+                _contract_fn(2 * n, step, device, conj=True, offset=n)))
     return fns
 
 
-def _run_density(rho, fns):
-    return _run(rho.reshape(2, -1), fns).reshape(rho.shape)
+def _run_density(rho, fns, params=None):
+    return _run(rho.reshape(2, -1), fns, params).reshape(rho.shape)
 
 
-def apply_plan_density_planar(rho: torch.Tensor, plan: Plan) -> torch.Tensor:
+def apply_plan_density_planar(rho: torch.Tensor, plan: Plan,
+                              params=None) -> torch.Tensor:
     """Run a compiled plan over a planar (2, 2^n, 2^n) float32 density
     matrix: ρ → UρU†.
 
     On a CUDA tensor every window and pair runs its CUDA kernel, on the
     rows and on the columns; on a CPU tensor, the kernels' plain versions.
+    ``params`` as in :func:`apply_plan_planar`; a parameterised window's
+    column side is the conjugate of its fold.
     """
-    return _run_density(rho, _density_step_fns(plan, rho.device, _KERNELS))
+    return _run_density(rho, _density_step_fns(plan, rho.device, _KERNELS),
+                        params)
 
 
-def apply_plan_density_planar_ref(rho: torch.Tensor,
-                                  plan: Plan) -> torch.Tensor:
+def apply_plan_density_planar_ref(rho: torch.Tensor, plan: Plan,
+                                  params=None) -> torch.Tensor:
     """:func:`apply_plan_density_planar` through the kernels' plain
     PyTorch versions on any device: the reference a kernel run is checked
     against on the card."""
-    return _run_density(rho, _density_step_fns(plan, rho.device, _PLAIN))
+    return _run_density(rho, _density_step_fns(plan, rho.device, _PLAIN),
+                        params)
 
 
 def make_planar_density_runner(plan: Plan):
-    """``run(rho)``: :func:`apply_plan_density_planar` with the step tables
-    (folded matrices, fused diagonals) prepared once per device."""
-    prepared: dict = {}
+    """``run(rho, params=None)``: :func:`apply_plan_density_planar` with
+    the step tables (folded matrices, fused diagonals) prepared once per
+    device."""
+    prepared = _Prepared(
+        lambda device: _density_step_fns(plan, device, _KERNELS))
 
-    def run(rho: torch.Tensor) -> torch.Tensor:
-        if rho.device not in prepared:
-            prepared[rho.device] = _density_step_fns(plan, rho.device,
-                                                     _KERNELS)
-        return _run_density(rho, prepared[rho.device])
+    def run(rho: torch.Tensor, params=None) -> torch.Tensor:
+        return _run_density(rho, prepared(rho.device), params)
     return run
 
 

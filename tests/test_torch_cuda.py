@@ -920,3 +920,168 @@ def test_device_ensemble_on_card_matches_cpu(cuda):
                for _ in range(2)]
     for name in sampled[0]:
         assert sampled[0][name].probs == sampled[1][name].probs
+
+
+# ---------------------------------------------------------------------------
+# gradients: the Functions' backward through the kernels
+# ---------------------------------------------------------------------------
+
+# dot mode -> relative L2 of a cotangent against PyTorch's autograd through
+# the plain versions in the mode: the backward's W† launch rounds ḡ in the
+# mode, which the plain versions' autograd (each rounding's gradient the
+# identity) does not, so a cotangent is held at the mode's float64 limit
+GRAD_TOL = {"f32": TOL, "bf16_3x": MODE_TOL["bf16_3x"][2],
+            "bf16": MODE_TOL["bf16"][2]}
+
+
+def _cotangents(fn, inputs, cot):
+    xs = [x.clone().requires_grad_() for x in inputs]
+    return torch.autograd.grad(fn(*xs), xs, cot)
+
+
+def _counted_backward(fn, inputs, cot):
+    """(cotangents through the kernels, launches of the forward, launches
+    of forward and backward)."""
+    xs = [x.clone().requires_grad_() for x in inputs]
+    kernels.reset_launch_counts()
+    out = fn(*xs)
+    forward = kernels.launch_counts()
+    grads = torch.autograd.grad(out, xs, cot)
+    return grads, forward, kernels.launch_counts()
+
+
+# (n, start, width): the D = 128 window, the trailing one, a D = 8 first
+# window and the streaming D = 4 window
+GRAD_WINDOWS = [(16, 2, 7), (16, 9, 7), (16, 0, 3), (16, 3, 2)]
+
+
+@pytest.mark.parametrize("geometry", GRAD_WINDOWS,
+                         ids=lambda g: "n{}_s{}_w{}".format(*g))
+def test_window_grad_on_card(cuda, any_mode, geometry):
+    """ψ̄ and W̄ through the window Function against autograd through the
+    plain versions on the card; the backward is one more launch of the
+    same counter, W† in the current mode."""
+    n, start, width = geometry
+    rng = np.random.default_rng(sum(geometry))
+    psi, w = _state(n, rng, cuda), _unitary(2**width, rng, cuda)
+    diag = kernels.fused_diagonals(n, (5, 77), (((start,), np.exp(0.4j), -1),),
+                                   cuda)
+    cot = _state(n, rng, cuda)
+    got, forward, total = _counted_backward(
+        lambda p, m: kernels.window_apply(p, n, start, width, m, diag),
+        (psi, w), cot)
+    want = _cotangents(
+        lambda p, m: kernels.window_apply_ref(p, n, start, width, m, diag),
+        (psi, w), cot)
+    for g, h in zip(got, want):
+        assert rel_l2(g, h) <= GRAD_TOL[any_mode]
+    assert sum(forward.values()) == 1
+    assert total == {k: 2 * v for k, v in forward.items()}
+
+
+# (n, start, width1, width2): middle and trailing pairs at D1 >= 8, the
+# narrow and the streaming pair, two windows at D1 > 32
+GRAD_PAIRS = [(17, 0, 3, 7), (17, 3, 7, 7), (16, 0, 2, 7), (16, 2, 2, 2),
+              (16, 0, 6, 3)]
+
+
+@pytest.mark.parametrize("geometry", GRAD_PAIRS,
+                         ids=lambda g: "n{}_s{}_{}x{}".format(*g))
+def test_pair_grad_on_card(cuda, any_mode, geometry):
+    """ψ̄, W̄1 and W̄2 through the pair Function against autograd through
+    the plain versions; the backward runs the pair's own route again with
+    (W1†, W2†)."""
+    n, start, width1, width2 = geometry
+    rng = np.random.default_rng(sum(geometry))
+    psi, w1, w2, diag = _pair_inputs(n, start, width1, width2, rng, cuda)
+    cot = _state(n, rng, cuda)
+    got, forward, total = _counted_backward(
+        lambda p, a, b: kernels.pair_apply(p, n, start, width1, width2, a, b,
+                                           diag), (psi, w1, w2), cot)
+    want = _cotangents(
+        lambda p, a, b: kernels.pair_apply_ref(p, n, start, width1, width2,
+                                               a, b, diag),
+        (psi, w1, w2), cot)
+    for g, h in zip(got, want):
+        assert rel_l2(g, h) <= GRAD_TOL[any_mode]
+    assert total == {k: 2 * v for k, v in forward.items()}
+
+
+def test_reflect_grad_on_card(cuda):
+    """The reflection's adjoint through reflect_dot and reflect_update
+    against autograd through their plain versions."""
+    from qbot_tpu_torch.tpu.compiler import ReflectStep
+
+    n = 14
+    c = Circuit(n)
+    c.phase_flip(1234)
+    for q in range(n):
+        c.h(q)
+    c.phase_flip(0)
+    for q in range(n):
+        c.h(q)
+    step = next(s for s in compile_circuit(c).steps
+                if isinstance(s, ReflectStep))
+    rng = np.random.default_rng(14)
+    psi, cot = _state(n, rng, cuda), _state(n, rng, cuda)
+    kernel = planar._reflect_fn(step, cuda, planar._KERNELS)
+    plain = planar._reflect_fn(step, cuda, planar._PLAIN)
+    (got,), forward, total = _counted_backward(lambda p: kernel(p, None),
+                                               (psi,), cot)
+    (want,) = _cotangents(lambda p: plain(p, None), (psi,), cot)
+    assert rel_l2(got, want) <= TOL
+    assert forward["reflect_dot"] == forward["reflect_update"] == 1
+    assert total["reflect_dot"] == total["reflect_update"] == 2
+
+
+# dot mode -> (log-prob value relative, gradient relative L2) of a whole
+# plan through the kernels against the plain versions in the mode:
+# chip_smoke.py's phase 11 limits (its docstring says why)
+LOG_PROB_TOL = {"f32": (1e-5, 1e-4), "bf16_3x": (1e-4, 1e-3),
+                "bf16": (1e-2, 1e-1)}
+
+
+def test_log_prob_grad_on_card(cuda, any_mode):
+    """The value and angle gradient of a 14-qubit ansatz through the
+    kernels against the plain versions' autograd, paired and unpaired;
+    every step after the first (whose input, |0⟩, needs no cotangent)
+    launches its kernel once more in the backward."""
+    from qbot_tpu_torch.inference.hmc import (
+        make_circuit_log_prob_planar,
+        value_and_grad,
+    )
+    from qbot_tpu_torch.tpu.circuit import parameterized_layers
+
+    n = 14
+    circ = parameterized_layers(n, 3)
+    counts = np.zeros(2**n)
+    counts[0], counts[1] = 64.0, 32.0
+    theta = torch.linspace(0.1, 1.0, circ.num_params, device=cuda)
+    for pair in (True, False):
+        plan = compile_circuit(circ, pair=pair)
+        lp = make_circuit_log_prob_planar(plan, counts, device=cuda)
+        kernels.reset_launch_counts()
+        lp(theta)
+        forward = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        value, grad = value_and_grad(lp)(theta)
+        both_ways = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        planar.apply_plan_planar(planar.zero_state_planar(n, cuda),
+                                 type(plan)(n, plan.window, plan.steps[:1],
+                                            plan.num_params), theta)
+        first = kernels.launch_counts()
+        assert both_ways == {k: 2 * v - first[k] for k, v in forward.items()}
+
+        def plain_lp(t):
+            psi = planar.apply_plan_planar_ref(
+                planar.zero_state_planar(n, cuda), plan, t)
+            p = torch.clamp(planar.planar_probs(psi), 1e-12, 1.0)
+            c = torch.as_tensor(counts, dtype=torch.float32, device=cuda)
+            return torch.sum(c * torch.log(p)) - 0.5 * torch.sum(
+                (t / 10.0) ** 2)
+
+        want_v, want_g = value_and_grad(plain_lp)(theta)
+        value_tol, grad_tol = LOG_PROB_TOL[any_mode]
+        assert float(value) == pytest.approx(float(want_v), rel=value_tol)
+        assert rel_l2(grad, want_g) <= grad_tol

@@ -24,7 +24,6 @@ from qbot_tpu.tpu.simulator import apply_plan_density
 from qbot_tpu_torch.tpu import circuit as tcirc
 from qbot_tpu_torch.tpu import kernels as tk
 from qbot_tpu_torch.tpu import planar as tp
-from qbot_tpu_torch.tpu.circuit import Circuit
 from qbot_tpu_torch.tpu.compiler import PairStep, compile_circuit
 
 torch.set_num_threads(1)
@@ -211,10 +210,26 @@ def test_density_state_carries_across_packages():
     np.testing.assert_allclose(out, want, atol=TOL)
 
 
-def test_parameterised_density_raises():
-    c = Circuit(3)
-    c.param_gate(lambda t: np.eye(2), [0])
-    c.cx(0, 2)
-    plan = compile_circuit(c)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        tp.apply_plan_density_planar(tp.zero_density_planar(3, "cpu"), plan)
+def test_parameterised_density_matches_reference():
+    """A parameterised window and a parameterised gate across windows (a
+    ContractStep) on the rows and, conjugated, on the columns."""
+    def make(m):
+        xp = torch if m.__name__.startswith("qbot_tpu_torch") else jnp
+        c = m.Circuit(8)
+        c.h(0)
+        c.param_gate(lambda t: m.g.rot_planar("y", t, xp=xp), [0])
+        c.param_gate(lambda t: m.g.rot_planar("x", t, xp=xp), [7],
+                     controls=[0])
+        c.cx(0, 2)
+        return c
+
+    circ, jcirc = both(make)
+    plan = compile_circuit(circ, window=3)
+    assert any(type(s).__name__ == "ContractStep" for s in plan.steps)
+    theta = np.array([0.9, -0.6], np.float32)
+    got = tp.apply_plan_density_planar(tp.zero_density_planar(8, "cpu"),
+                                       plan, torch.from_numpy(theta))
+    want = jp.apply_plan_density_planar(jp.zero_density_planar(8),
+                                        jc.compile_circuit(jcirc, window=3),
+                                        jnp.asarray(theta))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)

@@ -13,7 +13,9 @@ host ensemble (``frontend/ensemble.py``, with ``utils/config.py`` read by
 the CLI) through ``--ensemble``, and the device ensemble
 (``frontend/device_ensemble.py``, ``inference/``, ``utils/checkpoint.py``)
 through ``--compile --ensemble`` and ``--compile --ensemble --smc 4`` on
-``examples/mid_measurement.qb``.  Tolerance: 1e-5 on the marked
+``examples/mid_measurement.qb``, then one HMC step and one NUTS step over
+the angles of a 4-qubit ansatz through the planar log-prob (gradients
+through the kernels' backward) and the complex simulator's.  Tolerance: 1e-5 on the marked
 probability and on ρ against ψψ† (float32); the two CLI modes print the
 same readout within 1e-6, the bf16_3x run within 1e-4, the exact device
 ensemble within 1e-6 of the dense interpreter.
@@ -95,6 +97,20 @@ assert len(dense) == len(exact) == len(smc) == 6, outs
 for (kd, pd, _), (ke, pe, _), (ks, ps, _) in zip(dense, exact, smc):
     assert kd == ke == ks and abs(float(pd) - float(pe)) <= 1e-6, outs
 assert "64 device particles" in exact_err and "4 device particles" in smc_err
+from qbot_tpu_torch.inference import (hmc_init, hmc_step,
+                                      make_circuit_log_prob,
+                                      make_circuit_log_prob_planar, nuts_step)
+from qbot_tpu_torch.tpu.circuit import parameterized_layers
+ansatz = compile_circuit(parameterized_layers(4, 2), window=2)
+counts = np.zeros(16)
+counts[0], counts[5] = 30.0, 10.0
+gen = torch.Generator().manual_seed(0)
+theta0 = torch.linspace(0.1, 1.0, 8)
+for make in (make_circuit_log_prob_planar, make_circuit_log_prob):
+    lp = make(ansatz, counts, device="cpu")
+    state = hmc_step(gen, hmc_init(lp, theta0), lp, 0.05, 3)
+    state, stats = nuts_step(gen, state, lp, 0.05, max_tree_depth=3)
+    assert torch.isfinite(state.grad).all() and int(stats.num_leaves) >= 1
 assert not any(m.split(".")[0] in ("jax", "qbot_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print("ok")
@@ -108,10 +124,12 @@ def test_port_runs_without_jax():
     assert proc.stdout.strip() == "ok"
 
 
-# the device ensemble's modules, which the scans below must reach
+# the device ensemble's modules and HMC/NUTS's, which the scans below must
+# reach
 ENSEMBLE_MODULES = ("inference/__init__.py", "inference/smc.py",
                     "inference/ensemble_exec.py", "utils/checkpoint.py",
-                    "frontend/device_ensemble.py")
+                    "frontend/device_ensemble.py", "inference/hmc.py",
+                    "inference/nuts.py", "tpu/simulator.py")
 
 
 def test_port_sources_never_import_jax():

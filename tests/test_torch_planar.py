@@ -18,7 +18,6 @@ from qbot_tpu.tpu import kernels as jk
 from qbot_tpu.tpu import planar as jp
 from qbot_tpu_torch.tpu import circuit as tcirc
 from qbot_tpu_torch.tpu import planar as tp
-from qbot_tpu_torch.tpu.circuit import Circuit, random_circuit
 from qbot_tpu_torch.tpu.compiler import (
     ContractStep,
     DiagStep,
@@ -230,25 +229,55 @@ def test_state_round_trip():
     assert float(torch.sum(torch.abs(z))) == 1.0
 
 
-class TestNotPortedYet:
-    """What the port does not run yet raises, naming its ROADMAP item;
-    ``renorm_every``, which raised here before, runs as the reference's."""
+class TestParameterised:
+    """Parameterised gates, which raised here before the kernels' backward
+    was ported, run as ``qbot_tpu``'s do: the same states from the same
+    angles."""
 
-    def test_parameterised_gate(self):
-        c = Circuit(4)
-        c.param_gate(lambda t: np.eye(2), [1])
-        plan = compile_circuit(c)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            tp.apply_plan_planar(tp.zero_state_planar(4, "cpu"), plan)
+    def test_parameterised_gate_matches_reference(self):
+        def make(m):
+            xp = torch if m is tcirc else jnp
+            c = m.Circuit(10)
+            c.h(1)
+            c.param_gate(lambda t: m.g.rot_planar("x", t, xp=xp), [1])
+            c.param_gate(lambda t: m.g.rot_planar("z", t, xp=xp), [8],
+                         controls=[1])
+            return c
+
+        circ, jcirc = both(make)
+        theta = np.array([0.7, -1.2], np.float32)
+        psi = _rand_state(10, 31)
+        got = tp.apply_plan_planar(torch.from_numpy(psi),
+                                   compile_circuit(circ, window=3),
+                                   torch.from_numpy(theta))
+        want = jp.apply_plan_planar(jnp.asarray(psi),
+                                    jc.compile_circuit(jcirc, window=3),
+                                    jnp.asarray(theta))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
 
     @pytest.mark.parametrize("builder", ["prx", "pry", "prz"])
-    def test_parameterised_builders(self, builder):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1, item 8"):
-            getattr(Circuit(2), builder)(0)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1, item 8"):
-            tcirc.parameterized_layers(3, 1)
+    def test_parameterised_builders_match_reference(self, builder):
+        def make(m):
+            c = m.parameterized_layers(9, 1)
+            for q in (0, 4, 8):
+                getattr(c, builder)(q)
+            return c
+
+        circ, jcirc = both(make)
+        assert circ.num_params == jcirc.num_params == 12
+        theta = np.linspace(-1.0, 2.0, 12).astype(np.float32)
+        got = tp.apply_plan_planar(tp.zero_state_planar(9, "cpu"),
+                                   compile_circuit(circ),
+                                   torch.from_numpy(theta))
+        want = jp.apply_plan_planar(jp.zero_state_planar(9),
+                                    jc.compile_circuit(jcirc),
+                                    jnp.asarray(theta))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
+
+
+class TestNotPortedYet:
+    """``renorm_every``, which raised here before, runs as the
+    reference's."""
 
     def test_renorm_every(self):
         """The scanned runner renormalises every 2nd body as

@@ -661,15 +661,15 @@ def split_drift(n, layers=16, repeats=16, seed=0, measure=True):
     from _torch_parity import brickwork
     from qbot_tpu_torch import compile_circuit
     from qbot_tpu_torch.tpu import circuit, kernels
-    from qbot_tpu_torch.tpu.planar import (_window_matrix,
-                                           apply_plan_planar_ref,
+    from qbot_tpu_torch.tpu.planar import (apply_plan_planar_ref,
+                                           fold_window_static,
                                            product_state_planar)
 
     c = brickwork(circuit, n, layers, seed)
     plan = compile_circuit(c, pair=False)
     parts = [0.0, 0.0]
     for step in plan.steps:
-        w = _window_matrix(step)
+        w = fold_window_static(step)
         re, im = (sum(p.astype(F64) for p in _split_bf16(x.astype(F32)))
                   for x in (w.real, w.imag))
         shrink = 1 - (np.sum(re ** 2) + np.sum(im ** 2)) / w.shape[0]
