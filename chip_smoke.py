@@ -139,6 +139,22 @@ nonzero:
    allocated memory); ``nuts_warmup`` 4 + ``run_nuts`` 4 transitions at
    ``max_tree_depth=4`` (leaves, finiteness).  Each kernel's entry of the
    JSON line gains ``backward_launches``.
+12. ``window="auto"`` against the card, in every dot mode, on four cells:
+   the 16-layer brickwork at 26 and at 23 qubits, Grover's 26-qubit body
+   (64 iterations on the scanned runner after its width-7 init) and the
+   24-qubit ansatz ``parameterized_layers(24, 4)`` forward at fixed
+   angles.  Each compiled with ``window="auto"`` and at widths 1..7,
+   paired: (a) the auto plan equals the plan at its width step for step;
+   each width timed on its prepared runner (``make_planar_runner``, the
+   scanned runner for Grover), the median of 5 CUDA-event runs in turns,
+   printed beside its modelled ms (``plan_cost_model``) and the spread
+   of the 5; (b) the auto pick's time at most 1.10 x the least of widths
+   4..7; (c) every width's final state within ``runs_limit`` (f32
+   KERNEL_TOL) of the f32 width-7 plan's.  Printed too: the widths of 1..3
+   faster than the pick by more than 10% (a finding; the candidates stay
+   the reference's 4..7), the host seconds of the auto compile against one
+   width-7 compile, and the one-shot wall of ``apply_plan_planar`` at the
+   pick (the route of the CLI's ``run_lowered``).
 
 Launch counts are reset before phase 3 and read after phase 6: every f32
 kernel must have launched on that path; they are reset again before
@@ -149,7 +165,8 @@ each mode) must have moved, and before phase 9, after which the streaming
 kernels' counters (``window_apply_stream``, ``pair_apply_stream``, in each
 mode) must have moved, and before phase 10's ensemble runs (after its
 particle-axis checks), after which each of PHASE10_KERNELS must have
-moved, and before phase 11, whose launches are added to the line's.
+moved, and before phases 11 and 12, whose launches are added to the
+line's.
 The timed run of Grover, of each brickwork
 plan and of the density bodies also reports its own launches.
 The line before the last is one JSON object of per-kernel results; the
@@ -2252,6 +2269,200 @@ def gradient_path(device, card: str) -> tuple[dict, dict, dict]:
     return runs, backward, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 12: window="auto" against the card
+# ---------------------------------------------------------------------------
+
+AUTO_SLACK = 1.10          # the pick's time over the best of widths 4..7
+AUTO_RUNS = 5              # timed runs of each plan, in turns
+AUTO_GROVER_REPEATS = 64   # the scanned Grover body's iterations
+ALL_WIDTHS = tuple(range(1, 8))
+
+
+def same_plan(a, b) -> bool:
+    """``a`` and ``b`` equal step for step, field for field (arrays bit for
+    bit)."""
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    if hasattr(a, "__dataclass_fields__"):
+        return all(same_plan(getattr(a, f), getattr(b, f))
+                   for f in a.__dataclass_fields__)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(same_plan, a, b))
+    return a is b or a == b
+
+
+def bind_angles(plan, theta):
+    """``plan`` with every parameterised term and contraction fixed at the
+    angles ``theta``: a static plan, which a prepared runner folds once,
+    so that timing it leaves the per-call folds out."""
+    from dataclasses import replace
+
+    from qbot_tpu_torch.ops.gates import controlled
+    from qbot_tpu_torch.tpu.compiler import ContractStep, PairStep, WindowStep
+
+    def fixed(x):
+        if x.maker is None:
+            return x
+        m = x.maker(theta[x.param_idx].double()).detach().cpu().numpy()
+        m = m[0] + 1j * m[1]
+        return replace(x, matrix=controlled(m, x.num_controls)
+                       if x.num_controls else m, param_idx=None,
+                       maker=None, num_controls=0)
+
+    def step(s):
+        if isinstance(s, WindowStep):
+            return replace(s, terms=tuple(map(fixed, s.terms)))
+        if isinstance(s, PairStep):
+            return PairStep(step(s.first), step(s.second))
+        return fixed(s) if isinstance(s, ContractStep) else s
+    return replace(plan, steps=[step(s) for s in plan.steps], num_params=0)
+
+
+def auto_cells(device) -> tuple[dict, torch.Tensor]:
+    """({cell: (circuit, plan -> runner(psi0), (plan, mode) -> modelled
+    seconds)}, the ansatz's angles): the brickwork bodies at 26 and 23
+    qubits, Grover's 26-qubit body on the scanned runner after its width-7
+    init (modelled as the init and AUTO_GROVER_REPEATS bodies; the runner
+    forms ⟨v|ψ⟩ of each later iteration in the update, so the model counts
+    a ``reflect_dot`` an iteration more than it makes), the 24-qubit
+    ansatz forward at fixed angles (``bind_angles``: the runner folds its
+    windows once, as it does a static plan's)."""
+    from qbot_tpu_torch.tpu.compiler import plan_cost_model
+    from qbot_tpu_torch.tpu.planar import make_planar_runner
+
+    marked, init, body = grover_circuits(N)
+    init_plan = compile_circuit(init)
+    ansatz, _, _, theta0 = hmc_ansatz(device)
+    theta = theta0[0]
+
+    def planar_runner(plan):
+        run = make_planar_runner(bind_angles(plan, theta))
+        return lambda psi: run(psi)
+    def grover_model(plan, mode):
+        return (plan_cost_model(init_plan, mode)
+                + AUTO_GROVER_REPEATS * plan_cost_model(plan, mode))
+    return {
+        f"brickwork_{N}q": (brickwork_circuit(N, BRICKWORK_LAYERS),
+                            planar_runner, plan_cost_model),
+        f"brickwork_{NARROW_DRIFT_QUBITS}q": (
+            brickwork_circuit(NARROW_DRIFT_QUBITS, BRICKWORK_LAYERS),
+            planar_runner, plan_cost_model),
+        f"grover_{N}q": (body, lambda plan: make_scanned_planar_runner(
+            plan, AUTO_GROVER_REPEATS, init_plan=init_plan), grover_model),
+        f"ansatz_{HMC_QUBITS}q": (ansatz, planar_runner, plan_cost_model),
+    }, theta
+
+
+def _event_ms(fn) -> float:
+    """Milliseconds of one run of ``fn`` between CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def auto_cell(name: str, circ, model, theta, device, mode: str,
+              plans: dict, runners: dict, reference,
+              reference_launches: int) -> tuple[dict, dict]:
+    """One cell of phase 12 in dot ``mode`` (set by the caller): ``circ``
+    compiled with ``window="auto"`` equals its plan at the picked width
+    (a); each width's plan in ``plans`` timed on its prepared runner, the
+    median of AUTO_RUNS CUDA-event runs in turns, beside its ``model``;
+    the pick within AUTO_SLACK of the best of widths 4..7 (b); each
+    width's final state against ``reference`` (the f32 width-7 state, of
+    ``reference_launches`` launches) within ``runs_limit`` (c).  Returns
+    (the pick's launches, the cell's numbers)."""
+    from qbot_tpu_torch.tpu.compiler import AUTO_WIDTHS
+
+    t0 = time.perf_counter()
+    auto = compile_circuit(circ, window="auto")
+    auto_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    compile_circuit(circ, window=7)
+    seven_s = time.perf_counter() - t0
+    pick = auto.window
+    if not same_plan(auto, plans[pick]):
+        raise AssertionError(f"[{mode}] {name}: the auto plan differs from "
+                             f"its width {pick}'s")
+    psi0 = zero_state_planar(circ.n, device)
+    limits, launches, errors = {}, {}, {}
+    for w in ALL_WIDTHS:
+        out, launches[w] = _launch_delta(lambda: runners[w](psi0))
+        limits[w] = runs_limit(mode, sum(launches[w].values())
+                               + reference_launches)
+        errors[w] = rel_l2(out, reference)
+        del out
+    times = {w: [] for w in ALL_WIDTHS}
+    for r in range(AUTO_RUNS):
+        for w in ALL_WIDTHS[::1 if r % 2 == 0 else -1]:
+            times[w].append(_event_ms(lambda: runners[w](psi0)))
+    measured = {w: float(np.median(t)) for w, t in times.items()}
+    spread = {w: (max(t) - min(t)) / measured[w] for w, t in times.items()}
+    modelled = {w: model(plans[w], mode) * 1e3 for w in ALL_WIDTHS}
+    best = min(measured[w] for w in AUTO_WIDTHS)
+    for w in ALL_WIDTHS:
+        say(f"[{mode}] {name} width {w}{' (auto)' if w == pick else ''}: "
+            f"{len(plans[w].steps)} steps, modelled {modelled[w]:.4f} ms, "
+            f"measured {measured[w]:.4f} ms (median of {AUTO_RUNS}, spread "
+            f"{spread[w]:.3f}), vs f32 width 7 rel L2 {errors[w]:.3e} "
+            f"(limit {limits[w]:.3e})")
+    beaten = [w for w in ALL_WIDTHS[:3]
+              if measured[w] * AUTO_SLACK < measured[pick]]
+    t0 = time.perf_counter()
+    apply_plan_planar(psi0, auto, theta if auto.num_params else None)
+    sync(device)
+    oneshot_s = time.perf_counter() - t0
+    say(f"[{mode}] {name}: auto picks width {pick}, measured "
+        f"{measured[pick]:.4f} ms against {best:.4f} ms, the best of widths "
+        f"{AUTO_WIDTHS[0]}..{AUTO_WIDTHS[-1]} (limit {AUTO_SLACK} x); "
+        f"widths 1..3 faster than the pick by more than 10%: "
+        f"{beaten or 'none'}; compile auto {auto_s:.4f} s against width 7 "
+        f"{seven_s:.4f} s; one-shot apply_plan_planar at the pick "
+        f"{oneshot_s:.4f} s")
+    bad = [w for w in ALL_WIDTHS if not errors[w] <= limits[w]]
+    if bad:
+        raise AssertionError(f"[{mode}] {name}: widths {bad} leave the f32 "
+                             f"width-7 state: {errors}")
+    if not measured[pick] <= AUTO_SLACK * best:
+        raise AssertionError(f"[{mode}] {name}: the auto pick (width {pick}) "
+                             f"takes {measured[pick]:.4f} ms, over "
+                             f"{AUTO_SLACK} x {best:.4f} ms")
+    return launches[pick], {
+        "pick": pick, "modelled_ms": modelled, "measured_ms": measured,
+        "spread": spread, "rel_l2": errors, "beaten_by_1_3": beaten,
+        "auto_compile_s": auto_s, "width7_compile_s": seven_s,
+        "oneshot_s": oneshot_s}
+
+
+def auto_path(device, card: str) -> tuple[dict, dict]:
+    """Phase 12.  Returns ({run: launches}, numbers)."""
+    cells, theta = auto_cells(device)
+    runs, numbers = {}, {}
+    for name, (circ, make_runner, model) in cells.items():
+        plans = {w: compile_circuit(circ, window=w) for w in ALL_WIDTHS}
+        runners = {w: make_runner(plans[w]) for w in ALL_WIDTHS}
+        psi0 = zero_state_planar(circ.n, device)
+        kernels.set_dot_mode("f32")
+        reference, ref_launches = _launch_delta(lambda: runners[7](psi0))
+        for mode in ("f32", *REDUCED_MODES):
+            kernels.set_dot_mode(mode)
+            launches, numbers[f"{name}[{mode}]"] = auto_cell(
+                name, circ, model, theta, device, mode, plans, runners,
+                reference, sum(ref_launches.values()))
+            runs[f"auto_{name}" if mode == "f32" else
+                 f"auto_{name}[{mode}]"] = launches
+        kernels.set_dot_mode("f32")
+        del reference, runners
+    say(f"auto numbers ({card}): {json.dumps(numbers)}")
+    return runs, numbers
+
+
 def _device_busy_ms(prof) -> float:
     """Milliseconds in which at least one device activity (kernel or copy)
     of the traced run was running: the union of their intervals."""
@@ -2507,6 +2718,16 @@ def main(argv=None) -> int:
         f"{GRAD_GROVER_QUBITS}-qubit Grover-in-the-loss gradient with the "
         f"plain versions; HMC and NUTS chains ran; backward launches "
         f"{ {k: v for k, v in backward.items() if v} }")
+    kernels.reset_launch_counts()
+    auto_runs, _ = auto_path(device, card)
+    auto_counts = kernels.launch_counts()
+    for name in KERNEL_SOURCES:
+        counts[name] += auto_counts[name]
+    runs.update(auto_runs)
+    say(f"phase 12: window=\"auto\" picks, in every cell and dot mode, a "
+        f"width within {AUTO_SLACK} x the best of widths 4..7 on the card, "
+        f"its plan equal to that width's, every width's state within its "
+        f"limit; launches { {k: v for k, v in auto_counts.items() if v} }")
     missing = [k for k in KERNEL_SOURCES if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "

@@ -198,11 +198,12 @@ def main(argv=None) -> int:
             return _run_device_ensemble(path, args)
         with open(path, "r") as f:
             lp = lower_program(f.read())
-        plan = compile_circuit(lp.circuit)
+        plan = compile_circuit(lp.circuit, window="auto")
         print(f"lowered: {lp.n} qubits, {lp.circuit.gate_count} gates, "
               f"{plan.num_passes} device passes "
               f"(torch {args.device} engine)", file=sys.stderr)
-        probs, _ = run_lowered(lp, device=args.device, plan=plan)
+        probs, _ = run_lowered(lp, window="auto", device=args.device,
+                               plan=plan)
         # programs with a classical epilogue print their own output (it
         # ran inside run_lowered with the result bound)
         if probs is not None and not lp.has_epilogue:

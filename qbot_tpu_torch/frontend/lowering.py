@@ -22,7 +22,7 @@ and raise a lowering error naming the line.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -843,8 +843,9 @@ def _is_computational(basis) -> bool:
                                           np.eye(2, dtype=complex)))
 
 
-def run_lowered(lp: LoweredProgram, window: int = 7, use_planar: bool = True,
-                device="cuda", plan: Optional[Plan] = None):
+def run_lowered(lp: LoweredProgram, window: Union[int, str] = 7,
+                use_planar: bool = True, device="cuda",
+                plan: Optional[Plan] = None):
     """Execute a lowered program on ``device``.
 
     ``use_planar`` runs the planar executor (the kernels on a CUDA device);
@@ -853,7 +854,9 @@ def run_lowered(lp: LoweredProgram, window: int = 7, use_planar: bool = True,
     of the initial kets, as ``qbot_tpu``'s ``run_lowered`` does
     (``qbot_tpu/frontend/lowering.py:1702-1767``).  ``plan`` is
     ``compile_circuit(lp.circuit, window)`` (paired) when the caller has
-    compiled it already; it is compiled here when None.
+    compiled it already; it is compiled here when None.  ``window`` is a
+    width or ``"auto"`` (:func:`~qbot_tpu_torch.tpu.compiler.compile_circuit`),
+    and the post-rotation plan of a general product basis compiles with it.
 
     Returns (outcome probabilities as numpy, or None without a final
     measurement; final state tensor on ``device``: planar ``(2, 2^n)``

@@ -10,9 +10,20 @@ dataclasses and passes (``qbot_tpu/tpu/compiler.py:45-182, 271-368,
 Windows are paired by default, as in ``qbot_tpu``: adjacent windows that
 :func:`_pairable` accepts become one ``PairStep`` (one pass of the pair
 kernel).  Plans equal ``qbot_tpu``'s ``compile_circuit(circ, window, pair)``
-step for step, field for field, for both values of ``pair``.  There is no
-``window="auto"``: ranking widths needs cost constants measured on the card,
-and the JAX package's are a TPU's.
+step for step, field for field, for both values of ``pair``.
+
+``window="auto"`` ranks the reference's kernel candidates, widths 4..7
+(``qbot_tpu/tpu/compiler.py:474-535`` without its dot engine), by
+:func:`plan_cost_model`: modelled device seconds on one H100, the sum over
+the plan's steps of what the planar executor launches for each on a CUDA
+state (:func:`step_launches`: the window and pair kernels by family and
+route, the two reflection kernels, the PyTorch passes of diagonals, phases,
+flips and contractions that stand alone).  A launch costs
+``t0 + max(bytes / BW, ops / rate)``, more for each fused phase, with
+constants fitted per family and dot mode to times measured on the card
+(``tools/fit_costs.py``, :data:`COSTS`).  The model reads nothing but the
+plan and the mode, so a program compiles to the same plan on the CPU and
+on the card.
 """
 from __future__ import annotations
 
@@ -23,11 +34,14 @@ from typing import Callable, Optional, Union
 import numpy as np
 
 from qbot_tpu_torch.ops.gates import controlled
+from qbot_tpu_torch.tpu import kernels
 from qbot_tpu_torch.tpu.circuit import Circuit, CircuitOp
 
 __all__ = ["Term", "WindowStep", "DiagStep", "FlipStep", "PhaseStep",
            "ContractStep", "PairStep", "ReflectStep", "Plan",
-           "compile_circuit", "expand_pairs", "expand_reflections",
+           "compile_circuit", "auto_candidates", "plan_cost_model",
+           "step_costs", "step_launches", "Launch", "AUTO_WIDTHS",
+           "expand_pairs", "expand_reflections",
            "expand_phases", "phase_as_diag", "gate_as_diag",
            "eigen_decompose_controlled", "decompose_spanning_swap"]
 
@@ -288,13 +302,168 @@ def decompose_spanning_swap(op: CircuitOp) -> Optional[list[CircuitOp]]:
             CircuitOp("gate", (b,), (a,), X)]
 
 
-def compile_circuit(circ: Circuit, window: int = 7,
+# ---------------------------------------------------------------------------
+# window="auto": the kernel candidates ranked by the card's costs
+# ---------------------------------------------------------------------------
+
+AUTO_WIDTHS = (4, 5, 6, 7)     # qbot_tpu/tpu/compiler.py:489-494, "pallas"
+
+# Per family and dot mode: (t0 seconds, bytes/s, ops/s, fraction a fused
+# phase adds).  Fitted by tools/fit_costs.py to CUDA-event times of each
+# launch through its tpu/kernels.py wrapper (t0 holds the wrapper's host
+# time) at the geometries of widths 1..7 at 20, 23 and 26 qubits, on
+# "NVIDIA H100 80GB HBM3, 700.00 W" (nvidia-smi name, power.limit).
+# f32_mix launches the f32 kernels and costs as f32; families without a
+# mode run no products in a dot mode.
+COSTS = {
+    "window_tc": {"f32": (3.94e-05, 3.606e+12, 4.616e+13, 0.1212),
+                  "bf16_3x": (4.055e-05, 3.428e+12, 9.884e+13, 0.05821),
+                  "bf16": (3.992e-05, 3.606e+12, 1.621e+14, 0.02604)},
+    "window_stream": {"f32": (3.868e-05, 3.516e+12, 7.058e+12, 0.0146),
+                      "bf16_3x": (3.821e-05, 3.385e+12, 6.794e+12, 0.02124),
+                      "bf16": (3.814e-05, 3.385e+12, 6.794e+12, 0.01245)},
+    "pair_tc_middle": {"f32": (4.743e-05, 2.528e+12, 3.492e+13, 0.176),
+                       "bf16_3x": (4.808e-05, 8.818e+11, 4.735e+13, 0.05603),
+                       "bf16": (4.684e-05, 9.16e+11, 7.382e+13, 0.06481)},
+    "pair_tc_trailing": {"f32": (4.473e-05, 5.444e+11, 4.015e+13, 0.04077),
+                         "bf16_3x": (4.733e-05, 9.395e+11, 9.044e+13, 0.1672),
+                         "bf16": (5.001e-05, 1.817e+12, 2.037e+14, 0.2943)},
+    "pair_narrow": {"f32": (4.566e-05, 3.385e+12, 4.388e+13, 0.1974),
+                    "bf16_3x": (4.449e-05, 2.528e+12, 9.515e+13, 0.2544),
+                    "bf16": (4.021e-05, 3.3e+12, 1.522e+14, 0.3336)},
+    "pair_stream": {"f32": (3.72e-05, 3.892e+12, 1.203e+13, 0),
+                    "bf16_3x": (3.937e-05, 3.472e+12, 1.073e+13, 0),
+                    "bf16": (3.71e-05, 3.746e+12, 1.173e+13, 0.003243)},
+    "reflect_dot": {None: (0.0002599, 7.528e+12, np.inf, 0)},
+    "reflect_update": {None: (4.813e-05, 3.058e+12, np.inf, 0)},
+    "torch_diag": {None: (4.708e-05, 5.801e+11, np.inf, 0)},
+    "torch_flip": {None: (2.808e-05, 3.794e+12, np.inf, 0)},
+    "torch_contract": {None: (0.0002072, 2.744e+11, 1e+12, 0)},
+}
+_COST_MODE = {"f32": "f32", "f32_mix": "f32", "bf16_3x": "bf16_3x",
+              "bf16": "bf16"}
+
+
+@dataclass(frozen=True)
+class Launch:
+    """One launch the planar executor makes for a step on a CUDA state: a
+    kernel of :mod:`qbot_tpu_torch.tpu.kernels` or a PyTorch pass, by
+    cost ``family``, with its geometry (window ``widths`` from ``start``;
+    a reflection's ``widths`` is its tail factor's, a contraction's its
+    target count) and its fused ``phases``."""
+    family: str
+    n: int
+    start: int = 0
+    widths: tuple[int, ...] = ()
+    phases: int = 0
+
+    @property
+    def nbytes(self) -> float:
+        """The planar float32 state read once and written once (read only
+        by ``reflect_dot``)."""
+        per_amp = 8 if self.family == "reflect_dot" else 16
+        return float(per_amp * 2**self.n)
+
+    @property
+    def ops(self) -> float:
+        """FLOPs of the complex products: 8·D an amplitude a window (the
+        pairs' two, a contraction's 2^k), none for the other passes."""
+        if self.family.startswith(("window", "pair")):
+            return float(8 * sum(2**w for w in self.widths) * 2**self.n)
+        if self.family == "torch_contract":
+            return float(8 * 2**self.widths[0] * 2**self.n)
+        return 0.0
+
+
+def _window_launch(n: int, w: WindowStep, phases: int) -> Launch:
+    family = "window_stream" if w.width <= 2 else "window_tc"
+    return Launch(family, n, w.start, (w.width,), phases)
+
+
+def step_launches(step: Step, n: int) -> list[Launch]:
+    """What :func:`qbot_tpu_torch.tpu.planar.apply_plan_planar` launches for
+    ``step`` on a CUDA state, as ``tpu/kernels.py`` routes it: a window on
+    its streaming kernel (D <= 4) or tensor-core tile; a pair by
+    :func:`~qbot_tpu_torch.tpu.kernels.pair_route`, as two windows, or on
+    the streaming pair (D1, D2 <= 4), the narrow pair (D1 <= 4) or the
+    tensor-core pair, middle or trailing; a reflection's two kernels; a
+    PyTorch pass for a diagonal, a phase, a flip or a contraction that
+    stands alone.  Fused flips cost nothing."""
+    if isinstance(step, WindowStep):
+        return [_window_launch(n, step, len(step.pre_phases))]
+    if isinstance(step, PairStep):
+        a, b = step.first, step.second
+        phases = len(a.pre_phases)
+        route = kernels.pair_route(n, a.start, a.width, b.width)
+        if route == "two_windows":
+            return [_window_launch(n, a, phases), _window_launch(n, b, 0)]
+        if a.width <= 2 and b.width <= 2:
+            family = "pair_stream"
+        elif a.width <= 2:
+            family = "pair_narrow"
+        else:
+            # D2 <= 4 under D1 >= 8 (shared-memory FMAs) is no plan's
+            family = f"pair_tc_{route}"
+        return [Launch(family, n, a.start, (a.width, b.width), phases)]
+    if isinstance(step, ReflectStep):
+        tail = int(step.factors[-1].shape[0]).bit_length() - 1
+        return [Launch("reflect_dot", n, n - tail, (tail,)),
+                Launch("reflect_update", n, n - tail, (tail,))]
+    if isinstance(step, (DiagStep, PhaseStep)):
+        return [Launch("torch_diag", n)]
+    if isinstance(step, FlipStep):
+        return [Launch("torch_flip", n)]
+    return [Launch("torch_contract", n, 0, (len(step.targets),))]
+
+
+def launch_seconds(launch: Launch, mode: str = "f32") -> float:
+    """Modelled seconds of one launch in dot ``mode`` on the card."""
+    costs = COSTS[launch.family]
+    t0, bw, rate, phase = costs.get(_COST_MODE[mode]) or costs[None]
+    body = max(launch.nbytes / bw, launch.ops / rate)
+    return t0 + body * (1.0 + phase * launch.phases)
+
+
+def step_costs(plan: Plan, dot_mode: str = "f32") -> list[float]:
+    """Modelled seconds of each of ``plan``'s steps in ``dot_mode``."""
+    return [sum(launch_seconds(x, dot_mode)
+                for x in step_launches(s, plan.n)) for s in plan.steps]
+
+
+def plan_cost_model(plan: Plan, dot_mode: str = "f32") -> float:
+    """Modelled device seconds of one run of ``plan`` on one H100: the sum
+    of :func:`step_costs` (``qbot_tpu/tpu/compiler.py:441-471`` with the
+    card's kernels and constants)."""
+    return sum(step_costs(plan, dot_mode))
+
+
+def auto_candidates(circ: Circuit, pair: bool = True,
+                    mode: Optional[str] = None):
+    """``(cost, plan, "kernel")`` for each width of :data:`AUTO_WIDTHS`, in
+    that order: the plans :func:`compile_circuit` ranks for
+    ``window="auto"`` under :func:`plan_cost_model` in ``mode`` (default
+    the current dot mode).  Widths that clamp at small n stay as
+    duplicates, as in the reference."""
+    if mode is None:
+        mode = kernels.dot_mode()
+    out = []
+    for w in AUTO_WIDTHS:
+        plan = compile_circuit(circ, w, pair)
+        out.append((plan_cost_model(plan, mode), plan, "kernel"))
+    return out
+
+
+def compile_circuit(circ: Circuit, window: Union[int, str] = 7,
                     pair: bool = True) -> Plan:
     """Compile to a window-fused plan of windows of up to ``window``
     qubits (``qbot_tpu/tpu/compiler.py:536-694``), with adjacent windows
-    paired when ``pair``."""
+    paired when ``pair``.  ``window="auto"`` returns the first cheapest of
+    :func:`auto_candidates` (the reference's ``"auto_pallas"``)."""
+    if window == "auto":
+        return min(auto_candidates(circ, pair), key=lambda c: c[0])[1]
     if not isinstance(window, int):
-        raise ValueError(f"window must be an integer width, got {window!r}")
+        raise ValueError(f"window must be an integer width or 'auto', "
+                         f"got {window!r}")
     n = circ.n
     w = min(window, n) if n else 1
     # the last window has width min(n, 7); the front qubits split

@@ -50,7 +50,8 @@ def brickwork(m, n, layers, seed=0):
 def assert_same(a, b, where="plan"):
     """``a`` (the port's) equals ``b`` (``qbot_tpu``'s): the same class
     name and, for a dataclass, every field of ``a``'s class; arrays
-    bit-identical."""
+    bit-identical; a parameterised gate's maker made by the same builder
+    (the same qualified name)."""
     assert type(a).__name__ == type(b).__name__, \
         f"{where}: {type(a).__name__} != {type(b).__name__}"
     if isinstance(a, np.ndarray):
@@ -59,6 +60,9 @@ def assert_same(a, b, where="plan"):
         for f in dataclasses.fields(a):
             assert_same(getattr(a, f.name), getattr(b, f.name),
                         f"{where}.{f.name}")
+    elif callable(a) and callable(b):
+        assert a.__qualname__ == b.__qualname__, \
+            f"{where}: {a.__qualname__} != {b.__qualname__}"
     elif isinstance(a, (tuple, list)):
         assert len(a) == len(b), f"{where}: {len(a)} != {len(b)}"
         for i, (x, y) in enumerate(zip(a, b)):

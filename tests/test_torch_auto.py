@@ -1,0 +1,208 @@
+"""``window="auto"`` of the port's compiler against ``qbot_tpu``'s.
+
+The port ranks the reference's kernel candidates (widths 4..7,
+``qbot_tpu/tpu/compiler.py:489-494``, its ``"pallas"`` entries) by the
+card's cost model: each candidate plan must equal the reference's at the
+same width field by field, and ``compile_circuit(c, "auto")`` the first
+cheapest of them.  The reference lists its ``"pallas"`` candidates only
+while its kernels are on, so they are taken under
+``set_kernel_mode("interpret")``.  ``run_lowered(lp, window="auto")``
+readouts hold to ``qbot_tpu``'s within 1e-5 (float32 states; the two
+packages may pick different widths, whose float32 roundings differ).
+
+Tolerance: none on plans (bit-identical matrices and factors); 1e-5 on
+outcome probabilities.
+"""
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import assert_same, both, brickwork, grover_body
+from qbot_tpu.frontend import lowering as jl
+from qbot_tpu.tpu import compiler as jc
+from qbot_tpu.tpu import kernels as jk
+from qbot_tpu_torch import lower_program, run_lowered
+from qbot_tpu_torch.tpu import circuit as tcirc
+from qbot_tpu_torch.tpu import compiler as tc
+from qbot_tpu_torch.tpu import kernels as tk
+from qbot_tpu_torch.tpu.compiler import (
+    AUTO_WIDTHS,
+    auto_candidates,
+    compile_circuit,
+    plan_cost_model,
+    step_costs,
+    step_launches,
+)
+
+torch.set_num_threads(1)
+
+TOL = 1e-5
+ROOT = Path(__file__).resolve().parent.parent
+MODES = ("f32", "f32_mix", "bf16_3x", "bf16")
+
+CIRCUITS = {
+    "brickwork": lambda m: brickwork(m, 12, 4),
+    "brickwork_9": lambda m: brickwork(m, 9, 3, seed=2),
+    "grover_body": lambda m: grover_body(m, 11, 1234),
+    "ansatz": lambda m: m.parameterized_layers(10, 3),
+}
+
+
+@pytest.fixture
+def reference_kernels_on():
+    """``qbot_tpu`` lists its kernel candidates only with its kernels on."""
+    jk.set_kernel_mode("interpret")
+    try:
+        yield
+    finally:
+        jk.set_kernel_mode("auto")
+
+
+@pytest.mark.parametrize("pair", [True, False])
+@pytest.mark.parametrize("name", list(CIRCUITS))
+def test_candidates_are_the_reference_kernel_candidates(
+        name, pair, reference_kernels_on):
+    circ, jcirc = both(CIRCUITS[name])
+    got = auto_candidates(circ, pair)
+    want = [p for _, p, eng in jc.auto_candidates(jcirc, pair, mode="f32")
+            if eng == "pallas"]
+    assert [eng for _, _, eng in got] == ["kernel"] * len(AUTO_WIDTHS)
+    assert len(want) == len(AUTO_WIDTHS)
+    for w, (cost, plan, _), ref in zip(AUTO_WIDTHS, got, want):
+        assert plan.window == ref.window == min(w, circ.n)
+        assert_same(plan, ref, f"width {w}")
+        assert cost == plan_cost_model(plan, tk.dot_mode())
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("pair", [True, False])
+@pytest.mark.parametrize("name", list(CIRCUITS))
+def test_auto_is_the_first_argmin(name, pair, mode):
+    circ, jcirc = both(CIRCUITS[name])
+    tk.set_dot_mode(mode)
+    try:
+        costs = [c for c, _, _ in auto_candidates(circ, pair)]
+        got = compile_circuit(circ, "auto", pair)
+    finally:
+        tk.set_dot_mode("f32")
+    best = AUTO_WIDTHS[costs.index(min(costs))]
+    assert got.window == min(best, circ.n)
+    assert_same(got, jc.compile_circuit(jcirc, best, pair))
+    assert got.num_passes == compile_circuit(circ, best, pair).num_passes
+
+
+def test_ties_go_to_the_first_width(monkeypatch):
+    """Widths that clamp at small n stay as duplicates of equal cost, and
+    ``min`` keeps the first of equal costs, as the reference's does."""
+    circ = brickwork(tcirc, 6, 3)
+    costs = [c for c, _, _ in auto_candidates(circ)]
+    assert len(set(costs)) == 1
+    assert compile_circuit(circ, "auto").window == AUTO_WIDTHS[0]
+    fake = iter([3.0, 1.0, 1.0, 2.0])
+    monkeypatch.setattr(tc, "plan_cost_model", lambda plan, mode: next(fake))
+    assert compile_circuit(circ, "auto").window == 5
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("window", range(1, 8))
+def test_cost_model_sums_its_steps(window, mode):
+    circ = brickwork(tcirc, 12, 4)
+    for pair in (True, False):
+        plan = compile_circuit(circ, window, pair)
+        costs = step_costs(plan, mode)
+        assert len(costs) == len(plan.steps)
+        assert all(c > 0 for c in costs)
+        assert plan_cost_model(plan, mode) == sum(costs)
+        assert plan_cost_model(plan, mode) == plan_cost_model(plan, mode)
+        if mode == "f32_mix":
+            assert costs == step_costs(plan, "f32")
+
+
+@pytest.mark.parametrize("n", [8, 9, 12])
+@pytest.mark.parametrize("window", range(1, 8))
+def test_launches_follow_the_kernels_routes(n, window):
+    """Each step's launches are the wrappers' routes: a window by D, a pair
+    by ``pair_route`` and its widths, a reflection as its two kernels."""
+    for circ in (brickwork(tcirc, n, 4), grover_body(tcirc, n, 5)):
+        for step in compile_circuit(circ, window).steps:
+            launches = step_launches(step, n)
+            kind = type(step).__name__
+            if kind == "WindowStep":
+                [x] = launches
+                assert x.family == ("window_stream" if step.width <= 2
+                                    else "window_tc")
+                assert x.phases == len(step.pre_phases)
+            elif kind == "PairStep":
+                a, b = step.first, step.second
+                route = tk.pair_route(n, a.start, a.width, b.width)
+                families = [x.family for x in launches]
+                if route == "two_windows":
+                    assert len(families) == 2
+                    assert launches[1].phases == 0
+                elif a.width <= 2 and b.width <= 2:
+                    assert families == ["pair_stream"]
+                elif a.width <= 2:
+                    assert families == ["pair_narrow"]
+                else:
+                    assert families == [f"pair_tc_{route}"]
+                assert launches[0].phases == len(a.pre_phases)
+                assert sum(x.ops for x in launches) == \
+                    8 * (2**a.width + 2**b.width) * 2**n
+            elif kind == "ReflectStep":
+                assert [x.family for x in launches] == ["reflect_dot",
+                                                        "reflect_update"]
+                assert launches[0].nbytes == 8 * 2**n
+            for x in launches:
+                assert x.family in tc.COSTS
+
+
+@pytest.mark.parametrize("window", ["fast", "auto_pallas", 7.0, None])
+def test_unknown_window_raises(window):
+    circ = brickwork(tcirc, 6, 2)
+    with pytest.raises(ValueError, match="'auto'"):
+        compile_circuit(circ, window)
+
+
+@pytest.mark.parametrize("width", range(1, 8))
+def test_integer_widths_unchanged(width):
+    circ, jcirc = both(lambda m: brickwork(m, 11, 3, seed=4))
+    assert_same(compile_circuit(circ, width),
+                jc.compile_circuit(jcirc, width))
+
+
+BELL = ("qset tensorProd(comp[0], comp[1], comp[0])\n"
+        "gate hadamardGate ; 0\ngate pauliXGate ; 2 ; 0\n"
+        "meas out ; bell ; [0, 2]")
+
+
+def _readout(lower, run, src):
+    """The outcome probabilities of a program, or what it raised."""
+    try:
+        probs, _ = run(lower(src))
+    except Exception as e:                  # outside the --compile fragment
+        return e
+    return probs
+
+
+@pytest.mark.parametrize(
+    "name", sorted(p.name for p in (ROOT / "examples").glob("*.qb"))
+    + ["bell_basis"])
+def test_run_lowered_auto_matches_reference(name):
+    """Every example: the readouts of both packages' ``run_lowered(lp,
+    window="auto")``, or the same error where the program leaves the
+    ``--compile`` fragment."""
+    src = BELL if name == "bell_basis" else \
+        (ROOT / "examples" / name).read_text()
+    want = _readout(jl.lower_program,
+                    lambda lp: jl.run_lowered(lp, window="auto"), src)
+    got = _readout(lower_program, lambda lp: run_lowered(
+        lp, window="auto", device="cpu"), src)
+    if isinstance(want, Exception):
+        assert type(got).__name__ == type(want).__name__
+        assert str(got) == str(want)
+    elif want is None:
+        assert got is None
+    else:
+        np.testing.assert_allclose(got, np.asarray(want), atol=TOL)

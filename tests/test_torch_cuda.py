@@ -1085,3 +1085,67 @@ def test_log_prob_grad_on_card(cuda, any_mode):
         value_tol, grad_tol = LOG_PROB_TOL[any_mode]
         assert float(value) == pytest.approx(float(want_v), rel=value_tol)
         assert rel_l2(grad, want_g) <= grad_tol
+
+
+# ---------------------------------------------------------------------------
+# window="auto": the ranked plan runs as the plan at its width
+# ---------------------------------------------------------------------------
+
+def _counter(launch, mode):
+    """The launch count a modelled launch (compiler.step_launches) moves."""
+    trailing = launch.start + sum(launch.widths) == launch.n
+    name = {"window_tc": "window_apply_trailing" if trailing
+            else "window_apply",
+            "window_stream": "window_apply_stream",
+            "pair_tc_middle": "pair_apply",
+            "pair_tc_trailing": "pair_apply_trailing",
+            "pair_narrow": "pair_apply_trailing_narrow" if trailing
+            else "pair_apply_narrow",
+            "pair_stream": "pair_apply_stream"}.get(launch.family)
+    if name is None:
+        return launch.family if launch.family.startswith("reflect") else None
+    return name if mode == "f32" else f"{name}[{mode}]"
+
+
+def _auto_circuit(name):
+    from qbot_tpu_torch.tpu.circuit import (
+        grover_circuit,
+        parameterized_layers,
+    )
+
+    return {"random_16": lambda: random_circuit(16, 4, seed=3),
+            "random_17": lambda: random_circuit(17, 4, seed=5),
+            "ansatz_17": lambda: parameterized_layers(17, 3),
+            "grover_16": lambda: grover_circuit(16, 1234, iterations=2),
+            }[name]()
+
+
+@pytest.mark.parametrize("name", ["random_16", "random_17", "ansatz_17",
+                                  "grover_16"])
+def test_auto_plan_runs_as_its_width(cuda, any_mode, name):
+    """At 16-17 qubits in each dot mode, the auto plan launches the same
+    kernels as the explicit plan at its width and gives its state bit for
+    bit; every launch the cost model counts moves its launch count once."""
+    from qbot_tpu_torch.tpu.compiler import step_launches
+
+    c = _auto_circuit(name)
+    auto = compile_circuit(c, window="auto")
+    explicit = compile_circuit(c, window=auto.window)
+    params = (torch.linspace(0.1, 1.0, c.num_params, device=cuda)
+              if c.num_params else None)
+    psi0 = planar.zero_state_planar(c.n, cuda)
+    states, counts = [], []
+    for plan in (auto, explicit):
+        kernels.reset_launch_counts()
+        states.append(planar.apply_plan_planar(psi0, plan, params))
+        torch.cuda.synchronize()
+        counts.append(kernels.launch_counts())
+    assert counts[0] == counts[1]
+    assert torch.equal(states[0], states[1])
+    want = dict.fromkeys(counts[0], 0)
+    for step in auto.steps:
+        for launch in step_launches(step, c.n):
+            key = _counter(launch, any_mode)
+            if key is not None:
+                want[key] += 1
+    assert counts[0] == want

@@ -16,7 +16,7 @@ import torch
 
 from qbot_tpu.frontend import lowering as jl
 from qbot_tpu.ops.measurement import MeasurementResult
-from qbot_tpu_torch import lower_program, run_lowered
+from qbot_tpu_torch import compile_circuit, lower_program, run_lowered
 from qbot_tpu_torch.cli import main as torch_cli
 from qbot_tpu_torch.frontend.lowering import LoweringError
 from qbot_tpu_torch.ops.measurement import \
@@ -197,6 +197,10 @@ def test_cli_matches_qbot_tpu_cli(tmp_path):
     got = _run_cli("qbot_tpu_torch", prog, "--device", "cpu")
     want = _run_cli("qbot_tpu", prog)
     assert "torch cpu engine" in got.stderr
+    # the CLI compiles with window="auto", as qbot_tpu's does
+    passes = re.search(r"(\d+) device passes", got.stderr)
+    assert int(passes.group(1)) == compile_circuit(
+        lower_program(prog.read_text()).circuit, "auto").num_passes
     lines_t, lines_j = got.stdout.splitlines(), want.stdout.splitlines()
     assert len(lines_t) == len(lines_j) == 8
     for t, j in zip(lines_t, lines_j):

@@ -124,12 +124,15 @@ def test_port_runs_without_jax():
     assert proc.stdout.strip() == "ok"
 
 
-# the device ensemble's modules and HMC/NUTS's, which the scans below must
-# reach
+# the device ensemble's modules, HMC/NUTS's and the utilities, which the
+# scans below must reach
 ENSEMBLE_MODULES = ("inference/__init__.py", "inference/smc.py",
                     "inference/ensemble_exec.py", "utils/checkpoint.py",
                     "frontend/device_ensemble.py", "inference/hmc.py",
-                    "inference/nuts.py", "tpu/simulator.py")
+                    "inference/nuts.py", "tpu/simulator.py",
+                    "utils/guards.py", "utils/profiling.py")
+# scripts beside the package that must import neither
+SCRIPTS = ("chip_smoke.py", "tools/fit_costs.py")
 
 
 def test_port_sources_never_import_jax():
@@ -138,7 +141,7 @@ def test_port_sources_never_import_jax():
     assert sources
     for module in ENSEMBLE_MODULES:
         assert ROOT / "qbot_tpu_torch" / module in sources, module
-    for path in sources + [ROOT / "chip_smoke.py"]:
+    for path in sources + [ROOT / name for name in SCRIPTS]:
         assert not pattern.search(path.read_text()), path
 
 
@@ -146,5 +149,5 @@ def test_port_sources_never_import_qbot_tpu():
     pattern = re.compile(r"^\s*(import|from)\s+qbot_tpu(\.|\s|$)", re.M)
     sources = sorted((ROOT / "qbot_tpu_torch").rglob("*.py"))
     assert len(sources) >= 20
-    for path in sources + [ROOT / "chip_smoke.py"]:
+    for path in sources + [ROOT / name for name in SCRIPTS]:
         assert not pattern.search(path.read_text()), path

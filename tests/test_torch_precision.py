@@ -27,6 +27,7 @@ and B >= 128 needs 13 qubits; every other case has at most 12.
 
     python -m pytest tests/test_torch_precision.py -q
 """
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -372,9 +373,13 @@ _NUM = r"-?\d+(?:\.\d+)?(?:e[-+]?\d+)?%?"
 
 
 def _run(module, *args):
+    # ``qbot_tpu`` keeps a persistent XLA cache in the repo; an executable
+    # that another run left there is loaded with an XLA log line on stderr,
+    # which is not the program's output. Each run here compiles afresh.
+    env = {**os.environ, "QBOT_TPU_COMPILE_CACHE": "off"}
     return subprocess.run([sys.executable, "-m", module, *args],
                           capture_output=True, text=True, cwd=ROOT,
-                          timeout=300)
+                          env=env, timeout=300)
 
 
 def _same_numbers(got, want, tol):
