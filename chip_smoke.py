@@ -143,18 +143,49 @@ nonzero:
    the 16-layer brickwork at 26 and at 23 qubits, Grover's 26-qubit body
    (64 iterations on the scanned runner after its width-7 init) and the
    24-qubit ansatz ``parameterized_layers(24, 4)`` forward at fixed
-   angles.  Each compiled with ``window="auto"`` and at widths 1..7,
-   paired: (a) the auto plan equals the plan at its width step for step;
-   each width timed on its prepared runner (``make_planar_runner``, the
-   scanned runner for Grover), the median of 5 CUDA-event runs in turns,
-   printed beside its modelled ms (``plan_cost_model``) and the spread
-   of the 5; (b) the auto pick's time at most 1.10 x the least of widths
-   4..7; (c) every width's final state within ``runs_limit`` (f32
-   KERNEL_TOL) of the f32 width-7 plan's.  Printed too: the widths of 1..3
-   faster than the pick by more than 10% (a finding; the candidates stay
-   the reference's 4..7), the host seconds of the auto compile against one
-   width-7 compile, and the one-shot wall of ``apply_plan_planar`` at the
-   pick (the route of the CLI's ``run_lowered``).
+   angles.  Each compiled with ``window="auto"``, on the kernel engine at
+   widths 1..7 and on the dot engine at widths 4..8 (``partition="dot"``),
+   paired: (a) the auto plan equals the candidate of its engine and width
+   step for step; each candidate timed on its prepared runner
+   (``make_planar_runner``, the scanned runner for Grover, both honouring
+   the plan's engine), the median of 5 CUDA-event runs in turns, printed
+   beside its modelled ms (its engine's model) and the spread of the 5;
+   candidates that make the same launches (``same_work``: Grover's one
+   reflection at every width, on either engine) are measured by the
+   median of all their runs; (b) the auto pick's time at most 1.10 x the
+   least of the ranked candidates of either engine (kernel widths 4..7,
+   dot widths 4..8);
+   (c) every candidate's final state within ``runs_limit`` of its launches
+   and library products (f32 KERNEL_TOL) of the f32 kernel width-7 plan's.
+   Printed too: the kernel widths of 1..3 faster than the pick by more
+   than 10% (a finding; the candidates stay the reference's), the host
+   seconds of the auto compile against one width-7 compile, and the
+   one-shot wall of ``apply_plan_planar`` at the pick (the route of the
+   CLI's ``run_lowered``).
+13. the dot engine (``qbot_tpu_torch/tpu/dotplan.py``: a library product
+   a window) in f32, f32_mix, bf16_3x and bf16: the 26-qubit brickwork
+   body (16 layers, the dot partition at the width the dot ranking picks)
+   x 8 and Grover 26q x 64 (its width-7 init on the dot engine) on
+   ``make_scanned_dot_runner``, each against ``apply_plan_dot_ref`` (every
+   product as the CPU computes it) on the card (``dot_limit``: f32
+   KERNEL_TOL, the reduced modes ``runs_limit`` of their products) and
+   against the kernel engine's state of the same circuit at its first
+   cheapest width, both timed (median of 3 in turns), the norm drift per
+   100 gates printed; in the reduced modes ``renorm_every=4``, the norm
+   within 1e-5 of 1 on exit.  Then ``bench.py``'s density workload (13
+   qubits x 8 layers x 16 bodies, bench.py:355-362) three ways from the
+   kernel engine's first cheapest plan: ``density_plan_2n`` on the dot
+   engine, the same 26-qubit plan on the kernel engine and
+   ``make_planar_density_runner``, the first two against the third (f32:
+   trace and ρ within 1e-4; the other modes within their summed limits),
+   all timed.  f32_mix's per-window rule: windows of 7 and 8 qubits (B = 1
+   and A = 1) equal bf16_3x's products bit for bit, a 6-qubit one (A, B >
+   1) f32's, each counted in its mode.  The dot window at each window
+   geometry of phase 2 beside ``window_apply``, in turns (median of 5),
+   in f32, bf16_3x and bf16.  Fails unless the library products ran in
+   each of f32, bf16_3x and bf16 (``dotplan.product_counts``).  Its
+   numbers make the JSON line (``{"dot_engine": ...}``) before the
+   kernels' line.
 
 Launch counts are reset before phase 3 and read after phase 6: every f32
 kernel must have launched on that path; they are reset again before
@@ -165,7 +196,7 @@ each mode) must have moved, and before phase 9, after which the streaming
 kernels' counters (``window_apply_stream``, ``pair_apply_stream``, in each
 mode) must have moved, and before phase 10's ensemble runs (after its
 particle-axis checks), after which each of PHASE10_KERNELS must have
-moved, and before phases 11 and 12, whose launches are added to the
+moved, and before phases 11, 12 and 13, whose launches are added to the
 line's.
 The timed run of Grover, of each brickwork
 plan and of the density bodies also reports its own launches.
@@ -209,7 +240,7 @@ import qbot_tpu_torch
 # the port's dense host interpreter is phase 3's reference
 from qbot_tpu_torch import compile_circuit, executeTxt, lower_program
 from qbot_tpu_torch.cli import main as cli_main
-from qbot_tpu_torch.tpu import kernels
+from qbot_tpu_torch.tpu import dotplan, kernels
 from qbot_tpu_torch.tpu.circuit import Circuit
 from qbot_tpu_torch.tpu.planar import (
     apply_plan_density_planar_ref,
@@ -567,6 +598,24 @@ def library_pair_reduced(psi, A, D1, D2, B, w1, w2, mode,
     return lambda: (first(), second())
 
 
+def window_geometries(n: int) -> dict:
+    """{label: (start, width)} of the windows phase 2 holds at ``n``
+    qubits (check_window says which plan reaches each)."""
+    width = 7
+    return {"first": (0, 5),
+            "middle": (n - 3 * width, width),
+            "trailing": (n - width, width),
+            "small_b": (n - width - 3, width),
+            "density_rows": (0, 6),
+            "first_d2": (0, 1),
+            "first_d4": (0, 2),
+            "window2_a8": (3, 2),
+            "window2_b128": (n - 9, 2),
+            "window1_d2": (n - 10, 1),
+            "unreached_d4": (n - 10, 2),
+            "unreached_d4_trailing": (n - 2, 2)}
+
+
 def check_window(n: int, device, rng, gen, mode: str = "f32",
                  f32: dict | None = None) -> tuple[dict, dict]:
     """window_apply vs window_apply_ref in dot ``mode`` (set by the caller)
@@ -584,19 +633,7 @@ def check_window(n: int, device, rng, gen, mode: str = "f32",
     time beside.  Returns the results of the tensor-core B > 1 shapes
     (timed at the middle window), of the trailing ones, and of the
     streaming ones (timed at the D = 4 first window)."""
-    width = 7
-    geoms = {"first": (0, 5),
-             "middle": (n - 3 * width, width),
-             "trailing": (n - width, width),
-             "small_b": (n - width - 3, width),
-             "density_rows": (0, 6),
-             "first_d2": (0, 1),
-             "first_d4": (0, 2),
-             "window2_a8": (3, 2),
-             "window2_b128": (n - 9, 2),
-             "window1_d2": (n - 10, 1),
-             "unreached_d4": (n - 10, 2),
-             "unreached_d4_trailing": (n - 2, 2)}
+    geoms = window_geometries(n)
     tol, _, f64_tol = LIMITS[mode]
     f32_ms = {s["window"]: s["ms"] for g in (f32 or {}).values()
               for s in g["shapes"]}
@@ -2273,7 +2310,7 @@ def gradient_path(device, card: str) -> tuple[dict, dict, dict]:
 # phase 12: window="auto" against the card
 # ---------------------------------------------------------------------------
 
-AUTO_SLACK = 1.10          # the pick's time over the best of widths 4..7
+AUTO_SLACK = 1.10          # the pick's time over the best ranked candidate
 AUTO_RUNS = 5              # timed runs of each plan, in turns
 AUTO_GROVER_REPEATS = 64   # the scanned Grover body's iterations
 ALL_WIDTHS = tuple(range(1, 8))
@@ -2321,15 +2358,49 @@ def bind_angles(plan, theta):
     return replace(plan, steps=[step(s) for s in plan.steps], num_params=0)
 
 
+def modelled_s(plan, mode: str) -> float:
+    """The cost model of the plan's engine: ``dot_cost_model`` or
+    ``plan_cost_model``."""
+    from qbot_tpu_torch.tpu.compiler import dot_cost_model, plan_cost_model
+
+    model = dot_cost_model if plan.engine == "dot" else plan_cost_model
+    return model(plan, mode)
+
+
+def candidate_plans(circ) -> dict:
+    """{(engine, width): plan} of ``circ``: the kernel engine's plans at
+    widths 1..7 and the dot engine's at DOT_WIDTHS (``partition="dot"``,
+    ``engine = "dot"``), all paired."""
+    from qbot_tpu_torch.tpu.compiler import DOT_WIDTHS
+
+    plans = {("kernel", w): compile_circuit(circ, window=w)
+             for w in ALL_WIDTHS}
+    for w in DOT_WIDTHS:
+        plans[("dot", w)] = compile_circuit(circ, window=w, partition="dot")
+        plans[("dot", w)].engine = "dot"
+    return plans
+
+
+def ranked(key) -> bool:
+    """True for the candidates ``window="auto"`` ranks: kernel widths
+    AUTO_WIDTHS, dot widths DOT_WIDTHS."""
+    from qbot_tpu_torch.tpu.compiler import AUTO_WIDTHS, DOT_WIDTHS
+
+    engine, w = key
+    return w in (AUTO_WIDTHS if engine == "kernel" else DOT_WIDTHS)
+
+
 def auto_cells(device) -> tuple[dict, torch.Tensor]:
     """({cell: (circuit, plan -> runner(psi0), (plan, mode) -> modelled
     seconds)}, the ansatz's angles): the brickwork bodies at 26 and 23
     qubits, Grover's 26-qubit body on the scanned runner after its width-7
     init (modelled as the init and AUTO_GROVER_REPEATS bodies; the runner
     forms ⟨v|ψ⟩ of each later iteration in the update, so the model counts
-    a ``reflect_dot`` an iteration more than it makes), the 24-qubit
-    ansatz forward at fixed angles (``bind_angles``: the runner folds its
-    windows once, as it does a static plan's)."""
+    a ``reflect_dot`` an iteration more than it makes; a body of one
+    reflection takes the reflection loop on either engine, as in the
+    reference), the 24-qubit ansatz forward at fixed angles
+    (``bind_angles``: the runner folds its windows once, as it does a
+    static plan's).  Each plan is modelled by its engine's model."""
     from qbot_tpu_torch.tpu.compiler import plan_cost_model
     from qbot_tpu_torch.tpu.planar import make_planar_runner
 
@@ -2341,18 +2412,19 @@ def auto_cells(device) -> tuple[dict, torch.Tensor]:
     def planar_runner(plan):
         run = make_planar_runner(bind_angles(plan, theta))
         return lambda psi: run(psi)
+
     def grover_model(plan, mode):
         return (plan_cost_model(init_plan, mode)
-                + AUTO_GROVER_REPEATS * plan_cost_model(plan, mode))
+                + AUTO_GROVER_REPEATS * modelled_s(plan, mode))
     return {
         f"brickwork_{N}q": (brickwork_circuit(N, BRICKWORK_LAYERS),
-                            planar_runner, plan_cost_model),
+                            planar_runner, modelled_s),
         f"brickwork_{NARROW_DRIFT_QUBITS}q": (
             brickwork_circuit(NARROW_DRIFT_QUBITS, BRICKWORK_LAYERS),
-            planar_runner, plan_cost_model),
+            planar_runner, modelled_s),
         f"grover_{N}q": (body, lambda plan: make_scanned_planar_runner(
             plan, AUTO_GROVER_REPEATS, init_plan=init_plan), grover_model),
-        f"ansatz_{HMC_QUBITS}q": (ansatz, planar_runner, plan_cost_model),
+        f"ansatz_{HMC_QUBITS}q": (ansatz, planar_runner, modelled_s),
     }, theta
 
 
@@ -2367,75 +2439,124 @@ def _event_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
+def _label(key) -> str:
+    return f"{key[0]} width {key[1]}"
+
+
+def launches_of(plan) -> list:
+    """The launches the cost model of the plan's engine counts for it
+    (``step_launches`` or ``dot_step_launches``), in order."""
+    from qbot_tpu_torch.tpu.compiler import dot_step_launches, step_launches
+
+    launches = dot_step_launches if plan.engine == "dot" else step_launches
+    return [x for s in plan.steps for x in launches(s, plan.n)]
+
+
+def same_work(a, b) -> bool:
+    """True when the runners of plans ``a`` and ``b`` make the same
+    launches at the same geometries (Grover's one reflection at every
+    width and on either engine: its factors differ, its two kernels do
+    not)."""
+    return launches_of(a) == launches_of(b)
+
+
+def _work_delta(fn):
+    """(result of ``fn()``, kernel launches and dot-engine library products
+    it made, summed)."""
+    before = dotplan.product_counts()
+    out, launches = _launch_delta(fn)
+    after = dotplan.product_counts()
+    return out, sum(launches.values()) + sum(
+        v - before.get(k, 0) for k, v in after.items()), launches
+
+
 def auto_cell(name: str, circ, model, theta, device, mode: str,
               plans: dict, runners: dict, reference,
               reference_launches: int) -> tuple[dict, dict]:
     """One cell of phase 12 in dot ``mode`` (set by the caller): ``circ``
-    compiled with ``window="auto"`` equals its plan at the picked width
-    (a); each width's plan in ``plans`` timed on its prepared runner, the
-    median of AUTO_RUNS CUDA-event runs in turns, beside its ``model``;
-    the pick within AUTO_SLACK of the best of widths 4..7 (b); each
-    width's final state against ``reference`` (the f32 width-7 state, of
-    ``reference_launches`` launches) within ``runs_limit`` (c).  Returns
-    (the pick's launches, the cell's numbers)."""
-    from qbot_tpu_torch.tpu.compiler import AUTO_WIDTHS
-
+    compiled with ``window="auto"`` equals the candidate of its engine and
+    width (a); each candidate in ``plans`` timed on its prepared runner,
+    the median of AUTO_RUNS CUDA-event runs in turns, beside its ``model``;
+    the pick within AUTO_SLACK of the best ranked candidate of either
+    engine, kernel widths 4..7 and dot widths 4..8 (b); each candidate's
+    final state against ``reference`` (the f32 kernel width-7 state, of
+    ``reference_launches`` launches) within ``runs_limit`` of their
+    launches and library products (c).  Returns (the pick's launches, the
+    cell's numbers)."""
     t0 = time.perf_counter()
     auto = compile_circuit(circ, window="auto")
     auto_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     compile_circuit(circ, window=7)
     seven_s = time.perf_counter() - t0
-    pick = auto.window
+    pick = (auto.engine, auto.window)
     if not same_plan(auto, plans[pick]):
         raise AssertionError(f"[{mode}] {name}: the auto plan differs from "
-                             f"its width {pick}'s")
+                             f"its {_label(pick)}'s")
     psi0 = zero_state_planar(circ.n, device)
     limits, launches, errors = {}, {}, {}
-    for w in ALL_WIDTHS:
-        out, launches[w] = _launch_delta(lambda: runners[w](psi0))
-        limits[w] = runs_limit(mode, sum(launches[w].values())
-                               + reference_launches)
-        errors[w] = rel_l2(out, reference)
+    for key in plans:
+        out, work, launches[key] = _work_delta(lambda: runners[key](psi0))
+        limits[key] = runs_limit(mode, work + reference_launches)
+        errors[key] = rel_l2(out, reference)
         del out
-    times = {w: [] for w in ALL_WIDTHS}
+    times = {key: [] for key in plans}
+    order = list(plans)
     for r in range(AUTO_RUNS):
-        for w in ALL_WIDTHS[::1 if r % 2 == 0 else -1]:
-            times[w].append(_event_ms(lambda: runners[w](psi0)))
-    measured = {w: float(np.median(t)) for w, t in times.items()}
-    spread = {w: (max(t) - min(t)) / measured[w] for w, t in times.items()}
-    modelled = {w: model(plans[w], mode) * 1e3 for w in ALL_WIDTHS}
-    best = min(measured[w] for w in AUTO_WIDTHS)
-    for w in ALL_WIDTHS:
-        say(f"[{mode}] {name} width {w}{' (auto)' if w == pick else ''}: "
-            f"{len(plans[w].steps)} steps, modelled {modelled[w]:.4f} ms, "
-            f"measured {measured[w]:.4f} ms (median of {AUTO_RUNS}, spread "
-            f"{spread[w]:.3f}), vs f32 width 7 rel L2 {errors[w]:.3e} "
-            f"(limit {limits[w]:.3e})")
+        for key in order[::1 if r % 2 == 0 else -1]:
+            times[key].append(_event_ms(lambda: runners[key](psi0)))
+    own = {key: float(np.median(t)) for key, t in times.items()}
+    spread = {key: (max(t) - min(t)) / own[key] for key, t in times.items()}
+    # candidates that make the same launches (Grover's one reflection at
+    # every width, on either engine) are one piece of work: each is
+    # measured by the median of all their runs, so that the pick is not
+    # held against the luckiest of several runs of its own work
+    measured = {key: float(np.median([t for other in plans
+                                      if same_work(plans[key], plans[other])
+                                      for t in times[other]]))
+                for key in plans}
+    modelled = {key: model(plans[key], mode) * 1e3 for key in plans}
+    best = min(measured[key] for key in plans if ranked(key))
+    for key in plans:
+        pooled = ("" if measured[key] == own[key] else
+                  f", {measured[key]:.4f} ms with the runs of the same work")
+        say(f"[{mode}] {name} {_label(key)}"
+            f"{' (auto)' if key == pick else ''}: "
+            f"{len(plans[key].steps)} steps, modelled {modelled[key]:.4f} "
+            f"ms, measured {own[key]:.4f} ms (median of {AUTO_RUNS}, "
+            f"spread {spread[key]:.3f}{pooled}), vs f32 kernel width 7 rel "
+            f"L2 {errors[key]:.3e} (limit {limits[key]:.3e})")
     beaten = [w for w in ALL_WIDTHS[:3]
-              if measured[w] * AUTO_SLACK < measured[pick]]
+              if measured[("kernel", w)] * AUTO_SLACK < measured[pick]]
     t0 = time.perf_counter()
     apply_plan_planar(psi0, auto, theta if auto.num_params else None)
     sync(device)
     oneshot_s = time.perf_counter() - t0
-    say(f"[{mode}] {name}: auto picks width {pick}, measured "
-        f"{measured[pick]:.4f} ms against {best:.4f} ms, the best of widths "
-        f"{AUTO_WIDTHS[0]}..{AUTO_WIDTHS[-1]} (limit {AUTO_SLACK} x); "
+    fastest = min((k for k in plans if ranked(k)), key=measured.get)
+    say(f"[{mode}] {name}: auto picks the {_label(pick)}, measured "
+        f"{measured[pick]:.4f} ms against {best:.4f} ms, the best ranked "
+        f"candidate (the {_label(fastest)}; limit {AUTO_SLACK} x); kernel "
         f"widths 1..3 faster than the pick by more than 10%: "
         f"{beaten or 'none'}; compile auto {auto_s:.4f} s against width 7 "
         f"{seven_s:.4f} s; one-shot apply_plan_planar at the pick "
         f"{oneshot_s:.4f} s")
-    bad = [w for w in ALL_WIDTHS if not errors[w] <= limits[w]]
+    bad = [_label(k) for k in plans if not errors[k] <= limits[k]]
     if bad:
-        raise AssertionError(f"[{mode}] {name}: widths {bad} leave the f32 "
+        raise AssertionError(f"[{mode}] {name}: {bad} leave the f32 "
                              f"width-7 state: {errors}")
     if not measured[pick] <= AUTO_SLACK * best:
-        raise AssertionError(f"[{mode}] {name}: the auto pick (width {pick}) "
-                             f"takes {measured[pick]:.4f} ms, over "
-                             f"{AUTO_SLACK} x {best:.4f} ms")
+        raise AssertionError(f"[{mode}] {name}: the auto pick "
+                             f"({_label(pick)}) takes {measured[pick]:.4f} "
+                             f"ms, over {AUTO_SLACK} x {best:.4f} ms")
+
+    def by_label(d):
+        return {_label(k): v for k, v in d.items()}
     return launches[pick], {
-        "pick": pick, "modelled_ms": modelled, "measured_ms": measured,
-        "spread": spread, "rel_l2": errors, "beaten_by_1_3": beaten,
+        "pick": _label(pick), "fastest": _label(fastest),
+        "modelled_ms": by_label(modelled),
+        "measured_ms": by_label(measured), "own_ms": by_label(own),
+        "spread": by_label(spread),
+        "rel_l2": by_label(errors), "beaten_by_1_3": beaten,
         "auto_compile_s": auto_s, "width7_compile_s": seven_s,
         "oneshot_s": oneshot_s}
 
@@ -2445,11 +2566,12 @@ def auto_path(device, card: str) -> tuple[dict, dict]:
     cells, theta = auto_cells(device)
     runs, numbers = {}, {}
     for name, (circ, make_runner, model) in cells.items():
-        plans = {w: compile_circuit(circ, window=w) for w in ALL_WIDTHS}
-        runners = {w: make_runner(plans[w]) for w in ALL_WIDTHS}
+        plans = candidate_plans(circ)
+        runners = {key: make_runner(plan) for key, plan in plans.items()}
         psi0 = zero_state_planar(circ.n, device)
         kernels.set_dot_mode("f32")
-        reference, ref_launches = _launch_delta(lambda: runners[7](psi0))
+        reference, ref_launches = _launch_delta(
+            lambda: runners[("kernel", 7)](psi0))
         for mode in ("f32", *REDUCED_MODES):
             kernels.set_dot_mode(mode)
             launches, numbers[f"{name}[{mode}]"] = auto_cell(
@@ -2461,6 +2583,317 @@ def auto_path(device, card: str) -> tuple[dict, dict]:
         del reference, runners
     say(f"auto numbers ({card}): {json.dumps(numbers)}")
     return runs, numbers
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the dot engine (tpu/dotplan.py)
+# ---------------------------------------------------------------------------
+
+ALL_DOT_MODES = ("f32", "f32_mix", *REDUCED_MODES)
+DOT_BRICKWORK_REPEATS = 8  # bodies of the 16-layer brickwork, scanned
+DOT_RENORM_EVERY = 4
+DOT_RUNS = 3               # timed runs of each route, in turns
+DOT_DENSITY_TOL = 1e-4     # trace and relative Frobenius vs the step runner
+
+
+def first_cheapest(circ, mode: str, engine: str):
+    """The first cheapest candidate of ``engine`` that ``window="auto"``
+    ranks for ``circ`` in dot ``mode`` (its plan's ``engine`` set)."""
+    from qbot_tpu_torch.tpu.compiler import auto_candidates
+
+    _, plan, _ = min((c for c in auto_candidates(circ, mode=mode)
+                      if c[2] == engine), key=lambda c: c[0])
+    plan.engine = engine
+    return plan
+
+
+def dot_limit(mode: str, lowered, runs: int) -> float:
+    """The relative L2 limit between ``runs`` runs of ``lowered`` through
+    the library and through the plain products in dot ``mode``: f32
+    KERNEL_TOL; bf16_3x and bf16 ``runs_limit`` of their products; f32_mix
+    KERNEL_TOL and the bf16_3x limits of its wide windows."""
+    wins = [s for s in lowered.steps if isinstance(s, dotplan._Win)]
+    if mode == "f32":
+        return KERNEL_TOL
+    if mode == "f32_mix":
+        wide = sum(s.mode == "bf16_3x" for s in wins)
+        return KERNEL_TOL + runs * wide * LIMITS["bf16_3x"][2]
+    return runs_limit(mode, runs * len(wins))
+
+
+def _products(fn):
+    """(result of ``fn()`` ended by a synchronise, library products it
+    made by mode)."""
+    before = dotplan.product_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = dotplan.product_counts()
+    return out, {k: v - before.get(k, 0) for k, v in after.items()
+                 if v != before.get(k, 0)}
+
+
+def _median_in_turns(fns: dict, runs: int = DOT_RUNS) -> dict:
+    """Median CUDA-event ms of each of ``fns`` over ``runs`` runs in turns."""
+    times = {k: [] for k in fns}
+    for r in range(runs):
+        for k in list(fns)[::1 if r % 2 == 0 else -1]:
+            times[k].append(_event_ms(fns[k]))
+    return {k: float(np.median(t)) for k, t in times.items()}
+
+
+def dot_circuit(name: str, circ, repeats: int, init, device,
+                mode: str) -> dict:
+    """One circuit on the dot engine in dot ``mode`` (set by the caller):
+    its dot plan at the width the dot ranking picks, ``repeats`` bodies
+    after ``init`` on ``make_scanned_dot_runner``, against the same
+    through the plain products (``dot_limit``) and against the kernel
+    engine's first cheapest plan (the sum of both routes' limits; f32
+    KERNEL_TOL); both timed; in the reduced modes ``renorm_every``
+    DOT_RENORM_EVERY with the norm within RENORM_TOL of 1 on exit."""
+    from qbot_tpu_torch.tpu.dotplan import (
+        apply_plan_dot_ref,
+        lower_dot_plan,
+        make_scanned_dot_runner,
+    )
+
+    plan = first_cheapest(circ, mode, "dot")
+    kplan = first_cheapest(circ, mode, "kernel")
+    lowered = lower_dot_plan(plan)
+    init_lowered = None if init is None else lower_dot_plan(init)
+    run = make_scanned_dot_runner(plan, repeats, init_plan=init)
+    krun = make_scanned_planar_runner(kplan, repeats, init_plan=init)
+    psi0 = zero_state_planar(circ.n, device)
+    out, products = _products(lambda: run(psi0))
+    ref = psi0 if init_lowered is None else apply_plan_dot_ref(
+        psi0, init_lowered)
+    for _ in range(repeats):
+        ref = apply_plan_dot_ref(ref, lowered)
+    limit = dot_limit(mode, lowered, repeats) + (
+        0.0 if init_lowered is None else dot_limit(mode, init_lowered, 1))
+    rel_ref, max_abs = compare(f"[{mode}] dot {name} vs plain products",
+                               out, ref, limit)
+    del ref
+    kout, klaunches = _launch_delta(lambda: krun(psi0))
+    klimit = runs_limit(mode if mode in REDUCED_MODES else "f32",
+                        sum(klaunches.values()))
+    kin = (KERNEL_TOL if mode == "f32" else limit + klimit)
+    rel_kernel = rel_l2(out, kout)
+    if not rel_kernel <= kin:
+        raise AssertionError(f"[{mode}] dot {name}: rel L2 {rel_kernel:.3e} "
+                             f"from the kernel engine > {kin:.3e}")
+    norm = float(planar_norm(out))
+    drift = (1.0 - norm) / (circ.gate_count * repeats / 100)
+    del kout, out
+    ms = _median_in_turns({"dot": lambda: run(psi0),
+                           "kernel": lambda: krun(psi0)})
+    numbers = {"dot_width": plan.window, "kernel_width": kplan.window,
+               "dot_steps": len(lowered.steps), "products": products,
+               "rel_l2_plain": rel_ref, "limit_plain": limit,
+               "max_abs_err": max_abs, "rel_l2_kernel": rel_kernel,
+               "limit_kernel": kin, "norm": norm,
+               "drift_per_100_gates": drift,
+               "dot_modelled_ms": repeats * modelled_s(plan, mode) * 1e3,
+               "kernel_modelled_ms": repeats * modelled_s(kplan, mode) * 1e3,
+               "dot_ms": ms["dot"], "kernel_ms": ms["kernel"]}
+    line = ""
+    if mode in REDUCED_MODES:
+        renormed = make_scanned_dot_runner(plan, repeats, init_plan=init,
+                                           renorm_every=DOT_RENORM_EVERY)
+        rnorm = float(planar_norm(renormed(psi0)))
+        numbers["renorm_norm"] = rnorm
+        if not abs(rnorm - 1.0) <= RENORM_TOL:
+            raise AssertionError(f"[{mode}] dot {name}: norm {rnorm} after "
+                                 f"renorm_every={DOT_RENORM_EVERY}")
+        line = f", renorm_every={DOT_RENORM_EVERY} norm {rnorm:.8f}"
+    say(f"[{mode}] dot engine {name} x {repeats}: dot width {plan.window} "
+        f"({len(lowered.steps)} steps, products {products}), rel L2 vs "
+        f"plain products {rel_ref:.3e} (limit {limit:.3e}), vs the kernel "
+        f"engine (width {kplan.window}) {rel_kernel:.3e} (limit "
+        f"{kin:.3e}), norm {norm:.8f} (drift {drift:.4e} per 100 gates)"
+        f"{line}; dot {ms['dot']:.4f} ms "
+        f"(modelled {numbers['dot_modelled_ms']:.4f}), kernel engine "
+        f"{ms['kernel']:.4f} ms (modelled "
+        f"{numbers['kernel_modelled_ms']:.4f})")
+    return numbers
+
+
+def mix_rule(device, gen) -> dict:
+    """f32_mix's per-window rule on the card: a window of 7 or 8 qubits
+    (the dot partition's lane window, B = 1, and a first window, A = 1)
+    runs bf16_3x's products bit for bit, a 6-qubit one (the sub window,
+    A and B > 1) f32's."""
+    from qbot_tpu_torch.tpu.compiler import Plan, Term, WindowStep
+    from qbot_tpu_torch.tpu.dotplan import apply_plan_dot, lower_dot_plan
+
+    rng = np.random.default_rng(13)
+    psi = _random_state(N, gen, device)
+    out = {}
+    for start, width in ((N - 7, 7), (0, 8), (N - 13, 6)):
+        u = _random_unitary(2**width, rng)
+        plan = Plan(N, width, [WindowStep(start, width, (
+            Term(tuple(range(width)), u),))], engine="dot")
+        runs = {}
+        for mode in ("f32_mix", dotplan.window_mode("f32_mix", width)):
+            kernels.set_dot_mode(mode)
+            runs[mode], products = _products(
+                lambda: apply_plan_dot(psi, lower_dot_plan(plan)))
+            runs[mode + " products"] = products
+        kernels.set_dot_mode("f32")
+        want = dotplan.window_mode("f32_mix", width)
+        same = bool(torch.equal(runs["f32_mix"], runs[want]))
+        if not same or runs["f32_mix products"] != {f"dot_window[{want}]": 1}:
+            raise AssertionError(f"f32_mix window of {width} qubits: "
+                                 f"{runs['f32_mix products']}, bit for bit "
+                                 f"{want}'s: {same}")
+        out[f"{start}+{width}"] = want
+        say(f"[f32_mix] dot window [{start}, {start + width}): "
+            f"{runs['f32_mix products']}, bit for bit {want}'s products")
+    return out
+
+
+def dot_density(device, mode: str) -> dict:
+    """``bench.py``'s density workload (13 qubits x 8 layers x 16 bodies,
+    bench.py:355-362) in dot ``mode`` (set by the caller), three ways from
+    the kernel engine's first cheapest plan: ``density_plan_2n`` on the dot
+    engine (``make_scanned_dot_runner``), the same 26-qubit plan on the
+    kernel engine (``make_scanned_planar_runner``), and
+    ``make_planar_density_runner`` body by body.  The first two against
+    the third: in f32 the trace and ρ (relative Frobenius) within
+    DOT_DENSITY_TOL; in the other modes within the routes' summed limits.
+    All three timed."""
+    from dataclasses import replace
+
+    from qbot_tpu_torch.tpu.dotplan import (
+        density_plan_2n,
+        lower_dot_plan,
+        make_scanned_dot_runner,
+    )
+
+    c = brickwork_circuit(DENSITY_N, DENSITY_LAYERS, seed=7)
+    plan = first_cheapest(c, mode, "kernel")
+    big = density_plan_2n(plan)
+    lowered = lower_dot_plan(big)
+    step_body = make_planar_density_runner(plan)
+    routes = {
+        "dot": make_scanned_dot_runner(big, DENSITY_REPEATS),
+        "kernel_2n": make_scanned_planar_runner(replace(big, engine="kernel"),
+                                                DENSITY_REPEATS)}
+    rho0 = zero_density_planar(DENSITY_N, device)
+
+    def step_run():
+        rho = rho0
+        for _ in range(DENSITY_REPEATS):
+            rho = step_body(rho)
+        return rho.reshape(2, -1)
+    fns = {name: (lambda r=r: r(rho0.reshape(2, -1)))
+           for name, r in routes.items()}
+    fns["step"] = step_run
+    want, step_launches = _launch_delta(step_run)
+    trace_want = float(torch.sum(torch.diagonal(want.reshape(
+        2, 2**DENSITY_N, 2**DENSITY_N)[0])))
+    numbers = {"window": plan.window, "dot_steps": len(lowered.steps)}
+    for name in routes:
+        got, work, _ = _work_delta(fns[name])
+        limit = (DOT_DENSITY_TOL if mode == "f32" else
+                 dot_limit(mode, lowered, DENSITY_REPEATS)
+                 + runs_limit(mode if mode in REDUCED_MODES else "f32",
+                              work + sum(step_launches.values())))
+        trace = float(torch.sum(torch.diagonal(got.reshape(
+            2, 2**DENSITY_N, 2**DENSITY_N)[0])))
+        frob = rel_l2(got, want)
+        numbers[name] = {"trace": trace, "rel_frobenius": frob,
+                         "limit": limit}
+        del got
+        if not (abs(trace - trace_want) <= limit and frob <= limit):
+            raise AssertionError(f"[{mode}] density {name}: trace {trace} "
+                                 f"against {trace_want}, relative Frobenius "
+                                 f"{frob:.3e} (limit {limit:.3e})")
+    del want
+    ms = _median_in_turns(fns)
+    for name in fns:
+        numbers.setdefault(name, {})["ms"] = ms[name]
+    say(f"[{mode}] density {DENSITY_N}q x {DENSITY_LAYERS} layers x "
+        f"{DENSITY_REPEATS} (width {plan.window}): density_plan_2n on the "
+        f"dot engine {ms['dot']:.4f} ms (trace "
+        f"{numbers['dot']['trace']:.8f}, rel Frobenius vs the step runner "
+        f"{numbers['dot']['rel_frobenius']:.3e}), on the kernel engine "
+        f"{ms['kernel_2n']:.4f} ms "
+        f"({numbers['kernel_2n']['rel_frobenius']:.3e}), "
+        f"make_planar_density_runner {ms['step']:.4f} ms (trace "
+        f"{trace_want:.8f})")
+    return numbers
+
+
+def dot_windows(device, gen) -> dict:
+    """The dot engine's window (the engine's own window step, its matrix
+    split once, the state's split and layout inside) at each window
+    geometry of phase 2, beside ``window_apply`` (no diagonals), in turns,
+    in every mode that runs its own products; the two states within the
+    sum of the mode's window limits."""
+    from qbot_tpu_torch.tpu.compiler import Term, WindowStep
+
+    rng = np.random.default_rng(17)
+    psi = _random_state(N, gen, device)
+    none = kernels.fused_diagonals(N, device=device)
+    out = {}
+    for mode in ("f32", *REDUCED_MODES):
+        kernels.set_dot_mode(mode)
+        for label, (start, w) in window_geometries(N).items():
+            u = _random_unitary(2**w, rng)
+            wt = torch.from_numpy(np.stack([u.real, u.imag]).astype(
+                np.float32)).to(device)
+            step = WindowStep(start, w, (Term(tuple(range(w)), u),))
+            fn = dotplan._window_fn(N, dotplan._Win(step, (), ()), device,
+                                    dotplan._LIBRARY)
+            got = fn(psi, None)
+            ref = kernels.window_apply(psi, N, start, w, wt, none)
+            rel = rel_l2(got, ref)
+            limit = 2 * LIMITS[mode][2]
+            del got, ref
+            if not rel <= limit:
+                raise AssertionError(f"[{mode}] dot window {label}: rel L2 "
+                                     f"{rel:.3e} from window_apply")
+            ms = _median_in_turns({
+                "dot": lambda: fn(psi, None),
+                "kernel": lambda: kernels.window_apply(psi, N, start, w, wt,
+                                                       none)}, runs=5)
+            A, B = 2**start, 2**(N - start - w)
+            out[f"{label}[{mode}]"] = {"A": A, "D": 2**w, "B": B,
+                                       "dot_ms": ms["dot"],
+                                       "kernel_ms": ms["kernel"],
+                                       "rel_l2": rel}
+            say(f"[{mode}] dot window {label} (A, D, B) = ({A}, {2**w}, "
+                f"{B}): dot {ms['dot']:.4f} ms, kernel {ms['kernel']:.4f} "
+                f"ms, rel L2 between them {rel:.3e}")
+    kernels.set_dot_mode("f32")
+    return out
+
+
+def dot_path(device, gen, card: str) -> dict:
+    """Phase 13.  Returns its numbers."""
+    marked, init, body = grover_circuits(N)
+    circuits = {f"brickwork_{N}q": (brickwork_circuit(N, BRICKWORK_LAYERS),
+                                    DOT_BRICKWORK_REPEATS, None),
+                f"grover_{N}q": (body, AUTO_GROVER_REPEATS,
+                                 compile_circuit(init))}
+    numbers = {}
+    dotplan.reset_product_counts()
+    for mode in ALL_DOT_MODES:
+        kernels.set_dot_mode(mode)
+        for name, (circ, repeats, init_plan) in circuits.items():
+            numbers[f"{name}[{mode}]"] = dot_circuit(
+                name, circ, repeats, init_plan, device, mode)
+        numbers[f"density_{DENSITY_N}q[{mode}]"] = dot_density(device, mode)
+    kernels.set_dot_mode("f32")
+    numbers["f32_mix_rule"] = mix_rule(device, gen)
+    numbers["windows"] = dot_windows(device, gen)
+    numbers["products"] = dotplan.product_counts()
+    missing = [f"dot_window[{m}]" for m in ("f32", *REDUCED_MODES)
+               if not numbers["products"].get(f"dot_window[{m}]")]
+    if missing:
+        raise AssertionError(f"phase 13 never ran {missing}")
+    numbers["card"] = card
+    return numbers
 
 
 def _device_busy_ms(prof) -> float:
@@ -2725,9 +3158,21 @@ def main(argv=None) -> int:
         counts[name] += auto_counts[name]
     runs.update(auto_runs)
     say(f"phase 12: window=\"auto\" picks, in every cell and dot mode, a "
-        f"width within {AUTO_SLACK} x the best of widths 4..7 on the card, "
-        f"its plan equal to that width's, every width's state within its "
-        f"limit; launches { {k: v for k, v in auto_counts.items() if v} }")
+        f"candidate within {AUTO_SLACK} x the best ranked candidate of "
+        f"either engine on the card, its plan equal to that candidate's, "
+        f"every candidate's state within its limit; launches "
+        f"{ {k: v for k, v in auto_counts.items() if v} }")
+    kernels.reset_launch_counts()
+    dot_numbers = dot_path(device, gen, card)
+    dot_counts = kernels.launch_counts()
+    for name in KERNEL_SOURCES:
+        counts[name] += dot_counts[name]
+    say(f"phase 13: the dot engine runs the {N}-qubit brickwork and Grover, "
+        f"and the density workload three ways, in every dot mode, within "
+        f"its limits of the plain products and of the kernel engine; "
+        f"f32_mix runs its per-window rule bit for bit; library products "
+        f"{dot_numbers['products']}; kernel launches "
+        f"{ {k: v for k, v in dot_counts.items() if v} }")
     missing = [k for k in KERNEL_SOURCES if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -2748,6 +3193,7 @@ def main(argv=None) -> int:
         f"{grad_numbers['hmc']['peak_bytes'] / 2**30:.3f} GiB")
 
     print(smi)
+    print(json.dumps({"dot_engine": dot_numbers}))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name],

@@ -50,12 +50,13 @@ def build_parser() -> argparse.ArgumentParser:
                         default=None,
                         help="precision of the --compile engine's window and "
                              "pair products: f32 (3xTF32 on the card, "
-                             "default), f32_mix (full f32 here: its "
-                             "per-window rule is the reference's dot "
-                             "engine's), bf16_3x (a bf16 hi/lo split, three "
-                             "products), bf16 (one bf16 product).  The "
-                             "reduced modes shrink the norm a little every "
-                             "pass (README.md)")
+                             "default), f32_mix (the dot engine's per-window "
+                             "rule: windows of 7 or more qubits run bf16_3x "
+                             "products, narrower ones f32; the kernels run "
+                             "it in f32, as the reference's do), bf16_3x (a "
+                             "bf16 hi/lo split, three products), bf16 (one "
+                             "bf16 product).  The reduced modes shrink the "
+                             "norm a little every pass (README.md)")
     parser.add_argument("--profile", action="store_true",
                         help="print a per-line wall-time report after "
                              "execution")
@@ -201,7 +202,8 @@ def main(argv=None) -> int:
         plan = compile_circuit(lp.circuit, window="auto")
         print(f"lowered: {lp.n} qubits, {lp.circuit.gate_count} gates, "
               f"{plan.num_passes} device passes "
-              f"(torch {args.device} engine)", file=sys.stderr)
+              f"({plan.engine} engine, torch {args.device})",
+              file=sys.stderr)
         probs, _ = run_lowered(lp, window="auto", device=args.device,
                                plan=plan)
         # programs with a classical epilogue print their own output (it

@@ -4,26 +4,31 @@ Turns a :class:`~qbot_tpu_torch.tpu.circuit.Circuit` into a static plan of
 window, pair, reflection, diagonal, phase, flip and contraction steps.  A
 copy of the integer-window branch of ``qbot_tpu.tpu.compiler`` with its plan
 dataclasses and passes (``qbot_tpu/tpu/compiler.py:45-182, 271-368,
-698-971``); reflection detection folds window matrices with
+498-971``); reflection detection folds window matrices with
 :func:`fold_window_static`.
 
 Windows are paired by default, as in ``qbot_tpu``: adjacent windows that
 :func:`_pairable` accepts become one ``PairStep`` (one pass of the pair
-kernel).  Plans equal ``qbot_tpu``'s ``compile_circuit(circ, window, pair)``
-step for step, field for field, for both values of ``pair``.
+kernel).  Plans equal ``qbot_tpu``'s ``compile_circuit(circ, window, pair,
+partition)`` step for step, field for field, for both values of ``pair``
+and both partitions; ``Plan.engine`` is ``"kernel"`` where the reference
+says ``"pallas"``.
 
-``window="auto"`` ranks the reference's kernel candidates, widths 4..7
-(``qbot_tpu/tpu/compiler.py:474-535`` without its dot engine), by
-:func:`plan_cost_model`: modelled device seconds on one H100, the sum over
-the plan's steps of what the planar executor launches for each on a CUDA
-state (:func:`step_launches`: the window and pair kernels by family and
-route, the two reflection kernels, the PyTorch passes of diagonals, phases,
-flips and contractions that stand alone).  A launch costs
-``t0 + max(bytes / BW, ops / rate)``, more for each fused phase, with
-constants fitted per family and dot mode to times measured on the card
-(``tools/fit_costs.py``, :data:`COSTS`).  The model reads nothing but the
-plan and the mode, so a program compiles to the same plan on the CPU and
-on the card.
+``window="auto"`` ranks the reference's candidates in the reference's order
+(``qbot_tpu/tpu/compiler.py:474-535``): for each width 4..8 the dot
+engine's plan (``partition="dot"``, :func:`dot_cost_model`), then, up to
+width 7, the kernel engine's (:func:`plan_cost_model`).  Both models give
+modelled device seconds on one H100: the sum over the plan's steps of what
+the engine launches for each on a CUDA state (:func:`step_launches`: the
+window and pair kernels by family and route, the two reflection kernels,
+the PyTorch passes of diagonals, phases, flips and contractions that stand
+alone; :func:`dot_step_launches`: a library product a window, by route and
+dot mode, with its split and layout, and a pass for its flips and for each
+of its phases).  A launch costs ``t0 + max(bytes / BW, ops / rate)``, more
+for each phase a kernel fuses, with constants fitted per family and dot
+mode to times measured on the card (``tools/fit_costs.py``, :data:`COSTS`).
+The models read nothing but the plan and the mode, so a program compiles to
+the same plan on the CPU and on the card.
 """
 from __future__ import annotations
 
@@ -41,6 +46,8 @@ __all__ = ["Term", "WindowStep", "DiagStep", "FlipStep", "PhaseStep",
            "ContractStep", "PairStep", "ReflectStep", "Plan",
            "compile_circuit", "auto_candidates", "plan_cost_model",
            "step_costs", "step_launches", "Launch", "AUTO_WIDTHS",
+           "DOT_WIDTHS", "dot_cost_model", "dot_step_costs",
+           "dot_step_launches",
            "expand_pairs", "expand_reflections",
            "expand_phases", "phase_as_diag", "gate_as_diag",
            "eigen_decompose_controlled", "decompose_spanning_swap"]
@@ -166,6 +173,10 @@ class Plan:
     steps: list[Step] = field(default_factory=list)
     num_params: int = 0
     gate_count: int = 0               # logical gates represented
+    # the engine the auto-compiler ranked fastest for this plan: "kernel",
+    # the window and pair kernels (qbot_tpu's "pallas"), or "dot", a
+    # library product a window (tpu/dotplan.py); the runners honour it
+    engine: str = "kernel"
 
     @property
     def num_passes(self) -> int:
@@ -303,10 +314,11 @@ def decompose_spanning_swap(op: CircuitOp) -> Optional[list[CircuitOp]]:
 
 
 # ---------------------------------------------------------------------------
-# window="auto": the kernel candidates ranked by the card's costs
+# window="auto": both engines' candidates ranked by the card's costs
 # ---------------------------------------------------------------------------
 
 AUTO_WIDTHS = (4, 5, 6, 7)     # qbot_tpu/tpu/compiler.py:489-494, "pallas"
+DOT_WIDTHS = (4, 5, 6, 7, 8)   # :489-491, "dot"
 
 # Per family and dot mode: (t0 seconds, bytes/s, ops/s, fraction a fused
 # phase adds).  Fitted by tools/fit_costs.py to CUDA-event times of each
@@ -314,7 +326,12 @@ AUTO_WIDTHS = (4, 5, 6, 7)     # qbot_tpu/tpu/compiler.py:489-494, "pallas"
 # time) at the geometries of widths 1..7 at 20, 23 and 26 qubits, on
 # "NVIDIA H100 80GB HBM3, 700.00 W" (nvidia-smi name, power.limit).
 # f32_mix launches the f32 kernels and costs as f32; families without a
-# mode run no products in a dot mode.
+# mode run no products in a dot mode.  The dot engine's families
+# (tpu/dotplan.py) come from a later run of the same tool, which also times
+# the engine's launches at the dot partition's widths 4..8 on the same card:
+# a library window by route (A = 1, middle, B = 1), its split and layout
+# included, a window of f32_mix costing as the mode its width runs
+# (dotplan.window_mode), and the masked pass of a real or a complex phase.
 COSTS = {
     "window_tc": {"f32": (3.94e-05, 3.606e+12, 4.616e+13, 0.1212),
                   "bf16_3x": (4.055e-05, 3.428e+12, 9.884e+13, 0.05821),
@@ -339,6 +356,17 @@ COSTS = {
     "torch_diag": {None: (4.708e-05, 5.801e+11, np.inf, 0)},
     "torch_flip": {None: (2.808e-05, 3.794e+12, np.inf, 0)},
     "torch_contract": {None: (0.0002072, 2.744e+11, 1e+12, 0)},
+    "dot_window_first": {"f32": (3.304e-05, 2.528e+12, 4.735e+13, 0),
+                         "bf16_3x": (8.113e-05, 7.289e+11, 8.381e+13, 0),
+                         "bf16": (4.814e-05, 2.403e+12, 3.097e+14, 0)},
+    "dot_window_middle": {"f32": (0.0001215, 9.884e+11, 3.195e+13, 0),
+                          "bf16_3x": (8.948e-05, 4.332e+11, 1.4e+13, 0),
+                          "bf16": (5.675e-05, 1.094e+12, 3.536e+13, 0)},
+    "dot_window_trailing": {"f32": (0.0001399, 6.586e+11, 4.224e+13, 0),
+                            "bf16_3x": (6.517e-05, 4.332e+11, 2.779e+13, 0),
+                            "bf16": (4.127e-05, 1.08e+12, 6.841e+13, 0)},
+    "dot_phase_real": {None: (2.266e-05, 2.693e+12, np.inf, 0)},
+    "dot_phase_complex": {None: (0.0001008, 7.289e+11, np.inf, 0)},
 }
 _COST_MODE = {"f32": "f32", "f32_mix": "f32", "bf16_3x": "bf16_3x",
               "bf16": "bf16"}
@@ -368,7 +396,7 @@ class Launch:
     def ops(self) -> float:
         """FLOPs of the complex products: 8·D an amplitude a window (the
         pairs' two, a contraction's 2^k), none for the other passes."""
-        if self.family.startswith(("window", "pair")):
+        if self.family.startswith(("window", "pair", "dot_window")):
             return float(8 * sum(2**w for w in self.widths) * 2**self.n)
         if self.family == "torch_contract":
             return float(8 * 2**self.widths[0] * 2**self.n)
@@ -431,50 +459,134 @@ def step_costs(plan: Plan, dot_mode: str = "f32") -> list[float]:
 
 
 def plan_cost_model(plan: Plan, dot_mode: str = "f32") -> float:
-    """Modelled device seconds of one run of ``plan`` on one H100: the sum
-    of :func:`step_costs` (``qbot_tpu/tpu/compiler.py:441-471`` with the
-    card's kernels and constants)."""
+    """Modelled device seconds of one run of ``plan`` on one H100 on the
+    kernel engine: the sum of :func:`step_costs`
+    (``qbot_tpu/tpu/compiler.py:441-471`` with the card's kernels and
+    constants)."""
     return sum(step_costs(plan, dot_mode))
+
+
+def dot_step_launches(step: Step, n: int) -> list[Launch]:
+    """What :func:`qbot_tpu_torch.tpu.dotplan.apply_plan_dot` launches for
+    ``step`` on a CUDA state: for each window (a pair's two), one pass for
+    its fused flips, one masked pass for each of its phases, real or
+    complex (``dotplan.phase_is_real``), and its library product by route
+    (``dot_window_first`` at A = 1, ``dot_window_trailing`` at B = 1,
+    ``dot_window_middle`` else); any other step as :func:`step_launches`
+    has it, the same PyTorch passes and reflection kernels."""
+    from qbot_tpu_torch.tpu.dotplan import phase_is_real
+
+    if isinstance(step, PairStep):
+        return (dot_step_launches(step.first, n)
+                + dot_step_launches(step.second, n))
+    if not isinstance(step, WindowStep):
+        return step_launches(step, n)
+    out = [Launch("torch_flip", n)] if step.pre_flips else []
+    out += [Launch("dot_phase_real" if phase_is_real(z) else
+                   "dot_phase_complex", n) for _, z, _ in step.pre_phases]
+    route = ("first" if step.start == 0 else
+             "trailing" if step.start + step.width == n else "middle")
+    return out + [Launch(f"dot_window_{route}", n, step.start,
+                         (step.width,))]
+
+
+def dot_step_costs(plan: Plan, dot_mode: str = "f32") -> list[float]:
+    """Modelled seconds of each of ``plan``'s steps on the dot engine in
+    ``dot_mode``: a window of ``f32_mix`` costs as the mode its width runs
+    (:func:`qbot_tpu_torch.tpu.dotplan.window_mode`)."""
+    from qbot_tpu_torch.tpu.dotplan import window_mode
+
+    def seconds(x: Launch) -> float:
+        if x.family.startswith("dot_window"):
+            return launch_seconds(x, window_mode(dot_mode, x.widths[0]))
+        return launch_seconds(x, dot_mode)
+    return [sum(map(seconds, dot_step_launches(s, plan.n)))
+            for s in plan.steps]
+
+
+def dot_cost_model(plan: Plan, dot_mode: str = "f32") -> float:
+    """Modelled device seconds of one run of ``plan`` on the dot engine on
+    one H100: the sum of :func:`dot_step_costs`
+    (``qbot_tpu/tpu/compiler.py:394-438`` with the card's launches and
+    constants)."""
+    return sum(dot_step_costs(plan, dot_mode))
 
 
 def auto_candidates(circ: Circuit, pair: bool = True,
                     mode: Optional[str] = None):
-    """``(cost, plan, "kernel")`` for each width of :data:`AUTO_WIDTHS`, in
-    that order: the plans :func:`compile_circuit` ranks for
-    ``window="auto"`` under :func:`plan_cost_model` in ``mode`` (default
-    the current dot mode).  Widths that clamp at small n stay as
-    duplicates, as in the reference."""
+    """``(cost, plan, engine)`` of every candidate ``window="auto"`` ranks,
+    in the reference's order (``qbot_tpu/tpu/compiler.py:474-495``): for
+    each width of :data:`DOT_WIDTHS` the dot engine's plan
+    (``partition="dot"``) under :func:`dot_cost_model`, then, for the widths
+    of :data:`AUTO_WIDTHS`, the kernel engine's under
+    :func:`plan_cost_model`, both in ``mode`` (default the current dot
+    mode).  Widths that clamp at small n stay as duplicates, as in the
+    reference."""
     if mode is None:
         mode = kernels.dot_mode()
     out = []
-    for w in AUTO_WIDTHS:
-        plan = compile_circuit(circ, w, pair)
-        out.append((plan_cost_model(plan, mode), plan, "kernel"))
+    for w in DOT_WIDTHS:
+        cand = compile_circuit(circ, w, pair, partition="dot")
+        out.append((dot_cost_model(cand, mode), cand, "dot"))
+        if w in AUTO_WIDTHS:
+            plan = compile_circuit(circ, w, pair)
+            out.append((plan_cost_model(plan, mode), plan, "kernel"))
     return out
 
 
 def compile_circuit(circ: Circuit, window: Union[int, str] = 7,
-                    pair: bool = True) -> Plan:
+                    pair: bool = True, partition: str = "kernel") -> Plan:
     """Compile to a window-fused plan of windows of up to ``window``
-    qubits (``qbot_tpu/tpu/compiler.py:536-694``), with adjacent windows
-    paired when ``pair``.  ``window="auto"`` returns the first cheapest of
-    :func:`auto_candidates` (the reference's ``"auto_pallas"``)."""
+    qubits (``qbot_tpu/tpu/compiler.py:498-694``), with adjacent windows
+    paired when ``pair``.
+
+    ``partition="dot"`` puts, at n >= 14, a 6-qubit window at [n-13, n-7)
+    and the 7-qubit lane window at [n-7, n) and splits the front into
+    ``window``-wide chunks, the remainder last (the reference's in-place
+    positions for its dot engine); below 14 qubits, and with the default
+    ``"kernel"`` partition (the reference's ``"pallas"``), the last window
+    is min(n, 7) wide and the front splits end-aligned, the remainder
+    first.  A width-8 window has no kernel: such a plan runs on the dot
+    engine (``plan.engine = "dot"``).
+
+    ``window="auto"`` keeps the first cheapest of :func:`auto_candidates`;
+    a dot-engine pick gets ``engine = "dot"``, and one that the dot engine
+    cannot lower re-ranks the kernel candidates alone (the reference's
+    ``"auto_pallas"``)."""
     if window == "auto":
-        return min(auto_candidates(circ, pair), key=lambda c: c[0])[1]
+        candidates = auto_candidates(circ, pair)
+        _, plan, engine = min(candidates, key=lambda c: c[0])
+        if engine == "dot":
+            from qbot_tpu_torch.tpu.dotplan import lower_dot_plan
+
+            if lower_dot_plan(plan) is None:
+                return min((c for c in candidates if c[2] == "kernel"),
+                           key=lambda c: c[0])[1]
+            plan.engine = "dot"
+        return plan
     if not isinstance(window, int):
         raise ValueError(f"window must be an integer width or 'auto', "
                          f"got {window!r}")
+    if partition not in ("kernel", "dot"):
+        raise ValueError(f"partition must be 'kernel' or 'dot', got "
+                         f"{partition!r}")
     n = circ.n
     w = min(window, n) if n else 1
-    # the last window has width min(n, 7); the front qubits split
-    # end-aligned into windows of width w, the remainder first
-    last_w = min(n, _LANE_LOG2)
-    front = n - last_w
-    rem = front % w
-    bounds = ([(0, rem)] if rem else []) + [
-        (rem + i * w, w) for i in range(front // w)]
-    if last_w:
-        bounds.append((front, last_w))
+    if partition == "dot" and n >= 14:
+        sub = 6
+        front = n - sub - _LANE_LOG2
+        bounds = [(q, min(w, front - q)) for q in range(0, front, w)]
+        bounds += [(front, sub), (front + sub, _LANE_LOG2)]
+    else:
+        # the last window has width min(n, 7); the front qubits split
+        # end-aligned into windows of width w, the remainder first
+        last_w = min(n, _LANE_LOG2)
+        front = n - last_w
+        rem = front % w
+        bounds = ([(0, rem)] if rem else []) + [
+            (rem + i * w, w) for i in range(front // w)]
+        if last_w:
+            bounds.append((front, last_w))
     group_of = [0] * n
     for gi, (start, width) in enumerate(bounds):
         for q in range(start, start + width):

@@ -9,7 +9,8 @@ There is no fallback.
 
 The window and pair products run in the dot mode of :func:`set_dot_mode`,
 the reference's ``--precision`` (``qbot_tpu/tpu/kernels.py:41-71``):
-``f32`` and ``f32_mix`` in full float32 (the kernels' 3xTF32 tile),
+``f32`` and ``f32_mix`` in full float32 (the kernels' 3xTF32 tile;
+``f32_mix`` is the dot engine's per-window rule, :mod:`.dotplan`),
 ``bf16_3x`` as three bfloat16 products of a hi/lo split, ``bf16`` as one.
 The plain versions compute each mode as the reference's ``_dot`` does; a
 CUDA tensor launches the kernel of the mode, never another.
@@ -103,8 +104,9 @@ _VARIANTS = {
 }
 
 # The dot modes of qbot_tpu/tpu/kernels.py:41-52, and the precision of the
-# products each launches (csrc/tc_tile.cuh: Prec): f32_mix is a dot-engine
-# policy, and the reference's kernels run it in full f32 (:56-60)
+# products each launches (csrc/tc_tile.cuh: Prec): f32_mix is the dot
+# engine's per-window rule (tpu/dotplan.py: window_mode), and the kernels
+# run it in full f32, as the reference's kernels do (:55-60)
 DOT_MODES = ("f32", "f32_mix", "bf16_3x", "bf16")
 _PREC = {"f32": 0, "f32_mix": 0, "bf16_3x": 1, "bf16": 2}
 REDUCED_MODES = ("bf16_3x", "bf16")

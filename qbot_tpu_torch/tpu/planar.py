@@ -26,8 +26,14 @@ window, pair and reflection step is differentiable through the kernels'
 W† (:mod:`qbot_tpu_torch.tpu.kernels`; the reflection's below).
 :func:`make_planar_runner` prepares the static steps once per device.
 
-Not ported yet: the dot engine (every plan runs on the window and pair
-kernels, ``f32_mix`` as full float32).
+A plan whose ``engine`` is ``"dot"`` (``window="auto"`` ranked the dot
+engine fastest, ``qbot_tpu/tpu/planar.py:496-501, 578-588, 778-784``) runs
+on :mod:`qbot_tpu_torch.tpu.dotplan` instead, a library product a window,
+through every entry point below: a density plan through its 2n-qubit
+statevector plan (``dotplan.density_plan_2n``), a scanned body through
+``dotplan.make_scanned_dot_runner``.  The kernel engine runs ``f32_mix`` in
+full float32, as the reference's kernels do; the dot engine runs its
+per-window rule.
 """
 from __future__ import annotations
 
@@ -502,8 +508,14 @@ def apply_plan_planar(psi: torch.Tensor, plan: Plan,
     plain versions.  ``params`` (1-D, on the state's device) holds the
     angles of the plan's parameterised gates; the result is differentiable
     in it and in ``psi``.  Prepares every step anew:
-    :func:`make_planar_runner` prepares them once.
+    :func:`make_planar_runner` prepares them once.  A plan of the dot
+    engine runs on :func:`qbot_tpu_torch.tpu.dotplan.apply_plan_dot`.
     """
+    lowered = _dot_lowered(plan)
+    if lowered is not None:
+        from qbot_tpu_torch.tpu.dotplan import apply_plan_dot
+
+        return apply_plan_dot(psi, lowered, params)
     return _run(psi, _step_fns(plan, psi.device, _KERNELS), params)
 
 
@@ -511,8 +523,24 @@ def apply_plan_planar_ref(psi: torch.Tensor, plan: Plan,
                           params=None) -> torch.Tensor:
     """:func:`apply_plan_planar` through the kernels' plain PyTorch
     versions on any device (differentiable by PyTorch's own autograd): the
-    reference a kernel run is checked against on the card."""
+    reference a kernel run is checked against on the card.  A plan of the
+    dot engine runs on ``dotplan.apply_plan_dot_ref``."""
+    lowered = _dot_lowered(plan)
+    if lowered is not None:
+        from qbot_tpu_torch.tpu.dotplan import apply_plan_dot_ref
+
+        return apply_plan_dot_ref(psi, lowered, params)
     return _run(psi, _step_fns(plan, psi.device, _PLAIN), params)
+
+
+def _dot_lowered(plan: Plan):
+    """The plan lowered for the dot engine when its ``engine`` is
+    ``"dot"`` and it lowers, else None (the kernel engine runs it)."""
+    if plan.engine != "dot":
+        return None
+    from qbot_tpu_torch.tpu.dotplan import lower_dot_plan
+
+    return lower_dot_plan(plan)
 
 
 class _Prepared:
@@ -530,7 +558,13 @@ class _Prepared:
 def make_planar_runner(plan: Plan):
     """``run(psi, params=None)``: :func:`apply_plan_planar` with the static
     steps' tables (folded matrices, fused diagonals, reflection tables)
-    prepared once per device; a parameterised window folds per call."""
+    prepared once per device; a parameterised window folds per call.  A
+    plan of the dot engine runs on ``dotplan.make_dot_runner``."""
+    lowered = _dot_lowered(plan)
+    if lowered is not None:
+        from qbot_tpu_torch.tpu.dotplan import make_dot_runner
+
+        return make_dot_runner(lowered)
     prepared = _Prepared(lambda device: _step_fns(plan, device, _KERNELS))
 
     def run(psi: torch.Tensor, params=None) -> torch.Tensor:
@@ -560,11 +594,20 @@ def make_scanned_planar_runner(body_plan: Plan, repeats: int,
     next ⟨v|Fψ⟩ is formed on the device, so the loop never waits for the
     host.  Other bodies, and a reflection body under autograd, loop over
     the body's prepared steps (each reflection then through its
-    differentiable kernels).
+    differentiable kernels).  A body of the dot engine that is not that
+    reflection runs on ``dotplan.make_scanned_dot_runner``, as in the
+    reference.
     """
     reflect_body = (len(body_plan.steps) == 1
                     and isinstance(body_plan.steps[0], ReflectStep)
                     and not renorm_every)
+    if not reflect_body and body_plan.engine == "dot":
+        from qbot_tpu_torch.tpu.dotplan import make_scanned_dot_runner
+
+        dot = make_scanned_dot_runner(body_plan, repeats, init_plan,
+                                      renorm_every)
+        if dot is not None:
+            return dot
     init = None if init_plan is None else make_planar_runner(init_plan)
     body = _Prepared(lambda device: _step_fns(body_plan, device, _KERNELS))
 
@@ -738,6 +781,18 @@ def _run_density(rho, fns, params=None):
     return _run(rho.reshape(2, -1), fns, params).reshape(rho.shape)
 
 
+def _dot_density_lowered(plan: Plan):
+    """A density plan of the dot engine as its 2n-qubit statevector plan
+    (``dotplan.density_plan_2n``), lowered, or None (the kernel engine
+    runs it)."""
+    if plan.engine != "dot":
+        return None
+    from qbot_tpu_torch.tpu.dotplan import density_plan_2n
+
+    big = density_plan_2n(plan)
+    return None if big is None else _dot_lowered(big)
+
+
 def apply_plan_density_planar(rho: torch.Tensor, plan: Plan,
                               params=None) -> torch.Tensor:
     """Run a compiled plan over a planar (2, 2^n, 2^n) float32 density
@@ -746,8 +801,15 @@ def apply_plan_density_planar(rho: torch.Tensor, plan: Plan,
     On a CUDA tensor every window and pair runs its CUDA kernel, on the
     rows and on the columns; on a CPU tensor, the kernels' plain versions.
     ``params`` as in :func:`apply_plan_planar`; a parameterised window's
-    column side is the conjugate of its fold.
+    column side is the conjugate of its fold.  A plan of the dot engine
+    runs its 2n-qubit statevector plan on ``dotplan.apply_plan_dot``.
     """
+    lowered = _dot_density_lowered(plan)
+    if lowered is not None:
+        from qbot_tpu_torch.tpu.dotplan import apply_plan_dot
+
+        return apply_plan_dot(rho.reshape(2, -1), lowered,
+                              params).reshape(rho.shape)
     return _run_density(rho, _density_step_fns(plan, rho.device, _KERNELS),
                         params)
 
@@ -756,7 +818,14 @@ def apply_plan_density_planar_ref(rho: torch.Tensor, plan: Plan,
                                   params=None) -> torch.Tensor:
     """:func:`apply_plan_density_planar` through the kernels' plain
     PyTorch versions on any device: the reference a kernel run is checked
-    against on the card."""
+    against on the card (a plan of the dot engine, ``apply_plan_dot_ref``
+    of its 2n-qubit plan)."""
+    lowered = _dot_density_lowered(plan)
+    if lowered is not None:
+        from qbot_tpu_torch.tpu.dotplan import apply_plan_dot_ref
+
+        return apply_plan_dot_ref(rho.reshape(2, -1), lowered,
+                                  params).reshape(rho.shape)
     return _run_density(rho, _density_step_fns(plan, rho.device, _PLAIN),
                         params)
 
@@ -765,6 +834,13 @@ def make_planar_density_runner(plan: Plan):
     """``run(rho, params=None)``: :func:`apply_plan_density_planar` with
     the step tables (folded matrices, fused diagonals) prepared once per
     device."""
+    lowered = _dot_density_lowered(plan)
+    if lowered is not None:
+        from qbot_tpu_torch.tpu.dotplan import make_dot_runner
+
+        run_flat = make_dot_runner(lowered)
+        return lambda rho, params=None: run_flat(
+            rho.reshape(2, -1), params).reshape(rho.shape)
     prepared = _Prepared(
         lambda device: _density_step_fns(plan, device, _KERNELS))
 

@@ -47,14 +47,20 @@ def brickwork(m, n, layers, seed=0):
     return c
 
 
+# the port's name of each engine -> the reference's (Plan.engine)
+ENGINES = {"kernel": "pallas", "dot": "dot"}
+
+
 def assert_same(a, b, where="plan"):
     """``a`` (the port's) equals ``b`` (``qbot_tpu``'s): the same class
     name and, for a dataclass, every field of ``a``'s class; arrays
     bit-identical; a parameterised gate's maker made by the same builder
-    (the same qualified name)."""
+    (the same qualified name); a plan's engine by :data:`ENGINES`."""
     assert type(a).__name__ == type(b).__name__, \
         f"{where}: {type(a).__name__} != {type(b).__name__}"
-    if isinstance(a, np.ndarray):
+    if where.endswith(".engine"):
+        assert ENGINES[a] == b, f"{where}: {a!r} is not {b!r}"
+    elif isinstance(a, np.ndarray):
         assert a.dtype == b.dtype and np.array_equal(a, b), where
     elif dataclasses.is_dataclass(a):
         for f in dataclasses.fields(a):

@@ -1124,28 +1124,72 @@ def _auto_circuit(name):
                                   "grover_16"])
 def test_auto_plan_runs_as_its_width(cuda, any_mode, name):
     """At 16-17 qubits in each dot mode, the auto plan launches the same
-    kernels as the explicit plan at its width and gives its state bit for
-    bit; every launch the cost model counts moves its launch count once."""
-    from qbot_tpu_torch.tpu.compiler import step_launches
+    kernels (and, on the dot engine, library products) as the explicit
+    plan of its engine and width and gives its state bit for bit; every
+    launch the engine's cost model counts moves its count once."""
+    from qbot_tpu_torch.tpu import dotplan
+    from qbot_tpu_torch.tpu.compiler import dot_step_launches, step_launches
 
     c = _auto_circuit(name)
     auto = compile_circuit(c, window="auto")
-    explicit = compile_circuit(c, window=auto.window)
+    explicit = compile_circuit(c, window=auto.window, partition=(
+        "dot" if auto.engine == "dot" else "kernel"))
+    explicit.engine = auto.engine
     params = (torch.linspace(0.1, 1.0, c.num_params, device=cuda)
               if c.num_params else None)
     psi0 = planar.zero_state_planar(c.n, cuda)
-    states, counts = [], []
+    states, counts, products = [], [], []
     for plan in (auto, explicit):
         kernels.reset_launch_counts()
+        dotplan.reset_product_counts()
         states.append(planar.apply_plan_planar(psi0, plan, params))
         torch.cuda.synchronize()
         counts.append(kernels.launch_counts())
-    assert counts[0] == counts[1]
+        products.append(sum(dotplan.product_counts().values()))
+    assert counts[0] == counts[1] and products[0] == products[1]
     assert torch.equal(states[0], states[1])
     want = dict.fromkeys(counts[0], 0)
+    launches = dot_step_launches if auto.engine == "dot" else step_launches
+    windows = 0
     for step in auto.steps:
-        for launch in step_launches(step, c.n):
+        for launch in launches(step, c.n):
+            windows += launch.family.startswith("dot_window")
             key = _counter(launch, any_mode)
             if key is not None:
                 want[key] += 1
     assert counts[0] == want
+    assert products[0] == windows
+
+
+@pytest.mark.parametrize("mode", ["f32", "f32_mix", "bf16_3x", "bf16"])
+def test_dot_engine_on_the_card(cuda, mode):
+    """The dot engine's library products on a CUDA state: a 16-qubit
+    brickwork on the dot partition at widths 4 and 8, each window one
+    product in the mode its width runs (f32_mix: bf16_3x at 7 or more
+    qubits, else f32), within the float64 limit of each product (f32
+    TOL) of the same products computed as the CPU computes them."""
+    from qbot_tpu_torch.tpu import dotplan
+
+    kernels.set_dot_mode(mode)
+    try:
+        for w in (4, 8):
+            plan = compile_circuit(random_circuit(16, 4, seed=7), w,
+                                   partition="dot")
+            lowered = dotplan.lower_dot_plan(plan)
+            wins = [s for s in lowered.steps if isinstance(s, dotplan._Win)]
+            psi0 = _state(16, np.random.default_rng(w), cuda)
+            dotplan.reset_product_counts()
+            got = dotplan.apply_plan_dot(psi0, lowered)
+            torch.cuda.synchronize()
+            want = {}
+            for s in wins:
+                k = f"dot_window[{dotplan.window_mode(mode, s.step.width)}]"
+                want[k] = want.get(k, 0) + 1
+            assert dotplan.product_counts() == want
+            limit = TOL if mode == "f32" else sum(
+                MODE_TOL.get(dotplan.window_mode(mode, s.step.width),
+                             (0, 0, TOL))[2] for s in wins)
+            assert rel_l2(got, dotplan.apply_plan_dot_ref(psi0, lowered)) \
+                <= limit
+    finally:
+        kernels.set_dot_mode("f32")

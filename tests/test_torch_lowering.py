@@ -196,11 +196,12 @@ def test_cli_matches_qbot_tpu_cli(tmp_path):
                                     "meas out ; comp ; [0, 1, 2]"))
     got = _run_cli("qbot_tpu_torch", prog, "--device", "cpu")
     want = _run_cli("qbot_tpu", prog)
-    assert "torch cpu engine" in got.stderr
-    # the CLI compiles with window="auto", as qbot_tpu's does
+    # the CLI compiles with window="auto", as qbot_tpu's does, and names
+    # the engine it picked beside the device
+    auto = compile_circuit(lower_program(prog.read_text()).circuit, "auto")
+    assert f"({auto.engine} engine, torch cpu)" in got.stderr
     passes = re.search(r"(\d+) device passes", got.stderr)
-    assert int(passes.group(1)) == compile_circuit(
-        lower_program(prog.read_text()).circuit, "auto").num_passes
+    assert int(passes.group(1)) == auto.num_passes
     lines_t, lines_j = got.stdout.splitlines(), want.stdout.splitlines()
     assert len(lines_t) == len(lines_j) == 8
     for t, j in zip(lines_t, lines_j):

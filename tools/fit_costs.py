@@ -21,6 +21,16 @@ launch is timed with the formation of c that the executor makes after it,
 the PyTorch passes through the executor's own step functions, in f32 only
 (they run no products in a dot mode).
 
+The dot engine's launches (``tpu/dotplan.py``, ``compiler.dot_step_launches``)
+are timed in the same run: every window of the same circuits compiled with
+``partition="dot"`` at widths 4..8, by route (``dot_window_first``,
+``dot_window_middle``, ``dot_window_trailing``), through the engine's own
+window step on a CUDA state (its split of W prepared once, the state's
+split and layout inside the launch), in every dot mode in turns; and the
+masked pass of a real and of a complex phase (``dot_phase_real``,
+``dot_phase_complex``), in f32.  Their phases are passes of their own, so
+their windows are timed without.
+
 For each family and mode it fits ``t0 + max(bytes / BW, ops / rate)`` to
 the phase-free times (least squared relative error, BW and rate on a
 geometric grid, t0 in closed form), then the fraction of the rest that a
@@ -54,16 +64,20 @@ from chip_smoke import (  # noqa: E402
     brickwork_circuit,
     grover_circuits,
 )
-from qbot_tpu_torch.tpu import kernels, planar  # noqa: E402
+from qbot_tpu_torch.tpu import dotplan, kernels, planar  # noqa: E402
 from qbot_tpu_torch.tpu.circuit import parameterized_layers  # noqa: E402
 from qbot_tpu_torch.tpu.compiler import (  # noqa: E402
     COSTS,
+    DOT_WIDTHS,
     ContractStep,
     DiagStep,
     FlipStep,
     Launch,
     Plan,
+    Term,
+    WindowStep,
     compile_circuit,
+    dot_step_launches,
     step_launches,
 )
 
@@ -73,6 +87,7 @@ MODES = ("f32", "bf16_3x", "bf16")
 ITERS = 10
 LAYERS = 16
 TORCH_PASSES = ("torch_diag", "torch_flip", "torch_contract")
+DOT_PHASES = ("dot_phase_real", "dot_phase_complex")
 # the phase fused into a launch: the CZ normal form of a CX across two
 # windows (-1 where both qubits are 1), then two more
 CZ = -1.0 + 0j
@@ -90,6 +105,14 @@ def geometries(qubits) -> list[Launch]:
             for step in plan.steps:
                 for x in step_launches(step, n):
                     seen.setdefault((x.family, n, x.start, x.widths), x)
+        for c in circuits:
+            for w in DOT_WIDTHS:
+                for step in compile_circuit(c, w, partition="dot").steps:
+                    for x in dot_step_launches(step, n):
+                        if x.family.startswith("dot_window"):
+                            seen.setdefault((x.family, n, x.start, x.widths),
+                                            x)
+        seen.update({(f, n): Launch(f, n) for f in DOT_PHASES})
         seen.update({(f, n): Launch(f, n, 0, (2,) if f == "torch_contract"
                                     else ()) for f in TORCH_PASSES})
     return [Launch(x.family, x.n, x.start, x.widths) for x in seen.values()]
@@ -115,6 +138,17 @@ def _phases(x: Launch, k: int) -> tuple:
 def launcher(x: Launch, k: int, psi, device, rng):
     """A callable making launch ``x`` with ``k`` fused phases on ``psi``."""
     n = x.n
+    if x.family.startswith("dot_window"):
+        w = x.widths[0]
+        step = WindowStep(x.start, w, (Term(tuple(range(w)),
+                                            _unitary(2**w, rng)),))
+        fn = dotplan._window_fn(n, dotplan._Win(step, (), ()), device,
+                                dotplan._LIBRARY)
+        return lambda: fn(psi, None)
+    if x.family in DOT_PHASES:
+        z = CZ if x.family == "dot_phase_real" else np.exp(0.7j)
+        fn = dotplan._phase_fn(n, ((0, n - 1), z, 3), device)
+        return lambda: fn(psi)
     if x.family.startswith(("window", "pair")):
         diag = kernels.fused_diagonals(n, (), _phases(x, k), device)
         ws = [_planar(_unitary(2**w, rng), device) for w in x.widths]
@@ -162,10 +196,11 @@ def measure(qubits, device) -> list[dict]:
         psi = torch.randn((2, 2**n), generator=gen, device=device)
         psi /= torch.sqrt(torch.sum(psi * psi))
         for x in (x for x in launches if x.n == n):
-            products = x.family.startswith(("window", "pair"))
+            products = x.family.startswith(("window", "pair", "dot_window"))
+            fused = x.family.startswith(("window", "pair"))
             modes = MODES if products else ("f32",)
             for k in ((0, 1, 3) if n == max(qubits) else (0, 1)) \
-                    if products else (0,):
+                    if fused else (0,):
                 fn = launcher(x, k, psi, device, rng)
                 ms = defaultdict(float)
                 for mode in modes:
