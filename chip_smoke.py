@@ -187,6 +187,38 @@ nonzero:
    numbers make the JSON line (``{"dot_engine": ...}``) before the
    kernels' line.
 
+14. the qubit-sharded register (``qbot_tpu_torch/tpu/sharded.py``) on
+   ``torch.distributed`` ranks spawned from this script, all on the one
+   card: K ranks under ``gloo`` (``nccl`` refuses two ranks of one
+   communicator on one GPU; gloo copies each CUDA exchange through host
+   memory), and one rank under ``nccl``.
+   Each rank resets its launch counts before its runs and reports them
+   after; a rank that fails fails the phase.  (a) The 16-layer 26-qubit
+   brickwork of phase 5 on K = 2 and K = 4: the gathered, unpermuted state
+   within relative L2 1e-5 of the single-device kernel path of the same
+   circuit (``compile_circuit(..., window=7)``), the norm within 1e-4 of 1,
+   every rank's window and pair kernels launched; ``num_reshards``,
+   ``comm_bytes`` and the wall time of a run after one untimed run.  (b)
+   Grover 26q x 64 on K = 4 (gloo) and K = 1 (nccl): its Hadamard init,
+   then a body compiled from the init's layout whose ``num_reshards`` is
+   0 (a ShardedFlip and a ShardedReflect); the marked probability within
+   1e-4 of sin²((2R+1)·asin(2^-n/2)), ``reflect_dot`` and
+   ``reflect_update`` launched on every rank.  (c) The 13-qubit density
+   brickwork of phase 6 (one 8-layer body) on K = 2: the trace within 1e-4
+   of 1, ρ within relative Frobenius 1e-4 of ``make_planar_density_runner``'s,
+   ρ restored to the logical layout by ``plan_perm_to_identity``'s
+   BitSwaps and LocalPerm within 1e-4 of it, then
+   ``sharded_density_discard`` of two qubits (qubit 0, whose row axis is
+   sharded there, and a local one) within 1e-4 of the single-device partial
+   trace,
+   ``sharded_density_probs_fn`` within 1e-4 (relative L2) of
+   ``planar_density_probs``.  (d) ``python -m qbot_tpu_torch
+   examples/grover.qb --compile --shard 1`` on the one card exits 1 with
+   one ``sharding error`` line.  The readings print under a line saying
+   the exchanges ran over gloo and the host: their times say nothing of
+   NVLink or NCCL.  Each kernel's entry of the JSON line gains
+   ``sharded_launches`` (phase 14's, summed over the ranks of each run).
+
 Launch counts are reset before phase 3 and read after phase 6: every f32
 kernel must have launched on that path; they are reset again before
 phase 7, after which every reduced-mode counter (``window_apply[bf16_3x]``
@@ -197,7 +229,7 @@ kernels' counters (``window_apply_stream``, ``pair_apply_stream``, in each
 mode) must have moved, and before phase 10's ensemble runs (after its
 particle-axis checks), after which each of PHASE10_KERNELS must have
 moved, and before phases 11, 12 and 13, whose launches are added to the
-line's.
+line's, as are phase 14's ranks'.
 The timed run of Grover, of each brickwork
 plan and of the density bodies also reports its own launches.
 The line before the last is one JSON object of per-kernel results; the
@@ -240,7 +272,7 @@ import qbot_tpu_torch
 # the port's dense host interpreter is phase 3's reference
 from qbot_tpu_torch import compile_circuit, executeTxt, lower_program
 from qbot_tpu_torch.cli import main as cli_main
-from qbot_tpu_torch.tpu import dotplan, kernels
+from qbot_tpu_torch.tpu import dotplan, kernels, sharded
 from qbot_tpu_torch.tpu.circuit import Circuit
 from qbot_tpu_torch.tpu.planar import (
     apply_plan_density_planar_ref,
@@ -248,12 +280,14 @@ from qbot_tpu_torch.tpu.planar import (
     apply_plan_planar_ref,
     make_planar_density_runner,
     make_scanned_planar_runner,
+    planar_density_probs,
     planar_norm,
     planar_probs,
     product_state_planar,
     zero_density_planar,
     zero_state_planar,
 )
+from qbot_tpu_torch.tpu.sharding import launch
 
 ROOT = Path(__file__).resolve().parent
 N = 26
@@ -2896,6 +2930,272 @@ def dot_path(device, gen, card: str) -> dict:
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the qubit-sharded register on torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+SHARD_GLOO_SIZES = (2, 4)  # ranks of the brickwork, all on the one card
+SHARD_GROVER_SIZES = ((4, "gloo"), (1, "nccl"))
+SHARD_GROVER_REPEATS = 64
+SHARD_DENSITY_SIZE = 2
+SHARD_STATE_TOL = 1e-5     # rel L2, gathered state vs the single-device path
+SHARD_PROBS_TARGETS = (0, 5, DENSITY_N - 1)
+
+
+def _rank_sum(mesh, value: float) -> float:
+    """The sum of a float64 scalar over the ranks."""
+    t = torch.tensor([value], dtype=torch.float64, device=mesh.device)
+    return float(sharded._all_reduce(mesh, t)[0])
+
+
+def _counted(fn):
+    """(result of ``fn()``, the launches it made on this rank)."""
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in kernels.launch_counts().items() if v}
+
+
+def _timed_wall(mesh, fn) -> float:
+    """Host seconds of one run of ``fn`` on every rank, between barriers
+    (its exchanges included), after the untimed run the caller made."""
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    return time.perf_counter() - t0
+
+
+def sharded_brickwork_rank(mesh, n: int, layers: int) -> dict:
+    """Phase 14 (a) on one rank: the brickwork of phase 5, sharded."""
+    c = brickwork_circuit(n, layers)
+    splan = sharded.compile_sharded(c, mesh.k)
+    run = sharded.make_sharded_planar_runner(splan, mesh)
+    psi0 = sharded.sharded_zero_state(n, mesh)
+    out, launches = _counted(lambda: run(psi0))
+    wall = _timed_wall(mesh, lambda: run(psi0))
+    norm = _rank_sum(mesh, float(torch.sum(out.double() ** 2)))
+    full = sharded.gather_planar(out, mesh)
+    rec = {"rank": mesh.rank, "launches": launches, "wall_s": wall}
+    if full is not None:
+        full = sharded.unpermute_planar(full, splan.final_perm)
+        single = apply_plan_planar(zero_state_planar(n, mesh.device),
+                                   compile_circuit(c, window=7))
+        rec.update(norm=norm, rel_l2=rel_l2(full, single),
+                   num_reshards=splan.num_reshards,
+                   comm_bytes=splan.comm_bytes(),
+                   items=[type(i).__name__ for i in splan.items],
+                   backend=mesh.backend)
+    return rec
+
+
+def sharded_grover_rank(mesh, n: int, repeats: int) -> dict:
+    """Phase 14 (b) on one rank: Grover's Hadamard init, then ``repeats``
+    bodies compiled from the init's layout."""
+    marked, init, body = grover_circuits(n)
+    k = mesh.k
+    init_plan = sharded.compile_sharded(init, k)
+    body_plan = sharded.compile_sharded(body, k,
+                                        initial_perm=init_plan.final_perm)
+    init_run = sharded.make_sharded_planar_runner(init_plan, mesh)
+    body_run = sharded.make_sharded_planar_runner(body_plan, mesh)
+
+    def run():
+        psi = init_run(sharded.sharded_zero_state(n, mesh))
+        for _ in range(repeats):
+            psi = body_run(psi)
+        return psi
+    out, launches = _counted(run)
+    wall = _timed_wall(mesh, run)
+    # the marked amplitude's physical index under the final layout
+    perm = body_plan.final_perm
+    index = sum(((marked >> (n - 1 - perm[p])) & 1) << (n - 1 - p)
+                for p in range(n))
+    local = index & ((1 << (n - k)) - 1)
+    mine = mesh.rank == index >> (n - k)
+    p_marked = _rank_sum(mesh, float(out[0, local] ** 2 + out[1, local] ** 2)
+                         if mine else 0.0)
+    norm = _rank_sum(mesh, float(torch.sum(out.double() ** 2)))
+    return {"rank": mesh.rank, "launches": launches, "wall_s": wall,
+            "p_marked": p_marked, "norm": norm,
+            "body_reshards": body_plan.num_reshards,
+            "init_reshards": init_plan.num_reshards,
+            "body_items": [type(i).__name__ for i in body_plan.items],
+            "backend": mesh.backend}
+
+
+def _partial_trace(rho: torch.Tensor, n: int, qubits) -> torch.Tensor:
+    """Tr over ``qubits`` of a planar (2, 2^n, 2^n) ρ, one qubit at a time
+    on a (2, pre, 2, post, pre, 2, post) view."""
+    for q in sorted(qubits, reverse=True):
+        pre, post = 2**q, 2 ** (n - 1 - q)
+        v = rho.reshape(2, pre, 2, post, pre, 2, post)
+        rho = (v[:, :, 0, :, :, 0, :] + v[:, :, 1, :, :, 1, :]).reshape(
+            2, pre * post, pre * post)
+        n -= 1
+    return rho
+
+
+def sharded_density_rank(mesh) -> dict:
+    """Phase 14 (c) on one rank: one body of phase 6's density brickwork,
+    its discard of two qubits and its marginals."""
+    n = DENSITY_N
+    c = brickwork_circuit(n, DENSITY_LAYERS, seed=7)
+    splan = sharded.compile_sharded_density(c, mesh.k)
+    run = sharded.make_sharded_planar_runner(splan, mesh)
+    rho0 = sharded.sharded_zero_density(n, mesh)
+    out, launches = _counted(lambda: run(rho0))
+    wall = _timed_wall(mesh, lambda: run(rho0))
+    probs = {t: sharded.sharded_density_probs_fn(splan, mesh, t)(out)
+             for t in (None, SHARD_PROBS_TARGETS)}
+    # back to the logical layout (BitSwaps and a LocalPerm), where qubit
+    # 0's row axis is sharded; then discard it and a local qubit
+    perm = splan.final_perm
+    items, ident = sharded.plan_perm_to_identity(perm, 2 * n, mesh.k)
+    canon = sharded.make_sharded_planar_runner(sharded.ShardedPlan(
+        n=2 * n, k=mesh.k, items=items, final_perm=ident), mesh)(out)
+    targets = [0, n - 1]
+    reduced, new_perm = sharded.sharded_density_discard(
+        canon, n, mesh.k, targets, mesh, perm=ident)
+    full = sharded.gather_planar(out, mesh)
+    canon_full = sharded.gather_planar(canon, mesh)
+    reduced_full = sharded.gather_planar(reduced, mesh)
+    rec = {"rank": mesh.rank, "launches": launches, "wall_s": wall}
+    if full is None:
+        return rec
+    rho = sharded.unpermute_density(full, perm)
+    single = make_planar_density_runner(compile_circuit(c))(
+        zero_density_planar(n, mesh.device))
+    want_reduced = _partial_trace(single, n, targets)
+    got_reduced = sharded.unpermute_density(reduced_full, new_perm)
+    rec.update(
+        trace=float(torch.sum(torch.diagonal(rho[0]).double())),
+        rel_frobenius=rel_l2(rho, single),
+        layout_items=[type(i).__name__ for i in items],
+        layout_rel_frobenius=rel_l2(canon_full, single),
+        discard_targets=targets,
+        discard_rel_frobenius=rel_l2(got_reduced, want_reduced),
+        probs_rel_l2={str(t): rel_l2(p, planar_density_probs(single, t, n))
+                      for t, p in probs.items()},
+        num_reshards=splan.num_reshards, comm_bytes=splan.comm_bytes(),
+        backend=mesh.backend)
+    return rec
+
+
+def _sum_launches(records) -> dict:
+    total: dict = {}
+    for rec in records:
+        for name, count in rec["launches"].items():
+            total[name] = total.get(name, 0) + count
+    return total
+
+
+def _require_launches(label: str, records, names) -> None:
+    """Every rank of a run launched some kernel of each group of
+    ``names``."""
+    for rec in records:
+        for group in names:
+            if not any(rec["launches"].get(k, 0) for k in group):
+                raise AssertionError(
+                    f"{label}: rank {rec['rank']} never launched any of "
+                    f"{group}; its launches {rec['launches']}")
+
+
+def sharded_path(device, card: str) -> tuple[dict, dict]:
+    """Phase 14: (launches summed over each run's ranks, readings)."""
+    torch.cuda.empty_cache()
+    runs, readings = {}, {}
+    for size in SHARD_GLOO_SIZES:
+        t0 = time.perf_counter()
+        ranks = launch(sharded_brickwork_rank, size, N, BRICKWORK_LAYERS,
+                       device="cuda", backend="gloo", timeout=900)
+        records = [ranks[r] for r in sorted(ranks)]
+        head = records[0]
+        label = f"sharded_brickwork_{N}q_{size}ranks"
+        if not (head["rel_l2"] <= SHARD_STATE_TOL
+                and abs(head["norm"] - 1.0) <= NORM_TOL):
+            raise AssertionError(f"{label}: rel L2 {head['rel_l2']:.3e} from "
+                                 f"the single-device kernel path, norm "
+                                 f"{head['norm']}")
+        _require_launches(label, records, (WINDOW_KERNELS, PAIR_KERNELS))
+        runs[label] = _sum_launches(records)
+        readings[label] = {
+            "ranks": size, "backend": head["backend"],
+            "items": head["items"],
+            "num_reshards": head["num_reshards"],
+            "comm_bytes": head["comm_bytes"], "norm": head["norm"],
+            "rel_l2_vs_single_device": head["rel_l2"],
+            "wall_s": max(r["wall_s"] for r in records),
+            "launches_per_rank": [r["launches"] for r in records],
+            "phase_s": time.perf_counter() - t0}
+        say(f"{label}: {readings[label]}")
+    p_want = math.sin((2 * SHARD_GROVER_REPEATS + 1)
+                      * math.asin(2 ** (-N / 2))) ** 2
+    for size, backend in SHARD_GROVER_SIZES:
+        t0 = time.perf_counter()
+        ranks = launch(sharded_grover_rank, size, N, SHARD_GROVER_REPEATS,
+                       device="cuda", backend=backend, timeout=900)
+        records = [ranks[r] for r in sorted(ranks)]
+        head = records[0]
+        label = f"sharded_grover_{N}q_{size}ranks_{backend}"
+        if not (abs(head["p_marked"] - p_want) <= NORM_TOL
+                and abs(head["norm"] - 1.0) <= NORM_TOL
+                and head["body_reshards"] == 0):
+            raise AssertionError(f"{label}: marked {head['p_marked']} "
+                                 f"against {p_want}, norm {head['norm']}, "
+                                 f"body reshards {head['body_reshards']}")
+        _require_launches(label, records, (("reflect_dot",),
+                                           ("reflect_update",)))
+        runs[label] = _sum_launches(records)
+        readings[label] = {
+            "ranks": size, "backend": head["backend"],
+            "p_marked": head["p_marked"],
+            "closed_form": p_want, "norm": head["norm"],
+            "init_reshards": head["init_reshards"],
+            "body_reshards": head["body_reshards"],
+            "body_items": head["body_items"],
+            "wall_s": max(r["wall_s"] for r in records),
+            "launches_per_rank": [r["launches"] for r in records],
+            "phase_s": time.perf_counter() - t0}
+        say(f"{label}: {readings[label]}")
+    t0 = time.perf_counter()
+    ranks = launch(sharded_density_rank, SHARD_DENSITY_SIZE, device="cuda",
+                   backend="gloo", timeout=900)
+    records = [ranks[r] for r in sorted(ranks)]
+    head = records[0]
+    label = f"sharded_density_{DENSITY_N}q_{SHARD_DENSITY_SIZE}ranks"
+    worst_probs = max(head["probs_rel_l2"].values())
+    if not (abs(head["trace"] - 1.0) <= NORM_TOL
+            and head["rel_frobenius"] <= DENSITY_TOL
+            and head["layout_rel_frobenius"] <= DENSITY_TOL
+            and head["discard_rel_frobenius"] <= DENSITY_TOL
+            and worst_probs <= DENSITY_TOL):
+        raise AssertionError(f"{label}: {head}")
+    _require_launches(label, records, (WINDOW_KERNELS, PAIR_KERNELS))
+    runs[label] = _sum_launches(records)
+    readings[label] = {k: v for k, v in head.items()
+                       if k not in ("rank", "launches", "wall_s")}
+    readings[label].update(
+        wall_s=max(r["wall_s"] for r in records),
+        launches_per_rank=[r["launches"] for r in records],
+        phase_s=time.perf_counter() - t0)
+    say(f"{label}: {readings[label]}")
+    cli = subprocess.run([sys.executable, "-m", "qbot_tpu_torch",
+                          "examples/grover.qb", "--compile", "--shard", "1"],
+                         capture_output=True, text=True, cwd=ROOT,
+                         timeout=300)
+    err = cli.stderr.strip().splitlines()
+    if not (cli.returncode == 1 and len(err) == 1
+            and err[0].startswith("sharding error:") and not cli.stdout):
+        raise AssertionError(f"--compile --shard 1 on one card: rc "
+                             f"{cli.returncode}, stdout {cli.stdout!r}, "
+                             f"stderr {cli.stderr!r}")
+    readings["cli_shard_1_on_one_card"] = err[0]
+    say(f"--compile --shard 1 on one card: exit 1, {err[0]!r}")
+    return runs, readings
+
+
 def _device_busy_ms(prof) -> float:
     """Milliseconds in which at least one device activity (kernel or copy)
     of the traced run was running: the union of their intervals."""
@@ -3173,6 +3473,24 @@ def main(argv=None) -> int:
         f"f32_mix runs its per-window rule bit for bit; library products "
         f"{dot_numbers['products']}; kernel launches "
         f"{ {k: v for k, v in dot_counts.items() if v} }")
+    shard_runs, shard_readings = sharded_path(device, card)
+    shard_counts = _sum_launches([{"launches": v}
+                                  for v in shard_runs.values()])
+    for name in KERNEL_SOURCES:
+        counts[name] += shard_counts.get(name, 0)
+    runs.update(shard_runs)
+    say("phase 14 readings: the exchanges ran over gloo and the host "
+        "(gloo's copies through host memory and loopback TCP, every rank "
+        "on this one card), not over NVLink or NCCL: their times say "
+        f"nothing of a multi-GPU host ({card})")
+    say(f"sharded numbers: {json.dumps(shard_readings)}")
+    say(f"phase 14: the sharded register runs the {N}-qubit brickwork on "
+        f"{' and '.join(map(str, SHARD_GLOO_SIZES))} gloo ranks and Grover "
+        f"on 4 gloo ranks and 1 nccl rank within their limits of the "
+        f"single-device kernel path and the closed form, the "
+        f"{DENSITY_N}-qubit density body, discard and marginals on "
+        f"{SHARD_DENSITY_SIZE}; kernel launches "
+        f"{ {k: v for k, v in shard_counts.items() if v} }")
     missing = [k for k in KERNEL_SOURCES if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -3210,7 +3528,9 @@ def main(argv=None) -> int:
          "rel_l2_f64": results[name].get("rel_l2_f64"),
          "shapes": results[name]["shapes"],
          "particle_axis": particle[name],
-         "backward_launches": backward.get(name, 0)}
+         "backward_launches": backward.get(name, 0),
+         "sharded_launches": {run: v[name] for run, v in shard_runs.items()
+                              if v.get(name)}}
         for name, (src, rep) in KERNEL_SOURCES.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

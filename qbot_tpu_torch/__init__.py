@@ -12,6 +12,8 @@ ensemble), :func:`lower_program` and :func:`run_lowered` (a .qb program
 on the planar executor), :func:`run_lowered_ensemble` and
 :func:`executeTxtDeviceEnsemble` (mid-circuit measurement and
 probabilistic control flow on the device particle ensemble, exact or SMC),
+:func:`run_lowered_sharded` (a program on a register sharded over the ranks
+of a ``torch.distributed`` group, :mod:`qbot_tpu_torch.tpu.sharded`),
 :func:`compile_circuit` (circuit IR to a plan, paired by default), the
 statevector and density-matrix executors in
 :mod:`qbot_tpu_torch.tpu.planar` (differentiable in the state and in the
@@ -31,6 +33,7 @@ from qbot_tpu_torch.frontend.lowering import (
     lower_program,
     run_lowered,
     run_lowered_ensemble,
+    run_lowered_sharded,
 )
 from qbot_tpu_torch.tpu.compiler import compile_circuit
 
@@ -57,6 +60,6 @@ def main():
 
 __all__ = ["executeTxt", "executeFile", "executeTxtEnsemble",
            "executeTxtDeviceEnsemble", "lower_program", "run_lowered",
-           "run_lowered_ensemble",
+           "run_lowered_ensemble", "run_lowered_sharded",
            "compile_circuit", "planar_from_numpy",
            "planar_to_numpy", "main", "__version__"]

@@ -10,16 +10,30 @@ flow; exact fan-out, or B sampled SMC particles), as ``qbot_tpu/cli.py:
 123-191`` does without its mesh.  Without ``--compile`` the program runs
 on the port's copy of the dense host interpreter, as it does under
 ``qbot_tpu``, ``--ensemble`` on its copy of the exact host ensemble, and
-``--smc`` is ignored there, as under ``qbot_tpu``.
+``--smc``, ``--shard`` and ``--mesh 1xQ`` are ignored there, as under
+``qbot_tpu``.
+
+``--compile --shard K [--mesh 1x2^K]`` runs the program on a register
+sharded over 2^K ranks (``qbot_tpu/cli.py:202-229``): local ranks started
+with the spawn method, one a shard, in a ``torch.distributed`` group
+(:mod:`qbot_tpu_torch.tpu.sharding`), ``nccl`` and one CUDA device a rank
+under ``--device cuda``, ``gloo`` under ``--device cpu``.  Rank 0 prints
+the readout; stderr gets ``sharded: 2^K devices, R reshards, B
+interconnect bytes/run`` as under ``qbot_tpu``.  Too few CUDA devices, or a
+program that cannot be sharded so, is one ``sharding error: …`` line and
+exit 1; a malformed ``--mesh`` one ``mesh error: …`` line.
 
 The parser takes every flag of ``qbot_tpu/cli.py:22-75``, with the same
 names, choices and defaults, and ``--device``.  The flags whose slice has
-not landed (``--backend jax``, ``--shard``, ``--mesh``) print the ROADMAP
-item that brings them and exit 1.
+not landed (``--backend jax``, ``--mesh PxQ`` with P > 1, ``--shard`` or
+``--mesh`` with ``--compile --ensemble``) print the ROADMAP item that
+brings them and exit 1.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import os
 import sys
 
@@ -65,7 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "on the device engine (unitary fragment only)")
     parser.add_argument("--shard", type=int, default=0, metavar="K",
                         help="with --compile: shard the register over 2^K "
-                             "devices (not ported yet)")
+                             "ranks, one a device (nccl, one CUDA device a "
+                             "rank; gloo with --device cpu)")
     parser.add_argument("--ensemble", action="store_true",
                         help="enable probabilistic control flow: ProbVal "
                              "conditions on cjmp/halt/retr fork weighted "
@@ -74,8 +89,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="with --compile --ensemble: run B sampled SMC "
                              "particles")
     parser.add_argument("--mesh", type=str, default=None, metavar="PxQ",
-                        help="device mesh shape for --shard runs (not "
-                             "ported yet)")
+                        help="device mesh shape for --shard runs: 1x2^K "
+                             "(the particle axis, P > 1, is not ported "
+                             "yet)")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="device of the --compile engine (default cuda; "
                              "cpu runs the kernels' plain PyTorch versions)")
@@ -97,14 +113,92 @@ def _print_outcomes(lp, probs) -> None:
               f"({round(float(p) * 100, 13)}%)")
 
 
-def _not_ported(args) -> str | None:
+def _not_ported(args, mesh_shape) -> str | None:
     """The message for a flag whose slice has not landed, or None."""
     if args.backend == "jax":
         return ("--backend jax: the port has no jax engine and imports no "
                 "jax (ROADMAP, North star); use --backend numpy")
-    if args.shard or args.mesh:
-        return ("--shard and --mesh are not ported yet (ROADMAP queue 1, "
-                "item 10: multi-GPU)")
+    if args.compile_mode and args.ensemble and (args.shard or args.mesh):
+        return ("--shard and --mesh with --compile --ensemble: the particle "
+                "x qubit mesh is not ported yet (ROADMAP queue 1, item 10b)")
+    if mesh_shape is not None and mesh_shape[0] > 1:
+        return (f"--mesh {args.mesh}: a particle axis (P > 1) is not ported "
+                f"yet (ROADMAP queue 1, item 10b)")
+    return None
+
+
+def _sharded_rank(mesh, text: str, k: int, dtype, precision) -> tuple:
+    """One rank of ``--compile --shard K``: lower the program (its output
+    was printed once, by the launching process), run it sharded.  Returns
+    (what rank 0 printed: the epilogue's output or the readout, a script
+    error's message or None)."""
+    from qbot_tpu_torch.backend import set_dtype
+    from qbot_tpu_torch.errors import QbotScriptError
+    from qbot_tpu_torch.frontend.lowering import (
+        lower_program,
+        run_lowered_sharded,
+    )
+
+    set_dtype(dtype)
+    if precision:
+        from qbot_tpu_torch.tpu.kernels import set_dot_mode
+
+        set_dot_mode(precision)
+    with contextlib.redirect_stdout(io.StringIO()):
+        lp = lower_program(text)
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            probs, _, _ = run_lowered_sharded(lp, k=k, mesh=mesh)
+            if mesh.rank == 0 and probs is not None and not lp.has_epilogue:
+                _print_outcomes(lp, probs)
+    except QbotScriptError as e:
+        return out.getvalue(), str(e)
+    return out.getvalue(), None
+
+
+def _run_sharded(text: str, lp, args) -> int:
+    """``--compile --shard K``: the program on 2^K local ranks."""
+    from qbot_tpu_torch.frontend.lowering import _full_circuit
+    from qbot_tpu_torch.tpu.sharded import compile_sharded
+    from qbot_tpu_torch.tpu.sharding import launch
+
+    try:
+        splan = compile_sharded(_full_circuit(lp, 7), args.shard)
+    except ValueError as e:
+        print(f"sharding error: {e}", file=sys.stderr)
+        return 1
+    sys.stdout.flush()
+    sys.stderr.flush()
+    ranks = launch(_sharded_rank, 2**args.shard, text, args.shard,
+                   args.dtype, args.precision, device=args.device)
+    if 0 not in ranks:          # another rank of a torchrun group
+        return 0
+    printed, error = ranks[0]
+    print(printed, end="")
+    if error is not None:
+        print(error)
+        return 1
+    print(f"sharded: 2^{args.shard} devices, {splan.num_reshards} reshards, "
+          f"{splan.comm_bytes()} interconnect bytes/run", file=sys.stderr)
+    return 0
+
+
+def _shard_error(args, mesh_shape) -> str | None:
+    """Why ``--compile --shard K`` cannot start its ranks, or None."""
+    if args.shard < 0:
+        return f"--shard {args.shard}: K must be >= 0"
+    size = 2**args.shard
+    if mesh_shape is not None and mesh_shape[1] != size:
+        return (f"--mesh {args.mesh} has {mesh_shape[1]} qubit shards, "
+                f"--shard {args.shard} runs {size}")
+    if args.device == "cuda":
+        import torch
+
+        count = torch.cuda.device_count()
+        if count < size:
+            return (f"--shard {args.shard} runs {size} ranks under nccl, "
+                    f"one a CUDA device: {size} needed, {count} available")
     return None
 
 
@@ -142,10 +236,6 @@ def _run_device_ensemble(path: str, args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    missing = _not_ported(args)
-    if missing:
-        print(missing, file=sys.stderr)
-        return 1
     path = args.FILE if os.path.isabs(args.FILE) else os.path.join(
         os.getcwd(), args.FILE.lstrip("/"))
     if not os.path.exists(path):
@@ -155,15 +245,28 @@ def main(argv=None) -> int:
     from qbot_tpu_torch.backend import set_backend, set_dtype
     from qbot_tpu_torch.errors import QbotScriptError
     from qbot_tpu_torch.frontend.interpreter import executeFile
-    from qbot_tpu_torch.utils.config import EngineConfig, set_runtime_config
+    from qbot_tpu_torch.utils.config import (
+        EngineConfig,
+        parse_mesh_shape,
+        set_runtime_config,
+    )
     from qbot_tpu_torch.utils.profiling import (
         line_profile_report,
         profiling_enabled,
     )
 
+    try:
+        config = EngineConfig.from_args(args)
+    except ValueError as e:
+        print(f"mesh error: {e}", file=sys.stderr)
+        return 1
+    missing = _not_ported(args, config.mesh_shape)
+    if missing:
+        print(missing, file=sys.stderr)
+        return 1
     set_backend(args.backend)
     set_dtype(args.dtype)
-    set_runtime_config(EngineConfig.from_args(args))
+    set_runtime_config(config)
     if args.precision:
         from qbot_tpu_torch.tpu.kernels import set_dot_mode
 
@@ -192,18 +295,31 @@ def main(argv=None) -> int:
         from qbot_tpu_torch.frontend.lowering import lower_program, run_lowered
         from qbot_tpu_torch.tpu.compiler import compile_circuit
 
+        if args.shard:
+            try:    # "auto" too, as under qbot_tpu: it has no PxQ shape
+                mesh_shape = parse_mesh_shape(args.mesh) if args.mesh else None
+            except ValueError as e:
+                print(f"mesh error: {e}", file=sys.stderr)
+                return 1
+            why = _shard_error(args, mesh_shape)
+            if why:
+                print(f"sharding error: {why}", file=sys.stderr)
+                return 1
         if args.device == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available: pass --device cpu to "
                                "run the --compile engine on the CPU")
         if args.ensemble:
             return _run_device_ensemble(path, args)
         with open(path, "r") as f:
-            lp = lower_program(f.read())
+            text = f.read()
+        lp = lower_program(text)
         plan = compile_circuit(lp.circuit, window="auto")
         print(f"lowered: {lp.n} qubits, {lp.circuit.gate_count} gates, "
               f"{plan.num_passes} device passes "
               f"({plan.engine} engine, torch {args.device})",
               file=sys.stderr)
+        if args.shard:
+            return _run_sharded(text, lp, args)
         probs, _ = run_lowered(lp, window="auto", device=args.device,
                                plan=plan)
         # programs with a classical epilogue print their own output (it

@@ -22,8 +22,9 @@ mid-measurement path; a final merge mixes each branch's ensemble to a
 density matrix and reuses the host runner's namespace merge, so
 ``executeTxtEnsemble`` and this runner return THE SAME merged namespace.
 
-The reference's mesh engine (``_ShardedEngine``) belongs to the multi-GPU
-slice (ROADMAP queue 1, item 10): ``mesh=`` raises.
+The reference's mesh engine (``_ShardedEngine``) belongs to the particle ×
+qubit mesh of the multi-GPU slice (ROADMAP queue 1, item 10b): ``mesh=``
+raises.
 """
 from __future__ import annotations
 
@@ -530,7 +531,7 @@ def execute_lines_device_ensemble(lines: list[str],
     if mesh is not None:
         raise NotImplementedError(
             "the mesh-sharded device ensemble is not ported yet (ROADMAP "
-            "queue 1, item 10: multi-GPU)")
+            "queue 1, item 10b: the particle x qubit mesh)")
     engine = _Engine(max_particles, window, collapse_mode, sample, seed,
                      device)
     ns = {"state": None, "__updated_state": False, "__marks": {},

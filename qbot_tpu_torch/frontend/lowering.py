@@ -9,8 +9,11 @@ loops simply unroll) but *records* the unitary schedule into a
 host-side density matrix.  :func:`run_lowered` is the port of
 ``qbot_tpu.frontend.lowering.run_lowered`` on its planar route
 (``qbot_tpu/frontend/lowering.py:1702-1767``), :func:`run_lowered_ensemble`
-of its mid-measurement runner on the device ensemble (:614-847); the
-sharded runners belong to the multi-GPU slice (ROADMAP queue 1, item 10).
+of its mid-measurement runner on the device ensemble (:614-847), and
+:func:`run_lowered_sharded` of its qubit-sharded runner (:1646-1700) on the
+ranks of a ``torch.distributed`` mesh (:mod:`qbot_tpu_torch.tpu.sharded`);
+the particle × qubit mesh of the sharded ensemble is ROADMAP queue 1, item
+10b.
 
 Lowerable surface: an initial pure-product ``qset``, then ``gate``/``swap``
 with concrete (non-ProbVal) operands, classical ops (``cdef``, ``pydo``,
@@ -45,8 +48,8 @@ from qbot_tpu_torch.tpu.planar import (
 )
 
 __all__ = ["LoweredProgram", "LoweringError", "lower_program",
-           "run_lowered", "run_lowered_ensemble", "finish_lowered",
-           "MeasSpec"]
+           "run_lowered", "run_lowered_ensemble", "run_lowered_sharded",
+           "finish_lowered", "MeasSpec"]
 
 
 class LoweringError(err.QbotScriptError):
@@ -812,6 +815,78 @@ def run_lowered_ensemble(lp: LoweredProgram, max_particles: int = 256,
     return results, ens
 
 
+def _ket_to_unitary(ket: np.ndarray) -> np.ndarray:
+    """Complete a unit ket to a unitary whose first column is exactly it."""
+    d = ket.shape[0]
+    ket = ket / np.linalg.norm(ket)
+    A = np.eye(d, dtype=complex)
+    A[:, 0] = ket
+    # move the most-aligned basis column out of the way to keep A full rank
+    pivot = int(np.argmax(np.abs(ket)))
+    if pivot != 0:
+        A[:, pivot] = np.eye(d)[:, 0]
+    Q, R = np.linalg.qr(A)
+    return Q * (R[0, 0] / abs(R[0, 0]))   # fix the first-column phase
+
+
+def _factorize_ket(ket: np.ndarray, tol: float = 1e-9) -> list[np.ndarray]:
+    """Greedy Schmidt factorization of a pure ket into tensor factors.
+
+    Peels the smallest separable leading block repeatedly, so a product
+    state that arrived as one merged 2^n ket (e.g. via ``tensorProd`` of
+    densities) becomes a list of small kets — each preparable by a small
+    local unitary instead of one n-qubit gate (which could never be
+    localised on a sharded register).  Entangled blocks stay whole.
+    """
+    factors: list[np.ndarray] = []
+    rest = np.asarray(ket, complex)
+    n = int_log2(rest.shape[0])
+    while n > 1:
+        for a in range(1, n):
+            M = rest.reshape(2**a, 2 ** (n - a))
+            u, s, vh = np.linalg.svd(M, full_matrices=False)
+            if s[1:].max(initial=0.0) < tol:       # rank-1: separable here
+                factors.append(u[:, 0] * s[0])
+                rest = vh[0]
+                n -= a
+                break
+        else:
+            break
+    factors.append(rest)
+    return factors
+
+
+def _full_circuit(lp: LoweredProgram, window: int) -> "Circuit":
+    """Prepend product-state prep and append basis rotation to the circuit.
+
+    State prep: each tensor factor |ψᵢ⟩ becomes one unitary U with
+    U|0…0⟩ = |ψᵢ⟩ on its qubit block.  Basis rotation: B† per target block
+    so computation-basis probabilities read out the requested basis.
+    """
+    circ = Circuit(lp.n)
+    q = 0
+    for big in lp.initial_kets:
+        for ket in _factorize_ket(big):
+            k = int_log2(ket.shape[0])
+            if not np.allclose(ket, np.eye(ket.shape[0])[:, 0]):
+                circ.gate(_ket_to_unitary(np.asarray(ket, complex)),
+                          list(range(q, q + k)))
+            q += k
+    circ.ops.extend(lp.circuit.ops)
+    circ.num_params = lp.circuit.num_params
+    if lp.measure_basis is not None:
+        basis, targets = lp.measure_basis, lp.measure_targets
+        is_comp = basis.numQubits == 1 and all(
+            np.allclose(kt, e) for kt, e in zip(
+                basis.kets, np.eye(2, dtype=complex)))
+        if not is_comp:
+            rot = np.stack(basis.kets).conj()
+            bq = basis.numQubits
+            for i in range(0, len(targets), bq):
+                circ.gate(rot, list(targets[i:i + bq]))
+    return circ
+
+
 def finish_lowered(lp: LoweredProgram, probs,
                    provider=None) -> Optional[object]:
     """Bind the measurement result and run the classical epilogue.
@@ -910,3 +985,62 @@ def run_lowered(lp: LoweredProgram, window: Union[int, str] = 7,
     probs = probs_of(psi_rot, targets).cpu().numpy()
     finish_lowered(lp, probs, provider=provider)
     return probs, psi
+
+
+def run_lowered_sharded(lp: LoweredProgram, k: Optional[int] = None,
+                        mesh=None, window: int = 7, device="cuda"):
+    """Execute a lowered program on a qubit-sharded register, as this rank
+    of ``mesh`` (``qbot_tpu/frontend/lowering.py:1646-1700``).
+
+    SPMD: every rank of the :class:`~qbot_tpu_torch.tpu.sharding.QubitMesh`
+    calls it with the same program.  The full program (state prep, gates,
+    basis rotation) compiles through
+    :func:`~qbot_tpu_torch.tpu.sharded.compile_sharded` and runs on the
+    rank's shard with ``all_to_all_single`` qubit reshards; the outcome
+    probabilities assemble with one ``all_reduce``, on every rank.  Rank 0
+    binds the result and runs the classical epilogue (a program of at most
+    12 qubits gathers its state there first, for the result's dense
+    fields).  ``k`` defaults to the mesh's; without ``mesh`` the process
+    joins the group ``torchrun`` started, its ranks on ``device``.
+
+    Returns (outcome probabilities as numpy or None, this rank's shard,
+    the sharded plan).
+    """
+    from qbot_tpu_torch.tpu.sharded import (
+        compile_sharded,
+        gather_planar,
+        make_sharded_planar_runner,
+        sharded_probs_fn,
+        sharded_zero_state,
+        unpermute_planar,
+    )
+
+    if mesh is None:
+        from qbot_tpu_torch.tpu.sharding import join_mesh
+
+        mesh = join_mesh(device)
+    if k is None:
+        k = mesh.k
+    splan = compile_sharded(_full_circuit(lp, window), k, window=window)
+    run = make_sharded_planar_runner(splan, mesh)
+    psi = run(sharded_zero_state(lp.n, mesh))
+    if lp.measure_basis is None:
+        return None, psi, splan
+
+    dense = None
+    if lp.n <= _DENSE_REPLAY_LIMIT:
+        full = gather_planar(psi, mesh)
+        if full is not None:
+            dense = unpermute_planar(full, splan.final_perm).cpu().numpy()
+
+    def provider(n=lp.n):
+        if n > _DENSE_REPLAY_LIMIT:
+            _too_large_provider(n)()
+        ket = dense[0] + 1j * dense[1]
+        return np.outer(ket, np.conj(ket))
+
+    probs = sharded_probs_fn(splan, mesh,
+                             targets=lp.measure_targets)(psi).cpu().numpy()
+    if mesh.rank == 0:
+        finish_lowered(lp, probs, provider=provider)
+    return probs, psi, splan

@@ -18,8 +18,8 @@ seed, so sampled runs do not repeat the reference's.  Systematic
 resampling is split so that its indices are a function of its one uniform
 draw ``u0`` (:func:`systematic_indices`): both packages give the same
 indices for the same ``u0``.  The reference's mesh reduction
-(``normalize(..., axis_name)``) belongs to the multi-GPU slice (ROADMAP
-queue 1, item 10).
+(``normalize(..., axis_name)``) belongs to the particle × qubit mesh of the
+multi-GPU slice (ROADMAP queue 1, item 10b).
 """
 from __future__ import annotations
 

@@ -339,17 +339,21 @@ class _Reflection:
                                   device=device)
         self.no_flips = self.flips[:0]
 
-    def c_from_lane_dot(self, d, psi3=None):
+    def c64_from_lane_dot(self, d, psi3=None):
         """⟨v|Fψ⟩/⟨v|v⟩ from the float64 lane dot D of ψ and the fused
-        flips' values in ψ, in float64 on the device, as the (2,) float32
-        tensor the update kernel reads; of a (P, 2, H, T) batch, one c a
-        particle, (P, 2).  Without ``psi3``, ⟨v|ψ⟩/⟨v|v⟩, no flip
-        corrected."""
+        flips' values in ψ, formed in float64 on the device: a (2,)
+        float64 tensor; of a (P, 2, H, T) batch, one c a particle, (P, 2).
+        Without ``psi3``, ⟨v|ψ⟩/⟨v|v⟩, no flip corrected."""
         c = torch.einsum("ijt,...jt->...i", self.lane, d[..., 0, :])
         if psi3 is not None and self.flips.numel():
             vals = psi3.reshape(*psi3.shape[:-2], -1)[..., self.flips]
             c = c + torch.einsum("ijf,...jf->...i", self.flip, vals.double())
-        return c.float()
+        return c
+
+    def c_from_lane_dot(self, d, psi3=None):
+        """:meth:`c64_from_lane_dot` as the float32 tensor the update
+        kernel reads."""
+        return self.c64_from_lane_dot(d, psi3).float()
 
 
 def _reflect(psi, refl: _Reflection, ops: _Ops):

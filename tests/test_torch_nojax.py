@@ -15,10 +15,14 @@ the CLI) through ``--ensemble``, and the device ensemble
 through ``--compile --ensemble`` and ``--compile --ensemble --smc 4`` on
 ``examples/mid_measurement.qb``, then one HMC step and one NUTS step over
 the angles of a 4-qubit ansatz through the planar log-prob (gradients
-through the kernels' backward) and the complex simulator's.  Tolerance: 1e-5 on the marked
-probability and on ρ against ψψ† (float32); the two CLI modes print the
-same readout within 1e-6, the bf16_3x run within 1e-4, the exact device
-ensemble within 1e-6 of the dense interpreter.
+through the kernels' backward) and the complex simulator's, then
+``--compile --shard 1 --device cpu``: its two spawned ranks inherit a
+``sys.path`` whose first entry holds a ``jax`` and a ``qbot_tpu`` that
+raise on import, so the run shows that the ranks import neither.
+Tolerance: 1e-5 on the marked probability and on ρ against ψψ†
+(float32); the two CLI modes print the same readout within 1e-6, the
+bf16_3x run within 1e-4, the exact device ensemble within 1e-6 of the
+dense interpreter, the sharded run within 1e-6 of the unsharded one.
 """
 import re
 import subprocess
@@ -111,6 +115,24 @@ for make in (make_circuit_log_prob_planar, make_circuit_log_prob):
     state = hmc_step(gen, hmc_init(lp, theta0), lp, 0.05, 3)
     state, stats = nuts_step(gen, state, lp, 0.05, max_tree_depth=3)
     assert torch.isfinite(state.grad).all() and int(stats.num_leaves) >= 1
+import os, tempfile
+blocked = tempfile.mkdtemp()
+for name in ("jax", "qbot_tpu"):
+    os.mkdir(os.path.join(blocked, name))
+    with open(os.path.join(blocked, name, "__init__.py"), "w") as f:
+        f.write(f"raise ImportError('{name} is blocked')\\n")
+sys.path.insert(0, blocked)
+outs = []
+for extra in (["--compile"], ["--compile", "--shard", "1"]):
+    buf, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        assert cli_main(["examples/grover.qb", "--device", "cpu", *extra]) == 0
+    outs.append((line.findall(buf.getvalue()), err.getvalue()))
+(plain, _), (shard, shard_err) = outs
+assert len(plain) == len(shard) == 8, outs
+for (kp, pp, _), (ks, ps, _) in zip(plain, shard):
+    assert kp == ks and abs(float(pp) - float(ps)) <= 1e-6, outs
+assert "sharded: 2^1 devices" in shard_err, shard_err
 assert not any(m.split(".")[0] in ("jax", "qbot_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print("ok")
@@ -124,13 +146,14 @@ def test_port_runs_without_jax():
     assert proc.stdout.strip() == "ok"
 
 
-# the device ensemble's modules, HMC/NUTS's and the utilities, which the
-# scans below must reach
+# the device ensemble's modules, HMC/NUTS's, the utilities and the sharded
+# register's, which the scans below must reach
 ENSEMBLE_MODULES = ("inference/__init__.py", "inference/smc.py",
                     "inference/ensemble_exec.py", "utils/checkpoint.py",
                     "frontend/device_ensemble.py", "inference/hmc.py",
                     "inference/nuts.py", "tpu/simulator.py",
-                    "utils/guards.py", "utils/profiling.py")
+                    "utils/guards.py", "utils/profiling.py",
+                    "tpu/sharded.py", "tpu/sharding.py")
 # scripts beside the package that must import neither
 SCRIPTS = ("chip_smoke.py", "tools/fit_costs.py")
 
