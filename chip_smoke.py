@@ -218,6 +218,23 @@ nonzero:
    the exchanges ran over gloo and the host: their times say nothing of
    NVLink or NCCL.  Each kernel's entry of the JSON line gains
    ``sharded_launches`` (phase 14's, summed over the ranks of each run).
+15. the particle × qubit mesh (``tpu/sharded_ensemble.py``), its ranks
+   spawned from the script, all on the one card: ``bench.py``'s SMC
+   program at 24 qubits (``bench.py:402-445``: 4 collapse events, ``disc
+   [n-1]``) through ``run_lowered_sharded_ensemble`` on (a) 1 × 1 under
+   nccl, ``bench.py``'s mesh (:449), (b) 2 × 1 and (c) 2 × 2 under gloo,
+   each with 32 sampled particles, and (d) 2 × 2 under gloo in exact
+   fan-out mode; then one ``tpu/distributed.py:dryrun_step`` on the 2 × 2
+   ranks (one HMC step with the chains on the particle axis, Grover 8q on
+   the qubit axis, a mid-circuit program).  Checks: (d)'s marginals within
+   1e-5 of phase 10's single-device exact fan-out; each sampled run's
+   marginals sum to 1 within 1e-3 and lie within 4σ (binomial, 32
+   particles) of (d)'s; each of the six TPU kernels' counters (grouped by
+   the kernel they replace) launched in the phase, summed over the ranks.
+   Readings: samples/s, wall per collapse, ``num_reshards``,
+   ``comm_bytes``, ``num_collectives``, the memory peak per rank.  The
+   ranks share the card, so samples/s at P > 1 is time-sliced, not
+   scaling.  Each kernel's entry of the JSON line gains ``mesh_launches``.
 
 Launch counts are reset before phase 3 and read after phase 6: every f32
 kernel must have launched on that path; they are reset again before
@@ -229,7 +246,7 @@ kernels' counters (``window_apply_stream``, ``pair_apply_stream``, in each
 mode) must have moved, and before phase 10's ensemble runs (after its
 particle-axis checks), after which each of PHASE10_KERNELS must have
 moved, and before phases 11, 12 and 13, whose launches are added to the
-line's, as are phase 14's ranks'.
+line's, as are phase 14's and phase 15's ranks'.
 The timed run of Grover, of each brickwork
 plan and of the density bodies also reports its own launches.
 The line before the last is one JSON object of per-kernel results; the
@@ -1801,13 +1818,14 @@ def _results_within(label: str, got: dict, want: dict, names,
     return err
 
 
-def smc_path(device, card: str) -> tuple[dict, dict]:
+def smc_path(device, card: str) -> tuple[dict, dict, dict]:
     """``bench.py``'s SMC program at SMC_QUBITS through
     run_lowered_ensemble(sample=SMC_PARTICLES, seed=0), SMC_RUNS times, and
     once through the plain versions: each result sums to 1 within 1e-3;
     ``a``, drawn before any sampling, within 1e-5 of the plain versions'.
     Then the exact fan-out of the same program, every result within 1e-5 of
-    the plain versions'.  Returns ({run: launches}, numbers)."""
+    the plain versions'.  Returns ({run: launches}, numbers, the exact
+    fan-out's results)."""
     src = smc_program(SMC_QUBITS)
     walls, runs = [], {}
     for i in range(SMC_RUNS):
@@ -1846,7 +1864,7 @@ def smc_path(device, card: str) -> tuple[dict, dict]:
         f"lost_mass {lost:.6e}, every readout within {err:.1e} of the "
         f"plain versions; {wall:.4f} s, peak {peak / 2**30:.3f} GiB "
         f"allocated; launches {launches} ({card})")
-    return runs, numbers
+    return runs, numbers, exact
 
 
 def grover_smc(device) -> dict:
@@ -3196,6 +3214,170 @@ def sharded_path(device, card: str) -> tuple[dict, dict]:
     return runs, readings
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the particle × qubit mesh on torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+MESH_QUBITS = SMC_QUBITS   # bench.py:402-470: 24 qubits, 32 particles
+MESH_PARTICLES = SMC_PARTICLES
+MESH_EXACT_TOL = 1e-5      # (d) against the single-device exact fan-out
+MESH_SIGMAS = 4            # a sampled marginal's binomial bound
+# (label, mesh shape, backend, runs (label, sampled particles)); a launch
+# runs its runs in turn on the same ranks, then the dry run where asked
+MESH_LAUNCHES = (
+    ("1x1_nccl", (1, 1), "nccl", (("smc", MESH_PARTICLES),), False),
+    ("2x1_gloo", (2, 1), "gloo", (("smc", MESH_PARTICLES),), False),
+    ("2x2_gloo", (2, 2), "gloo", (("smc", MESH_PARTICLES), ("exact", 0)),
+     True))
+# the six TPU kernels (what a counter replaces) the phase must launch
+MESH_KERNELS = sorted({rep for name, (_, rep) in KERNEL_SOURCES.items()
+                       if "[" not in name})
+
+
+def _mesh_run(emesh, n: int, sample: int, warm: bool) -> dict:
+    """One timed run of bench.py's SMC program on this rank of ``emesh``
+    (after an untimed one when ``warm``): its results, wall between
+    barriers (the program lowered before it, as phase 10 times the
+    single-device run), stats, launches and memory peak."""
+    import warnings
+
+    from qbot_tpu_torch.frontend.lowering import run_lowered_sharded_ensemble
+
+    def run(lp, stats=None):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            res, ens, _, _ = run_lowered_sharded_ensemble(
+                lp, mesh=emesh, sample=sample, seed=0, stats=stats)
+        return {k: np.asarray(v.probs) for k, v in res.items()}, ens
+
+    if warm:
+        run(lower_program(smc_program(n), mid_measure=True))
+    lp = lower_program(smc_program(n), mid_measure=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats: dict = {}
+    ((probs, ens), wall), launches = _counted(
+        lambda: _timed_wall_out(lambda: run(lp, stats)))
+    return {"probs": probs, "wall_s": wall, "launches": launches,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "particles": ens.num_particles,
+            "lost_mass": float(ens.lost_mass),
+            "stats": {k: stats[k] for k in (
+                "collapse_events", "num_reshards", "comm_bytes",
+                "hbm_bytes", "num_collectives")},
+            "phase_walls": stats.get("phase_walls", {}),
+            "island_exchanges": stats.get("island_exchanges", 0)}
+
+
+def _timed_wall_out(fn):
+    """(``fn()``, host seconds of it on every rank between barriers)."""
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    return out, time.perf_counter() - t0
+
+
+def mesh_rank(emesh, n: int, runs, dry: bool) -> dict:
+    """Phase 15 on one rank: ``runs`` ((label, sampled particles), ...) of
+    the SMC program at ``n`` qubits, then the dry run when ``dry``."""
+    from qbot_tpu_torch.tpu.distributed import dryrun_step
+
+    out = {"rank": emesh.rank, "backend": emesh.backend, "runs": {}}
+    for i, (label, sample) in enumerate(runs):
+        out["runs"][label] = _mesh_run(emesh, n, sample, warm=i == 0)
+    if dry:
+        rec, launches = _counted(lambda: dryrun_step(emesh))
+        out["dryrun"] = {"launches": launches,
+                         **{k: v.tolist() for k, v in rec.items()}}
+    return out
+
+
+def _binomial_bound(p, B: int) -> np.ndarray:
+    """MESH_SIGMAS standard deviations of a mean of B Bernoulli(p) draws
+    (and the float32 readout's 1e-5 where p is 0 or 1)."""
+    p = np.asarray(p)
+    return MESH_SIGMAS * np.sqrt(p * (1.0 - p) / B) + 1e-5
+
+
+def mesh_path(device, card: str, exact_single: dict) -> tuple[dict, dict]:
+    """Phase 15: (launches summed over each run's ranks, readings).
+    ``exact_single``: phase 10's single-device exact fan-out results of
+    the same program."""
+    torch.cuda.empty_cache()
+    runs, readings, records = {}, {}, {}
+    for label, shape, backend, mesh_runs, dry in MESH_LAUNCHES:
+        t0 = time.perf_counter()
+        ranks = launch(mesh_rank, shape, MESH_QUBITS, mesh_runs, dry,
+                       device="cuda", backend=backend, timeout=900)
+        records[label] = [ranks[r] for r in sorted(ranks)]
+        say(f"mesh {label}: {len(ranks)} ranks in "
+            f"{time.perf_counter() - t0:.2f} s")
+    exact = records["2x2_gloo"][0]["runs"]["exact"]["probs"]
+    for name, want in exact_single.items():
+        err = float(np.max(np.abs(exact[name] - want)))
+        if not err <= MESH_EXACT_TOL:
+            raise AssertionError(f"mesh 2x2 exact: {name} off the "
+                                 f"single-device exact fan-out by {err:.3e}")
+    for label, shape, backend, mesh_runs, dry in MESH_LAUNCHES:
+        recs = records[label]
+        for run, sample in mesh_runs:
+            head = recs[0]["runs"][run]
+            key = f"mesh_{label}_{run}_{MESH_QUBITS}q"
+            if sample:
+                for name, p in head["probs"].items():
+                    total = float(np.sum(p))
+                    off = np.abs(p - exact[name]) - _binomial_bound(
+                        exact[name], sample)
+                    if abs(total - 1.0) > SMC_SUM_TOL or np.any(off > 0):
+                        raise AssertionError(
+                            f"{key}: {name} = {p.tolist()} (sum {total}) "
+                            f"against exact {exact[name].tolist()}, "
+                            f"{MESH_SIGMAS} sigma at {sample} particles")
+            runs[key] = _sum_launches(
+                [{"launches": r["runs"][run]["launches"]} for r in recs])
+            wall = max(r["runs"][run]["wall_s"] for r in recs)
+            readings[key] = {
+                "mesh": f"{shape[0]}x{shape[1]}", "backend": backend,
+                "sampled_particles": sample,
+                "particles": head["particles"],
+                "lost_mass": head["lost_mass"],
+                "wall_s": wall,
+                "samples_per_s": sample / wall if sample else None,
+                "wall_per_collapse_s": wall / head["stats"][
+                    "collapse_events"],
+                **head["stats"],
+                "phase_walls": head["phase_walls"],
+                "island_exchanges": head["island_exchanges"],
+                "peak_bytes_per_rank": [r["runs"][run]["peak_bytes"]
+                                        for r in recs],
+                "readout": {k: v.tolist() for k, v in head["probs"].items()},
+                "launches_per_rank": [r["runs"][run]["launches"]
+                                      for r in recs]}
+            say(f"{key}: {readings[key]}")
+        if dry:
+            dr = recs[0]["dryrun"]
+            key = f"mesh_{label}_dryrun"
+            runs[key] = _sum_launches([r["dryrun"] for r in recs])
+            if abs(sum(dr["grover"]) - 1.0) > 1e-4:
+                raise AssertionError(f"{key}: Grover sums to "
+                                     f"{sum(dr['grover'])}")
+            readings[key] = {"thetas_mean": float(np.mean(dr["thetas"])),
+                             "grover": dr["grover"], "a": dr["a"],
+                             "b": dr["b"], "launches": runs[key]}
+            say(f"{key}: {readings[key]}")
+    total = _sum_launches([{"launches": v} for v in runs.values()])
+    missing = [rep for rep in MESH_KERNELS
+               if not any(total.get(name, 0) for name, (_, r)
+                          in KERNEL_SOURCES.items()
+                          if r == rep and "[" not in name)]
+    if missing:
+        raise AssertionError(f"phase 15 never launched the kernels "
+                             f"replacing {missing}: {total}")
+    return runs, readings
+
+
 def _device_busy_ms(prof) -> float:
     """Milliseconds in which at least one device activity (kernel or copy)
     of the traced run was running: the union of their intervals."""
@@ -3420,7 +3602,7 @@ def main(argv=None) -> int:
                            particle)
     kernels.set_dot_mode("f32")
     kernels.reset_launch_counts()
-    ensemble_runs, ensemble_numbers = smc_path(device, card)
+    ensemble_runs, ensemble_numbers, exact_smc = smc_path(device, card)
     ensemble_runs["grover_smc_20q"] = grover_smc(device)
     ensemble_runs["examples_ensemble"] = ensemble_examples(device)
     ensemble_counts = kernels.launch_counts()
@@ -3491,6 +3673,21 @@ def main(argv=None) -> int:
         f"{DENSITY_N}-qubit density body, discard and marginals on "
         f"{SHARD_DENSITY_SIZE}; kernel launches "
         f"{ {k: v for k, v in shard_counts.items() if v} }")
+    mesh_runs, mesh_readings = mesh_path(device, card, exact_smc)
+    mesh_counts = _sum_launches([{"launches": v}
+                                 for v in mesh_runs.values()])
+    for name in KERNEL_SOURCES:
+        counts[name] += mesh_counts.get(name, 0)
+    runs.update(mesh_runs)
+    say("phase 15 readings: every rank shares this one card; samples/s at "
+        "P > 1 is the card time-sliced between processes, not a scaling "
+        f"figure; exchanges ran over gloo and the host ({card})")
+    say(f"mesh numbers: {json.dumps(mesh_readings)}")
+    say(f"phase 15: bench.py's SMC program at {MESH_QUBITS} qubits runs on "
+        f"the 1x1 nccl, 2x1 and 2x2 gloo meshes, sampled within "
+        f"{MESH_SIGMAS} sigma of the 2x2 exact fan-out, which is within "
+        f"{MESH_EXACT_TOL:g} of the single-device one; the dry run on 2x2; "
+        f"kernel launches {mesh_counts}")
     missing = [k for k in KERNEL_SOURCES if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -3530,7 +3727,9 @@ def main(argv=None) -> int:
          "particle_axis": particle[name],
          "backward_launches": backward.get(name, 0),
          "sharded_launches": {run: v[name] for run, v in shard_runs.items()
-                              if v.get(name)}}
+                              if v.get(name)},
+         "mesh_launches": {run: v[name] for run, v in mesh_runs.items()
+                           if v.get(name)}}
         for name, (src, rep) in KERNEL_SOURCES.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

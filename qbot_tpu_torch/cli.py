@@ -23,11 +23,26 @@ interconnect bytes/run`` as under ``qbot_tpu``.  Too few CUDA devices, or a
 program that cannot be sharded so, is one ``sharding error: …`` line and
 exit 1; a malformed ``--mesh`` one ``mesh error: …`` line.
 
+``--compile --ensemble`` with ``--shard K``, ``--mesh PxQ`` or ``--mesh
+auto`` runs the device ensemble on a P × Q mesh of ranks
+(``qbot_tpu/cli.py:124-191``; P × 2^K for ``--shard K`` alone): P rows of
+particles, each particle's state sharded over its row's Q ranks
+(:mod:`qbot_tpu_torch.tpu.sharded_ensemble`), started as ``--shard``
+starts its ranks.  ``--mesh auto`` prints ``mesh auto: PxQ (particles x
+qubit-shards)`` (:func:`~qbot_tpu_torch.utils.config.auto_mesh_shape`:
+particles only until the register outgrows half a device's memory).  It
+counts the ranks a mesh may have: on the card, the CUDA devices (one
+``nccl`` rank each); on the CPU (``--device cpu``), ``CPU_MESH_RANKS`` = 8
+``gloo`` ranks, the emulated devices the reference's CPU runs have
+(``tests/conftest.py``), since CPU ranks are processes, which no device
+count bounds.  A mesh of more ranks than that is one ``mesh error: …`` line
+and exit 1.  On the register path (``--compile --shard K`` without
+``--ensemble``) the particle axis of ``--mesh PxQ`` has nothing to split
+and is not run.
+
 The parser takes every flag of ``qbot_tpu/cli.py:22-75``, with the same
-names, choices and defaults, and ``--device``.  The flags whose slice has
-not landed (``--backend jax``, ``--mesh PxQ`` with P > 1, ``--shard`` or
-``--mesh`` with ``--compile --ensemble``) print the ROADMAP item that
-brings them and exit 1.
+names, choices and defaults, and ``--device``.  ``--backend jax`` prints
+why the port has no jax engine and exits 1.
 """
 from __future__ import annotations
 
@@ -36,6 +51,9 @@ import contextlib
 import io
 import os
 import sys
+
+# the ranks --mesh counts on the CPU (see the module docstring)
+CPU_MESH_RANKS = 8
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -89,9 +107,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="with --compile --ensemble: run B sampled SMC "
                              "particles")
     parser.add_argument("--mesh", type=str, default=None, metavar="PxQ",
-                        help="device mesh shape for --shard runs: 1x2^K "
-                             "(the particle axis, P > 1, is not ported "
-                             "yet)")
+                        help="device mesh shape particles x qubit-shards "
+                             "(e.g. 2x4, or auto) for --compile --ensemble "
+                             "runs, 1x2^K for --shard runs; default 1 x "
+                             "2^K")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="device of the --compile engine (default cuda; "
                              "cpu runs the kernels' plain PyTorch versions)")
@@ -113,17 +132,11 @@ def _print_outcomes(lp, probs) -> None:
               f"({round(float(p) * 100, 13)}%)")
 
 
-def _not_ported(args, mesh_shape) -> str | None:
-    """The message for a flag whose slice has not landed, or None."""
+def _not_ported(args) -> str | None:
+    """The message for a flag the port does not run, or None."""
     if args.backend == "jax":
         return ("--backend jax: the port has no jax engine and imports no "
                 "jax (ROADMAP, North star); use --backend numpy")
-    if args.compile_mode and args.ensemble and (args.shard or args.mesh):
-        return ("--shard and --mesh with --compile --ensemble: the particle "
-                "x qubit mesh is not ported yet (ROADMAP queue 1, item 10b)")
-    if mesh_shape is not None and mesh_shape[0] > 1:
-        return (f"--mesh {args.mesh}: a particle axis (P > 1) is not ported "
-                f"yet (ROADMAP queue 1, item 10b)")
     return None
 
 
@@ -202,27 +215,22 @@ def _shard_error(args, mesh_shape) -> str | None:
     return None
 
 
-def _run_device_ensemble(path: str, args) -> int:
-    """``--compile --ensemble``: quantum registers live on the device
-    particle axis; ProbVal control flow forks host-side particles that
-    share device tensors; mid-circuit meas/disc fan (or, with --smc,
-    sample) device particles."""
+def _device_ensemble(lines, smc: int, seed: int, device, mesh=None
+                     ) -> str:
+    """Run the device ensemble and print what ``--compile --ensemble``
+    prints; returns its stderr line."""
     from qbot_tpu_torch.frontend.device_ensemble import (
         execute_lines_device_ensemble,
     )
     from qbot_tpu_torch.frontend.interpreter import peek_opcode
     from qbot_tpu_torch.ops.measurement import MeasurementResult
 
-    with open(path, "r") as f:
-        lines = f.read().splitlines()
     res, particles = execute_lines_device_ensemble(
-        lines, sample=args.smc, seed=args.seed, device=args.device)
+        lines, sample=smc, seed=seed, device=device, mesh=mesh)
     n_dev = sum(p.qreg.num_particles for p in particles
                 if p.qreg is not None)
     extra = (f", pruned mass <= {res.lost_mass:.3e}"
              if res.lost_mass > 0 else "")
-    print(f"device ensemble: {len(particles)} branches, "
-          f"{n_dev} device particles{extra}", file=sys.stderr)
     # programs that print their own output did so during execution;
     # otherwise show every bound measurement result
     if not any(peek_opcode(line) == "cout" for line in lines):
@@ -231,6 +239,114 @@ def _run_device_ensemble(path: str, args) -> int:
                     val, MeasurementResult):
                 print(f"{name}:")
                 print(val, end="")
+    return (f"device ensemble: {len(particles)} branches, "
+            f"{n_dev} device particles{extra}")
+
+
+def _ensemble_rank(mesh, lines, smc: int, seed: int, dtype, precision
+                   ) -> tuple:
+    """One rank of ``--compile --ensemble`` on a mesh.  Returns (what it
+    printed, its stderr line or None, a script error's message or
+    None)."""
+    from qbot_tpu_torch.backend import set_dtype
+    from qbot_tpu_torch.errors import QbotScriptError
+
+    set_dtype(dtype)
+    if precision:
+        from qbot_tpu_torch.tpu.kernels import set_dot_mode
+
+        set_dot_mode(precision)
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            line = _device_ensemble(lines, smc, seed, mesh.device, mesh)
+    except QbotScriptError as e:
+        return out.getvalue(), None, str(e)
+    return out.getvalue(), line, None
+
+
+def _mesh_ranks(device: str) -> int:
+    """The ranks a mesh may have: one a CUDA device, or CPU_MESH_RANKS."""
+    if device == "cuda":
+        import torch
+
+        return torch.cuda.device_count()
+    return CPU_MESH_RANKS
+
+
+def _ensemble_mesh_shape(path: str, args):
+    """The mesh of ``--compile --ensemble`` (None: one device), or a
+    ``mesh error`` message."""
+    from qbot_tpu_torch.utils.config import auto_mesh_shape, parse_mesh_shape
+
+    if not (args.shard or args.mesh):
+        return None, None
+    ranks = _mesh_ranks(args.device)
+    try:
+        if args.mesh == "auto":
+            # particles only until the register's memory forces qubit
+            # shards; the width is read off the program's initial qset
+            from qbot_tpu_torch.errors import QbotScriptError
+            from qbot_tpu_torch.frontend.lowering import lower_program
+
+            n_q = None          # a program that does not lower: unknown
+            try:
+                with open(path, "r") as f, \
+                        contextlib.redirect_stdout(io.StringIO()):
+                    n_q = lower_program(f.read(), mid_measure=True).n
+            except QbotScriptError:
+                pass
+            budget = {}
+            if args.device == "cuda" and ranks:
+                import torch
+
+                budget = {"hbm_budget_bytes": torch.cuda.
+                          get_device_properties(0).total_memory / 2}
+            shape = auto_mesh_shape(ranks, n_q, **budget)
+            print(f"mesh auto: {shape[0]}x{shape[1]} (particles x "
+                  f"qubit-shards)", file=sys.stderr)
+        else:
+            shape = (parse_mesh_shape(args.mesh) if args.mesh
+                     else (1, 2**args.shard))
+        if shape[0] * shape[1] > ranks:
+            raise ValueError(f"mesh {shape[0]}x{shape[1]} needs "
+                             f"{shape[0] * shape[1]} devices, only {ranks} "
+                             f"available")
+    except ValueError as e:
+        return None, f"mesh error: {e}"
+    return shape, None
+
+
+def _run_device_ensemble(path: str, args) -> int:
+    """``--compile --ensemble``: quantum registers live on the device
+    particle axis; ProbVal control flow forks host-side particles that
+    share device tensors; mid-circuit meas/disc fan (or, with --smc,
+    sample) device particles.  On a mesh, every rank runs the program and
+    rank 0 prints."""
+    shape, error = _ensemble_mesh_shape(path, args)
+    if error:
+        print(error, file=sys.stderr)
+        return 1
+    with open(path, "r") as f:
+        lines = f.read().splitlines()
+    if shape is None:
+        line = _device_ensemble(lines, args.smc, args.seed, args.device)
+        print(line, file=sys.stderr)
+        return 0
+    from qbot_tpu_torch.tpu.sharding import launch
+
+    sys.stdout.flush()
+    sys.stderr.flush()
+    ranks = launch(_ensemble_rank, shape, lines, args.smc, args.seed,
+                   args.dtype, args.precision, device=args.device)
+    if 0 not in ranks:          # another rank of a torchrun group
+        return 0
+    printed, line, error = ranks[0]
+    print(printed, end="")
+    if error is not None:
+        print(error)
+        return 1
+    print(line, file=sys.stderr)
     return 0
 
 
@@ -260,7 +376,7 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"mesh error: {e}", file=sys.stderr)
         return 1
-    missing = _not_ported(args, config.mesh_shape)
+    missing = _not_ported(args)
     if missing:
         print(missing, file=sys.stderr)
         return 1
@@ -295,7 +411,7 @@ def main(argv=None) -> int:
         from qbot_tpu_torch.frontend.lowering import lower_program, run_lowered
         from qbot_tpu_torch.tpu.compiler import compile_circuit
 
-        if args.shard:
+        if args.shard and not args.ensemble:
             try:    # "auto" too, as under qbot_tpu: it has no PxQ shape
                 mesh_shape = parse_mesh_shape(args.mesh) if args.mesh else None
             except ValueError as e:

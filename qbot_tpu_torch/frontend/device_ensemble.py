@@ -22,9 +22,12 @@ mid-measurement path; a final merge mixes each branch's ensemble to a
 density matrix and reuses the host runner's namespace merge, so
 ``executeTxtEnsemble`` and this runner return THE SAME merged namespace.
 
-The reference's mesh engine (``_ShardedEngine``) belongs to the particle ×
-qubit mesh of the multi-GPU slice (ROADMAP queue 1, item 10b): ``mesh=``
-raises.
+With ``mesh=`` (an :class:`~qbot_tpu_torch.tpu.sharding.EnsembleMesh`)
+every quantum operation runs on the particle × qubit mesh
+(:class:`_ShardedEngine`, ``qbot_tpu/frontend/device_ensemble.py:
+196-455``): SPMD, every rank runs the program, its host particles and
+branch forks in lockstep, each register's particles split over the mesh's
+rows and its states over each row's qubit shards.
 """
 from __future__ import annotations
 
@@ -173,8 +176,233 @@ class _Engine:
     def mixture(self, qreg) -> np.ndarray:
         return self.ee.ensemble_mixture(qreg)
 
+    def mixture_provider(self, qreg):
+        """The lazy dense-field provider of a measurement result: the
+        pre-measurement mixture, gathered on first access."""
+        return lambda: self.mixture(qreg)
+
     def lost_mass(self, qreg) -> float:
         return float(qreg.lost_mass)
+
+
+class _ShardedEngine(_Engine):
+    """Mesh twin: a register's particles split over the mesh's rows and
+    each state over its row's qubit shards
+    (:mod:`qbot_tpu_torch.tpu.sharded_ensemble`).
+
+    Every operation keeps the canonical identity qubit layout (appending
+    :func:`~qbot_tpu_torch.tpu.sharded.plan_perm_to_identity` items after
+    any plan that resharded), so ensembles of different program branches
+    stay concatenable and outcome bits read in logical order.  Sampling
+    draws from the row's generator (``row_generator(seed, mesh)``).
+    """
+
+    def __init__(self, max_particles, window, collapse_mode, sample, seed,
+                 mesh):
+        super().__init__(max_particles, window, collapse_mode, sample, seed,
+                         mesh.device)
+        from qbot_tpu_torch.tpu import sharded, sharded_ensemble as se
+
+        self.se, self.sharded = se, sharded
+        self.emesh = mesh
+        self.k = mesh.k
+        self.gen = se.row_generator(seed, mesh)
+
+    def q_ok(self, n: int) -> bool:
+        """Can an n-qubit register shard over the qubit axis?  Needs
+        n − k >= k (``compile_sharded``'s guard); narrower registers are
+        replicated over each row and parallelise on particles only."""
+        return self.k > 0 and n - self.k >= self.k
+
+    def _keff(self, n: int) -> int:
+        return self.k if self.q_ok(n) else 0
+
+    # -- state construction -------------------------------------------------
+    def _place(self, psi, log_w, n: int, lost=0.0):
+        ens = self.se.init_sharded_ensemble(psi, self.emesh, log_w=log_w,
+                                            q_sharded=self.q_ok(n))
+        return ens._replace(lost_mass=lost)
+
+    def init_pure(self, vec: np.ndarray):
+        from qbot_tpu_torch.tpu.planar import to_planar
+
+        return self._place(to_planar(vec), None,
+                           int_log2(np.asarray(vec).shape[0]))
+
+    def init_mixed(self, rho: np.ndarray):
+        from qbot_tpu_torch.tpu.planar import to_planar
+
+        vals, vecs = np.linalg.eigh(np.asarray(rho, complex))
+        keep = vals > 1e-12
+        vals, vecs = vals[keep], vecs[:, keep]
+        psi = np.stack([to_planar(vecs[:, i]) for i in range(vals.shape[0])])
+        return self._place(psi, np.log(vals / vals.sum()),
+                           int_log2(np.asarray(rho).shape[0]))
+
+    def replicate(self, qreg):
+        from qbot_tpu_torch.tpu.planar import to_planar
+
+        w, kets = self.se.gather_ensemble(qreg, self.emesh)
+        reps = max(1, self.sample // kets.shape[0])
+        psi = np.repeat(np.stack([to_planar(kk) for kk in kets]), reps,
+                        axis=0)
+        lw = np.repeat(np.log(np.clip(w, 1e-300, None)), reps) - np.log(reps)
+        return self._place(psi, lw, int_log2(kets.shape[-1]))
+
+    # -- unitaries ----------------------------------------------------------
+    def _run_items(self, qreg, n: int, items, perm):
+        if not items:
+            return qreg
+        plan = self.sharded.ShardedPlan(n=n, k=self._keff(n),
+                                        items=list(items), final_perm=perm)
+        return self.se.apply_sharded_plan_ensemble(qreg, plan, self.emesh)
+
+    def apply_circuit(self, qreg, circ):
+        """Compile on the identity layout, run, restore the identity."""
+        keff = self._keff(circ.n)
+        splan = self.sharded.compile_sharded(circ, keff, window=self.window)
+        fix, perm = self.sharded.plan_perm_to_identity(splan.final_perm,
+                                                       circ.n, keff)
+        return self._run_items(qreg, circ.n, list(splan.items) + fix, perm)
+
+    def rotate(self, qreg, n, basis, targets, inverse=False):
+        from qbot_tpu_torch.frontend.lowering import (
+            _is_computational,
+            _rotation_circuit,
+        )
+
+        if _is_computational(basis):
+            return qreg
+        return self.apply_circuit(qreg, _rotation_circuit(
+            basis, sorted(targets), n, inverse))
+
+    # -- collapse events ----------------------------------------------------
+    def _layout(self, n, targets):
+        """(shard positions, local axes) of sorted targets on the identity
+        layout; the outcome bits are then in logical order."""
+        keff = self._keff(n)
+        targets = sorted(targets)
+        return ([q for q in targets if q < keff],
+                [q - keff for q in targets if q >= keff])
+
+    def _localized(self, qreg, n, targets):
+        """The register with ``targets`` made local: (qreg, perm, their
+        local axes in ``targets``' order)."""
+        keff = self._keff(n)
+        items, perm = self.sharded.plan_reshards_to_localize(
+            list(range(n)), n, keff, sorted(targets))
+        qreg = self._run_items(qreg, n, items, perm)
+        pos = [0] * n
+        for p, q in enumerate(perm):
+            pos[q] = p
+        return qreg, perm, [pos[q] - keff for q in targets]
+
+    def _restore(self, qreg, n, perm):
+        items, out = self.sharded.plan_perm_to_identity(perm, n,
+                                                        self._keff(n))
+        return self._run_items(qreg, n, items, out)
+
+    def measure(self, qreg, n, targets):
+        targets = sorted(targets)
+        q_s = self.q_ok(n)
+        shard_pos, local = self._layout(n, targets)
+        if self.sample:
+            qreg, dist = self.se.measure_sample_sharded(
+                self.gen, qreg, n, local, self.emesh,
+                shard_positions=shard_pos, q_sharded=q_s)
+            return qreg, dist
+        mode = self.collapse_mode
+        if mode == "reference" and shard_pos:
+            if len(targets) == n:
+                mode = "projective"      # identical semantics on all qubits
+            else:
+                from qbot_tpu_torch.frontend.lowering import (
+                    _reorder_outcome_bits,
+                )
+
+                keff = self._keff(n)
+                qreg, perm, _ = self._localized(qreg, n, targets)
+                pos = [0] * n
+                for p, q in enumerate(perm):
+                    pos[q] = p
+                local = sorted(pos[q] - keff for q in targets)
+                phys_logicals = [perm[a + keff] for a in local]
+                qreg, dist = self.se.measure_fanout_sharded(
+                    qreg, n, local, self.emesh, self.max_particles,
+                    mode=mode, q_sharded=q_s)
+                qreg = self._restore(qreg, n, perm)
+                return qreg, torch.from_numpy(_reorder_outcome_bits(
+                    dist.cpu().numpy(), phys_logicals, targets))
+        return self.se.measure_fanout_sharded(
+            qreg, n, local, self.emesh, self.max_particles, mode=mode,
+            shard_positions=shard_pos, q_sharded=q_s)
+
+    def discard(self, qreg, n, targets):
+        targets = sorted(targets)
+        q_s = self.q_ok(n)
+        qreg, perm, local = self._localized(qreg, n, targets)
+        local = sorted(local)
+        if self.sample:
+            qreg = self.se.discard_sample_sharded(
+                self.gen, qreg, n, local, self.emesh, q_sharded=q_s)
+        else:
+            qreg = self.se.discard_fanout_sharded(
+                qreg, n, local, self.emesh, self.max_particles,
+                q_sharded=q_s)
+        removed = {perm.index(q) for q in targets}
+        new_perm = [q - sum(1 for r in targets if r < q)
+                    for p, q in enumerate(perm) if p not in removed]
+        new_n = n - len(targets)
+        if q_s and not self.q_ok(new_n):
+            # the shrunk register no longer shards over the qubit axis:
+            # gather it (at most 2^(2k-1) amplitudes a particle now), in
+            # logical order, and place it replicated
+            from qbot_tpu_torch.tpu.planar import to_planar
+
+            w, kets = self.se.gather_ensemble(qreg, self.emesh, new_perm)
+            return self._place(np.stack([to_planar(kk) for kk in kets]),
+                               np.log(np.clip(w, 1e-300, None)), new_n,
+                               qreg.lost_mass)
+        return self._restore(qreg, new_n, new_perm)
+
+    def peek(self, qreg, n, targets):
+        shard_pos, local = self._layout(n, targets)
+        return self.se.peek_probs_sharded(
+            qreg, n, local, self.emesh, shard_positions=shard_pos,
+            q_sharded=self.q_ok(n))
+
+    def replace(self, qreg, n, targets, new_states):
+        """Targeted qset on the mesh: localise, replace shard-locally (the
+        layout stays), restore the identity layout."""
+        q_s = self.q_ok(n)
+        qreg, perm, local = self._localized(qreg, n, targets)
+        if self.sample:
+            qreg = self.se.replace_sample_sharded(
+                self.gen, qreg, n, local, new_states, self.emesh,
+                q_sharded=q_s)
+        else:
+            qreg = self.se.replace_fanout_sharded(
+                qreg, n, local, new_states, self.emesh,
+                self.max_particles, q_sharded=q_s)
+        return self._restore(qreg, n, perm)
+
+    # -- branch bookkeeping -------------------------------------------------
+    def concat(self, weighted):
+        cat = self.se.concat_sharded(weighted, self.emesh)
+        if self.sample:
+            B = min(q.num_particles for _, q in weighted)
+            return self.se.resample_down_sharded(self.gen, cat, B,
+                                                 self.emesh)
+        return self.se.prune_sharded(cat, self.max_particles, self.emesh)
+
+    def mixture(self, qreg) -> np.ndarray:
+        return self.se.sharded_ensemble_mixture(qreg, self.emesh)
+
+    def mixture_provider(self, qreg):
+        """Gathered now, on every rank: a collective cannot wait for one
+        rank's lazy read."""
+        rho = self.mixture(qreg)
+        return lambda: rho
 
 
 def _to_density_host(lines, line_num, val):
@@ -395,7 +623,7 @@ def _exec_quantum(engine: _Engine, particle: _DeviceParticle, lines,
     )
 
     if n <= _DENSE_REPLAY_LIMIT:
-        provider = (lambda q=particle.qreg, e=engine: e.mixture(q))
+        provider = engine.mixture_provider(particle.qreg)
     else:
         provider = _too_large_provider(n)
     qreg = engine.rotate(particle.qreg, n, basis, targets)
@@ -525,15 +753,18 @@ def execute_lines_device_ensemble(lines: list[str],
     The device registers live on ``device`` (default the CUDA card; the
     tests pass ``"cpu"``, which runs the kernels' plain versions), and
     sampling mode (``sample > 0``) draws from a :class:`torch.Generator`
-    there seeded by ``seed``.  ``mesh`` (the reference's particles × qubits
-    mesh engine) is not ported and raises.
+    there seeded by ``seed``.  ``mesh``, this rank's
+    :class:`~qbot_tpu_torch.tpu.sharding.EnsembleMesh`, runs every quantum
+    operation on the particle × qubit mesh (its ranks' device in place of
+    ``device``); every rank of it calls this function with the same
+    program, and every rank returns the same merged namespace.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "the mesh-sharded device ensemble is not ported yet (ROADMAP "
-            "queue 1, item 10b: the particle x qubit mesh)")
-    engine = _Engine(max_particles, window, collapse_mode, sample, seed,
-                     device)
+        engine = _ShardedEngine(max_particles, window, collapse_mode, sample,
+                                seed, mesh)
+    else:
+        engine = _Engine(max_particles, window, collapse_mode, sample, seed,
+                         device)
     ns = {"state": None, "__updated_state": False, "__marks": {},
           "__prev_jump": -1}
     record_marks(ns, lines)

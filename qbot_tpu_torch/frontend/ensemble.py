@@ -6,8 +6,9 @@ namespaces — but shipped it disabled (commented machinery at reference
 interpreter.py:8-66,148-215, operators.py:196-232; ``qjmp`` raises
 NotImplementedError).  SURVEY.md §1/§7 re-founds that abandoned capability
 as a particle ensemble; this module is the host-side exact version (the
-device-side scalable twin is the JAX package's ``inference.smc``,
-not ported yet).  Copy of ``qbot_tpu/frontend/ensemble.py``, numpy only.
+device-side scalable twin is :mod:`qbot_tpu_torch.frontend.device_ensemble`
+on :mod:`qbot_tpu_torch.inference`).  Copy of
+``qbot_tpu/frontend/ensemble.py``, numpy only.
 
 Semantics: a program runs as a set of weighted particles (probability,
 namespace, program counter).  A ``cjmp`` whose condition evaluates to

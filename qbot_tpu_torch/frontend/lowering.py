@@ -9,11 +9,12 @@ loops simply unroll) but *records* the unitary schedule into a
 host-side density matrix.  :func:`run_lowered` is the port of
 ``qbot_tpu.frontend.lowering.run_lowered`` on its planar route
 (``qbot_tpu/frontend/lowering.py:1702-1767``), :func:`run_lowered_ensemble`
-of its mid-measurement runner on the device ensemble (:614-847), and
+of its mid-measurement runner on the device ensemble (:614-847),
 :func:`run_lowered_sharded` of its qubit-sharded runner (:1646-1700) on the
-ranks of a ``torch.distributed`` mesh (:mod:`qbot_tpu_torch.tpu.sharded`);
-the particle × qubit mesh of the sharded ensemble is ROADMAP queue 1, item
-10b.
+ranks of a ``torch.distributed`` mesh (:mod:`qbot_tpu_torch.tpu.sharded`),
+and :func:`run_lowered_sharded_ensemble` of its mid-measurement runner on a
+particle × qubit mesh (:979-1643,
+:mod:`qbot_tpu_torch.tpu.sharded_ensemble`).
 
 Lowerable surface: an initial pure-product ``qset``, then ``gate``/``swap``
 with concrete (non-ProbVal) operands, classical ops (``cdef``, ``pydo``,
@@ -24,6 +25,7 @@ and raise a lowering error naming the line.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Optional, Union
 
@@ -49,7 +51,7 @@ from qbot_tpu_torch.tpu.planar import (
 
 __all__ = ["LoweredProgram", "LoweringError", "lower_program",
            "run_lowered", "run_lowered_ensemble", "run_lowered_sharded",
-           "finish_lowered", "MeasSpec"]
+           "run_lowered_sharded_ensemble", "finish_lowered", "MeasSpec"]
 
 
 class LoweringError(err.QbotScriptError):
@@ -587,23 +589,31 @@ def _run_epilogue(lp: LoweredProgram) -> None:
     run_lines(lp.namespace, lp.lines, start_line=lp.resume_line)
 
 
+def _rotation_circuit(basis: Basis, targets, n: int,
+                      inverse: bool = False) -> Circuit:
+    """B† per block of ``targets`` (or its inverse) as a circuit.  Blocks
+    are consecutive targets; the gate IR takes arbitrary target lists, so
+    non-contiguous blocks (e.g. a bell measurement of qubits 0 and 5)
+    lower to a cross-window contraction."""
+    rot = np.stack(basis.kets).conj()
+    if inverse:
+        rot = rot.conj().T
+    bq = basis.numQubits
+    circ = Circuit(n)
+    for i in range(0, len(targets), bq):
+        circ.gate(rot, list(targets[i:i + bq]))
+    return circ
+
+
 def _basis_rotation_plans(basis: Basis, targets, n: int, window: int):
     """(rotate-into-basis plan, inverse plan) or (None, None) for the
-    computation basis; rotation is B† per contiguous target block."""
+    computation basis; rotation is B† per target block."""
     if _is_computational(basis):
         return None, None
-    rot = np.stack(basis.kets).conj()
-    bq = basis.numQubits
-    fwd, inv = Circuit(n), Circuit(n)
-    for i in range(0, len(targets), bq):
-        # blocks are consecutive sorted targets; the gate IR takes arbitrary
-        # target lists, so non-contiguous blocks (e.g. a bell measurement of
-        # qubits 0 and 5) lower to a cross-window contraction
-        block = list(targets[i:i + bq])
-        fwd.gate(rot, block)
-        inv.gate(rot.conj().T, block)
-    return (compile_circuit(fwd, window=window),
-            compile_circuit(inv, window=window))
+    return (compile_circuit(_rotation_circuit(basis, targets, n),
+                            window=window),
+            compile_circuit(_rotation_circuit(basis, targets, n, True),
+                            window=window))
 
 
 def _save_ensemble_checkpoint(mgr, event: int, ens, cur_n: int, prev: int,
@@ -874,16 +884,10 @@ def _full_circuit(lp: LoweredProgram, window: int) -> "Circuit":
             q += k
     circ.ops.extend(lp.circuit.ops)
     circ.num_params = lp.circuit.num_params
-    if lp.measure_basis is not None:
-        basis, targets = lp.measure_basis, lp.measure_targets
-        is_comp = basis.numQubits == 1 and all(
-            np.allclose(kt, e) for kt, e in zip(
-                basis.kets, np.eye(2, dtype=complex)))
-        if not is_comp:
-            rot = np.stack(basis.kets).conj()
-            bq = basis.numQubits
-            for i in range(0, len(targets), bq):
-                circ.gate(rot, list(targets[i:i + bq]))
+    basis = lp.measure_basis
+    if basis is not None and not _is_computational(basis):
+        circ.ops.extend(_rotation_circuit(basis, lp.measure_targets,
+                                          lp.n).ops)
     return circ
 
 
@@ -976,12 +980,8 @@ def run_lowered(lp: LoweredProgram, window: Union[int, str] = 7,
 
     # general product basis: rotate the measured qubits into the basis
     # frame (B† per block), then read computational probabilities
-    rot = np.stack(basis.kets).conj()
-    bq = basis.numQubits
-    post = Circuit(lp.n)
-    for i in range(0, len(targets), bq):
-        post.gate(rot, list(targets[i:i + bq]))
-    psi_rot = apply(psi, compile_circuit(post, window=window))
+    psi_rot = apply(psi, compile_circuit(
+        _rotation_circuit(basis, targets, lp.n), window=window))
     probs = probs_of(psi_rot, targets).cpu().numpy()
     finish_lowered(lp, probs, provider=provider)
     return probs, psi
@@ -1044,3 +1044,534 @@ def run_lowered_sharded(lp: LoweredProgram, k: Optional[int] = None,
     if mesh.rank == 0:
         finish_lowered(lp, probs, provider=provider)
     return probs, psi, splan
+
+
+def _reorder_outcome_bits(dist: np.ndarray, phys_logicals, logical_sorted):
+    """Permute an outcome distribution from physical-target bit order to
+    sorted-logical bit order (the interpreter's readout convention).
+
+    ``phys_logicals``: the logical qubit held at each physical target
+    position, in the physical (ascending) order the sharded outcome split
+    used; ``logical_sorted``: the same qubits sorted logically.
+    """
+    if list(phys_logicals) == list(logical_sorted):
+        return dist
+    t = len(phys_logicals)
+    pos_in_logical = {q: j for j, q in enumerate(logical_sorted)}
+    out = np.empty_like(dist)
+    for idx in range(dist.shape[0]):
+        # physical bit i (MSB-first) holds the outcome of phys_logicals[i],
+        # which sits at logical bit pos_in_logical[phys_logicals[i]]
+        pidx = 0
+        for i, q in enumerate(phys_logicals):
+            bit = (idx >> (t - 1 - pos_in_logical[q])) & 1
+            pidx |= bit << (t - 1 - i)
+        out[idx] = dist[pidx]
+    return out
+
+
+def _positions(perm) -> list:
+    """pos[logical qubit] = its physical position under ``perm``."""
+    pos = [0] * len(perm)
+    for p, q in enumerate(perm):
+        pos[q] = p
+    return pos
+
+
+class _MeshCheckpoints:
+    """Snapshots of the mesh runner: every rank writes its block (and its
+    generators' states) to ``shard_<rank>.npz`` of the step's directory,
+    then, after a barrier, rank 0 writes the step's metadata through the
+    port's npz :class:`~qbot_tpu_torch.utils.checkpoint.CheckpointManager`:
+    a step counts once its metadata exists."""
+
+    def __init__(self, root: str, emesh):
+        from qbot_tpu_torch.utils.checkpoint import CheckpointManager
+
+        self.mgr, self.emesh = CheckpointManager(root), emesh
+
+    def _shard(self, step: int) -> str:
+        return os.path.join(self.mgr._step_dir(step),
+                            f"shard_{self.emesh.rank:05d}.npz")
+
+    def latest(self) -> Optional[int]:
+        done = [s for s in self.mgr.all_steps() if os.path.exists(
+            os.path.join(self.mgr._step_dir(s), "meta.json"))]
+        return done[-1] if done else None
+
+    def save(self, step: int, ens, gens, meta: dict) -> None:
+        import torch.distributed as dist
+
+        os.makedirs(self.mgr._step_dir(step), exist_ok=True)
+        arrays = {"log_w": ens.log_w.cpu().numpy(),
+                  "psi": ens.psi.cpu().numpy()}
+        for name, gen in gens.items():
+            arrays[name] = gen.get_state().numpy()
+        np.savez(self._shard(step), **arrays)
+        dist.barrier()
+        if self.emesh.rank == 0:
+            self.mgr.save(step, {}, {**meta, "P": self.emesh.P,
+                                     "K": self.emesh.K})
+        dist.barrier()
+
+    def restore(self, step: int, gens):
+        """(this rank's log_w, psi on its device, metadata)."""
+        meta = self.mgr.restore(step)[1]
+        if (meta["P"], meta["K"]) != (self.emesh.P, self.emesh.K):
+            raise ValueError(f"the snapshot is of a {meta['P']}x{meta['K']} "
+                             f"mesh, this run's is {self.emesh.P}x"
+                             f"{self.emesh.K}")
+        with np.load(self._shard(step)) as z:
+            for name, gen in gens.items():
+                gen.set_state(torch.from_numpy(z[name]))
+            dev = self.emesh.device
+            return (torch.from_numpy(z["log_w"]).to(dev),
+                    torch.from_numpy(z["psi"]).to(dev), meta)
+
+
+def _solo_mesh(device):
+    """A 1 x 1 ensemble mesh in this process: a one-rank group on a free
+    localhost port (``nccl`` on a card, ``gloo`` on the CPU)."""
+    import torch.distributed as dist
+
+    from qbot_tpu_torch.tpu.sharding import (
+        _free_port,
+        default_backend,
+        ensemble_mesh,
+        rank_device,
+    )
+
+    dev = rank_device(0, device)
+    backend = default_backend(device)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0,
+                            device_id=dev if backend == "nccl" else None)
+    return ensemble_mesh((1, 1), dev)
+
+
+def run_lowered_sharded_ensemble(lp: LoweredProgram, mesh=None,
+                                 k: Optional[int] = None,
+                                 particle_shards: int = 1,
+                                 max_particles: int = 256,
+                                 window: int = 7,
+                                 collapse_mode: str = "reference",
+                                 sample: int = 0, seed: int = 0,
+                                 stats: Optional[dict] = None,
+                                 checkpoint_dir: Optional[str] = None,
+                                 checkpoint_every: int = 1,
+                                 island_ess_threshold: float = 0.5,
+                                 device="cuda"):
+    """Mid-circuit measurement and ``disc`` on a (particles × qubits) mesh,
+    as this rank of it (``qbot_tpu/frontend/lowering.py:979-1643``).
+
+    SPMD: every rank of the :class:`~qbot_tpu_torch.tpu.sharding.
+    EnsembleMesh` calls it with the same program.  The particle ensemble of
+    :func:`run_lowered_ensemble` is split over the mesh's particle rows and
+    each particle's state over its row's qubit shards
+    (:mod:`qbot_tpu_torch.tpu.sharded_ensemble`), so ``meas``/``disc``
+    anywhere in a program run at register sizes that need sharding, the
+    register shrinking at ``disc``.  Requires ``lower_program(text,
+    mid_measure=True)``.  Collapse events localise their targets with
+    reshards, split outcomes shard-locally (Born probabilities summed over
+    the qubit axis) and fan out within each row; ``sample > 0`` switches to
+    the SMC regime (island resampling, constant memory), with
+    :func:`~qbot_tpu_torch.tpu.sharded_ensemble.maybe_exchange_islands`
+    after every collapse (effective island count below
+    ``island_ess_threshold``·P: a whole-island resample).  Each row draws
+    from its own generator seeded from (``seed``, p), so sampled runs do
+    not repeat the reference's; a P = 1 mesh draws as
+    :func:`run_lowered_ensemble` draws.
+
+    ``mesh`` None joins the P × 2^k mesh (``particle_shards`` × 2^``k``)
+    of the ranks ``torchrun`` started, or makes a 1 x 1 mesh in this
+    process (a one-rank group, removed again at the end); a larger mesh
+    without ``torchrun`` starts from
+    :func:`~qbot_tpu_torch.tpu.sharding.launch`.  ``device`` is the ranks'
+    device when the mesh is made here.
+
+    ``checkpoint_dir``: snapshots every ``checkpoint_every`` collapse
+    events, one shard file a rank (its block and generators) and rank 0's
+    metadata (event cursor, qubit permutation, register width, bound
+    outcome distributions); a re-run with the same directory on the same
+    mesh shape resumes from the latest snapshot.
+
+    ``stats`` (a dict) accumulates ``collapse_events``, ``num_reshards``,
+    ``comm_bytes`` and ``hbm_bytes`` (per particle, times the particles
+    that ran the plan), ``num_collectives`` (counted where the ensemble
+    executors issue them), and ``phase_walls`` (host seconds per phase:
+    init, segment, reshard, rotate, collapse, exchange, fetch); with
+    ``stats["sync_phases"]`` true every phase waits for the device.  The
+    dense state fields of a result at most 12 qubits wide are gathered
+    when it is measured (a collective, on every rank).
+
+    Returns (results dict, this rank's final ShardedEnsemble, final perm,
+    the mesh).
+    """
+    import time
+
+    import torch.distributed as dist
+
+    from qbot_tpu_torch.tpu import sharded_ensemble as se
+    from qbot_tpu_torch.tpu.planar import to_planar
+    from qbot_tpu_torch.tpu.sharded import (
+        ShardedPlan,
+        compile_sharded,
+        plan_reshards_to_localize,
+    )
+
+    solo = False
+    if mesh is None:
+        shape = (particle_shards, 2 ** (k or 0))
+        if "WORLD_SIZE" in os.environ:
+            from qbot_tpu_torch.tpu.sharding import join_mesh
+
+            mesh = join_mesh(device, shape=shape)
+        elif shape == (1, 1) and not dist.is_initialized():
+            mesh, solo = _solo_mesh(device), True
+        else:
+            raise ValueError(
+                f"a {shape[0]}x{shape[1]} mesh runs on its ranks: start "
+                f"them with qbot_tpu_torch.tpu.sharding.launch or torchrun "
+                f"and pass each its EnsembleMesh")
+    emesh = mesh
+    k = emesh.k
+    sync_phases = bool(stats.get("sync_phases")) if stats else False
+
+    def bucket(name: str, t0: float) -> None:
+        if stats is not None:
+            pw = stats.setdefault("phase_walls", {})
+            pw[name] = pw.get(name, 0.0) + time.perf_counter() - t0
+
+    def drain() -> None:
+        if sync_phases and emesh.device.type == "cuda":
+            torch.cuda.synchronize(emesh.device)
+
+    try:
+        t0 = time.perf_counter()
+        if lp.initial_density is not None:
+            # mixed prep: the host eigensolve of a small density, the SMC
+            # copies made on the host rows before padding
+            vals, vecs = np.linalg.eigh(np.asarray(lp.initial_density,
+                                                   complex))
+            keep = vals > 1e-12
+            vals, vecs = vals[keep], vecs[:, keep]
+            psi0 = np.stack([to_planar(vecs[:, i])
+                             for i in range(vals.shape[0])])
+            lw = np.log(vals / vals.sum())
+            if sample:
+                reps = max(1, sample // psi0.shape[0])
+                psi0 = np.repeat(psi0, reps, axis=0)
+                lw = np.repeat(lw, reps) - np.log(reps)
+            ens = se.init_sharded_ensemble(psi0, emesh, log_w=lw)
+        else:
+            # the product state and its SMC copies, built on the device
+            ens = se.init_product_sharded_ensemble(lp.initial_kets, emesh,
+                                                   B=max(1, sample))
+        drain()
+        bucket("init", t0)
+        gens = {}
+        if sample:
+            gens = {"row_gen": se.row_generator(seed, emesh),
+                    "mesh_gen": se.mesh_generator(seed, emesh)}
+
+        all_ops = list(lp.circuit.ops)
+        cur_n = lp.n
+        perm = list(range(cur_n))
+        prev = 0
+        results: dict[str, object] = {}
+        if stats is not None:
+            for key in ("comm_bytes", "hbm_bytes", "num_reshards",
+                        "num_collectives", "collapse_events"):
+                stats.setdefault(key, 0)
+
+        ckpt = None
+        start_event = 0
+        saved_probs: dict = {}
+        if checkpoint_dir is not None:
+            ckpt = _MeshCheckpoints(checkpoint_dir, emesh)
+            step = ckpt.latest()
+            if step is not None:
+                log_w, psi, meta = ckpt.restore(step, gens)
+                ens = se.ShardedEnsemble(log_w, psi,
+                                         float(meta.get("lost_mass", 0.0)),
+                                         emesh.P)
+                cur_n = int(meta["cur_n"])
+                perm = [int(q) for q in meta["perm"]]
+                prev = int(meta["prev"])
+                start_event = int(meta["event"])
+                saved_probs = meta.get("results", {})
+
+        def snapshot(event: int, ens) -> None:
+            if ckpt is None or event % checkpoint_every != 0:
+                return
+            ckpt.save(event, ens, gens, {
+                "event": event, "cur_n": cur_n, "prev": prev,
+                "perm": [int(q) for q in perm],
+                "lost_mass": float(ens.lost_mass),
+                "results": {name: [float(p) for p in r.probs]
+                            for name, r in results.items()}})
+
+        def acc(splan, B) -> None:
+            """Exact comm/HBM counts (B particles ran the plan)."""
+            if stats is None:
+                return
+            stats["comm_bytes"] += B * splan.comm_bytes()
+            stats["hbm_bytes"] += B * splan.hbm_bytes()
+            stats["num_reshards"] += splan.num_reshards
+
+        def run_plan(ens, splan, name: str):
+            if splan is None or not splan.items:
+                return ens
+            t0 = time.perf_counter()
+            acc(splan, ens.num_particles)
+            out = se.apply_sharded_plan_ensemble(ens, splan, emesh)
+            drain()
+            bucket(name, t0)
+            return out
+
+        def run_segment(ens, ops, n, perm):
+            if not ops:
+                return ens, perm
+            seg = Circuit(n)
+            seg.ops = list(ops)
+            seg.num_params = lp.circuit.num_params
+            splan = compile_sharded(seg, k, window=window, initial_perm=perm)
+            return run_plan(ens, splan, "segment"), list(splan.final_perm)
+
+        def run_items(ens, items, n, perm, name: str = "reshard"):
+            if not items:
+                return ens
+            return run_plan(ens, ShardedPlan(
+                n=n, k=k, items=list(items), final_perm=perm,
+                num_params=lp.circuit.num_params), name)
+
+        def collapse(fn, *args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            drain()
+            bucket("collapse", t0)
+            return out
+
+        def exchange(ens):
+            t0 = time.perf_counter()
+            ens, _ = se.maybe_exchange_islands(
+                gens["mesh_gen"], ens, emesh,
+                threshold=island_ess_threshold, stats=stats)
+            drain()
+            bucket("exchange", t0)
+            return ens
+
+        row_gen = gens.get("row_gen")
+        for ei, spec in enumerate(lp.mid_measurements):
+            if ei < start_event:
+                # executed before the snapshot: re-bind recorded outcomes
+                if isinstance(spec, MeasSpec):
+                    results[spec.name] = _make_result(
+                        spec.basis, sorted(spec.targets),
+                        saved_probs[spec.name])
+                continue
+            ens, perm = run_segment(ens, all_ops[prev:spec.at_op], cur_n,
+                                    perm)
+            prev = spec.at_op
+            if stats is not None:
+                stats["collapse_events"] += 1
+
+            if isinstance(spec, QSetSpec):
+                # targeted qset: localise the targets, then the partial
+                # trace and tensor insertion are shard-local (the
+                # positions are re-populated in place: the perm stays);
+                # ProbVal target sets fan out and are pruned (exact) or
+                # resampled back down (sampled)
+                many = spec.branches and len(spec.branches) > 1
+                union = sorted({q for _, t in spec.branches for q in t}
+                               if many else set(spec.targets))
+                items, perm = plan_reshards_to_localize(perm, cur_n, k,
+                                                        union)
+                ens = run_items(ens, items, cur_n, perm)
+                pos = _positions(perm)
+                t0 = time.perf_counter()
+                if many:
+                    if sample:
+                        B_keep = ens.num_particles
+                        parts = [(pb, se.replace_sample_sharded(
+                            row_gen, ens, cur_n, [pos[q] - k for q in t],
+                            spec.new_states, emesh, stats=stats))
+                            for pb, t in spec.branches]
+                        ens = se.resample_down_sharded(
+                            row_gen, se.concat_sharded(parts, emesh),
+                            B_keep, emesh, stats=stats)
+                    else:
+                        parts = [(pb, se.replace_fanout_sharded(
+                            ens, cur_n, [pos[q] - k for q in t],
+                            spec.new_states, emesh, max_particles,
+                            stats=stats))
+                            for pb, t in spec.branches]
+                        ens = se.prune_sharded(
+                            se.concat_sharded(parts, emesh), max_particles,
+                            emesh, stats=stats)
+                elif sample:
+                    ens = se.replace_sample_sharded(
+                        row_gen, ens, cur_n,
+                        [pos[q] - k for q in spec.targets],
+                        spec.new_states, emesh, stats=stats)
+                else:
+                    ens = se.replace_fanout_sharded(
+                        ens, cur_n, [pos[q] - k for q in spec.targets],
+                        spec.new_states, emesh, max_particles, stats=stats)
+                drain()
+                bucket("collapse", t0)
+                snapshot(ei + 1, ens)
+                continue
+
+            targets = sorted(spec.targets)
+            if isinstance(spec, DiscSpec):
+                many = spec.branches and len(spec.branches) > 1
+                union = (sorted({q for _, t in spec.branches for q in t})
+                         if many else targets)
+                items, perm = plan_reshards_to_localize(perm, cur_n, k,
+                                                        union)
+                ens = run_items(ens, items, cur_n, perm)
+                pos = _positions(perm)
+                if many:
+                    # ProbVal target sets: per-branch discards, each
+                    # brought to the identity layout, mixed on the
+                    # particle axis (exact: pruned; sampled: resampled)
+                    from qbot_tpu_torch.tpu.sharded import (
+                        plan_perm_to_identity,
+                    )
+
+                    new_n = cur_n - len(spec.branches[0][1])
+                    t0 = time.perf_counter()
+                    B_keep = ens.num_particles
+                    parts = []
+                    for p, tset in spec.branches:
+                        local = sorted(pos[q] - k for q in tset)
+                        if sample:
+                            e2 = se.discard_sample_sharded(
+                                row_gen, ens, cur_n, local, emesh,
+                                stats=stats)
+                        else:
+                            e2 = se.discard_fanout_sharded(
+                                ens, cur_n, local, emesh, max_particles,
+                                stats=stats)
+                        removed = {pos[q] for q in tset}
+                        bperm = [q - sum(1 for r in tset if r < q)
+                                 for pp, q in enumerate(perm)
+                                 if pp not in removed]
+                        fix, idp = plan_perm_to_identity(bperm, new_n, k)
+                        parts.append((p, run_items(e2, fix, new_n, idp)))
+                    if sample:
+                        ens = collapse(se.resample_down_sharded, row_gen,
+                                       se.concat_sharded(parts, emesh),
+                                       B_keep, emesh, stats=stats)
+                        ens = exchange(ens)
+                    else:
+                        ens = collapse(se.prune_sharded,
+                                       se.concat_sharded(parts, emesh),
+                                       max_particles, emesh, stats=stats)
+                    perm = list(range(new_n))
+                    cur_n = new_n
+                    snapshot(ei + 1, ens)
+                    continue
+                local = sorted(pos[q] - k for q in targets)
+                if sample:
+                    ens = collapse(se.discard_sample_sharded, row_gen, ens,
+                                   cur_n, local, emesh, stats=stats)
+                    ens = exchange(ens)
+                else:
+                    ens = collapse(se.discard_fanout_sharded, ens, cur_n,
+                                   local, emesh, max_particles, stats=stats)
+                removed = {pos[q] for q in targets}
+                perm = [q - sum(1 for r in targets if r < q)
+                        for p, q in enumerate(perm) if p not in removed]
+                cur_n -= len(targets)
+                snapshot(ei + 1, ens)
+                continue
+
+            # meas / peek
+            rot_needed = not _is_computational(spec.basis)
+            if cur_n <= _DENSE_REPLAY_LIMIT:
+                # the pre-measurement mixture, gathered now on every rank
+                # (a collective cannot wait for one rank's lazy read)
+                rho = se.sharded_ensemble_mixture(ens, emesh, perm)
+                provider = (lambda rho=rho: rho)
+            else:
+                provider = _too_large_provider(cur_n)
+            if rot_needed:
+                splan = compile_sharded(
+                    _rotation_circuit(spec.basis, targets, cur_n), k,
+                    window=window, initial_perm=perm)
+                ens_m = run_plan(ens, splan, "rotate")
+                perm_m = list(splan.final_perm)
+            else:
+                ens_m, perm_m = ens, list(perm)
+
+            def target_layout(perm_m):
+                pos = _positions(perm_m)
+                shard_pos = sorted(pos[q] for q in targets if pos[q] < k)
+                local = sorted(pos[q] - k for q in targets if pos[q] >= k)
+                # outcome bit order of the split: sharded targets
+                # (ascending position) first, then local (ascending)
+                phys = ([perm_m[p] for p in shard_pos]
+                        + [perm_m[a + k] for a in local])
+                return shard_pos, local, phys
+
+            shard_pos, local, phys_logicals = target_layout(perm_m)
+            # reference-mode collapse relocates outcome blocks, which needs
+            # local targets, except when measuring every qubit, where the
+            # two modes coincide; projective, sampled and peek read
+            # sharded targets off the rank
+            mode_here = collapse_mode
+            if spec.collapse and not sample and mode_here == "reference":
+                if len(targets) == cur_n:
+                    mode_here = "projective"
+                elif shard_pos:
+                    items, perm_m = plan_reshards_to_localize(
+                        perm_m, cur_n, k, targets)
+                    ens_m = run_items(ens_m, items, cur_n, perm_m)
+                    shard_pos, local, phys_logicals = target_layout(perm_m)
+
+            if spec.collapse:
+                if sample:
+                    ens_m, dist_ = collapse(
+                        se.measure_sample_sharded, row_gen, ens_m, cur_n,
+                        local, emesh, shard_positions=shard_pos,
+                        stats=stats)
+                    ens_m = exchange(ens_m)
+                else:
+                    ens_m, dist_ = collapse(
+                        se.measure_fanout_sharded, ens_m, cur_n, local,
+                        emesh, max_particles, mode=mode_here,
+                        shard_positions=shard_pos, stats=stats)
+                if rot_needed:
+                    splan = compile_sharded(
+                        _rotation_circuit(spec.basis, targets, cur_n,
+                                          inverse=True), k,
+                        window=window, initial_perm=perm_m)
+                    ens_m = run_plan(ens_m, splan, "rotate")
+                    perm_m = list(splan.final_perm)
+                ens, perm = ens_m, perm_m
+            else:
+                dist_ = collapse(se.peek_probs_sharded, ens_m, cur_n, local,
+                                 emesh, shard_positions=shard_pos,
+                                 stats=stats)
+            t0 = time.perf_counter()
+            dist_ = _reorder_outcome_bits(dist_.cpu().numpy(),
+                                          phys_logicals, targets)
+            bucket("fetch", t0)
+            results[spec.name] = _make_result(spec.basis, targets, dist_,
+                                              provider=provider)
+            snapshot(ei + 1, ens)
+
+        ens, perm = run_segment(ens, all_ops[prev:], cur_n, perm)
+        t0 = time.perf_counter()
+        lost = float(ens.lost_mass)
+        bucket("fetch", t0)
+        warn_lost_mass(lost, 1e-6)
+        for name, res in results.items():
+            lp.namespace[name] = res
+        _run_epilogue(lp)
+        return results, ens, perm, emesh
+    finally:
+        if solo:
+            dist.destroy_process_group()

@@ -17,9 +17,14 @@ ensemble's device, not from JAX keys: the two give other numbers from one
 seed, so sampled runs do not repeat the reference's.  Systematic
 resampling is split so that its indices are a function of its one uniform
 draw ``u0`` (:func:`systematic_indices`): both packages give the same
-indices for the same ``u0``.  The reference's mesh reduction
-(``normalize(..., axis_name)``) belongs to the particle × qubit mesh of the
-multi-GPU slice (ROADMAP queue 1, item 10b).
+indices for the same ``u0``.
+
+On the particle × qubit mesh (:mod:`qbot_tpu_torch.tpu.sharded_ensemble`)
+the batch axis is split over the P rows of particles: :func:`normalize`
+reduces over the particle axis when given it (the reference's
+``axis_name``, an ``all_reduce`` over the ranks' group), and
+:func:`island_indices` is the island-local systematic resampling of a row,
+each row resampling within itself and keeping its total weight.
 """
 from __future__ import annotations
 
@@ -27,11 +32,14 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 __all__ = ["Ensemble", "from_probs", "normalize", "effective_sample_size",
-           "systematic_indices", "systematic_resample",
+           "systematic_indices", "systematic_resample", "island_indices",
            "resample_if_needed", "lift_vmap", "mix_to_density", "branch",
            "to_probval"]
+
+_MIN_P = 1e-12
 
 
 def tree_map(fn: Callable, values):
@@ -65,9 +73,18 @@ def from_probs(probs, values) -> Ensemble:
     return Ensemble(torch.log(torch.as_tensor(probs)), values)
 
 
-def normalize(log_weights: torch.Tensor) -> torch.Tensor:
-    """Log-normalised weights: log w − logsumexp(log w)."""
-    return log_weights - torch.logsumexp(log_weights, dim=0)
+def normalize(log_weights: torch.Tensor, axis=None) -> torch.Tensor:
+    """Log-normalised weights: log w − logsumexp(log w).  With ``axis``
+    (the particle axis of a mesh: a group of ranks with ``group`` and
+    ``size``, each holding a block of the batch), the sum runs over every
+    rank's block, one ``all_reduce``."""
+    local = torch.logsumexp(log_weights, dim=0)
+    if axis is None:
+        return log_weights - local
+    total = torch.exp(local)
+    if axis.size > 1:
+        dist.all_reduce(total, group=axis.group)
+    return log_weights - torch.log(total)
 
 
 def effective_sample_size(log_weights: torch.Tensor) -> torch.Tensor:
@@ -76,18 +93,36 @@ def effective_sample_size(log_weights: torch.Tensor) -> torch.Tensor:
     return 1.0 / torch.exp(torch.logsumexp(2.0 * lw, dim=0))
 
 
-def systematic_indices(weights: torch.Tensor, u0) -> torch.Tensor:
+def systematic_indices(weights: torch.Tensor, u0,
+                       count: int | None = None) -> torch.Tensor:
     """Indices of systematic resampling at the uniform draw ``u0`` in
     [0, 1): the points (u0 + k)/B, k < B, looked up in the cumulative
     weights (left side, as ``jnp.searchsorted``), as the reference forms
-    them (``u0 / B + k / B``)."""
-    B = weights.shape[0]
+    them (``u0 / B + k / B``).  ``count`` draws that many points (B by
+    default), each index below the number of weights."""
+    B = weights.shape[0] if count is None else count
     cum = torch.cumsum(weights, dim=0)
     k = torch.arange(B, dtype=weights.dtype, device=weights.device)
     points = torch.as_tensor(u0, dtype=weights.dtype,
                              device=weights.device) / B + k / B
     idx = torch.searchsorted(cum, points)
-    return torch.clamp(idx, 0, B - 1)
+    return torch.clamp(idx, 0, weights.shape[0] - 1)
+
+
+def island_indices(log_weights: torch.Tensor, u0, count: int | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Island-local systematic resampling of one row of particles (the
+    reference's ``_island_resample`` and ``resample_down_sharded``,
+    ``qbot_tpu/tpu/sharded_ensemble.py:863-887, 1253-1293``): (the
+    :func:`systematic_indices` of the row's own normalised weights at
+    ``u0``, ``count`` of them; the row's log total weight, which each
+    survivor shares equally, log total − log count)."""
+    m = torch.max(log_weights)
+    safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(log_weights - safe)
+    total = torch.sum(w)
+    idx = systematic_indices(w / torch.clamp(total, min=_MIN_P), u0, count)
+    return idx, safe + torch.log(torch.clamp(total, min=_MIN_P))
 
 
 def systematic_resample(gen: torch.Generator,

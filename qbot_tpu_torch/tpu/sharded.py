@@ -25,11 +25,16 @@ the layout planners, :func:`density_circuit`) is host code, a copy of the
 reference's.  A density matrix runs as the flat ``(2, 4^n)`` planar state of
 2n qubits, rows then columns, through the same runner.
 
+The executor takes a batch of shards too, ``(B, 2, 2^(n-k))`` (B
+particles of the sharded ensemble, :mod:`qbot_tpu_torch.tpu.sharded_ensemble`):
+every item acts on each, and each kernel launches once for the batch.  On
+a one-rank mesh no exchange or reduction is issued.
+
 Not ported, because they exist only for the TPU: ``_shard_map`` and its
 relaxed check, the ``set_kernel_mode("off")`` around each local segment
 (Mosaic kernels do not lower under manual sharding), the ``(8, 128)``
-carrier branch of the sharded diagonal, and ``splan_cache_key`` (the
-sharded ensemble's jit cache, ROADMAP queue 1 item 10b).
+carrier branch of the sharded diagonal, and ``splan_cache_key`` (the key
+of the sharded ensemble's jit cache, which the port does not have).
 
 Several ranks on one card run under ``gloo``: ``nccl`` refuses two ranks of
 one communicator on one GPU ("Duplicate GPU detected").  gloo takes the
@@ -608,6 +613,8 @@ def _exchange(mesh: QubitMesh, send: torch.Tensor, splits=None
     """``all_to_all_single`` of a contiguous ``send``: its dim 0 in K equal
     chunks, or ``splits[r]`` elements to rank r (and as many from it).
     Returns what arrived."""
+    if mesh.size == 1:
+        return send.clone()
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, splits, splits, group=mesh.group)
     return recv
@@ -616,7 +623,8 @@ def _exchange(mesh: QubitMesh, send: torch.Tensor, splits=None
 def _all_reduce(mesh: QubitMesh, t: torch.Tensor) -> torch.Tensor:
     """The sum of ``t`` over the ranks, a new tensor."""
     out = t.clone()
-    dist.all_reduce(out, group=mesh.group)
+    if mesh.size > 1:
+        dist.all_reduce(out, group=mesh.group)
     return out
 
 
@@ -679,9 +687,11 @@ def _reshard_fn(item: Reshard, n: int, k: int, mesh: QubitMesh):
     pre, post = 2 ** (item.m - k), 2 ** (n - item.m - k)
 
     def apply(psi, params):
-        send = psi.reshape(2, pre, K, post).permute(2, 0, 1, 3)
+        lead = psi.dim() - 1          # the batch axes and the planes
+        send = psi.reshape(*psi.shape[:-1], pre, K, post)
+        send = send.movedim(lead + 1, 0)
         recv = _exchange(mesh, send.contiguous())
-        return recv.permute(1, 2, 0, 3).contiguous().reshape(psi.shape)
+        return recv.movedim(0, lead + 1).contiguous().reshape(psi.shape)
     return apply
 
 
@@ -700,8 +710,9 @@ def _sharded_diag_fn(item: ShardedDiag, n_local: int, k: int, rank: int,
     c = complex(d)
 
     def apply(psi, params):
-        return torch.stack([c.real * psi[0] - c.imag * psi[1],
-                            c.real * psi[1] + c.imag * psi[0]])
+        pr, pi = psi[..., 0, :], psi[..., 1, :]
+        return torch.stack([c.real * pr - c.imag * pi,
+                            c.real * pi + c.imag * pr], dim=-2)
     return apply
 
 
@@ -742,12 +753,14 @@ class _ShardedReflection:
 
     def __call__(self, psi: torch.Tensor, mesh: QubitMesh) -> torch.Tensor:
         refl = self.refl
-        p3 = psi.reshape(2, refl.H, refl.T)
+        p3 = psi.reshape(*psi.shape[:-2], 2, refl.H, refl.T)
         c = refl.c64_from_lane_dot(kernels.reflect_dot(p3, refl.a, refl.b))
         sr, si = self.s.real, self.s.imag
-        part = torch.stack([sr * c[0] + si * c[1], sr * c[1] - si * c[0]])
+        cr, ci = c[..., 0], c[..., 1]
+        part = torch.stack([sr * cr + si * ci, sr * ci - si * cr], dim=-1)
         g = _all_reduce(mesh, part) / self.s2
-        coef = torch.stack([g[0] * sr - g[1] * si, g[0] * si + g[1] * sr])
+        gr, gi = g[..., 0], g[..., 1]
+        coef = torch.stack([gr * sr - gi * si, gr * si + gi * sr], dim=-1)
         out, _ = kernels.reflect_update(p3, coef.float(), refl.a, refl.b,
                                         refl.no_flips)
         return out.reshape(psi.shape)
@@ -776,8 +789,8 @@ def _item_fn(item, n: int, k: int, mesh: QubitMesh):
 
 def make_sharded_planar_runner(splan: ShardedPlan, mesh: QubitMesh):
     """``run(psi_local, params=None) -> psi_local``: the plan on this
-    rank's (2, 2^(n-k)) float32 shard, every rank of ``mesh`` calling it
-    (SPMD).  Every item's tables are prepared once, on the rank's device;
+    rank's (2, 2^(n-k)) float32 shard, or on each of a (B, 2, 2^(n-k))
+    batch of them, every rank of ``mesh`` calling it (SPMD).  Every item's tables are prepared once, on the rank's device;
     ``params`` (1-D, on that device) feeds the local segments'
     parameterised gates.  Out of place: the caller's shard is never
     written."""
@@ -803,7 +816,7 @@ def make_sharded_planar_runner(splan: ShardedPlan, mesh: QubitMesh):
             # time it would write the caller's shard
             if psi is given:
                 psi = psi.clone()
-            psi[:, flip] = -psi[:, flip]
+            psi[..., flip] = -psi[..., flip]
         return psi
     return run
 

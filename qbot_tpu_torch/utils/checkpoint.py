@@ -6,8 +6,9 @@ copied to the host) and JSON metadata under a directory, and a manager of
 rolling step directories with a retention limit.
 :func:`qbot_tpu_torch.frontend.lowering.run_lowered_ensemble` snapshots
 its ensemble, event cursor, bound outcome distributions and, in sampling
-mode, the state of its :class:`torch.Generator` through it.  The
-reference's Orbax manager is not ported.
+mode, the state of its :class:`torch.Generator` through it;
+``run_lowered_sharded_ensemble`` writes its metadata through it, beside
+one shard file a rank.  The reference's Orbax manager is not ported.
 """
 from __future__ import annotations
 

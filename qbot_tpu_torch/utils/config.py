@@ -2,8 +2,9 @@
 
 Copy of ``qbot_tpu/utils/config.py`` (standard library only): one dataclass
 consumed by the CLI and embedders; the reference's only configuration was
-the positional FILE argument (cli.py:43-48).  The port's CLI fills ``seed``
-and ``dtype``; the mesh fields wait for the multi-GPU slice.
+the positional FILE argument (cli.py:43-48).  The port's CLI fills ``seed``,
+``dtype`` and ``mesh_shape``, and resolves ``--mesh auto`` with
+:func:`auto_mesh_shape`.
 """
 from __future__ import annotations
 
@@ -16,14 +17,16 @@ def auto_mesh_shape(n_devices: int, n_qubits=None,
     """The ``--mesh auto`` policy: particles-only until register HBM
     forces qubit sharding.
 
-    SCALING_r03/r04 measured why: SMC weak-scaling on the particle axis
-    projects ~99.7% efficiency (zero comm bytes), while stacking qubit
-    model-parallelism adds localization all_to_alls at every collapse —
-    so the qubit axis is engaged only when a single device cannot hold
-    the planar register (2·2^n·4 bytes) within ``hbm_budget_bytes``
-    (default 8 GB: half a v5e's HBM, leaving room for the fan-out
-    working set).  Returns (particles, qubit_shards) with qubit_shards
-    the smallest power of two that fits the register.
+    The particle axis exchanges no amplitudes, while every qubit shard
+    adds localisation exchanges at each collapse, so the qubit axis is
+    engaged only when one device cannot hold the planar register
+    (2·2^n·4 bytes) within ``hbm_budget_bytes``, half a device's memory,
+    leaving room for the fan-out working set.  The default, 8e9 bytes,
+    is the reference's (its TPU's half), kept so that the CPU runs pick
+    the reference's shapes; on the card the CLI passes half of
+    ``torch.cuda.get_device_properties(0).total_memory``.  Returns
+    (particles, qubit_shards) with qubit_shards the smallest power of two
+    that fits the register.
     """
     if n_devices < 1:
         raise ValueError(f"need at least one device, got {n_devices}")

@@ -133,9 +133,27 @@ def test_device_ensemble_matches_reference_and_host(name, capsys):
 
 
 def test_device_ensemble_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        execute_lines_device_ensemble(["qset comp[0]"], mesh=object(),
-                                      device="cpu")
+    """``mesh=``: the device ensemble on a 2 × 2 gloo mesh of CPU ranks
+    gives the reference's namespace on its 2 × 2 emulated mesh (the
+    mid-measurement example: outcome distributions and the merged state
+    within 1e-5)."""
+    import jax
+
+    from _torch_sharded_ensemble_ranks import device_namespace
+    from qbot_tpu.tpu.sharding import make_mesh
+    from qbot_tpu_torch.tpu.sharding import launch
+
+    src = (ROOT / "examples" / "mid_measurement.qb").read_text()
+    got = launch(device_namespace, (2, 2), src, device="cpu", timeout=300,
+                 collective_timeout=120.0)[0]
+    want = jde.executeTxtDeviceEnsemble(
+        src, mesh=make_mesh((2, 2), devices=jax.devices()[:4]))
+    names = [k for k in got if k.startswith("probs_")]
+    assert names
+    for key in names:
+        np.testing.assert_allclose(got[key], want[key[6:]].probs, atol=TOL)
+    np.testing.assert_allclose(got["state"],
+                               np.asarray(want["state"], complex), atol=TOL)
 
 
 DEEP = ("qset tensorProd(comp[0], comp[0], comp[0], comp[0])\n"

@@ -16,13 +16,15 @@ through ``--compile --ensemble`` and ``--compile --ensemble --smc 4`` on
 ``examples/mid_measurement.qb``, then one HMC step and one NUTS step over
 the angles of a 4-qubit ansatz through the planar log-prob (gradients
 through the kernels' backward) and the complex simulator's, then
-``--compile --shard 1 --device cpu``: its two spawned ranks inherit a
-``sys.path`` whose first entry holds a ``jax`` and a ``qbot_tpu`` that
-raise on import, so the run shows that the ranks import neither.
+``--compile --shard 1 --device cpu`` and ``--compile --ensemble --mesh
+2x2 --device cpu`` (the particle × qubit mesh,
+``tpu/sharded_ensemble.py``): their spawned ranks inherit a ``sys.path``
+whose first entry holds a ``jax`` and a ``qbot_tpu`` that raise on
+import, so the runs show that the ranks import neither.
 Tolerance: 1e-5 on the marked probability and on ρ against ψψ†
 (float32); the two CLI modes print the same readout within 1e-6, the
 bf16_3x run within 1e-4, the exact device ensemble within 1e-6 of the
-dense interpreter, the sharded run within 1e-6 of the unsharded one.
+dense interpreter, the sharded runs within 1e-6 of the unsharded ones.
 """
 import re
 import subprocess
@@ -133,6 +135,15 @@ assert len(plain) == len(shard) == 8, outs
 for (kp, pp, _), (ks, ps, _) in zip(plain, shard):
     assert kp == ks and abs(float(pp) - float(ps)) <= 1e-6, outs
 assert "sharded: 2^1 devices" in shard_err, shard_err
+buf, err = io.StringIO(), io.StringIO()
+with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+    assert cli_main(["examples/mid_measurement.qb", "--compile", "--ensemble",
+                     "--mesh", "2x2", "--device", "cpu"]) == 0
+mesh = line.findall(buf.getvalue())
+assert len(mesh) == 6, buf.getvalue()
+for (ke, pe, _), (km, pm, _) in zip(exact, mesh):
+    assert ke == km and abs(float(pe) - float(pm)) <= 1e-6, (exact, mesh)
+assert "device ensemble: 1 branches" in err.getvalue(), err.getvalue()
 assert not any(m.split(".")[0] in ("jax", "qbot_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print("ok")
@@ -153,7 +164,8 @@ ENSEMBLE_MODULES = ("inference/__init__.py", "inference/smc.py",
                     "frontend/device_ensemble.py", "inference/hmc.py",
                     "inference/nuts.py", "tpu/simulator.py",
                     "utils/guards.py", "utils/profiling.py",
-                    "tpu/sharded.py", "tpu/sharding.py")
+                    "tpu/sharded.py", "tpu/sharding.py",
+                    "tpu/sharded_ensemble.py", "tpu/distributed.py")
 # scripts beside the package that must import neither
 SCRIPTS = ("chip_smoke.py", "tools/fit_costs.py")
 

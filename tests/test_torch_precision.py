@@ -473,13 +473,14 @@ def test_cli_dtype_c64_runs_the_registers_in_complex64():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--shard", "1"], None), (["--mesh", "2x2"], "item 10b"),
+    (["--shard", "1"], None), (["--mesh", "2x2"], None),
     (["--backend", "jax"], "North star")])
 def test_cli_flags_not_ported_exit_1_naming_their_item(flags, item, capsys):
-    """A flag whose slice has not landed exits 1 naming its ROADMAP item.
-    ``--shard`` has landed (``--compile --shard K``, tests/
-    test_torch_sharded.py); without ``--compile`` it is ignored, as under
-    ``qbot_tpu``: the dense interpreter's output, exit 0."""
+    """``--backend jax`` exits 1 naming the ROADMAP's reason.  ``--shard``
+    and ``--mesh`` run with ``--compile`` (tests/test_torch_sharded.py,
+    tests/test_torch_sharded_ensemble_cli.py); without it they are
+    ignored, as under ``qbot_tpu``: the dense interpreter's output, exit
+    0."""
     if item is None:
         assert torch_cli(["examples/grover.qb", *flags]) == 0
         want = _run("qbot_tpu", "examples/grover.qb", *flags)

@@ -346,8 +346,11 @@ def test_cli_shard_on_too_few_cards_is_a_sharding_error(monkeypatch, capsys):
     (["--mesh", "1x4"], "sharding error: --mesh 1x4 has 4 qubit shards, "
                         "--shard 1 runs 2"),
     (["--mesh", "garbage"], "mesh error: --mesh expects exactly two factors"),
-    (["--ensemble"], "item 10b")])
+    (["--mesh", "auto"], "mesh error: --mesh expects exactly two factors")])
 def test_cli_shard_flags_it_refuses(flags, message, capsys):
+    """What the register path refuses, as ``qbot_tpu`` does (``--mesh
+    auto`` is the device ensemble's: tests/
+    test_torch_sharded_ensemble_cli.py runs ``--shard 1 --ensemble``)."""
     assert torch_cli(["examples/grover.qb", "--compile", "--shard", "1",
                       "--device", "cpu", *flags]) == 1
     err = capsys.readouterr().err.strip().splitlines()
