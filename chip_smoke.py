@@ -305,6 +305,7 @@ from qbot_tpu_torch.tpu.planar import (
     zero_state_planar,
 )
 from qbot_tpu_torch.tpu.sharding import launch
+from qbot_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parent
 N = 26
@@ -3256,8 +3257,9 @@ def _mesh_run(emesh, n: int, sample: int, warm: bool) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stats: dict = {}
-    ((probs, ens), wall), launches = _counted(
-        lambda: _timed_wall_out(lambda: run(lp, stats)))
+    with profiling.tracing():         # the spans fill stats["phase_walls"]
+        ((probs, ens), wall), launches = _counted(
+            lambda: _timed_wall_out(lambda: run(lp, stats)))
     return {"probs": probs, "wall_s": wall, "launches": launches,
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "particles": ens.num_particles,

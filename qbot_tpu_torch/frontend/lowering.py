@@ -48,6 +48,7 @@ from qbot_tpu_torch.tpu.planar import (
     planar_probs,
     product_state_planar,
 )
+from qbot_tpu_torch.utils import profiling
 
 __all__ = ["LoweredProgram", "LoweringError", "lower_program",
            "run_lowered", "run_lowered_ensemble", "run_lowered_sharded",
@@ -610,10 +611,11 @@ def _basis_rotation_plans(basis: Basis, targets, n: int, window: int):
     computation basis; rotation is B† per target block."""
     if _is_computational(basis):
         return None, None
-    return (compile_circuit(_rotation_circuit(basis, targets, n),
-                            window=window),
-            compile_circuit(_rotation_circuit(basis, targets, n, True),
-                            window=window))
+    with profiling.named_scope("qbot.ensemble.compile"):
+        return (compile_circuit(_rotation_circuit(basis, targets, n),
+                                window=window),
+                compile_circuit(_rotation_circuit(basis, targets, n, True),
+                                window=window))
 
 
 def _save_ensemble_checkpoint(mgr, event: int, ens, cur_n: int, prev: int,
@@ -644,6 +646,7 @@ def warn_lost_mass(lost: float, prune_tol: float) -> None:
             RuntimeWarning, stacklevel=3)
 
 
+@profiling.spanned("qbot.ensemble")
 def run_lowered_ensemble(lp: LoweredProgram, max_particles: int = 256,
                          window: int = 7, collapse_mode: str = "reference",
                          sample: int = 0, seed: int = 0,
@@ -680,17 +683,18 @@ def run_lowered_ensemble(lp: LoweredProgram, max_particles: int = 256,
     from qbot_tpu_torch.inference import ensemble_exec as ee
 
     device = torch.device(device)
-    if lp.initial_density is not None:
-        ens = ee.init_mixed_ensemble(lp.initial_density, device=device)
-        if sample:
-            reps = max(1, sample // ens.num_particles)
-            ens = ee.QuantumEnsemble(
-                torch.repeat_interleave(ens.log_w, reps) - np.log(reps),
-                torch.repeat_interleave(ens.psi, reps, dim=0))
-    else:
-        # the product state and its SMC copies are built on the device
-        ens = ee.init_product_ensemble(lp.initial_kets, B=max(1, sample),
-                                       device=device)
+    with profiling.named_scope("qbot.ensemble.init"):
+        if lp.initial_density is not None:
+            ens = ee.init_mixed_ensemble(lp.initial_density, device=device)
+            if sample:
+                reps = max(1, sample // ens.num_particles)
+                ens = ee.QuantumEnsemble(
+                    torch.repeat_interleave(ens.log_w, reps) - np.log(reps),
+                    torch.repeat_interleave(ens.psi, reps, dim=0))
+        else:
+            # the product state and its SMC copies are built on the device
+            ens = ee.init_product_ensemble(lp.initial_kets,
+                                           B=max(1, sample), device=device)
     gen = None
     if sample:
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -725,8 +729,9 @@ def run_lowered_ensemble(lp: LoweredProgram, max_particles: int = 256,
         seg = Circuit(n)
         seg.ops = list(ops)
         seg.num_params = lp.circuit.num_params
-        return ee.apply_plan_ensemble(ens, compile_circuit(seg,
-                                                           window=window))
+        with profiling.named_scope("qbot.ensemble.compile"):
+            plan = compile_circuit(seg, window=window)
+        return ee.apply_plan_ensemble(ens, plan)
 
     def snapshot(ei):
         if mgr is not None and (ei + 1) % checkpoint_every == 0:
@@ -749,46 +754,16 @@ def run_lowered_ensemble(lp: LoweredProgram, max_particles: int = 256,
             # (reference replaceArbitrary semantics; target order kept);
             # ProbVal target-set branches fan out (exact: pruned concat;
             # sampled: resampled back down)
-            if spec.branches and len(spec.branches) > 1:
-                if sample:
-                    ens = ee.concat_resampled(
-                        gen, [(p, ee.replace_sample(gen, ens, cur_n, list(t),
-                                                    spec.new_states))
-                              for p, t in spec.branches],
-                        ens.num_particles)
-                else:
-                    ens = ee.concat_weighted(
-                        [(p, ee.replace_fanout(ens, cur_n, list(t),
-                                               spec.new_states,
-                                               max_particles))
-                         for p, t in spec.branches], max_particles)
-            elif sample:
-                ens = ee.replace_sample(gen, ens, cur_n, list(spec.targets),
-                                        spec.new_states)
-            else:
-                ens = ee.replace_fanout(ens, cur_n, list(spec.targets),
-                                        spec.new_states, max_particles)
+            with profiling.named_scope("qbot.ensemble.collapse"):
+                ens = _replace(ens, spec, cur_n, sample, gen,
+                               max_particles)
             snapshot(ei)
             continue
         targets = sorted(spec.targets)
         if isinstance(spec, DiscSpec):
-            if spec.branches and len(spec.branches) > 1:
-                # ProbVal target sets (all the same size by lowering)
-                if sample:
-                    ens = ee.concat_resampled(
-                        gen, [(p, ee.discard_sample(gen, ens, cur_n,
-                                                    sorted(t)))
-                              for p, t in spec.branches],
-                        ens.num_particles)
-                else:
-                    ens = ee.concat_weighted(
-                        [(p, ee.discard_fanout(ens, cur_n, sorted(t),
-                                               max_particles))
-                         for p, t in spec.branches], max_particles)
-            elif sample:
-                ens = ee.discard_sample(gen, ens, cur_n, targets)
-            else:
-                ens = ee.discard_fanout(ens, cur_n, targets, max_particles)
+            with profiling.named_scope("qbot.ensemble.collapse"):
+                ens = _discard(ens, spec, cur_n, targets, sample, gen,
+                               max_particles)
             cur_n -= len(targets)
             snapshot(ei)
             continue
@@ -801,28 +776,77 @@ def run_lowered_ensemble(lp: LoweredProgram, max_particles: int = 256,
         else:
             provider = _too_large_provider(cur_n)
         ens_m = ee.apply_plan_ensemble(ens, rot) if rot else ens
+        dist = None
         if spec.collapse:
-            if sample:
-                ens_m, dist, _ = ee.measure_sample(gen, ens_m, cur_n,
-                                                   targets)
-            else:
-                ens_m, dist = ee.measure_fanout(ens_m, cur_n, targets,
-                                                max_particles,
-                                                mode=collapse_mode)
+            with profiling.named_scope("qbot.ensemble.collapse"):
+                if sample:
+                    ens_m, dist, _ = ee.measure_sample(gen, ens_m, cur_n,
+                                                       targets)
+                else:
+                    ens_m, dist = ee.measure_fanout(ens_m, cur_n, targets,
+                                                    max_particles,
+                                                    mode=collapse_mode)
             ens = ee.apply_plan_ensemble(ens_m, inv) if inv else ens_m
-        else:
-            dist = ee.peek_probs(ens_m, cur_n, targets)
-        results[spec.name] = _make_result(spec.basis, targets,
-                                          dist.cpu().numpy(),
-                                          provider=provider)
+        with profiling.named_scope("qbot.ensemble.readout"):
+            if dist is None:
+                dist = ee.peek_probs(ens_m, cur_n, targets)
+            with profiling.sync():
+                dist = dist.cpu().numpy()
+            results[spec.name] = _make_result(spec.basis, targets, dist,
+                                              provider=provider)
         snapshot(ei)
 
     ens = run_segment(ens, all_ops[prev:], cur_n)
-    warn_lost_mass(float(ens.lost_mass), prune_tol)
-    for name, res in results.items():
-        lp.namespace[name] = res
-    _run_epilogue(lp)
+    with profiling.named_scope("qbot.ensemble.epilogue"):
+        warn_lost_mass(profiling.host_float(ens.lost_mass), prune_tol)
+        for name, res in results.items():
+            lp.namespace[name] = res
+        _run_epilogue(lp)
     return results, ens
+
+
+def _replace(ens, spec, n: int, sample: int, gen, max_particles: int):
+    """A targeted ``qset`` of :func:`run_lowered_ensemble`: sampled, or
+    fanned out and pruned; ProbVal target sets mixed."""
+    from qbot_tpu_torch.inference import ensemble_exec as ee
+
+    if spec.branches and len(spec.branches) > 1:
+        if sample:
+            return ee.concat_resampled(
+                gen, [(p, ee.replace_sample(gen, ens, n, list(t),
+                                            spec.new_states))
+                      for p, t in spec.branches],
+                ens.num_particles)
+        return ee.concat_weighted(
+            [(p, ee.replace_fanout(ens, n, list(t), spec.new_states,
+                                   max_particles))
+             for p, t in spec.branches], max_particles)
+    if sample:
+        return ee.replace_sample(gen, ens, n, list(spec.targets),
+                                 spec.new_states)
+    return ee.replace_fanout(ens, n, list(spec.targets), spec.new_states,
+                             max_particles)
+
+
+def _discard(ens, spec, n: int, targets, sample: int, gen,
+             max_particles: int):
+    """A ``disc`` of :func:`run_lowered_ensemble`: sampled, or fanned out
+    and pruned; ProbVal target sets (all the same size by lowering)
+    mixed."""
+    from qbot_tpu_torch.inference import ensemble_exec as ee
+
+    if spec.branches and len(spec.branches) > 1:
+        if sample:
+            return ee.concat_resampled(
+                gen, [(p, ee.discard_sample(gen, ens, n, sorted(t)))
+                      for p, t in spec.branches],
+                ens.num_particles)
+        return ee.concat_weighted(
+            [(p, ee.discard_fanout(ens, n, sorted(t), max_particles))
+             for p, t in spec.branches], max_particles)
+    if sample:
+        return ee.discard_sample(gen, ens, n, targets)
+    return ee.discard_fanout(ens, n, targets, max_particles)
 
 
 def _ket_to_unitary(ket: np.ndarray) -> np.ndarray:
@@ -1129,6 +1153,26 @@ class _MeshCheckpoints:
                     torch.from_numpy(z["psi"]).to(dev), meta)
 
 
+_MESH_PHASES = ("init", "segment", "reshard", "rotate", "collapse",
+                "exchange", "fetch")
+
+
+def _phase_walls(stats: dict, before: dict) -> None:
+    """Add to ``stats["phase_walls"]`` each phase's host seconds in the
+    spans ``qbot.ensemble.<phase>`` closed since ``before``
+    (:func:`~qbot_tpu_torch.utils.profiling.span_totals`); nothing when
+    spans were off."""
+    after = profiling.span_totals()
+    for name in _MESH_PHASES:
+        now = after.get(f"qbot.ensemble.{name}")
+        was = before.get(f"qbot.ensemble.{name}",
+                         {"total_s": 0.0, "calls": 0})
+        if now is not None and now["calls"] > was["calls"]:
+            walls = stats.setdefault("phase_walls", {})
+            walls[name] = (walls.get(name, 0.0) + now["total_s"]
+                           - was["total_s"])
+
+
 def _solo_mesh(device):
     """A 1 x 1 ensemble mesh in this process: a one-rank group on a free
     localhost port (``nccl`` on a card, ``gloo`` on the CPU)."""
@@ -1199,16 +1243,15 @@ def run_lowered_sharded_ensemble(lp: LoweredProgram, mesh=None,
     ``comm_bytes`` and ``hbm_bytes`` (per particle, times the particles
     that ran the plan), ``num_collectives`` (counted where the ensemble
     executors issue them), and ``phase_walls`` (host seconds per phase:
-    init, segment, reshard, rotate, collapse, exchange, fetch); with
-    ``stats["sync_phases"]`` true every phase waits for the device.  The
+    init, segment, reshard, rotate, collapse, exchange, fetch, the spans
+    ``qbot.ensemble.<phase>``; while spans are on only, inside
+    :func:`qbot_tpu_torch.utils.profiling.tracing` or a profiler).  The
     dense state fields of a result at most 12 qubits wide are gathered
     when it is measured (a collective, on every rank).
 
     Returns (results dict, this rank's final ShardedEnsemble, final perm,
     the mesh).
     """
-    import time
-
     import torch.distributed as dist
 
     from qbot_tpu_torch.tpu import sharded_ensemble as se
@@ -1235,40 +1278,32 @@ def run_lowered_sharded_ensemble(lp: LoweredProgram, mesh=None,
                 f"and pass each its EnsembleMesh")
     emesh = mesh
     k = emesh.k
-    sync_phases = bool(stats.get("sync_phases")) if stats else False
+    before = profiling.span_totals()
 
-    def bucket(name: str, t0: float) -> None:
-        if stats is not None:
-            pw = stats.setdefault("phase_walls", {})
-            pw[name] = pw.get(name, 0.0) + time.perf_counter() - t0
-
-    def drain() -> None:
-        if sync_phases and emesh.device.type == "cuda":
-            torch.cuda.synchronize(emesh.device)
+    def phase(name: str):
+        return profiling.named_scope(f"qbot.ensemble.{name}")
 
     try:
-        t0 = time.perf_counter()
-        if lp.initial_density is not None:
-            # mixed prep: the host eigensolve of a small density, the SMC
-            # copies made on the host rows before padding
-            vals, vecs = np.linalg.eigh(np.asarray(lp.initial_density,
-                                                   complex))
-            keep = vals > 1e-12
-            vals, vecs = vals[keep], vecs[:, keep]
-            psi0 = np.stack([to_planar(vecs[:, i])
-                             for i in range(vals.shape[0])])
-            lw = np.log(vals / vals.sum())
-            if sample:
-                reps = max(1, sample // psi0.shape[0])
-                psi0 = np.repeat(psi0, reps, axis=0)
-                lw = np.repeat(lw, reps) - np.log(reps)
-            ens = se.init_sharded_ensemble(psi0, emesh, log_w=lw)
-        else:
-            # the product state and its SMC copies, built on the device
-            ens = se.init_product_sharded_ensemble(lp.initial_kets, emesh,
-                                                   B=max(1, sample))
-        drain()
-        bucket("init", t0)
+        with phase("init"):
+            if lp.initial_density is not None:
+                # mixed prep: the host eigensolve of a small density, the
+                # SMC copies made on the host rows before padding
+                vals, vecs = np.linalg.eigh(np.asarray(lp.initial_density,
+                                                       complex))
+                keep = vals > 1e-12
+                vals, vecs = vals[keep], vecs[:, keep]
+                psi0 = np.stack([to_planar(vecs[:, i])
+                                 for i in range(vals.shape[0])])
+                lw = np.log(vals / vals.sum())
+                if sample:
+                    reps = max(1, sample // psi0.shape[0])
+                    psi0 = np.repeat(psi0, reps, axis=0)
+                    lw = np.repeat(lw, reps) - np.log(reps)
+                ens = se.init_sharded_ensemble(psi0, emesh, log_w=lw)
+            else:
+                # the product state and its SMC copies, built on the device
+                ens = se.init_product_sharded_ensemble(
+                    lp.initial_kets, emesh, B=max(1, sample))
         gens = {}
         if sample:
             gens = {"row_gen": se.row_generator(seed, emesh),
@@ -1322,12 +1357,9 @@ def run_lowered_sharded_ensemble(lp: LoweredProgram, mesh=None,
         def run_plan(ens, splan, name: str):
             if splan is None or not splan.items:
                 return ens
-            t0 = time.perf_counter()
             acc(splan, ens.num_particles)
-            out = se.apply_sharded_plan_ensemble(ens, splan, emesh)
-            drain()
-            bucket(name, t0)
-            return out
+            with phase(name):
+                return se.apply_sharded_plan_ensemble(ens, splan, emesh)
 
         def run_segment(ens, ops, n, perm):
             if not ops:
@@ -1346,19 +1378,14 @@ def run_lowered_sharded_ensemble(lp: LoweredProgram, mesh=None,
                 num_params=lp.circuit.num_params), name)
 
         def collapse(fn, *args, **kw):
-            t0 = time.perf_counter()
-            out = fn(*args, **kw)
-            drain()
-            bucket("collapse", t0)
-            return out
+            with phase("collapse"):
+                return fn(*args, **kw)
 
         def exchange(ens):
-            t0 = time.perf_counter()
-            ens, _ = se.maybe_exchange_islands(
-                gens["mesh_gen"], ens, emesh,
-                threshold=island_ess_threshold, stats=stats)
-            drain()
-            bucket("exchange", t0)
+            with phase("exchange"):
+                ens, _ = se.maybe_exchange_islands(
+                    gens["mesh_gen"], ens, emesh,
+                    threshold=island_ess_threshold, stats=stats)
             return ens
 
         row_gen = gens.get("row_gen")
@@ -1389,37 +1416,35 @@ def run_lowered_sharded_ensemble(lp: LoweredProgram, mesh=None,
                                                         union)
                 ens = run_items(ens, items, cur_n, perm)
                 pos = _positions(perm)
-                t0 = time.perf_counter()
-                if many:
-                    if sample:
-                        B_keep = ens.num_particles
-                        parts = [(pb, se.replace_sample_sharded(
-                            row_gen, ens, cur_n, [pos[q] - k for q in t],
-                            spec.new_states, emesh, stats=stats))
-                            for pb, t in spec.branches]
-                        ens = se.resample_down_sharded(
-                            row_gen, se.concat_sharded(parts, emesh),
-                            B_keep, emesh, stats=stats)
+                with phase("collapse"):
+                    if many:
+                        if sample:
+                            B_keep = ens.num_particles
+                            parts = [(pb, se.replace_sample_sharded(
+                                row_gen, ens, cur_n, [pos[q] - k for q in t],
+                                spec.new_states, emesh, stats=stats))
+                                for pb, t in spec.branches]
+                            ens = se.resample_down_sharded(
+                                row_gen, se.concat_sharded(parts, emesh),
+                                B_keep, emesh, stats=stats)
+                        else:
+                            parts = [(pb, se.replace_fanout_sharded(
+                                ens, cur_n, [pos[q] - k for q in t],
+                                spec.new_states, emesh, max_particles,
+                                stats=stats))
+                                for pb, t in spec.branches]
+                            ens = se.prune_sharded(
+                                se.concat_sharded(parts, emesh), max_particles,
+                                emesh, stats=stats)
+                    elif sample:
+                        ens = se.replace_sample_sharded(
+                            row_gen, ens, cur_n,
+                            [pos[q] - k for q in spec.targets],
+                            spec.new_states, emesh, stats=stats)
                     else:
-                        parts = [(pb, se.replace_fanout_sharded(
-                            ens, cur_n, [pos[q] - k for q in t],
-                            spec.new_states, emesh, max_particles,
-                            stats=stats))
-                            for pb, t in spec.branches]
-                        ens = se.prune_sharded(
-                            se.concat_sharded(parts, emesh), max_particles,
-                            emesh, stats=stats)
-                elif sample:
-                    ens = se.replace_sample_sharded(
-                        row_gen, ens, cur_n,
-                        [pos[q] - k for q in spec.targets],
-                        spec.new_states, emesh, stats=stats)
-                else:
-                    ens = se.replace_fanout_sharded(
-                        ens, cur_n, [pos[q] - k for q in spec.targets],
-                        spec.new_states, emesh, max_particles, stats=stats)
-                drain()
-                bucket("collapse", t0)
+                        ens = se.replace_fanout_sharded(
+                            ens, cur_n, [pos[q] - k for q in spec.targets],
+                            spec.new_states, emesh, max_particles, stats=stats)
                 snapshot(ei + 1, ens)
                 continue
 
@@ -1441,7 +1466,6 @@ def run_lowered_sharded_ensemble(lp: LoweredProgram, mesh=None,
                     )
 
                     new_n = cur_n - len(spec.branches[0][1])
-                    t0 = time.perf_counter()
                     B_keep = ens.num_particles
                     parts = []
                     for p, tset in spec.branches:
@@ -1555,22 +1579,22 @@ def run_lowered_sharded_ensemble(lp: LoweredProgram, mesh=None,
                 dist_ = collapse(se.peek_probs_sharded, ens_m, cur_n, local,
                                  emesh, shard_positions=shard_pos,
                                  stats=stats)
-            t0 = time.perf_counter()
-            dist_ = _reorder_outcome_bits(dist_.cpu().numpy(),
-                                          phys_logicals, targets)
-            bucket("fetch", t0)
+            with phase("fetch"), profiling.sync():
+                dist_ = dist_.cpu().numpy()
+            dist_ = _reorder_outcome_bits(dist_, phys_logicals, targets)
             results[spec.name] = _make_result(spec.basis, targets, dist_,
                                               provider=provider)
             snapshot(ei + 1, ens)
 
         ens, perm = run_segment(ens, all_ops[prev:], cur_n, perm)
-        t0 = time.perf_counter()
-        lost = float(ens.lost_mass)
-        bucket("fetch", t0)
+        with phase("fetch"):
+            lost = profiling.host_float(ens.lost_mass)
         warn_lost_mass(lost, 1e-6)
         for name, res in results.items():
             lp.namespace[name] = res
         _run_epilogue(lp)
+        if stats is not None:
+            _phase_walls(stats, before)
         return results, ens, perm, emesh
     finally:
         if solo:

@@ -56,6 +56,7 @@ from qbot_tpu_torch.tpu.planar import (
     planar_probs,
     product_state_planar,
 )
+from qbot_tpu_torch.utils import profiling
 
 __all__ = ["QuantumEnsemble", "init_ensemble", "init_product_ensemble",
            "init_mixed_ensemble", "apply_plan_ensemble", "measure_fanout",
@@ -124,8 +125,10 @@ def init_product_ensemble(kets, B: int = 1,
 
 
 def _lost(ens: QuantumEnsemble) -> torch.Tensor:
-    return torch.as_tensor(ens.lost_mass, dtype=LOG_DTYPE,
-                           device=ens.log_w.device)
+    if isinstance(ens.lost_mass, torch.Tensor):
+        return ens.lost_mass.to(dtype=LOG_DTYPE, device=ens.log_w.device)
+    return profiling.upload(np.asarray(ens.lost_mass, np.float64),
+                            ens.log_w.device)
 
 
 def _prune(log_w, max_particles: int, lost_mass):
@@ -166,9 +169,9 @@ def init_mixed_ensemble(rho: np.ndarray, tol: float = 1e-12,
     psi = np.stack([np.stack([vecs[:, i].real, vecs[:, i].imag])
                     for i in range(vals.shape[0])]).astype(np.float32)
     return QuantumEnsemble(
-        torch.log(torch.tensor(vals / vals.sum(), dtype=LOG_DTYPE,
-                               device=device)),
-        torch.from_numpy(psi).to(device))
+        torch.log(profiling.upload(
+            np.asarray(vals / vals.sum(), np.float64), device)),
+        profiling.upload(psi, device))
 
 
 def apply_plan_ensemble(ens: QuantumEnsemble, plan: Plan,
@@ -287,7 +290,8 @@ def measure_fanout(ens: QuantumEnsemble, n: int, targets: Sequence[int],
     inv = _inv_sqrt(p_all)
     for j in range(K):
         for k in range(K):
-            at = torch.nonzero((j_of == j) & (k_of == k)).reshape(-1)
+            with profiling.sync():
+                at = torch.nonzero((j_of == j) & (k_of == k)).reshape(-1)
             if at.numel() == 0:
                 continue
             b = b_of[at]
@@ -306,7 +310,8 @@ def _extract(ens_psi, blk: _Blocks, b_of, a_of, inv_sel, n_out):
     out = torch.empty((M, 2, 2 ** n_out), dtype=ens_psi.dtype,
                       device=ens_psi.device)
     for a in range(blk.K):
-        at = torch.nonzero(a_of == a).reshape(-1)
+        with profiling.sync():
+            at = torch.nonzero(a_of == a).reshape(-1)
         if at.numel() == 0:
             continue
         block = src.index_select(0, b_of[at])[blk.index(a)]
@@ -348,7 +353,8 @@ def _resample_below(gen, log_w0, values, ess_threshold: float):
     """(log_w, values) systematically resampled when the ESS of ``log_w0``
     is below ``ess_threshold``·B, else as they are."""
     B = log_w0.shape[0]
-    if float(effective_sample_size(log_w0)) < ess_threshold * B:
+    if profiling.host_float(effective_sample_size(log_w0)) \
+            < ess_threshold * B:
         r = systematic_resample(gen, WEnsemble(log_w0, values))
         return r.log_weights, r.values
     return log_w0, values
@@ -437,7 +443,7 @@ def _new_states(new_states, device):
     eigen-branches ((weight, planar ket), ...)."""
     w = np.asarray([float(w) for w, _ in new_states])
     phis = np.stack([np.asarray(phi, np.float32) for _, phi in new_states])
-    return w, torch.from_numpy(phis).to(device)
+    return w, profiling.upload(phis, device)
 
 
 def replace_fanout(ens: QuantumEnsemble, n: int, targets: Sequence[int],
@@ -490,7 +496,7 @@ def replace_sample(gen: torch.Generator, ens: QuantumEnsemble, n: int,
     b_of = torch.arange(B, device=ens.psi.device)
     rests = _extract(ens.psi, blk, b_of, outcomes,
                      _inv_sqrt(p_all[b_of, outcomes]), n - blk.t)
-    branch_w = torch.tensor(wb, dtype=LOG_DTYPE, device=ens.psi.device)
+    branch_w = profiling.upload(np.asarray(wb, np.float64), ens.psi.device)
     draws = torch.multinomial(branch_w.expand(B, -1), 1,
                               generator=gen).reshape(-1)
     psi = _insert_block(phis[draws].to(rests.dtype), rests, n, list(targets))
@@ -523,8 +529,8 @@ def concat_resampled(gen: torch.Generator, weighted,
                                         device=lw.device)) / B
     idx = torch.clamp(torch.searchsorted(torch.cumsum(w / z, dim=0), u),
                       0, lw.shape[0] - 1)
-    new_lw = torch.full((B,), float(m + torch.log(z) - np.log(B)),
-                        dtype=lw.dtype, device=lw.device)
+    share = profiling.host_float(m + torch.log(z) - np.log(B))
+    new_lw = torch.full((B,), share, dtype=lw.dtype, device=lw.device)
     return QuantumEnsemble(new_lw, ps[idx], lost)
 
 

@@ -72,6 +72,7 @@ from qbot_tpu_torch.tpu.compiler import (
     expand_reflections,
     phase_as_diag,
 )
+from qbot_tpu_torch.utils import profiling
 
 __all__ = ["DotPlan", "lower_dot_plan", "apply_plan_dot",
            "apply_plan_dot_ref", "make_dot_runner", "make_scanned_dot_runner",
@@ -196,18 +197,21 @@ def _realify(w: torch.Tensor) -> torch.Tensor:
                       torch.cat([w[1], w[0]], 1)], 0)
 
 
-_products: Counter = Counter()
+# the products are keys of the program's one counter table
+_products = profiling.COUNTS
+_PRODUCT = "dot_window["
 
 
 def reset_product_counts() -> None:
-    _products.clear()
+    for name in [k for k in _products if k.startswith(_PRODUCT)]:
+        del _products[name]
 
 
 def product_counts() -> dict:
     """Library products since the last reset, by the mode they ran in
     (``dot_window[f32]``, ``dot_window[bf16_3x]``, ``dot_window[bf16]``),
     on CUDA tensors only."""
-    return dict(_products)
+    return {k: v for k, v in _products.items() if k.startswith(_PRODUCT)}
 
 
 def _per_particle(window):
@@ -299,7 +303,8 @@ def _library_window(psi, A: int, D: int, B: int, m, mode: str):
     :func:`_f32_library`; a reduced mode one bf16 product with float32
     output of ``m`` (:func:`_split_matrix`) and the split state
     (:func:`_split_state`), the planes put back after it."""
-    _products[f"dot_window[{mode}]"] += 1
+    name = f"{_PRODUCT}{mode}]"
+    _products[name] = _products.get(name, 0) + 1
     if mode == "f32":
         return _f32_library(psi, A, D, B, m)
     x = _split_state(psi.reshape(2, A, D, B).transpose(0, 1), mode)

@@ -68,6 +68,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from qbot_tpu_torch.utils import profiling
+
 __all__ = ["set_dot_mode", "dot_mode", "DOT_MODES",
            "FusedDiagonals", "fused_diagonals", "phase_bits",
            "window_apply", "window_apply_ref",
@@ -265,7 +267,8 @@ LAUNCH_COUNTS = (
     *_PRODUCT_COUNTS[:3], "reflect_dot", "reflect_update",
     *_PRODUCT_COUNTS[3:],
     *(f"{name}[{mode}]" for mode in REDUCED_MODES for name in _PRODUCT_COUNTS))
-_launches: dict = {}
+# the launches are keys of the program's one counter table
+_launches = profiling.COUNTS
 
 
 def reset_launch_counts() -> None:
@@ -274,7 +277,7 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by :data:`LAUNCH_COUNTS`."""
-    return dict(_launches)
+    return {name: _launches[name] for name in LAUNCH_COUNTS}
 
 
 def _count(name: str) -> None:
@@ -373,15 +376,13 @@ def fused_diagonals(n: int, pre_flips=(), pre_phases=(),
     bits = [phase_bits(n, q, pat) for q, _, pat in pre_phases]
     z = np.array([complex(z) for _, z, _ in pre_phases], np.complex128)
     re = np.float32(1.0) + (z.real - 1.0).astype(np.float32)
+    up = profiling.upload
     return FusedDiagonals(
-        flips=torch.tensor(list(pre_flips), dtype=torch.int64,
-                           device=device),
-        mask=torch.tensor([m for m, _ in bits], dtype=torch.int64,
-                          device=device),
-        want=torch.tensor([w for _, w in bits], dtype=torch.int64,
-                          device=device),
-        phase=torch.tensor(np.stack([re, z.imag.astype(np.float32)]
-                                    ).reshape(2, -1), device=device))
+        flips=up(np.asarray(list(pre_flips), np.int64), device),
+        mask=up(np.asarray([m for m, _ in bits], np.int64), device),
+        want=up(np.asarray([w for _, w in bits], np.int64), device),
+        phase=up(np.stack([re, z.imag.astype(np.float32)]).reshape(2, -1),
+                 device))
 
 
 def _flip_signs(x: torch.Tensor, flips: torch.Tensor) -> torch.Tensor:

@@ -58,6 +58,7 @@ from qbot_tpu_torch.tpu.compiler import (
     phase_as_diag,
 )
 from qbot_tpu_torch.tpu.kernels import _fp32_matmul
+from qbot_tpu_torch.utils import profiling
 
 __all__ = ["zero_state_planar", "to_planar", "from_planar",
            "product_state_planar", "fold_window_static",
@@ -86,7 +87,7 @@ def product_state_planar(kets, device) -> torch.Tensor:
     i = torch.zeros(1, dtype=REAL_DTYPE, device=device)
     for k in kets:
         k = np.asarray(k, np.complex128).ravel()
-        pk = torch.from_numpy(to_planar(k)).to(device)
+        pk = profiling.upload(to_planar(k), device)
         br, bi = pk[0], pk[1]
         r, i = ((r[:, None] * br[None, :] - i[:, None] * bi[None, :])
                 .reshape(-1),
@@ -98,7 +99,8 @@ def product_state_planar(kets, device) -> torch.Tensor:
 
 def zero_state_planar(n: int, device) -> torch.Tensor:
     psi = torch.zeros((2, 2**n), dtype=REAL_DTYPE, device=device)
-    psi[0, 0] = 1.0
+    psi[0, 0] = 1.0         # a copy of a host scalar: it waits for the card
+    profiling.count("host_syncs")
     return psi
 
 
@@ -116,8 +118,8 @@ def from_planar(psi) -> np.ndarray:
 
 
 def _planar_tensor(mat, device) -> torch.Tensor:
-    return torch.from_numpy(to_planar(np.asarray(mat, np.complex128))
-                            ).to(device)
+    return profiling.upload(to_planar(np.asarray(mat, np.complex128)),
+                            device)
 
 
 def _grouped_view(n: int, qubits):
@@ -186,8 +188,8 @@ def _fold_contract(g: torch.Tensor, W: torch.Tensor, positions
 def _static_terms(step: WindowStep, device) -> list:
     """The complex128 matrix of each static term of a window on ``device``
     (None for a parameterised one), uploaded once."""
-    return [None if t.matrix is None else torch.from_numpy(
-        np.asarray(t.matrix, np.complex128)).to(device) for t in step.terms]
+    return [None if t.matrix is None else profiling.upload(
+        np.asarray(t.matrix, np.complex128), device) for t in step.terms]
 
 
 def _fold(step: WindowStep, static: list, params) -> torch.Tensor:
@@ -313,8 +315,8 @@ class _Reflection:
         tail = np.asarray(step.factors[-1], np.complex128)
         self.H, self.T = head.shape[0], tail.shape[0]
         a32, b32 = to_planar(head), to_planar(tail)
-        self.a = torch.from_numpy(a32).to(device).reshape(2, self.H, 1)
-        self.b = torch.from_numpy(b32).to(device).reshape(2, 1, self.T)
+        self.a = profiling.upload(a32, device).reshape(2, self.H, 1)
+        self.b = profiling.upload(b32, device).reshape(2, 1, self.T)
         # c is scaled by 1/⟨v|v⟩ of the float32 tables: the update is then
         # the exact Householder reflection about the tables' own direction,
         # which keeps the norm however the tables round (by estimate, their
@@ -332,11 +334,10 @@ class _Reflection:
                       for m in step.pre_flips], np.complex128)
         flip = -2.0 * np.stack([np.stack([v.real, v.imag]),
                                 np.stack([-v.imag, v.real])])
-        self.lane = torch.from_numpy(lane * inv_vv).to(device)
-        self.flip = torch.from_numpy(
-            flip.reshape(2, 2, -1) * inv_vv).to(device)
-        self.flips = torch.tensor(list(step.pre_flips), dtype=torch.int64,
-                                  device=device)
+        self.lane = profiling.upload(lane * inv_vv, device)
+        self.flip = profiling.upload(flip.reshape(2, 2, -1) * inv_vv, device)
+        self.flips = profiling.upload(np.asarray(step.pre_flips, np.int64),
+                                      device)
         self.no_flips = self.flips[:0]
 
     def c64_from_lane_dot(self, d, psi3=None):
@@ -473,6 +474,7 @@ def _contract_fn(n: int, step: ContractStep, device, conj: bool = False,
     return apply
 
 
+@profiling.spanned("qbot.plan.prepare")
 def _step_fns(plan: Plan, device, ops: _Ops) -> list:
     n = plan.n
     fns = []
@@ -520,7 +522,9 @@ def apply_plan_planar(psi: torch.Tensor, plan: Plan,
         from qbot_tpu_torch.tpu.dotplan import apply_plan_dot
 
         return apply_plan_dot(psi, lowered, params)
-    return _run(psi, _step_fns(plan, psi.device, _KERNELS), params)
+    fns = _step_fns(plan, psi.device, _KERNELS)
+    with profiling.named_scope("qbot.plan.apply"):
+        return _run(psi, fns, params)
 
 
 def apply_plan_planar_ref(psi: torch.Tensor, plan: Plan,
@@ -572,7 +576,9 @@ def make_planar_runner(plan: Plan):
     prepared = _Prepared(lambda device: _step_fns(plan, device, _KERNELS))
 
     def run(psi: torch.Tensor, params=None) -> torch.Tensor:
-        return _run(psi, prepared(psi.device), params)
+        fns = prepared(psi.device)
+        with profiling.named_scope("qbot.plan.apply"):
+            return _run(psi, fns, params)
     return run
 
 
@@ -615,22 +621,28 @@ def make_scanned_planar_runner(body_plan: Plan, repeats: int,
     init = None if init_plan is None else make_planar_runner(init_plan)
     body = _Prepared(lambda device: _step_fns(body_plan, device, _KERNELS))
 
+    @profiling.spanned("qbot.scan")
     def run(psi: torch.Tensor, params=None) -> torch.Tensor:
         if init is not None:
             psi = init(psi, params)
         if not reflect_body or kernels._needs_grad(psi):
             fns = body(psi.device)
-            for i in range(repeats):
-                psi = _run(psi, fns, params)
-                if renorm_every and (i + 1) % renorm_every == 0:
-                    psi = _renormalize(psi)
+            with profiling.named_scope("qbot.plan.apply"):
+                for i in range(repeats):
+                    psi = _run(psi, fns, params)
+                    if renorm_every and (i + 1) % renorm_every == 0:
+                        psi = _renormalize(psi)
             return psi
-        refl = _Reflection(body_plan.steps[0], psi.device)
-        p3 = psi.reshape(*psi.shape[:-1], refl.H, refl.T)
-        c = refl.c_from_lane_dot(kernels.reflect_dot(p3, refl.a, refl.b), p3)
-        for _ in range(repeats):
-            p3, d = kernels.reflect_update(p3, c, refl.a, refl.b, refl.flips)
-            c = refl.c_from_lane_dot(d, p3)
+        with profiling.named_scope("qbot.plan.prepare"):
+            refl = _Reflection(body_plan.steps[0], psi.device)
+        with profiling.named_scope("qbot.plan.apply"):
+            p3 = psi.reshape(*psi.shape[:-1], refl.H, refl.T)
+            c = refl.c_from_lane_dot(kernels.reflect_dot(p3, refl.a, refl.b),
+                                     p3)
+            for _ in range(repeats):
+                p3, d = kernels.reflect_update(p3, c, refl.a, refl.b,
+                                               refl.flips)
+                c = refl.c_from_lane_dot(d, p3)
         return p3.reshape(psi.shape)
     return run
 

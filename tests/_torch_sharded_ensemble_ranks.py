@@ -23,6 +23,7 @@ from qbot_tpu_torch.frontend.lowering import (
 )
 from qbot_tpu_torch.probval import ProbVal
 from qbot_tpu_torch.tpu.planar import to_planar
+from qbot_tpu_torch.utils import profiling
 
 # the mesh shapes of the module (P, Q): one gloo group each
 SHAPES = ((1, 2), (2, 1), (2, 2), (2, 4))
@@ -183,7 +184,8 @@ def _lowered(src):
 def _run(emesh, src, **kw):
     """(results, ensemble, perm, stats) of the mesh runner on ``src``."""
     stats = {}
-    with warnings.catch_warnings():
+    # the program's spans on: they fill stats["phase_walls"]
+    with warnings.catch_warnings(), profiling.tracing():
         warnings.simplefilter("ignore", RuntimeWarning)
         res, ens, perm, _ = run_lowered_sharded_ensemble(
             _lowered(src), mesh=emesh, stats=stats, **kw)
