@@ -151,6 +151,10 @@ class LoweredProgram:
     # mixed-state preparation (mid_measure mode): the full initial ρ, run
     # as its eigendecomposition ensemble (initial_kets is empty then)
     initial_density: Optional[np.ndarray] = None
+    # the device ensemble's initial planar state, kept by
+    # _initial_planar: (device, [initial_kets, *initial_kets], state)
+    _init_planar: Optional[tuple] = field(default=None, init=False,
+                                          repr=False, compare=False)
 
     @property
     def n(self) -> int:
@@ -618,6 +622,29 @@ def _basis_rotation_plans(basis: Basis, targets, n: int, window: int):
                                 window=window))
 
 
+def _initial_planar(lp: LoweredProgram, device) -> torch.Tensor:
+    """The normalised planar state ⊗``lp.initial_kets`` (2, 2^n) on
+    ``device``: built on the program's first ensemble run there
+    (:func:`product_state_planar`), then kept on ``lp`` and handed out
+    again.  One state is kept, the newest device's, together with the
+    identity of ``lp.initial_kets`` and of each of its arrays: rebinding
+    the list or one of its arrays, or another device, builds it anew.
+    Counts ``init_state_builds`` or ``init_state_reuses``.  The caller
+    copies it: the kernels write an ensemble's states in place."""
+    kets = lp.initial_kets
+    key = [kets, *kets]
+    kept = lp._init_planar
+    if (kept is not None and kept[0] == device and len(kept[1]) == len(key)
+            and all(a is b for a, b in zip(kept[1], key))):
+        profiling.count("init_state_reuses")
+        return kept[2]
+    lp._init_planar = None                  # the old state freed first
+    psi0 = product_state_planar(kets, device)
+    lp._init_planar = (device, key, psi0)
+    profiling.count("init_state_builds")
+    return psi0
+
+
 def _save_ensemble_checkpoint(mgr, event: int, ens, cur_n: int, prev: int,
                               results: dict, gen) -> None:
     """Snapshot the ensemble + event cursor (and the sampler's generator
@@ -692,9 +719,11 @@ def run_lowered_ensemble(lp: LoweredProgram, max_particles: int = 256,
                     torch.repeat_interleave(ens.log_w, reps) - np.log(reps),
                     torch.repeat_interleave(ens.psi, reps, dim=0))
         else:
-            # the product state and its SMC copies are built on the device
-            ens = ee.init_product_ensemble(lp.initial_kets,
-                                           B=max(1, sample), device=device)
+            # the product state is built on the device once per program;
+            # every run starts from copies of it (B = 1: a clone)
+            B = max(1, sample)
+            psi0 = _initial_planar(lp, device)
+            ens = ee.uniform_ensemble(psi0.clone() if B == 1 else psi0, B)
     gen = None
     if sample:
         gen = torch.Generator(device=device).manual_seed(seed)

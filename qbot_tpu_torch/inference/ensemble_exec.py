@@ -59,9 +59,9 @@ from qbot_tpu_torch.tpu.planar import (
 from qbot_tpu_torch.utils import profiling
 
 __all__ = ["QuantumEnsemble", "init_ensemble", "init_product_ensemble",
-           "init_mixed_ensemble", "apply_plan_ensemble", "measure_fanout",
-           "measure_sample", "discard_fanout", "discard_sample",
-           "replace_fanout", "replace_sample", "peek_probs",
+           "init_mixed_ensemble", "uniform_ensemble", "apply_plan_ensemble",
+           "measure_fanout", "measure_sample", "discard_fanout",
+           "discard_sample", "replace_fanout", "replace_sample", "peek_probs",
            "concat_resampled", "concat_weighted", "ensemble_mixture",
            "MAX_PARTICLES"]
 
@@ -116,7 +116,13 @@ def init_product_ensemble(kets, B: int = 1,
     ``device`` (:func:`~qbot_tpu_torch.tpu.planar.product_state_planar`:
     no 2^n array on the host).  The B copies are materialised: the kernels
     take contiguous states."""
-    psi1 = product_state_planar(kets, device)
+    return uniform_ensemble(product_state_planar(kets, device), B)
+
+
+def uniform_ensemble(psi1: torch.Tensor, B: int = 1) -> QuantumEnsemble:
+    """Uniform B-particle ensemble of the planar (2, 2^n) state ``psi1``:
+    B = 1 holds ``psi1`` itself, B > 1 materialised copies (the kernels
+    take contiguous states)."""
     if B == 1:
         return init_ensemble(psi1)
     return QuantumEnsemble(

@@ -922,6 +922,31 @@ def test_device_ensemble_on_card_matches_cpu(cuda):
         assert sampled[0][name].probs == sampled[1][name].probs
 
 
+def test_device_ensemble_reuses_its_initial_state_on_card(cuda):
+    """A 12-qubit SMC program run twice on the card from one seed, and
+    once more lowered anew: equal particles, bit for bit; the initial state
+    kept on the program, on the card, is unchanged by sampled and exact
+    runs."""
+    from portbench.families.smc_program import smc_program
+    from qbot_tpu_torch.frontend import lowering
+    from qbot_tpu_torch.tpu.planar import product_state_planar
+
+    rng = np.random.default_rng(5)
+    text, _ = smc_program(12, iter(rng.uniform(0.8, 2.3, size=48)))
+    lp = lowering.lower_program(text, mid_measure=True)
+    want = product_state_planar(lp.initial_kets, cuda)
+    runs = [lowering.run_lowered_ensemble(p, sample=16, seed=3,
+                                          device=cuda)[1]
+            for p in (lp, lp, lowering.lower_program(text, mid_measure=True))]
+    kept = lp._init_planar[2]
+    assert kept.device == cuda and torch.equal(kept, want)
+    for ens in runs[1:]:
+        assert torch.equal(ens.psi, runs[0].psi)
+        assert torch.equal(ens.log_w, runs[0].log_w)
+    lowering.run_lowered_ensemble(lp, sample=0, device=cuda)
+    assert lp._init_planar[2] is kept and torch.equal(kept, want)
+
+
 # ---------------------------------------------------------------------------
 # gradients: the Functions' backward through the kernels
 # ---------------------------------------------------------------------------

@@ -12,7 +12,10 @@ keeps the reference's branches, index for index.  Sampled collapses draw
 from another generator than the reference's: their pre-sampling
 distribution agrees within 1e-5, their sampled mixture within 4σ of the
 exact fan-out.  The plain kernels on a (P, 2, 2^n) batch equal a loop over
-the single particles bit for bit, in every dot mode.
+the single particles bit for bit, in every dot mode.  The initial planar
+state ``run_lowered_ensemble`` keeps on a ``LoweredProgram``: runs on it
+repeat a freshly lowered program's bit for bit, no run writes into it or
+hands it out, and it is built anew for rebound kets or another device.
 """
 import numpy as np
 import pytest
@@ -22,11 +25,15 @@ import jax
 import jax.numpy as jnp
 
 from _torch_parity import both, brickwork, grover_body
+from portbench.families.smc_program import smc_program
 from qbot_tpu.inference import ensemble_exec as jee
 from qbot_tpu.tpu.compiler import compile_circuit as jax_compile
+from qbot_tpu_torch.frontend import lowering
 from qbot_tpu_torch.inference import ensemble_exec as ee
 from qbot_tpu_torch.tpu import kernels
 from qbot_tpu_torch.tpu.compiler import compile_circuit
+from qbot_tpu_torch.tpu.planar import product_state_planar
+from qbot_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -334,3 +341,103 @@ def test_wrappers_refuse_a_batch_of_the_wrong_shape():
     w = _unitary(2, 0)
     with pytest.raises(ValueError, match="batch"):
         kernels.window_apply(psi, 4, 0, 1, w, kernels.fused_diagonals(4))
+
+
+# ---------------------------------------------------------------------------
+# the initial planar state kept on the LoweredProgram
+# ---------------------------------------------------------------------------
+
+PREP = "qset tensorExp(hadamard.kets[0], 10)"
+ONLY_MEAS = PREP + "\nmeas a ; computation ; [0]"
+ONLY_PEEK = PREP + "\npeek a ; computation ; [0]"
+
+
+def _lowered(text=None):
+    if text is None:
+        rng = np.random.default_rng(5)
+        text, _ = smc_program(10, iter(rng.uniform(0.8, 2.3, size=40)))
+    return lowering.lower_program(text, mid_measure=True)
+
+
+def _run(lp, sample, seed=3):
+    res, ens = lowering.run_lowered_ensemble(lp, window=7, sample=sample,
+                                             seed=seed, device="cpu")
+    return {k: np.asarray(v.probs) for k, v in res.items()}, ens
+
+
+def _kept(lp):
+    return lp._init_planar[2]
+
+
+@pytest.mark.parametrize("sample", [0, 16])
+def test_runs_on_the_kept_initial_state_repeat_bit_for_bit(sample):
+    """Two runs of one program from one seed, and a run of the program
+    lowered anew: equal readouts, log-weights and states, bit for bit."""
+    lp = _lowered()
+    runs = [_run(lp, sample), _run(lp, sample), _run(_lowered(), sample)]
+    (r0, e0) = runs[0]
+    for r, e in runs[1:]:
+        assert r.keys() == r0.keys()
+        for k in r0:
+            np.testing.assert_array_equal(r[k], r0[k])
+        assert torch.equal(e.log_w, e0.log_w)
+        assert torch.equal(e.psi, e0.psi)
+
+
+@pytest.mark.parametrize("text,sample", [
+    (None, 0), (None, 16), (None, 1), (ONLY_MEAS, 0), (ONLY_MEAS, 1),
+    (ONLY_PEEK, 0), (PREP, 0), (PREP, 4)],
+    ids=["exact", "sampled", "one-particle", "only-meas-exact",
+         "only-meas-one-particle", "only-peek", "no-ops", "no-ops-sampled"])
+def test_kept_initial_state_is_never_written(text, sample):
+    """The kept state equals the state a fresh build gives after every
+    run, also when the caller writes into the final ensemble, and no final
+    ensemble shares its storage (a program without gates or collapses
+    returns the ensemble that init made)."""
+    lp = _lowered(text)
+    want = product_state_planar(lp.initial_kets, "cpu")
+    for _ in range(2):
+        _, ens = _run(lp, sample)
+        kept = _kept(lp)
+        assert (ens.psi.untyped_storage().data_ptr()
+                != kept.untyped_storage().data_ptr())
+        ens.psi.add_(1.0)
+        assert torch.equal(kept, want)
+
+
+def test_two_runs_count_one_build_and_one_reuse():
+    lp = _lowered()
+    before = profiling.counters()
+    _run(lp, 16)
+    _run(lp, 0)
+    after = profiling.counters()
+    got = {k: after.get(k, 0) - before.get(k, 0)
+           for k in ("init_state_builds", "init_state_reuses")}
+    assert got == {"init_state_builds": 1, "init_state_reuses": 1}
+
+
+def test_rebound_kets_or_another_device_build_the_state_anew():
+    """Rebinding ``initial_kets`` or one of its arrays builds the state
+    anew; so does another device ("meta" stands for a second device on a
+    machine without a card), and the one kept is the newest device's."""
+    lp = _lowered()
+    cpu = torch.device("cpu")
+
+    def builds(device=cpu):
+        before = profiling.counters().get("init_state_builds", 0)
+        psi0 = lowering._initial_planar(lp, device)
+        return profiling.counters()["init_state_builds"] - before, psi0
+
+    assert builds()[0] == 1
+    n, first = builds()
+    assert n == 0 and first is _kept(lp)
+    lp.initial_kets = list(lp.initial_kets)
+    n, psi0 = builds()
+    assert n == 1 and psi0 is not first and torch.equal(psi0, first)
+    lp.initial_kets[0] = lp.initial_kets[0].copy()
+    assert builds()[0] == 1
+    n, meta = builds(torch.device("meta"))
+    assert n == 1 and meta.device.type == "meta"
+    assert builds()[0] == 1 and builds()[0] == 0
+    _run(lp, 4)
+    assert builds()[0] == 0

@@ -245,14 +245,18 @@ def uploads(monkeypatch):
 def test_ensemble_spans_and_counters(spans, uploads, rotate):
     """Two sampled runs of the 8-qubit program: every span of the call,
     one compile a segment and a rotation, a readout a measurement, an ESS
-    read a collapse; ``h2d_bytes`` at least the planar ket a run, and
+    read a collapse; ``h2d_bytes`` holds the planar ket once (the first
+    run builds the initial state, the second reuses it), and
     ``host_syncs`` the reads plus the uploads."""
     lp = _program(rotate=rotate)
     before = profiling.counters()
     calls = profiling.call_number()
+    h2d = []
     for seed in (1, 2):
+        start = profiling.counters().get("h2d_bytes", 0)
         lowering.run_lowered_ensemble(lp, window=7, sample=SAMPLE, seed=seed,
                                       device="cpu")
+        h2d.append(profiling.counters()["h2d_bytes"] - start)
     assert profiling.call_number() == calls + 2
     got = _delta(before, profiling.counters())
     calls_of = {k: v["calls"] for k, v in profiling.span_totals().items()}
@@ -266,11 +270,14 @@ def test_ensemble_spans_and_counters(spans, uploads, rotate):
         "qbot.ensemble.epilogue": 2, "qbot.sync": 2 * READS}
     if not rotate:                    # the benchmark's program: < 30 a call
         assert sum(calls_of.values()) < 2 * 30
-    assert got["h2d_bytes"] >= 2 * (2 * 2**N * 4)
+    assert h2d[0] >= 2 * 2**N * 4
+    assert h2d[1] == h2d[0] - 2 * 2**N * 4
     assert got["h2d_bytes"] == sum(uploads)
     assert got["host_syncs"] == 2 * READS + len(uploads)
+    assert got["init_state_builds"] == got["init_state_reuses"] == 1
     assert profiling.span_counts() == {
-        k: got[k] for k in ("h2d_bytes", "host_syncs")}
+        k: got[k] for k in ("h2d_bytes", "host_syncs", "init_state_builds",
+                            "init_state_reuses")}
 
 
 def test_exact_fanout_reads(spans):
