@@ -65,7 +65,8 @@ __all__ = ["zero_state_planar", "to_planar", "from_planar",
            "fold_window_planar", "apply_plan_planar",
            "apply_plan_planar_ref", "make_planar_runner",
            "make_scanned_planar_runner", "planar_probs", "planar_norm",
-           "zero_density_planar", "apply_plan_density_planar",
+           "zero_density_planar", "product_density_planar",
+           "apply_plan_density_planar",
            "apply_plan_density_planar_ref", "make_planar_density_runner",
            "planar_density_probs"]
 
@@ -695,6 +696,33 @@ def zero_density_planar(n: int, device) -> torch.Tensor:
     return rho
 
 
+def product_density_planar(rhos, device) -> torch.Tensor:
+    """Planar (2, 2^n, 2^n) float32 product state ρ_0 ⊗ … ⊗ ρ_{n−1} of n
+    one-qubit 2 × 2 complex matrices ``rhos`` (qubit 0 the most significant
+    bit), built on ``device``.
+
+    The factors go to the device in one upload; the Kronecker products run
+    there, each written once into its own tensor, so no 4^n array is built
+    on the host.
+    """
+    factors = np.stack([to_planar(np.asarray(r, np.complex128).reshape(2, 2))
+                        for r in rhos])
+    f = profiling.upload(factors, device)               # (n, 2, 2, 2)
+    rho = torch.stack([torch.ones((1, 1), dtype=REAL_DTYPE, device=device),
+                       torch.zeros((1, 1), dtype=REAL_DTYPE, device=device)])
+    for fr, fi in zip(f[:, 0], f[:, 1]):
+        d = rho.shape[-1]
+        r, i = rho[0, :, None, :, None], rho[1, :, None, :, None]
+        fr, fi = fr[None, :, None, :], fi[None, :, None, :]
+        out = torch.empty((2, d, 2, d, 2), dtype=REAL_DTYPE, device=device)
+        torch.mul(r, fr, out=out[0])
+        out[0].addcmul_(i, fi, value=-1.0)
+        torch.mul(r, fi, out=out[1])
+        out[1].addcmul_(i, fr)
+        rho = out.reshape(2, 2 * d, 2 * d)
+    return rho
+
+
 def _density_flip_phases(n: int, flips) -> tuple:
     """Fused phases of the 2n-qubit view for ρ → FρF: each flipped basis
     state m negates row m and column m (and so leaves ρ[m, m])."""
@@ -767,6 +795,21 @@ def _both_sides(row, col):
     return lambda flat, params: col(row(flat, params), params)
 
 
+def _density_diag_fn(n: int, step: DiagStep, device):
+    """A diagonal on the rows at its targets and, conjugated, on the columns
+    at n + each: two elementwise passes over ρ, each counted as
+    ``density_diag_passes``."""
+    rows = _diag_fn(2 * n, step.targets, step.diag, device)
+    cols = _diag_fn(2 * n, tuple(n + q for q in step.targets),
+                    np.conj(np.asarray(step.diag)), device)
+
+    def apply(flat, params):
+        profiling.count("density_diag_passes", 2)
+        return cols(rows(flat, params), params)
+    return apply
+
+
+@profiling.spanned("qbot.plan.prepare")
 def _density_step_fns(plan: Plan, device, ops: _Ops) -> list:
     """Steps over the flat (2, 4^n) view: reflections expand to their
     windows and flips, fused phases to diagonal passes
@@ -779,11 +822,7 @@ def _density_step_fns(plan: Plan, device, ops: _Ops) -> list:
         elif isinstance(step, PairStep):
             fns.append(_density_pair_fn(n, step, device, ops))
         elif isinstance(step, DiagStep):
-            cols = tuple(n + q for q in step.targets)
-            fns.append(_both_sides(
-                _diag_fn(2 * n, step.targets, step.diag, device),
-                _diag_fn(2 * n, cols, np.conj(np.asarray(step.diag)),
-                         device)))
+            fns.append(_density_diag_fn(n, step, device))
         elif isinstance(step, FlipStep):
             fns.append(_density_flip_fn(n, step.index))
         else:
@@ -861,7 +900,9 @@ def make_planar_density_runner(plan: Plan):
         lambda device: _density_step_fns(plan, device, _KERNELS))
 
     def run(rho: torch.Tensor, params=None) -> torch.Tensor:
-        return _run_density(rho, prepared(rho.device), params)
+        fns = prepared(rho.device)
+        with profiling.named_scope("qbot.plan.apply"):
+            return _run_density(rho, fns, params)
     return run
 
 

@@ -23,8 +23,9 @@ live in the same table (``kernels.launch_counts``,
 are on are kept apart as well (:func:`span_counts`), so a caller that
 traces a window reads the window's counts alone.
 
-No span or counter sits on a kernel launch or a plan step's apply: spans
-mark phases, a few dozen a call at most.
+No span sits on a kernel launch or a plan step's apply: spans mark phases,
+a few dozen a call at most.  A counter may (a dictionary update): the
+launch counts, and the density executor's elementwise passes.
 
 **The line timer** (:func:`profiling_enabled`, :func:`record_line`, CLI
 ``--profile``): per-line wall time of the dense host interpreter, which

@@ -575,6 +575,31 @@ def test_density_plan_on_card_matches_cpu(cuda, window):
         "pair_apply_trailing_narrow"] > 0
 
 
+def test_density_13q_thermal_body_on_card(cuda):
+    """The benchmark's density cell in small: the thermal product state
+    built on the card and one body of the 13-qubit brickwork plan at
+    ``window="auto"`` on the kernels, against the plain versions.  Within
+    chip_smoke.py's DENSITY_TOL, 1e-4 relative Frobenius: float32 ρ through
+    five steps of row and column passes, each within 1e-5 of its plain
+    version, and 8 diagonal passes."""
+    from portbench.entries.statevector import to_circuit
+    from portbench.families.brickwork import brickwork_ops
+    from portbench.families.thermal_brickwork import thermal_factors
+
+    n = 13
+    plan = compile_circuit(to_circuit(n, brickwork_ops(n, 8, 23)),
+                           window="auto")
+    factors = thermal_factors(n, 23)
+    rho = planar.product_density_planar(factors, cuda)
+    want_rho = planar.product_density_planar(factors, "cpu")
+    assert rel_l2(rho, want_rho) <= TOL
+    got = planar.make_planar_density_runner(plan)(rho)
+    want = planar.apply_plan_density_planar_ref(rho, plan)
+    assert rel_l2(got, want) <= 1e-4
+    trace = float(torch.sum(torch.diagonal(got[0])))
+    assert abs(trace - 1.0) <= 1e-4
+
+
 def test_grover_loop_on_card(cuda):
     n, marked, repeats = 12, 1000, 20
     init, body = Circuit(n), Circuit(n)

@@ -8,6 +8,11 @@ density matrices of at most 9 qubits, each step a window or pair pass on
 the rows and one on the columns, sums taken in another order); 1e-4
 against the complex executor, as ``tests/test_planar.py`` holds
 ``qbot_tpu``'s planar density executor to it.
+
+Then the port alone: the product initial state, the runner's spans and
+pass counter, and the density path held to the benchmark's plain
+complex128 reference (``portbench/reference/density.py``), which also
+catches a wrong column side.
 """
 import numpy as np
 import pytest
@@ -24,7 +29,14 @@ from qbot_tpu.tpu.simulator import apply_plan_density
 from qbot_tpu_torch.tpu import circuit as tcirc
 from qbot_tpu_torch.tpu import kernels as tk
 from qbot_tpu_torch.tpu import planar as tp
-from qbot_tpu_torch.tpu.compiler import PairStep, compile_circuit
+from qbot_tpu_torch.tpu.compiler import (
+    FlipStep,
+    PairStep,
+    compile_circuit,
+    expand_phases,
+    expand_reflections,
+)
+from qbot_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -233,3 +245,169 @@ def test_parameterised_density_matches_reference():
                                         jc.compile_circuit(jcirc, window=3),
                                         jnp.asarray(theta))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# the product initial state, the repeated runner, its spans and counters,
+# and the density path against the benchmark's plain reference
+# ---------------------------------------------------------------------------
+
+def _hermitian_factors(n, seed):
+    """n random one-qubit density matrices (Hermitian, trace 1)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        a = rng.normal(size=(2, 2)) + 1j * rng.normal(size=(2, 2))
+        r = a @ a.conj().T
+        out.append(r / np.trace(r))
+    return out
+
+
+@pytest.mark.parametrize("n", range(1, 7))
+def test_product_density_matches_kron(n):
+    """ρ_0 ⊗ … ⊗ ρ_{n−1}, qubit 0 the most significant bit; one upload."""
+    factors = _hermitian_factors(n, n)
+    want = np.ones((1, 1), np.complex128)
+    for f in factors:
+        want = np.kron(want, f)
+    before = profiling.counters().get("h2d_bytes", 0)
+    got = tp.product_density_planar(factors, "cpu")
+    assert got.shape == (2, 2**n, 2**n) and got.dtype == torch.float32
+    # float32 products of n float32 factors
+    np.testing.assert_allclose(got[0].numpy() + 1j * got[1].numpy(), want,
+                               atol=1e-6)
+    assert profiling.counters()["h2d_bytes"] - before == 4 * 8 * n
+
+
+def _thermal_brickwork(n, layers, seed):
+    from portbench.entries.statevector import to_circuit
+    from portbench.families.brickwork import brickwork_ops
+    from portbench.families.thermal_brickwork import thermal_factors
+
+    ops = brickwork_ops(n, layers, seed)
+    return ops, to_circuit(n, ops), thermal_factors(n, seed)
+
+
+def _bodies(plan, rho, repeats):
+    """The plan's runner called ``repeats`` times, as the benchmark's
+    density entry calls it."""
+    run = tp.make_planar_density_runner(plan)
+    for _ in range(repeats):
+        rho = run(rho)
+    return rho
+
+
+@pytest.mark.parametrize("n", [1, 5])
+def test_zero_factors_give_the_zero_density(n):
+    """n factors |0⟩⟨0| build ``zero_density_planar``'s state bit for
+    bit."""
+    got = tp.product_density_planar([np.diag([1.0, 0.0])] * n, "cpu")
+    np.testing.assert_array_equal(got.numpy(),
+                                  tp.zero_density_planar(n, "cpu").numpy())
+
+
+# relative Frobenius and readout limits against the complex128 reference:
+# float32 ρ of at most 8 qubits through 6 bodies of row and column passes
+# (sums of up to 128 float32 products each), readings 2-8e-7
+REF_TOL = 1e-5
+
+
+@pytest.mark.parametrize("n", [5, 6, 8])
+def test_density_path_matches_the_plain_reference(n):
+    """Seeded thermal factors and Haar brickwork, 2 layers × 3 bodies,
+    through the kernels' plain versions (window 7: one window at 5-6
+    qubits, (1, 7) pairs and a diagonal at 8)."""
+    from portbench.families.thermal_brickwork import ThermalRequest
+    from portbench.reference import density
+
+    ops, circ, factors = _thermal_brickwork(n, 2, 40 + n)
+    plan = compile_circuit(circ, window=7)
+    got = _bodies(plan, tp.product_density_planar(factors, "cpu"), 3)
+    req = ThermalRequest("circuit", n, 0, body_ops=ops, repeats=3,
+                         rhos=factors)
+    readings = density.judge(req, {"state": got, "readouts": [
+        tp.planar_density_probs(got)]}, "cpu")
+    assert max(readings.values()) <= REF_TOL, readings
+
+
+def _cell_limits():
+    import json
+    from pathlib import Path
+
+    path = (Path(__file__).resolve().parents[1] / "portbench" / "limits"
+            / "dm13-brickwork.json")
+    return json.loads(path.read_text())
+
+
+def _column_side(monkeypatch, make):
+    """``_density_tables`` with its column matrix replaced by
+    ``make(W)``."""
+    tables = tp._density_tables
+
+    def patched(step, device):
+        both = tables(step, device)
+
+        def pair(params):
+            w, _ = both(params)
+            return w, make(w)
+        return pair
+    monkeypatch.setattr(tp, "_density_tables", patched)
+
+
+@pytest.mark.parametrize("fault", ["unconjugated", "skipped"])
+def test_reference_catches_a_wrong_column_side(monkeypatch, fault):
+    """A column side run with W in place of conj(W), or left out (the
+    identity), fails the cell's limits by far."""
+    from portbench.families.thermal_brickwork import ThermalRequest
+    from portbench.reference import density
+
+    n = 8
+    ops, circ, factors = _thermal_brickwork(n, 2, 7)
+    plan = compile_circuit(circ, window=7)
+    if fault == "unconjugated":
+        _column_side(monkeypatch, lambda w: w)
+    else:
+        _column_side(monkeypatch, lambda w: torch.stack(
+            [torch.eye(w.shape[-1]), torch.zeros(w.shape[1:])]))
+    got = _bodies(plan, tp.product_density_planar(factors, "cpu"), 3)
+    req = ThermalRequest("circuit", n, 0, body_ops=ops, repeats=3,
+                         rhos=factors)
+    readings = density.judge(req, {"state": got, "readouts": [
+        tp.planar_density_probs(got)]}, "cpu")
+    limits = _cell_limits()
+    assert readings["state_gap"] > 100 * limits["state_gap"], readings
+    assert readings["hermitian_gap"] > 100 * limits["hermitian_gap"], \
+        readings
+
+
+def test_runner_spans_and_diag_pass_counts():
+    """Under ``profiling.tracing()`` the runner records
+    ``qbot.plan.prepare`` (its first build) and ``qbot.plan.apply`` (each
+    call), and counts two elementwise passes over ρ per DiagStep a body."""
+    from qbot_tpu_torch.tpu.compiler import DiagStep
+
+    _, circ, factors = _thermal_brickwork(8, 4, 5)
+    plan = compile_circuit(circ, window=7)
+    diags = sum(isinstance(s, DiagStep)
+                for s in expand_phases(expand_reflections(plan.steps)))
+    assert diags
+    rho = tp.product_density_planar(factors, "cpu")
+    profiling.reset_spans()
+    with profiling.tracing():
+        _bodies(plan, rho, 3)
+    spans = profiling.span_totals()
+    assert spans["qbot.plan.prepare"]["calls"] == 1
+    assert spans["qbot.plan.apply"]["calls"] == 3
+    assert profiling.span_counts()["density_diag_passes"] == 2 * 3 * diags
+
+
+def test_flip_plan_from_a_mixed_state():
+    """Standalone flips and fused phases (a reflection's) on a mixed
+    product state: the runner against the plain versions."""
+    plan = compile_circuit(flips_and_phases(tcirc, 8), window=1)
+    assert any(isinstance(s, FlipStep)
+               for s in expand_phases(expand_reflections(plan.steps)))
+    rho = tp.product_density_planar(_hermitian_factors(8, 11), "cpu")
+    got = tp.make_planar_density_runner(plan)(rho)
+    want = tp.apply_plan_density_planar_ref(rho, plan)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL)
