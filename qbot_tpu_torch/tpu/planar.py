@@ -52,7 +52,6 @@ from qbot_tpu_torch.tpu.compiler import (
     Plan,
     ReflectStep,
     WindowStep,
-    expand_phases,
     expand_reflections,
     fold_window_static,
     phase_as_diag,
@@ -730,6 +729,22 @@ def _density_flip_phases(n: int, flips) -> tuple:
     return tuple(p for m in flips for p in ((rows, -1.0, m), (cols, -1.0, m)))
 
 
+def _density_diagonals(n: int, step: WindowStep, device):
+    """The row launch's fused diagonals of the 2n-qubit view for ρ → DρD†,
+    D the step's phases and flips: each phase (qubits, z, pattern) on the
+    rows and (n + each qubit, conj(z), pattern) on the columns, then the
+    flips on both (:func:`_density_flip_phases`).  Diagonals commute, and
+    the row launch's W touches no column bit, so the column launch takes
+    none."""
+    phases = tuple(
+        p for qubits, z, pat in step.pre_phases
+        for p in ((tuple(qubits), z, pat),
+                  (tuple(n + q for q in qubits), np.conj(z), pat)))
+    return kernels.fused_diagonals(
+        2 * n, pre_phases=phases + _density_flip_phases(n, step.pre_flips),
+        device=device)
+
+
 def _density_tables(step: WindowStep, device) -> Callable:
     """``params -> (W, conj(W))`` of a window: static, both uploaded once;
     parameterised, the fold of each call and its conjugate."""
@@ -747,12 +762,10 @@ def _density_tables(step: WindowStep, device) -> Callable:
 
 
 def _density_window_fn(n: int, step: WindowStep, device, ops: _Ops):
-    """W at s on the rows (after the step's flips on rows and columns,
-    fused into the row pass), conj(W) at n + s on the columns."""
+    """W at s on the rows (after the step's phases and flips on rows and
+    columns, fused into the row pass), conj(W) at n + s on the columns."""
     tables = _density_tables(step, device)
-    diag = kernels.fused_diagonals(
-        2 * n, pre_phases=_density_flip_phases(n, step.pre_flips),
-        device=device)
+    diag = _density_diagonals(n, step, device)
     none = kernels.fused_diagonals(2 * n, device=device)
     start, width = step.start, step.width
 
@@ -764,14 +777,13 @@ def _density_window_fn(n: int, step: WindowStep, device, ops: _Ops):
 
 
 def _density_pair_fn(n: int, step: PairStep, device, ops: _Ops):
-    """(W1, W2) at s on the rows, conjugated at n + s on the columns."""
+    """(W1, W2) at s on the rows, after the first window's phases and
+    flips on rows and columns; conjugated at n + s on the columns."""
     start, width1, width2 = (step.first.start, step.first.width,
                              step.second.width)
     first = _density_tables(step.first, device)
     second = _density_tables(step.second, device)
-    diag = kernels.fused_diagonals(
-        2 * n, pre_phases=_density_flip_phases(n, step.first.pre_flips),
-        device=device)
+    diag = _density_diagonals(n, step.first, device)
     none = kernels.fused_diagonals(2 * n, device=device)
 
     def apply(flat, params):
@@ -797,43 +809,61 @@ def _both_sides(row, col):
 
 def _density_diag_fn(n: int, step: DiagStep, device):
     """A diagonal on the rows at its targets and, conjugated, on the columns
-    at n + each: two elementwise passes over ρ, each counted as
-    ``density_diag_passes``."""
+    at n + each: two elementwise passes over ρ."""
     rows = _diag_fn(2 * n, step.targets, step.diag, device)
     cols = _diag_fn(2 * n, tuple(n + q for q in step.targets),
                     np.conj(np.asarray(step.diag)), device)
+    return _both_sides(rows, cols)
 
-    def apply(flat, params):
-        profiling.count("density_diag_passes", 2)
-        return cols(rows(flat, params), params)
-    return apply
+
+class _DensitySteps(NamedTuple):
+    """A density plan's step functions, with what each call counts:
+    ``diag_passes``, the elementwise passes over ρ of its standalone
+    diagonals, and ``fused_phases``, the entries its windows' and pairs'
+    fused phases take in the row launches (each phase twice: rows and
+    columns; flips not counted)."""
+    fns: list
+    diag_passes: int
+    fused_phases: int
 
 
 @profiling.spanned("qbot.plan.prepare")
-def _density_step_fns(plan: Plan, device, ops: _Ops) -> list:
+def _density_step_fns(plan: Plan, device, ops: _Ops) -> _DensitySteps:
     """Steps over the flat (2, 4^n) view: reflections expand to their
-    windows and flips, fused phases to diagonal passes
-    (``qbot_tpu/tpu/planar.py:589-628``)."""
+    windows and flips; a window's or pair's fused phases go to its row
+    launch on both sides (:func:`_density_diagonals`), and a standalone
+    phase or diagonal, with no kernel beside it, is two elementwise passes
+    (``qbot_tpu/tpu/planar.py:589-628`` expands every fused phase to
+    such passes)."""
     n = plan.n
-    fns = []
-    for step in expand_phases(expand_reflections(plan.steps)):
+    fns, passes, fused = [], 0, 0
+    for step in expand_reflections(plan.steps):
+        if isinstance(step, PhaseStep):
+            step = phase_as_diag(step)
         if isinstance(step, WindowStep):
             fns.append(_density_window_fn(n, step, device, ops))
+            fused += 2 * len(step.pre_phases)
         elif isinstance(step, PairStep):
             fns.append(_density_pair_fn(n, step, device, ops))
+            fused += 2 * len(step.first.pre_phases)
         elif isinstance(step, DiagStep):
             fns.append(_density_diag_fn(n, step, device))
+            passes += 2
         elif isinstance(step, FlipStep):
             fns.append(_density_flip_fn(n, step.index))
         else:
             fns.append(_both_sides(
                 _contract_fn(2 * n, step, device),
                 _contract_fn(2 * n, step, device, conj=True, offset=n)))
-    return fns
+    return _DensitySteps(fns, passes, fused)
 
 
-def _run_density(rho, fns, params=None):
-    return _run(rho.reshape(2, -1), fns, params).reshape(rho.shape)
+def _run_density(rho, steps: _DensitySteps, params=None):
+    """Counts ``density_diag_passes`` and ``density_fused_phases`` (both
+    even at 0, so a reader finds them), then runs the steps."""
+    profiling.count("density_diag_passes", steps.diag_passes)
+    profiling.count("density_fused_phases", steps.fused_phases)
+    return _run(rho.reshape(2, -1), steps.fns, params).reshape(rho.shape)
 
 
 def _dot_density_lowered(plan: Plan):
@@ -900,9 +930,9 @@ def make_planar_density_runner(plan: Plan):
         lambda device: _density_step_fns(plan, device, _KERNELS))
 
     def run(rho: torch.Tensor, params=None) -> torch.Tensor:
-        fns = prepared(rho.device)
+        steps = prepared(rho.device)
         with profiling.named_scope("qbot.plan.apply"):
-            return _run_density(rho, fns, params)
+            return _run_density(rho, steps, params)
     return run
 
 

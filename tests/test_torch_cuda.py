@@ -581,7 +581,7 @@ def test_density_13q_thermal_body_on_card(cuda):
     ``window="auto"`` on the kernels, against the plain versions.  Within
     chip_smoke.py's DENSITY_TOL, 1e-4 relative Frobenius: float32 ρ through
     five steps of row and column passes, each within 1e-5 of its plain
-    version, and 8 diagonal passes."""
+    version, four of them with a fused phase on both sides."""
     from portbench.entries.statevector import to_circuit
     from portbench.families.brickwork import brickwork_ops
     from portbench.families.thermal_brickwork import thermal_factors
@@ -598,6 +598,34 @@ def test_density_13q_thermal_body_on_card(cuda):
     assert rel_l2(got, want) <= 1e-4
     trace = float(torch.sum(torch.diagonal(got[0])))
     assert abs(trace - 1.0) <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["complex_phases", "over_table"])
+def test_density_fused_phases_on_card(cuda, name):
+    """Controlled-S and -T phases fused into the row launches of 10-qubit
+    windows and pairs, on the rows and, conjugated, on the columns (and,
+    ``over_table``, more entries in one launch than the kernels' tables
+    hold): the runner on the card against the benchmark's complex128
+    U ρ U† gate by gate, which shares no fusion with the plain versions,
+    within the density path's 1e-5 of ``tests/test_torch_density.py``."""
+    import _torch_density_cases as dc
+    from portbench.families.thermal_brickwork import ThermalRequest
+    from portbench.reference import density
+    from qbot_tpu_torch.tpu import circuit
+
+    n = 10
+    make, window = dc.CASES[name]
+    ops = make(n, np.random.default_rng(7))
+    plan = compile_circuit(dc.circuit(circuit, n, ops), window=window)
+    assert dc.engages(name, plan)
+    factors = dc.hermitian_factors(n, 12)
+    got = planar.make_planar_density_runner(plan)(
+        planar.product_density_planar(factors, cuda))
+    req = ThermalRequest("circuit", n, 0, body_ops=ops, repeats=1,
+                         rhos=factors)
+    readings = density.judge(req, {"state": got, "readouts": [
+        planar.planar_density_probs(got)]}, cuda)
+    assert max(readings.values()) <= 1e-5, readings
 
 
 def test_grover_loop_on_card(cuda):

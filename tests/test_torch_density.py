@@ -20,6 +20,7 @@ import torch
 
 import jax.numpy as jnp
 
+import _torch_density_cases as dc
 import qbot_tpu_torch
 from _torch_parity import both, brickwork
 from qbot_tpu.tpu import compiler as jc
@@ -252,21 +253,10 @@ def test_parameterised_density_matches_reference():
 # and the density path against the benchmark's plain reference
 # ---------------------------------------------------------------------------
 
-def _hermitian_factors(n, seed):
-    """n random one-qubit density matrices (Hermitian, trace 1)."""
-    rng = np.random.default_rng(seed)
-    out = []
-    for _ in range(n):
-        a = rng.normal(size=(2, 2)) + 1j * rng.normal(size=(2, 2))
-        r = a @ a.conj().T
-        out.append(r / np.trace(r))
-    return out
-
-
 @pytest.mark.parametrize("n", range(1, 7))
 def test_product_density_matches_kron(n):
     """ρ_0 ⊗ … ⊗ ρ_{n−1}, qubit 0 the most significant bit; one upload."""
-    factors = _hermitian_factors(n, n)
+    factors = dc.hermitian_factors(n, n)
     want = np.ones((1, 1), np.complex128)
     for f in factors:
         want = np.kron(want, f)
@@ -383,14 +373,20 @@ def test_reference_catches_a_wrong_column_side(monkeypatch, fault):
 def test_runner_spans_and_diag_pass_counts():
     """Under ``profiling.tracing()`` the runner records
     ``qbot.plan.prepare`` (its first build) and ``qbot.plan.apply`` (each
-    call), and counts two elementwise passes over ρ per DiagStep a body."""
-    from qbot_tpu_torch.tpu.compiler import DiagStep
+    call).  Each call counts ``density_diag_passes``, two elementwise
+    passes over ρ per standalone diagonal (0 for the thermal brickwork,
+    whose diagonals are all fused phases, and still counted), and
+    ``density_fused_phases``, the phases handed to the row launches, rows
+    and columns apart."""
+    from qbot_tpu_torch.tpu.compiler import DiagStep, PhaseStep
 
     _, circ, factors = _thermal_brickwork(8, 4, 5)
     plan = compile_circuit(circ, window=7)
     diags = sum(isinstance(s, DiagStep)
                 for s in expand_phases(expand_reflections(plan.steps)))
-    assert diags
+    phases = sum(len(w.pre_phases) for w in dc.fused_windows(plan.steps))
+    # every diagonal the reference's executor passes over ρ is a fused phase
+    assert diags and phases == diags
     rho = tp.product_density_planar(factors, "cpu")
     profiling.reset_spans()
     with profiling.tracing():
@@ -398,7 +394,59 @@ def test_runner_spans_and_diag_pass_counts():
     spans = profiling.span_totals()
     assert spans["qbot.plan.prepare"]["calls"] == 1
     assert spans["qbot.plan.apply"]["calls"] == 3
-    assert profiling.span_counts()["density_diag_passes"] == 2 * 3 * diags
+    counts = profiling.span_counts()
+    assert counts["density_diag_passes"] == 0
+    assert counts["density_fused_phases"] == 2 * 3 * phases
+
+    # a standalone DiagStep and a standalone PhaseStep: two passes each
+    def standalone(m):
+        c = m.Circuit(9)
+        for q in range(9):
+            c.h(q)
+        c.diagonal(np.exp(1j * np.linspace(0, 1, 4)), [1, 5])
+        for q in range(9):
+            c.h(q)
+        c.gate(dc.S, [5], [1])
+        return c
+
+    plan = compile_circuit(standalone(tcirc), window=2)
+    assert [type(s) for s in plan.steps][-3:] == [DiagStep, PairStep,
+                                                  PhaseStep]
+    profiling.reset_spans()
+    with profiling.tracing():
+        _bodies(plan, tp.zero_density_planar(9, "cpu"), 3)
+    counts = profiling.span_counts()
+    assert counts["density_diag_passes"] == 2 * 3 * 2
+    assert counts["density_fused_phases"] == 0
+
+
+@pytest.mark.parametrize("name", list(dc.CASES))
+def test_fused_phases_on_both_sides(name, interpret_kernels):
+    """Phases fused into a window's or pair's row launch, on the rows and,
+    conjugated, on the columns: the runner against the benchmark's
+    complex128 U ρ U† gate by gate and against ``qbot_tpu``'s density
+    executor, which runs each fused phase as two diagonal passes."""
+    from portbench.families.thermal_brickwork import ThermalRequest
+    from portbench.reference import density
+
+    n = 9
+    make, window = dc.CASES[name]
+    ops = make(n, np.random.default_rng(7))
+    circ, jcirc = both(lambda m: dc.circuit(m, n, ops))
+    plan = compile_circuit(circ, window=window)
+    assert dc.engages(name, plan)
+    factors = dc.hermitian_factors(n, 12)
+    got = tp.make_planar_density_runner(plan)(
+        tp.product_density_planar(factors, "cpu"))
+    req = ThermalRequest("circuit", n, 0, body_ops=ops, repeats=1,
+                         rhos=factors)
+    readings = density.judge(req, {"state": got, "readouts": [
+        tp.planar_density_probs(got)]}, "cpu")
+    assert max(readings.values()) <= REF_TOL, readings
+    rho = tp.product_density_planar(factors, "cpu").numpy()
+    want = jp.apply_plan_density_planar(
+        jnp.asarray(rho), jc.compile_circuit(jcirc, window=window))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
 
 
 def test_flip_plan_from_a_mixed_state():
@@ -407,7 +455,7 @@ def test_flip_plan_from_a_mixed_state():
     plan = compile_circuit(flips_and_phases(tcirc, 8), window=1)
     assert any(isinstance(s, FlipStep)
                for s in expand_phases(expand_reflections(plan.steps)))
-    rho = tp.product_density_planar(_hermitian_factors(8, 11), "cpu")
+    rho = tp.product_density_planar(dc.hermitian_factors(8, 11), "cpu")
     got = tp.make_planar_density_runner(plan)(rho)
     want = tp.apply_plan_density_planar_ref(rho, plan)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL)
