@@ -285,6 +285,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+# the rooflines' bound_ms read the benchmark's yardstick: a change to
+# portbench/bounds.py moves every share this script prints
+from portbench.bounds import bound, pair_bound, product_bound
+from portbench.families import smc_program as smc_family
+from portbench.families.brickwork import brickwork_ops
 import qbot_tpu_torch
 # the port's dense host interpreter is phase 3's reference
 from qbot_tpu_torch import compile_circuit, executeTxt, lower_program
@@ -317,10 +322,6 @@ KERNEL_TOL = 1e-5          # relative L2, kernel vs plain version
 READOUT_TOL = 1e-6         # probability units
 NORM_TOL = 1e-4
 F64_TOL = 2e-6             # relative L2, 3xTF32 kernels vs float64 products
-HBM_BYTES_S = 3.35e12      # H100 SXM data sheet: memory rate
-TF32_FLOPS_S = 495e12      # dense TF32 tensor-core peak
-BF16_FLOPS_S = 989e12      # dense BF16 tensor-core peak
-FP32_FLOPS_S = 67e12       # FP32 outside the tensor cores
 # dot mode -> relative L2 limits (window vs plain, pair vs plain, either vs
 # float64).  A bf16 pair rounds its float32 Y to bf16 a second time, and
 # the kernel's Y and the plain version's are summed in other orders, so a
@@ -528,56 +529,6 @@ def _planar_unitary(d: int, rng, device) -> torch.Tensor:
     u = _random_unitary(d, rng)
     return torch.from_numpy(np.stack([u.real, u.imag]).astype(
         np.float32)).to(device)
-
-
-def bound(nbytes: float, tf32_flops: float = 0.0,
-          fp32_flops: float = 0.0, bf16_flops: float = 0.0
-          ) -> tuple[float, str]:
-    """(bound ms, what bounds it): bytes over the memory rate against
-    3xTF32 products (3 TF32 FLOPs each), BF16 tensor-core FLOPs and FP32
-    arithmetic over their peak rates."""
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = (3 * tf32_flops / TF32_FLOPS_S + bf16_flops / BF16_FLOPS_S
-             + fp32_flops / FP32_FLOPS_S)
-    if t_bytes >= t_ops:
-        return t_bytes * 1e3, "bytes"
-    return t_ops * 1e3, "operations"
-
-
-def product_bound(nbytes: float, flops: float, mode: str,
-                  tensor_cores: bool) -> tuple[float, str]:
-    """The bound of a window or pair doing ``flops`` of complex products in
-    dot ``mode``: on the tensor cores 3xTF32 (f32) or 3 and 1 BF16 products
-    (bf16_3x, bf16); in the FMA variants (widths below 8) 1, 3 and 1 FP32
-    products."""
-    parts = 3 if mode == "bf16_3x" else 1
-    if not tensor_cores:
-        return bound(nbytes, fp32_flops=parts * flops)
-    if mode == "f32":
-        return bound(nbytes, tf32_flops=flops)
-    return bound(nbytes, bf16_flops=parts * flops)
-
-
-def pair_bound(nbytes: float, n_amps: int, d1: int, d2: int,
-               mode: str) -> tuple[float, str]:
-    """The bound of a pair on ``n_amps`` amplitudes: its two windows'
-    products, 8 (D1 + D2) FLOPs an amplitude, on the tensor cores (D1,
-    D2 >= 8) or in FP32 FMAs (D2 <= 4); the narrow pair (D1 = 2, 4 with
-    D2 >= 8) runs W2's on the tensor cores and W1's 8 D1 (3 x 8 D1 in
-    bf16_3x) at the FP32 rate, on other units, so its bound is the larger of
-    its bytes and the two."""
-    if d1 >= 8 or d2 < 8:
-        return product_bound(nbytes, 8 * (d1 + d2) * n_amps, mode,
-                             d1 >= 8 and d2 >= 8)
-    parts = 3 if mode == "bf16_3x" else 1
-    w2 = 8 * d2 * n_amps
-    t_w2 = 3 * w2 / TF32_FLOPS_S if mode == "f32" else parts * w2 / \
-        BF16_FLOPS_S
-    t_ops = max(t_w2, parts * 8 * d1 * n_amps / FP32_FLOPS_S)
-    t_bytes = nbytes / HBM_BYTES_S
-    if t_bytes >= t_ops:
-        return t_bytes * 1e3, "bytes"
-    return t_ops * 1e3, "operations"
 
 
 def real_block(w: torch.Tensor) -> torch.Tensor:
@@ -798,9 +749,9 @@ def check_pair(n: int, device, rng, gen, mode: str = "f32",
     (18,1)+(19,7), on the window's tile; the pairs of ``window=2`` and
     ``window=1`` plans on the streaming kernel, (0,1)+(1,2) and
     (3,2)+(5,2), (0,1)+(1,1) and (17,1)+(18,1) (B = 128), and its trailing
-    form (22,2)+(24,2), which no plan reaches; a middle pair (0,5)+(5,2) and
-    a trailing pair (17,7)+(24,2), whose D1 >= 8 with D2 = 4 takes the FMA
-    variant from shared memory, which no plan reaches either.
+    form (22,2)+(24,2), which no plan reaches; a middle pair (0,5)+(5,2)
+    and a trailing pair (17,7)+(24,2), whose D1 >= 8 with D2 = 4 runs as
+    two windows (explicit ``partition="dot"`` plans reach it).
     Each is also held to a float64 product of the same inputs, and timed as
     the kernel, its plain version, one einsum (empty diagonals; in a
     reduced mode the two library calls of its windows,
@@ -812,8 +763,8 @@ def check_pair(n: int, device, rng, gen, mode: str = "f32",
     at (4, 4))."""
     geoms = {"middle": (0, 5, 7), "trailing": (n - 14, 7, 7),
              "density_columns": (n - 13, 6, 7), "middle_b1024": (4, 5, 7),
-             "unreached_fma_middle": (0, 5, 2),
-             "unreached_fma_trailing": (n - 9, 7, 2),
+             "wide_d1_narrow_d2_middle": (0, 5, 2),
+             "wide_d1_narrow_d2_trailing": (n - 9, 7, 2),
              "middle_narrow": (0, 2, 7), "middle_narrow_d2": (0, 1, 7),
              "trailing_narrow": (n - 9, 2, 7),
              "trailing_narrow_d2": (n - 8, 1, 7),
@@ -1087,7 +1038,9 @@ def run_examples(device, n: int = 24) -> None:
 
 def grover_circuits(n: int) -> tuple[int, Circuit, Circuit]:
     """(marked index, init circuit, iteration body) of ``bench.py``'s
-    Grover workload."""
+    Grover workload.  Not ``portbench.families.grover``'s: that one draws
+    the marked index from its seed and builds its Hadamards from another
+    matrix, an ulp apart."""
     marked = 12345 % 2**n
     init = Circuit(n)
     for q in range(n):
@@ -1116,17 +1069,11 @@ def grover_runner(n: int, repeats: int, device):
 
 def brickwork_circuit(n: int, layers: int, seed: int = 0) -> Circuit:
     """``bench.py``'s random brickwork: Haar 1-qubit gates on every qubit,
-    then CX on alternating neighbour pairs, per layer."""
-    rng = np.random.default_rng(seed)
+    then CX on alternating neighbour pairs, per layer (the benchmark's
+    ``portbench.families.brickwork``)."""
     c = Circuit(n)
-    X = np.array([[0, 1], [1, 0]], dtype=complex)
-    for layer in range(layers):
-        for q in range(n):
-            z = rng.normal(size=(2, 2)) + 1j * rng.normal(size=(2, 2))
-            qm, r = np.linalg.qr(z)
-            c.gate(qm * np.conj(r.diagonal() / np.abs(r.diagonal())), [q])
-        for q in range(layer % 2, n - 1, 2):
-            c.gate(X, [q + 1], controls=[q])
+    for _, targets, matrix, controls in brickwork_ops(n, layers, seed):
+        c.gate(matrix, list(targets), list(controls))
     return c
 
 
@@ -1754,19 +1701,11 @@ def time_particle_axis(n: int, device, rng, gen, mode: str,
 
 
 def smc_program(n: int) -> str:
-    """``bench.py``'s SMC workload (``bench.py:421-436``): layers of
-    Hadamards and CX on every third qubit around three measurements and a
-    disc (4 collapse events)."""
-    def layers():
-        return ([f"gate hadamardGate ; {q}" for q in range(0, n, 3)]
-                + [f"gate pauliXGate ; {q + 1} ; [{q}]"
-                   for q in range(0, n - 1, 3)])
-    lines = [f"qset tensorExp(computation.kets[0], {n})", *layers(),
-             "meas a ; computation ; [0]", *layers(),
-             f"gate hadamardGate ; {n // 2}",
-             f"meas b ; computation ; [{n // 2}]", *layers(),
-             f"disc [{n - 1}]", "meas c ; computation ; [1, 2]"]
-    return "\n".join(lines)
+    """``bench.py``'s SMC workload (``bench.py:421-436``, the benchmark's
+    ``portbench.families.smc_program``): layers of Hadamards and CX on
+    every third qubit around three measurements and a disc (4 collapse
+    events)."""
+    return smc_family.smc_program(n)[0]
 
 
 @contextlib.contextmanager

@@ -1,6 +1,8 @@
 // Tensor-core pair kernel of the planar statevector executor: two adjacent
-// windows in one pass over the state, at D1, D2 >= 8 (pair_apply.cu holds
-// the entry point and the FP32 FMA variant of the narrower widths):
+// windows in one pass over the state, at D1, D2 >= 8, with the F32 tile's
+// products (tc_tile.cuh: Prec F32; the reduced modes' pair is
+// pair_bf16.cuh; pair_apply.cu holds the entry point and the dispatch of
+// the narrower widths):
 //
 //   out[a, i, l, b] = sum_{j,m} W1[i, j] * W2[l, m] * (Phi F p)[a, j, m, b]
 //
@@ -19,9 +21,8 @@
 // Design: each (D1, D2) slab X goes through two products of the window
 // kernel's tile (tc_tile.cuh: mma.sync.m16n8k8 TF32 in a 3xTF32 split whose
 // hi parts lie on a grid per row and k-step, so each k-step's hi*hi sums
-// are exact on tensor cores that round toward zero; or the BF16 products
-// of the reduced modes).  W1 goes first, as in the reference's pair
-// kernels, so the reduced modes round the same intermediate Y to bf16.  A
+// are exact on tensor cores that round toward zero).  W1 goes first, as in
+// the reference's pair kernels and pair_bf16.cuh.  A
 // slab is one a of the trailing pair (contiguous, row-major in (j, m)) or
 // one b-column of the middle pair (element (j, m) at flat index a D1 D2 B +
 // (j D2 + m) B + b):
@@ -170,6 +171,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     pair_tc_kernel(const float* __restrict__ psi, float* __restrict__ out,
                    const float* __restrict__ w1, const float* __restrict__ w2,
                    int64_t n_amps, int log_b, const Diag diag) {
+  static_assert(PREC == F32, "the F32 tile (the reduced modes' pair is "
+                "pair_bf16.cuh)");
   using T = PairTile<D1, D2, MIDDLE>;
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;
@@ -334,9 +337,9 @@ __global__ void __launch_bounds__(THREADS, 1)
             xr, xi, diag, ndiag, chunk * T::BK1, jshift, jtab, comb, colhit,
             [&](int rr) { return row_base(u, ur + rr); });
       }
-      const ASplit<T::KC1, PREC> a(xr, xi);
+      const ASplit<T::KC1> a(xr, xi);
       tc_products<T::KC1, T::NI1>(acc, a, [&](int it, int kc,
-                                              BFrag<PREC>& b) {
+                                              BFrag& b) {
         const int ks = chunk * T::KC1 + kc;
         const float4 f = reinterpret_cast<const float4*>(
             w1s)[(it * T::KS1 + ks) * 32 + lane];
@@ -397,12 +400,11 @@ __global__ void __launch_bounds__(THREADS, 1)
           xi[kc][e] = ys[T::YPLANE + off];
         }
       }
-      // Y, FP32 in shared memory, split anew: hi and lo on grids (F32), or
-      // rounded to bf16 again (BF16X3, BF16), as the reference's second
-      // _dot splits its FP32 operand
-      const ASplit<T::KC2, PREC> a(xr, xi);
+      // Y, FP32 in shared memory, split anew into hi and lo on grids, as
+      // the reference's second _dot splits its FP32 operand
+      const ASplit<T::KC2> a(xr, xi);
       tc_products<T::KC2, T::NI2>(acc, a, [&](int it, int kc,
-                                              BFrag<PREC>& b) {
+                                              BFrag& b) {
         const int l = (wi * T::NI2 + it) * 8 + g;
         const float* w = st + l * T::P2 + kc * 8 + 2 * t;
         const float2 re = *reinterpret_cast<const float2*>(w);

@@ -1,8 +1,8 @@
 // The tensor-core tile of the window and pair kernels (window_tc.cuh,
 // pair_tc.cuh): 3xTF32 mma.sync.m16n8k8 products of planar complex
-// operands without rounding bias and the BF16 products of the reduced
-// modes, the cp.async helpers, and the lookup tables of the fused flips and
-// phases.  One copy, included by every source; tpu/kernels.py:build_kernels
+// operands without rounding bias, the BF16 m16n8k16 product and bf16
+// splits of the reduced modes' kernels, the cp.async helpers, and the
+// lookup tables of the fused flips and phases.  One copy, included by every source; tpu/kernels.py:build_kernels
 // hashes it with them.
 //
 // The product is one real GEMM, [out_r; out_i] = [[Wr, -Wi], [Wi, Wr]]
@@ -27,22 +27,18 @@
 //
 // The reduced modes (Prec BF16X3, BF16: the reference's --precision bf16_3x
 // and bf16, qbot_tpu/tpu/kernels.py:55-71) have kernels of their own,
-// window_bf16.cuh and pair_bf16.cuh (m16n8k16, W split once per block);
-// the tile's form with mma.sync.m16n8k8 BF16 products below is
-// instantiated by no kernel, and tests/test_torch_window_split.py and
-// tests/test_torch_pair_split.py replay it as the yardstick of those
-// kernels' drift (ROADMAP queue 2b).  x and W are
-// split as the reference splits them, x_hi = x rounded to bf16 (to nearest
+// window_bf16.cuh and pair_bf16.cuh (m16n8k16, W split once per block), so
+// the 3xTF32 tile here serves the F32 precision alone.  x and W are split
+// as the reference splits them, x_hi = x rounded to bf16 (to nearest
 // even), x_lo = bf16(x - x_hi), with no grid; BF16X3 sums x_hi W_hi +
-// x_hi W_lo + x_lo W_hi, BF16 x_hi W_hi alone.  Products of bf16 values are exact in FP32, but a k-step's sum
-// of them is not, and the tensor cores round it toward zero: the state
-// shrinks a little every pass (a norm drift that is these modes' contract;
-// planar.make_scanned_planar_runner's renorm_every is its remedy).  A
-// lane's A fragment holds k = 2t, 2t + 1 of rows g and g + 8, its B
-// fragment k = 2t, 2t + 1 of column g: the tile's elements e = 0, 2 (and
-// 1, 3; b0, b1) of a lane take those two k slots, whatever j k_of gives
-// them, since A and B map the slots to j alike.  So the staging and the
-// loads of the F32 tile serve unchanged.
+// x_hi W_lo + x_lo W_hi, BF16 x_hi W_hi alone.  Products of bf16 values are
+// exact in FP32, but a k-step's sum of them is not, and the tensor cores
+// round it toward zero: the state shrinks a little every pass (a norm
+// drift that is these modes' contract; planar.make_scanned_planar_runner's
+// renorm_every is its remedy).  The earlier form of those modes, this
+// tile's staging and loads with mma.sync.m16n8k8 BF16 products, lives on
+// only in the numpy replays of tests/test_torch_window_split.py and
+// tests/test_torch_pair_split.py, as the yardstick of the kernels' drift.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -111,40 +107,23 @@ __device__ __forceinline__ void row_grids(const float* xr, const float* xi,
   m1 = grid_of(e >> 16);
 }
 
-// c += a b (PREC F32: 4 A and 2 B registers of TF32; else 2 A and 1 B
-// registers of packed BF16 pairs)
-template <int PREC>
+// c += a b in mma.sync.m16n8k8 TF32: 4 A and 2 B registers
 __device__ __forceinline__ void mma(float* c, const uint32_t* a,
                                     const uint32_t* b) {
-  if constexpr (PREC == F32) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  } else {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(b[0]));
-  }
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // c = a b, from a zero accumulator
-template <int PREC>
 __device__ __forceinline__ void mma0(float* c, const uint32_t* a,
                                      const uint32_t* b) {
-  if constexpr (PREC == F32) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-        : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-          "f"(0.f));
-  } else {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%7,%7,%7,%7};\n"
-        : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(b[0]), "f"(0.f));
-  }
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
 }
 
 // c += a b in mma.sync.m16n8k16 BF16 (window_bf16.cuh): A registers a.x,
@@ -580,93 +559,69 @@ __device__ __forceinline__ void narrow_pass(
 // The A fragments of KC k-steps, element e of k-step kc being column row
 // g (+ 8 for odd e) at k = 8 kc + k_of(t, e), split into hi and lo
 // parts, with the negated im parts that the real form of the complex
-// product takes.  PREC F32: one TF32 register an element, on the grid of
-// its column row and k-step; else one BF16 pair a register, elements (0, 2)
-// and (1, 3), rounded to nearest even.
-template <int KC, int PREC>
+// product takes: one TF32 register an element, on the grid of its column
+// row and k-step.
+template <int KC>
 struct ASplit {
-  static constexpr int R = PREC == F32 ? 4 : 2;  // registers of a fragment
-  uint32_t rh[KC][R], rl[KC][R], ih[KC][R], il[KC][R], nh[KC][R], nl[KC][R];
+  uint32_t rh[KC][4], rl[KC][4], ih[KC][4], il[KC][4], nh[KC][4], nl[KC][4];
 
   __device__ __forceinline__ ASplit(const float (&xr)[KC][4],
                                     const float (&xi)[KC][4]) {
 #pragma unroll
     for (int kc = 0; kc < KC; ++kc) {
-      if constexpr (PREC == F32) {
-        float m[2];
-        row_grids(xr[kc], xi[kc], m[0], m[1]);
+      float m[2];
+      row_grids(xr[kc], xi[kc], m[0], m[1]);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          split(xr[kc][e], m[e & 1], rh[kc][e], rl[kc][e]);
-          split(xi[kc][e], m[e & 1], ih[kc][e], il[kc][e]);
-          nh[kc][e] = ih[kc][e] ^ 0x80000000u;
-          nl[kc][e] = il[kc][e] ^ 0x80000000u;
-        }
-      } else {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          split_bf16(xr[kc][r], xr[kc][r + 2], rh[kc][r], rl[kc][r]);
-          split_bf16(xi[kc][r], xi[kc][r + 2], ih[kc][r], il[kc][r]);
-          nh[kc][r] = ih[kc][r] ^ 0x80008000u;
-          nl[kc][r] = il[kc][r] ^ 0x80008000u;
-        }
+      for (int e = 0; e < 4; ++e) {
+        split(xr[kc][e], m[e & 1], rh[kc][e], rl[kc][e]);
+        split(xi[kc][e], m[e & 1], ih[kc][e], il[kc][e]);
+        nh[kc][e] = ih[kc][e] ^ 0x80000000u;
+        nl[kc][e] = il[kc][e] ^ 0x80000000u;
       }
     }
   }
 };
 
 // The B fragments of one n-tile and k-step, W[8 it + g][8 ks + k_of(t, e)]
-// for e = 0, 2, each [re, im]: W_hi, W_lo and the W that multiplies x_lo,
-// tf32(W) (PREC F32, registers [b0, b1]) or W_hi (one register, b0 | b1 <<
-// 16)
-template <int PREC>
+// for e = 0, 2, each [re, im] in registers [b0, b1]: W_hi, W_lo and the W
+// that multiplies x_lo, tf32(W)
 struct BFrag {
-  static constexpr int R = PREC == F32 ? 2 : 1;
-  uint32_t h[2][R], l[2][R], t[2][R];
+  uint32_t h[2][2], l[2][2], t[2][2];
 
-  // from FP32 values and, for F32, the grid m of their row and k-step
+  // from FP32 values and the grid m of their row and k-step
   __device__ __forceinline__ void set(float r0, float r1, float i0, float i1,
                                       float m) {
-    if constexpr (PREC == F32) {
-      split(r0, m, h[0][0], l[0][0]);
-      split(r1, m, h[0][1], l[0][1]);
-      split(i0, m, h[1][0], l[1][0]);
-      split(i1, m, h[1][1], l[1][1]);
-      t[0][0] = tf32(r0);
-      t[0][1] = tf32(r1);
-      t[1][0] = tf32(i0);
-      t[1][1] = tf32(i1);
-    } else {
-      split_bf16(r0, r1, h[0][0], l[0][0]);
-      split_bf16(i0, i1, h[1][0], l[1][0]);
-      t[0][0] = h[0][0];
-      t[1][0] = h[1][0];
-    }
+    split(r0, m, h[0][0], l[0][0]);
+    split(r1, m, h[0][1], l[0][1]);
+    split(i0, m, h[1][0], l[1][0]);
+    split(i1, m, h[1][1], l[1][1]);
+    t[0][0] = tf32(r0);
+    t[0][1] = tf32(r1);
+    t[1][0] = tf32(i0);
+    t[1][1] = tf32(i1);
   }
 };
 
 // acc[it] += x W over the KC k-steps of a stage for the warp's NI n-tiles;
 // load_b(it, kc, b) fills the B fragments of n-tile it at k-step kc.  x W =
-// x_hi W_hi + x_hi W_lo + x_lo W_t (W_t = tf32(W) for F32, W_hi for
-// BF16X3; BF16 takes x_hi W_hi alone): each k-step's x_hi W_hi sums (exact
-// for F32) go to the FP32 accumulators by round-to-nearest FADDs; the cross
-// terms are summed over the stage on the tensor cores, then added likewise.
+// x_hi W_hi + x_hi W_lo + x_lo tf32(W): each k-step's exact x_hi W_hi sums
+// go to the FP32 accumulators by round-to-nearest FADDs; the cross terms
+// are summed over the stage on the tensor cores, then added likewise.
 // G n-tiles at once, each with two exact sums (re, im) and two cross-term
 // sums.  acc[it][p][q]: plane p; q = 0, 1 are outputs 2t, 2t + 1 of column
 // row g, q = 2, 3 the same of row g + 8.
-template <int KC, int NI, int NA, int PREC, typename LoadB>
+template <int KC, int NI, int NA, typename LoadB>
 __device__ __forceinline__ void tc_products(float (&acc)[NA][2][4],
-                                            const ASplit<KC, PREC>& a,
+                                            const ASplit<KC>& a,
                                             LoadB load_b) {
   static_assert(NI <= NA, "accumulators");
   constexpr int G = NI < 2 ? NI : 2;
-  constexpr bool CROSS = PREC != BF16;
 #pragma unroll
   for (int it0 = 0; it0 < NI; it0 += G) {
     float cross[G][2][4];
 #pragma unroll
     for (int kc = 0; kc < KC; ++kc) {
-      BFrag<PREC> b[G];
+      BFrag b[G];
 #pragma unroll
       for (int g2 = 0; g2 < G; ++g2) load_b(it0 + g2, kc, b[g2]);
       // plane p of n-tile g2 sums x plane ah/al[p][s] times W plane
@@ -679,22 +634,19 @@ __device__ __forceinline__ void tc_products(float (&acc)[NA][2][4],
       for (int g2 = 0; g2 < G; ++g2) {
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
-          mma0<PREC>(exact[g2][p], ah[p][0], b[g2].h[wp[p][0]]);
-          if constexpr (CROSS) {
-            if (kc == 0)
-              mma0<PREC>(cross[g2][p], ah[p][0], b[g2].l[wp[p][0]]);
-            else
-              mma<PREC>(cross[g2][p], ah[p][0], b[g2].l[wp[p][0]]);
-          }
+          mma0(exact[g2][p], ah[p][0], b[g2].h[wp[p][0]]);
+          if (kc == 0)
+            mma0(cross[g2][p], ah[p][0], b[g2].l[wp[p][0]]);
+          else
+            mma(cross[g2][p], ah[p][0], b[g2].l[wp[p][0]]);
         }
       }
 #pragma unroll
       for (int g2 = 0; g2 < G; ++g2) {
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
-          mma<PREC>(exact[g2][p], ah[p][1], b[g2].h[wp[p][1]]);
-          if constexpr (CROSS)
-            mma<PREC>(cross[g2][p], al[p][0], b[g2].t[wp[p][0]]);
+          mma(exact[g2][p], ah[p][1], b[g2].h[wp[p][1]]);
+          mma(cross[g2][p], al[p][0], b[g2].t[wp[p][0]]);
         }
       }
 #pragma unroll
@@ -705,25 +657,21 @@ __device__ __forceinline__ void tc_products(float (&acc)[NA][2][4],
           for (int q = 0; q < 4; ++q) acc[it0 + g2][p][q] += exact[g2][p][q];
         }
       }
-      if constexpr (CROSS) {
-#pragma unroll
-        for (int g2 = 0; g2 < G; ++g2) {
-#pragma unroll
-          for (int p = 0; p < 2; ++p) {
-            mma<PREC>(cross[g2][p], ah[p][1], b[g2].l[wp[p][1]]);
-            mma<PREC>(cross[g2][p], al[p][1], b[g2].t[wp[p][1]]);
-          }
-        }
-      }
-    }
-    if constexpr (CROSS) {
 #pragma unroll
       for (int g2 = 0; g2 < G; ++g2) {
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[it0 + g2][p][q] += cross[g2][p][q];
+          mma(cross[g2][p], ah[p][1], b[g2].l[wp[p][1]]);
+          mma(cross[g2][p], al[p][1], b[g2].t[wp[p][1]]);
         }
+      }
+    }
+#pragma unroll
+    for (int g2 = 0; g2 < G; ++g2) {
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[it0 + g2][p][q] += cross[g2][p][q];
       }
     }
   }

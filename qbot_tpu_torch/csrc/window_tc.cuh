@@ -79,9 +79,11 @@ struct Tile {
   static constexpr int BK = D < 16 ? D : 16;      // j per stage
   static constexpr int KC = BK / 8;               // k-steps per stage
   static constexpr int CHUNKS = D / BK;
-  // F32 stages W split (hi, lo, tf32) up to D = 64; the BF16 modes, and
-  // F32 at D = 128, stage it in FP32 and split it as the fragments are built
-  static constexpr bool SPLIT_W = PREC == F32 && D <= 64;
+  static_assert(PREC == F32, "the F32 tile (the reduced modes' window is "
+                "window_bf16.cuh)");
+  // W staged split (hi, lo, tf32) up to D = 64; at D = 128 staged in FP32
+  // and split as the fragments are built
+  static constexpr bool SPLIT_W = D <= 64;
   // a stage is [plane][k][c] (B > 1) or [plane][c][k] (B = 1); the row pads
   // put the 32 lanes of a fragment load in 32 distinct banks
   static constexpr int PITCH = TRAIL ? BK + 4 : BN + 8;
@@ -281,11 +283,10 @@ __global__ void __launch_bounds__(THREADS, 1)
             [&](int r) { return col_base(c0 + cw + g + 8 * r); });
       }
     }
-    // F32: x = hi + lo on the grid of its column row and k-step, W likewise
-    // on the grid of its row and k-step (wgrid): exact hi·hi k-step sums;
-    // BF16X3 and BF16: the reference's split (tc_tile.cuh)
-    const ASplit<T::KC, PREC> a(xr, xi);
-    tc_products<T::KC, T::NI>(acc, a, [&](int it, int kc, BFrag<PREC>& b) {
+    // x = hi + lo on the grid of its column row and k-step, W likewise on
+    // the grid of its row and k-step (wgrid): exact hi·hi k-step sums
+    const ASplit<T::KC> a(xr, xi);
+    tc_products<T::KC, T::NI>(acc, a, [&](int it, int kc, BFrag& b) {
       const int row = wi * T::NI + it;
       const int frag = row * T::KS + chunk * T::KC + kc;
       if constexpr (T::SPLIT_W) {

@@ -404,34 +404,26 @@ class Launch:
 
 
 def _window_launch(n: int, w: WindowStep, phases: int) -> Launch:
-    family = "window_stream" if w.width <= 2 else "window_tc"
-    return Launch(family, n, w.start, (w.width,), phases)
+    return Launch(kernels.launch_family(n, w.start, w.width), n, w.start,
+                  (w.width,), phases)
 
 
 def step_launches(step: Step, n: int) -> list[Launch]:
     """What :func:`qbot_tpu_torch.tpu.planar.apply_plan_planar` launches for
-    ``step`` on a CUDA state, as ``tpu/kernels.py`` routes it: a window on
-    its streaming kernel (D <= 4) or tensor-core tile; a pair by
-    :func:`~qbot_tpu_torch.tpu.kernels.pair_route`, as two windows, or on
-    the streaming pair (D1, D2 <= 4), the narrow pair (D1 <= 4) or the
-    tensor-core pair, middle or trailing; a reflection's two kernels; a
-    PyTorch pass for a diagonal, a phase, a flip or a contraction that
-    stands alone.  Fused flips cost nothing."""
+    ``step`` on a CUDA state, as ``tpu/kernels.py`` routes it: a window or a
+    pair on the kernel :func:`~qbot_tpu_torch.tpu.kernels.launch_family`
+    names, a pair it runs as two windows (among them D1 >= 8 with D2 <= 4,
+    which explicit ``partition="dot"`` plans hold) as those two; a
+    reflection's two kernels; a PyTorch pass for a diagonal, a phase, a flip
+    or a contraction that stands alone.  Fused flips cost nothing."""
     if isinstance(step, WindowStep):
         return [_window_launch(n, step, len(step.pre_phases))]
     if isinstance(step, PairStep):
         a, b = step.first, step.second
         phases = len(a.pre_phases)
-        route = kernels.pair_route(n, a.start, a.width, b.width)
-        if route == "two_windows":
+        family = kernels.launch_family(n, a.start, a.width, b.width)
+        if family == "two_windows":
             return [_window_launch(n, a, phases), _window_launch(n, b, 0)]
-        if a.width <= 2 and b.width <= 2:
-            family = "pair_stream"
-        elif a.width <= 2:
-            family = "pair_narrow"
-        else:
-            # D2 <= 4 under D1 >= 8 (shared-memory FMAs) is no plan's
-            family = f"pair_tc_{route}"
         return [Launch(family, n, a.start, (a.width, b.width), phases)]
     if isinstance(step, ReflectStep):
         tail = int(step.factors[-1].shape[0]).bit_length() - 1

@@ -42,6 +42,12 @@ matrix cotangents are float32 matrix products against the recomputed
 y = ΦFψ, as the reference's einsums outside any Pallas kernel are.  A call
 whose inputs need no gradient launches directly.
 
+Which kernel serves a window or a pair of given widths is said once, by
+:func:`launch_family`; the launch counters and the compiler's cost model
+(``compiler.step_launches``) read it there.  A pair with D1 >= 8 and
+D2 <= 4 runs as two window launches (:func:`pair_route`): explicit
+``partition="dot"`` plans on the kernel engine hold such pairs.
+
 Every wrapper counts its launches (:func:`launch_counts`), one a call
 whatever the number of particles, so a run can show that it went through
 the kernel.  ``window_apply`` and ``pair_apply``
@@ -73,7 +79,7 @@ from qbot_tpu_torch.utils import profiling
 __all__ = ["set_dot_mode", "dot_mode", "DOT_MODES",
            "FusedDiagonals", "fused_diagonals", "phase_bits",
            "window_apply", "window_apply_ref",
-           "pair_apply", "pair_apply_ref", "pair_route",
+           "pair_apply", "pair_apply_ref", "pair_route", "launch_family",
            "reflect_dot", "reflect_dot_ref",
            "reflect_update", "reflect_update_ref",
            "build_kernels", "reset_launch_counts", "launch_counts"]
@@ -86,6 +92,13 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lib = None
 
+# The widths that pick a launch's kernel (launch_family, pair_route): a
+# window or pair product of D <= 4 runs on a streaming FMA kernel (below
+# the tensor-core tile's k-step and n-tile of 8); a middle pair holds a
+# first window of D1 <= 32 (qbot_tpu/tpu/kernels.py:652-706)
+_STREAM_MAX_WIDTH = 2
+_MIDDLE_MAX_WIDTH = 5
+
 # The sources nvcc compiles once per variant, with the variant's -D defines
 # (csrc/window_tc.cu, csrc/pair_tc.cu, csrc/pair_stream.cu): the
 # tensor-core window (D1 = 1) and the narrow pair (D1 = 2, 4) once per D1
@@ -97,11 +110,10 @@ _PRECS = (0, 1, 2)
 _VARIANTS = {
     "window_tc.cu": [{"QBOT_D1": d1, "QBOT_PREC": p} for p in _PRECS
                      for d1 in (1, 2, 4)],
-    "pair_tc.cu": [{"QBOT_D1": d1, "QBOT_MIDDLE": middle, "QBOT_PREC": p}
+    "pair_tc.cu": [{"QBOT_D1": 2**w1, "QBOT_MIDDLE": middle, "QBOT_PREC": p}
                    for p in _PRECS
-                   for middle, widths in ((0, (8, 16, 32, 64, 128)),
-                                          (1, (8, 16, 32)))
-                   for d1 in widths],
+                   for middle, top in ((0, 7), (1, _MIDDLE_MAX_WIDTH))
+                   for w1 in range(_STREAM_MAX_WIDTH + 1, top + 1)],
     "pair_stream.cu": [{"QBOT_PREC": p} for p in _PRECS],
 }
 
@@ -527,8 +539,7 @@ def _window_launch(psi, n: int, start: int, width: int, w,
             diag.phase.data_ptr(), diag.mask.numel(), _PREC[_DOT_MODE],
             _stream(psi))
     _check_launch(lib, rc, "window_apply")
-    _count("window_apply_stream" if width <= 2 else
-           "window_apply_trailing" if start + width == n else "window_apply")
+    _count(_COUNTER[launch_family(n, start, width), start + width == n])
     return out
 
 
@@ -559,16 +570,58 @@ def pair_apply_ref(psi, n: int, start: int, width1: int, width2: int, w1, w2,
 
 
 def pair_route(n: int, start: int, width1: int, width2: int) -> str:
-    """How :func:`pair_apply` runs a pair on a CUDA tensor, as ``qbot_tpu``'s
-    ``_pair_apply_impl`` (``qbot_tpu/tpu/kernels.py:652-706``) does:
-    ``"trailing"`` (B = 1), ``"middle"`` (B >= 128 and D1 <= 32) or
-    ``"two_windows"``."""
+    """How :func:`pair_apply` runs a pair on a CUDA tensor: ``"trailing"``
+    (B = 1), ``"middle"`` (B >= 128 and D1 <= 32) or ``"two_windows"``, as
+    ``qbot_tpu``'s ``_pair_apply_impl`` (``qbot_tpu/tpu/kernels.py:652-706``)
+    routes it, but for one geometry: D1 >= 8 with D2 <= 4 runs as two
+    windows in either orientation, where the reference runs its pair
+    kernel.  On the H100 the two window launches beat a one-pass pair of
+    FP32 FMAs from shared-memory slabs there by 4.0-8.6x in the middle
+    (1, 32, 4, 2^19) and 4.5-11.8x trailing (2^17, 128, 4, 1), in every
+    dot mode (PERF.md, section 6)."""
+    if width1 > _STREAM_MAX_WIDTH and width2 <= _STREAM_MAX_WIDTH:
+        return "two_windows"
     B = 2 ** (n - start - width1 - width2)
     if B == 1:
         return "trailing"
-    if B >= 128 and width1 <= 5:
+    if B >= 128 and width1 <= _MIDDLE_MAX_WIDTH:
         return "middle"
     return "two_windows"
+
+
+def launch_family(n: int, start: int, *widths: int) -> str:
+    """The kernel that runs a window (one width) or a pair (two widths, W1
+    first) at ``start`` of an ``n``-qubit state on a CUDA tensor, by the
+    cost family the compiler prices it under (``compiler.COSTS``): a
+    window's streaming FMA kernel (``window_stream``, D <= 4) or tensor-core
+    tile (``window_tc``); a pair's streaming kernel (``pair_stream``, D1,
+    D2 <= 4), narrow pair (``pair_narrow``, D1 <= 4 with D2 >= 8) or
+    tensor-core pair (``pair_tc_middle``, ``pair_tc_trailing``); or
+    ``two_windows``, a pair that runs as two window launches
+    (:func:`pair_route`)."""
+    if len(widths) == 1:
+        return ("window_stream" if widths[0] <= _STREAM_MAX_WIDTH
+                else "window_tc")
+    width1, width2 = widths
+    route = pair_route(n, start, width1, width2)
+    if route == "two_windows":
+        return route
+    if width1 <= _STREAM_MAX_WIDTH:
+        return "pair_stream" if width2 <= _STREAM_MAX_WIDTH else "pair_narrow"
+    return f"pair_tc_{route}"
+
+
+# (launch family, trailing) -> the launch counter (LAUNCH_COUNTS)
+_COUNTER = {("window_stream", False): "window_apply_stream",
+            ("window_stream", True): "window_apply_stream",
+            ("window_tc", False): "window_apply",
+            ("window_tc", True): "window_apply_trailing",
+            ("pair_stream", False): "pair_apply_stream",
+            ("pair_stream", True): "pair_apply_stream",
+            ("pair_narrow", False): "pair_apply_narrow",
+            ("pair_narrow", True): "pair_apply_trailing_narrow",
+            ("pair_tc_middle", False): "pair_apply",
+            ("pair_tc_trailing", True): "pair_apply_trailing"}
 
 
 def pair_apply(psi, n: int, start: int, width1: int, width2: int, w1, w2,
@@ -587,19 +640,21 @@ def pair_apply(psi, n: int, start: int, width1: int, width2: int, w1, w2,
 
 def _pair_launch(psi, n: int, start: int, width1: int, width2: int, w1, w2,
                  diag: FusedDiagonals):
-    """The launch of :func:`pair_apply`.  On a CUDA tensor, :func:`pair_route` picks the trailing or the middle
-    pair kernel, or two :func:`window_apply` launches with the diagonals
-    fused into the first (counted as window launches).  The trailing and
-    middle pairs at D1, D2 >= 8 run on the tensor cores (3xTF32,
-    ``csrc/pair_tc.cuh``; in the reduced modes BF16 ``mma.sync.m16n8k16``,
-    ``csrc/pair_bf16.cuh``); the narrow pairs, D1 = 2, 4 with D2 >= 8, on
-    the D2 window's tile with W1 mixed into its operand as it is staged
-    (``csrc/window_tc.cuh``, ``csrc/window_bf16.cuh``; counted as
-    ``pair_apply_narrow`` and ``pair_apply_trailing_narrow``); D1, D2 = 2,
-    4 on a streaming kernel of FP32 FMAs (``csrc/pair_stream.cu``, counted
-    as ``pair_apply_stream``), D1 >= 8 with D2 = 2, 4 on FP32 FMAs from
-    slabs in shared memory (a geometry no plan produces).  All apply W1
-    first, as the plain version does.
+    """The launch of :func:`pair_apply`.  On a CUDA tensor,
+    :func:`launch_family` picks the kernel, or two :func:`window_apply`
+    launches with the diagonals fused into the first (counted as window
+    launches).  The trailing and middle pairs at D1, D2 >= 8 run on the
+    tensor cores (3xTF32, ``csrc/pair_tc.cuh``; in the reduced modes BF16
+    ``mma.sync.m16n8k16``, ``csrc/pair_bf16.cuh``); the narrow pairs,
+    D1 = 2, 4 with D2 >= 8, on the D2 window's tile with W1 mixed into its
+    operand as it is staged (``csrc/window_tc.cuh``,
+    ``csrc/window_bf16.cuh``; counted as ``pair_apply_narrow`` and
+    ``pair_apply_trailing_narrow``); D1, D2 = 2, 4 on a streaming kernel of
+    FP32 FMAs (``csrc/pair_stream.cu``, counted as ``pair_apply_stream``).
+    D1 >= 8 with D2 = 2, 4 runs as two windows: explicit
+    ``partition="dot"`` plans on the kernel engine produce it (the
+    brickwork's at 17 qubits and more, widths 3-5).  All apply W1 first, as
+    the plain version does.
     """
     _require(1 <= width1 <= 7 and 1 <= width2 <= 7 and 0 <= start
              and start + width1 + width2 <= n,
@@ -614,8 +669,8 @@ def _pair_launch(psi, n: int, start: int, width1: int, width2: int, w1, w2,
     _check_diag(diag, psi.device)
     if not _dispatch(psi):
         return pair_apply_ref(psi, n, start, width1, width2, w1, w2, diag)
-    route = pair_route(n, start, width1, width2)
-    if route == "two_windows":
+    family = launch_family(n, start, width1, width2)
+    if family == "two_windows":
         psi = _window_launch(psi, n, start, width1, w1, diag)
         return _window_launch(psi, n, start + width1, width2, w2,
                               _no_diagonals(n, psi.device))
@@ -631,9 +686,7 @@ def _pair_launch(psi, n: int, start: int, width1: int, width2: int, w1, w2,
             diag.want.data_ptr(), diag.phase.data_ptr(), diag.mask.numel(),
             _PREC[_DOT_MODE], _stream(psi))
     _check_launch(lib, rc, "pair_apply")
-    name = "pair_apply_trailing" if route == "trailing" else "pair_apply"
-    _count("pair_apply_stream" if width1 <= 2 and width2 <= 2 else
-           f"{name}_narrow" if width1 <= 2 else name)
+    _count(_COUNTER[family, start + width1 + width2 == n])
     return out
 
 

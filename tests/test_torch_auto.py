@@ -266,6 +266,23 @@ def test_launches_follow_the_kernels_routes(n, window):
                 assert x.family in tc.COSTS
 
 
+def test_wide_d1_narrow_d2_pair_costs_as_its_two_windows():
+    """An explicit dot-partition plan on the kernel engine holds a pair of
+    D1 >= 8 with D2 <= 4 (the brickwork at 17 qubits, width 3: (0, 3) +
+    (3, 1), B = 2^13); its launches are its two windows', the fused
+    phases on the first (the second carries none)."""
+    n = 17
+    plan = compile_circuit(brickwork(tcirc, n, 2), 3, partition="dot")
+    assert plan.engine == "kernel"
+    pairs = [s for s in plan.steps if isinstance(s, tc.PairStep)
+             and s.first.width >= 3 and s.second.width <= 2]
+    assert pairs
+    for step in pairs:
+        want = step_launches(step.first, n) + step_launches(step.second, n)
+        assert step_launches(step, n) == want
+        assert [x.family for x in want] == ["window_tc", "window_stream"]
+
+
 @pytest.mark.parametrize("window", ["fast", "auto_pallas", 7.0, None])
 def test_unknown_window_raises(window):
     circ = brickwork(tcirc, 6, 2)

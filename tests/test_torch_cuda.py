@@ -132,10 +132,12 @@ def _pair_inputs(n, start, width1, width2, rng, device):
 
 
 # (n, start, width1, width2): the parity tests' geometries (trailing,
-# middle, two windows at D1 > 32 and at 1 < B < 128) and wider ones
+# middle, two windows at D1 > 32 and at 1 < B < 128), wider ones, and two
+# windows at D1 >= 8 with D2 <= 4, middle (B = 128) and trailing
 PAIR_GEOMETRIES = [(10, 2, 4, 4), (12, 0, 2, 3), (14, 0, 6, 1),
                    (12, 2, 3, 3), (18, 4, 7, 7), (19, 0, 5, 7),
-                   (20, 7, 6, 7), (18, 0, 2, 7), (18, 9, 2, 7)]
+                   (20, 7, 6, 7), (18, 0, 2, 7), (18, 9, 2, 7),
+                   (14, 0, 5, 2), (9, 2, 5, 2)]
 
 
 @pytest.mark.parametrize("geometry", PAIR_GEOMETRIES,
@@ -153,13 +155,12 @@ def test_pair_kernel(cuda, geometry):
 @pytest.mark.parametrize("width2", range(1, 8))
 @pytest.mark.parametrize("width1", range(1, 8))
 def test_pair_kernel_every_width(cuda, width1, width2):
-    """The trailing pair at every (D1, D2), on both sides of the boundary
-    between its tensor-core (D1, D2 >= 8) and FMA variants, with 4 and with
-    64 slabs, and the middle pair at every D1 <= 32 with B = 128."""
+    """The trailing pair at every (D1, D2), with 4 and with 64 slabs, and
+    the middle pair at every (D1, D2) with B = 128, on whatever route
+    pair_route gives them: the tensor-core, narrow and streaming pairs, and
+    two windows (D1 >= 8 with D2 <= 4, and the middle pairs at D1 > 32)."""
     for n, start in ((width1 + width2 + 2, 2), (width1 + width2 + 6, 6),
                      (width1 + width2 + 8, 1)):
-        if kernels.pair_route(n, start, width1, width2) == "two_windows":
-            continue
         rng = np.random.default_rng(10 * width1 + width2 + n)
         psi, w1, w2, diag = _pair_inputs(n, start, width1, width2, rng, cuda)
         got = kernels.pair_apply(psi, n, start, width1, width2, w1, w2, diag)
@@ -239,10 +240,11 @@ def test_pair_counts_its_routes(cuda):
 
 
 def test_narrow_d2_counts_as_the_fma_pair(cuda):
-    """D2 = 2, 4 at D1 >= 8 stays on the shared-memory FMA pair
-    (pair_apply, pair_apply_trailing); D1, D2 = 2, 4 counts as the
-    streaming pair (pair_apply_stream, either orientation); D1 = 2, 4 with
-    D2 >= 8 as the narrow pair."""
+    """D2 = 2, 4 at D1 >= 8, the geometry of the retired shared-memory FMA
+    pair, counts as its two window launches in either orientation (the D1
+    window on the tensor cores, the D2 window streaming) and as no pair;
+    D1, D2 = 2, 4 counts as the streaming pair (pair_apply_stream, either
+    orientation); D1 = 2, 4 with D2 >= 8 as the narrow pair."""
     kernels.reset_launch_counts()
     rng = np.random.default_rng(4)
     for n, start, width1, width2 in ((14, 0, 5, 2), (9, 2, 5, 2),
@@ -251,11 +253,34 @@ def test_narrow_d2_counts_as_the_fma_pair(cuda):
         psi, w1, w2, diag = _pair_inputs(n, start, width1, width2, rng, cuda)
         kernels.pair_apply(psi, n, start, width1, width2, w1, w2, diag)
     counts = kernels.launch_counts()
-    assert counts["pair_apply"] == 1
-    assert counts["pair_apply_trailing"] == 1
+    assert counts["pair_apply"] == 0
+    assert counts["pair_apply_trailing"] == 0
+    assert counts["window_apply"] == 2
+    assert counts["window_apply_stream"] == 2
     assert counts["pair_apply_stream"] == 3
     assert counts["pair_apply_narrow"] == 0
     assert counts["pair_apply_trailing_narrow"] == 1
+
+
+@pytest.mark.parametrize("geometry", [(14, 0, 5, 2), (10, 2, 7, 1)],
+                         ids=lambda g: "n{}_s{}_{}x{}".format(*g))
+def test_pair_entry_refuses_wide_d1_narrow_d2(cuda, geometry):
+    """The C entry point serves no pair of D1 >= 8 with D2 <= 4: it returns
+    cudaErrorInvalidValue (1) and launches nothing."""
+    n, start, width1, width2 = geometry
+    rng = np.random.default_rng(5)
+    psi, w1, w2, diag = _pair_inputs(n, start, width1, width2, rng, cuda)
+    out = torch.full_like(psi, 7.0)
+    lib = kernels._library()
+    rc = lib.qbot_pair_apply(
+        psi.data_ptr(), out.data_ptr(), w1.data_ptr(), w2.data_ptr(), 2**n,
+        1, width1, width2, n - start - width1 - width2,
+        diag.flips.data_ptr(), diag.flips.numel(), diag.mask.data_ptr(),
+        diag.want.data_ptr(), diag.phase.data_ptr(), diag.mask.numel(), 0,
+        kernels._stream(psi))
+    torch.cuda.synchronize()
+    assert rc == 1
+    assert torch.all(out == 7.0)
 
 
 # dot mode -> (pair vs plain, vs float64)
@@ -873,8 +898,8 @@ def test_window_particle_axis_bit_for_bit(cuda, any_mode, width, where):
 
 
 # (n, start, width1, width2): the tensor-core trailing and middle pairs, the
-# narrow pairs, the streaming pairs, the shared-memory FMA pair (D1 >= 8,
-# D2 <= 4) and two windows
+# narrow pairs, the streaming pairs and two windows (D1 >= 8 with D2 <= 4
+# among them)
 BATCH_PAIRS = [(12, 0, 3, 7), (18, 4, 7, 7), (20, 0, 5, 7), (12, 2, 3, 3),
                (18, 9, 2, 7), (12, 3, 2, 7), (14, 6, 2, 2), (12, 8, 2, 2),
                (14, 5, 7, 2), (14, 0, 6, 1)]

@@ -13,6 +13,7 @@ import torch
 import jax.numpy as jnp
 
 from qbot_tpu.tpu import kernels as jk
+from qbot_tpu_torch.tpu import compiler as tc
 from qbot_tpu_torch.tpu import kernels as tk
 
 torch.set_num_threads(1)
@@ -158,6 +159,45 @@ def test_pair_apply_matches_pallas(geometry, fused, interpret_kernels):
     ("middle_stream_4x4", "middle"), ("trailing_stream_4x4", "trailing")])
 def test_pair_route_matches_pallas_dispatch(geometry, route):
     assert tk.pair_route(*PAIR_GEOMETRIES[geometry]) == route
+
+
+@pytest.mark.parametrize("geometry,family", [
+    ((12, 3, 2), "window_stream"), ((12, 5, 7), "window_tc"),
+    ((12, 0, 7), "window_tc"), ((10, 2, 4, 4), "pair_tc_trailing"),
+    ((20, 0, 5, 7), "pair_tc_middle"), ((12, 0, 2, 3), "pair_narrow"),
+    ((9, 2, 2, 5), "pair_narrow"), ((12, 1, 2, 2), "pair_stream"),
+    ((7, 3, 2, 2), "pair_stream"), ((12, 2, 3, 3), "two_windows"),
+    ((14, 0, 6, 1), "two_windows"),
+    # D1 >= 8 with D2 <= 4, middle (B = 128) and trailing (B = 1): the
+    # reference's dispatch runs its pair kernels here, the port two windows
+    ((14, 0, 5, 2), "two_windows"), ((9, 2, 5, 2), "two_windows")])
+def test_launch_family_names_each_kernel(geometry, family):
+    """One window width or two pair widths name the kernel's cost family
+    (compiler.COSTS), or two windows, as pair_route routes the pair."""
+    assert tk.launch_family(*geometry) == family
+    if family == "two_windows":
+        assert tk.pair_route(*geometry) == "two_windows"
+    else:
+        assert family in tc.COSTS
+
+
+@pytest.mark.parametrize("middle", [False, True])
+def test_pair_variants_follow_the_router(middle):
+    """Every tensor-core pair that launch_family names has its variant in
+    the build table (D1 by orientation, in every precision), and no variant
+    is built that it never names."""
+    n = 20
+    routed = set()
+    for width1 in range(1, 8):
+        for width2 in range(1, 8):
+            start = 0 if middle else n - width1 - width2
+            family = tk.launch_family(n, start, width1, width2)
+            if family == f"pair_tc_{'middle' if middle else 'trailing'}":
+                routed.add(2**width1)
+    for prec in (0, 1, 2):
+        built = {v["QBOT_D1"] for v in tk._VARIANTS["pair_tc.cu"]
+                 if v["QBOT_MIDDLE"] == int(middle) and v["QBOT_PREC"] == prec}
+        assert built == routed, prec
 
 
 def test_pair_apply_is_two_windows():

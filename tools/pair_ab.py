@@ -25,11 +25,13 @@ N = 26
 MODES = ("f32", "bf16_3x", "bf16")
 # chip_smoke.py check_pair's shapes: label -> (start, width1, width2); the
 # worker of this tree times every tree, so a parent whose pair_apply ran
-# the D1, D2 <= 4 shapes on its shared-memory FMA kernel is timed there too
+# the D1, D2 <= 4 shapes on its shared-memory FMA kernel is timed there too,
+# and the "wide_d1_narrow_d2" shapes (D1 >= 8 with D2 = 4) time a parent's
+# shared-memory FMA pair against this tree's two window launches
 SHAPES = {"middle": (0, 5, 7), "trailing": (N - 14, 7, 7),
           "density_columns": (N - 13, 6, 7), "middle_b1024": (4, 5, 7),
-          "unreached_fma_middle": (0, 5, 2),
-          "unreached_fma_trailing": (N - 9, 7, 2),
+          "wide_d1_narrow_d2_middle": (0, 5, 2),
+          "wide_d1_narrow_d2_trailing": (N - 9, 7, 2),
           "middle_narrow": (0, 2, 7), "middle_narrow_d2": (0, 1, 7),
           "trailing_narrow": (N - 9, 2, 7),
           "trailing_narrow_d2": (N - 8, 1, 7),
