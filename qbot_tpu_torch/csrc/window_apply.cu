@@ -22,11 +22,8 @@
 // [[Wr, -Wi], [Wi, Wr]] [x_r; x_i], computed transposed, out^T = X^T M^T,
 // with mma.sync.m16n8k8 TF32: the state columns c = a*B + b are the rows of
 // the A operand (built in registers), W the B operand, read from shared
-// memory in W's own row-major (K-major) order.  mma.sync and not wgmma:
-// wgmma's TF32 form needs its B operand K-major in shared memory with the
-// swizzled layouts and descriptors of the async proxy; mma.sync takes the
-// same products from registers.  The tile (tc_tile.cuh, shared with
-// pair_apply.cu) does:
+// memory in W's own row-major (K-major) order.  The tile (tc_tile.cuh,
+// shared with pair_apply.cu) does:
 //
 // - 3xTF32 without rounding bias: x and W split into hi and lo parts on a
 //   grid per column (row) and k-step, so each k-step's hi*hi sums are exact
@@ -37,8 +34,9 @@
 //   26-qubit brickwork lost 1.6e-7 of its norm a pass.
 // - A persistent block (8 warps) stages W once in mma fragment order with
 //   its grids: split into hi, lo and tf32 parts at D <= 64 (96 KiB at
-//   D = 64), kept FP32 and split as the fragments are built at D = 128,
-//   where the split W (384 KiB) does not fit in shared memory.
+//   D = 64), kept FP32 and split as the fragments are built at D = 128 (the
+//   narrow pairs' second window), where the split W (384 KiB) does not fit
+//   in shared memory.
 // - The block walks tiles of BN state columns and all D outputs: each warp
 //   owns 16 columns and half the outputs (all of them at D <= 32: at D = 64
 //   all of them took 255 registers and spilled), so every state element
@@ -64,16 +62,19 @@
 //   plans reach it as the first window of the brickwork at n = 1, 2
 //   (mod 7), A = 1, and in every window of a window=2 plan.
 // - The reduced modes' tensor-core window is window_bf16.cuh.
+// - The f32 window at D = 128 runs on Hopper's warpgroup products instead
+//   (window_wg.cuh: wgmma.mma_async, W split once per launch, a producer
+//   warpgroup), with this arithmetic; the tile above serves D = 8 .. 64
+//   and the narrow pairs.
 //
 // ptxas (sm_90a, -O3; chip_smoke.py phase 1 on an H100), registers / spill
-// stores of window_tc_kernel<D, B == 1>: <128, no> 255 / 12 B, <128, yes>
-// 255 / 0, <64> 215 / 0 and 220 / 0, <32> 219 / 0 and 224 / 0, <16> 115 / 0
-// and 123 / 0, <8> 88 / 0 and 96 / 0.  Measured at 26 qubits without
-// diagonals on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md):
-// 1.53 ms at D = 128 (27% of the operation bound), 0.83 ms at D = 64 and
-// 0.50 ms at D = 32 (39% and 64% of the byte bound).  Its time is set by
-// issue slots, not by the products: the grids and the cross terms cost
-// 17-19% at D = 128 against tf32-rounded hi parts.
+// stores of window_tc_kernel<D, B == 1>: <64> 215 / 0 and 220 / 0, <32>
+// 219 / 0 and 224 / 0, <16> 115 / 0 and 123 / 0, <8> 88 / 0 and 96 / 0.
+// Measured at 26 qubits without diagonals on an NVIDIA H100 80GB HBM3 at
+// 700.00 W (PERF.md): 0.83 ms at D = 64 and 0.50 ms at D = 32 (39% and 64%
+// of the byte bound).  Its time is set by issue slots, not by the
+// products: the grids and the cross terms cost 17-19% at D = 128 against
+// tf32-rounded hi parts.
 #include "fma_stream.cuh"
 #include "window_tc.cuh"
 
@@ -239,19 +240,22 @@ int launch(const WindowArgs& a) {
 // psi, out: (particles, 2, n_amps) float32, 16-byte aligned, one launch for
 // all the particles (tc_tile.cuh: particle_offset); w: (2, D, D) float32
 // with D = 2^log_d; B = 2^log_b; prec: the precision of the products
-// (tc_tile.cuh: Prec).  Returns the launch's cudaGetLastError().
+// (tc_tile.cuh: Prec); scratch: qbot_window_scratch_floats() floats,
+// 16-byte aligned, for the f32 window at D = 128 (window_wg.cuh), else
+// unused.  Returns the launch's cudaGetLastError().
 extern "C" int qbot_window_apply(const float* psi, float* out, const float* w,
                                  int64_t n_amps, int particles, int log_d,
                                  int log_b, const int64_t* flips, int nflips,
                                  const int64_t* masks, const int64_t* wants,
                                  const float* phase, int nphases, int prec,
-                                 void* stream) {
+                                 float* scratch, void* stream) {
   if (log_d < 1 || log_d > 7 || particles < 1 || particles > MAX_PARTICLES)
     return static_cast<int>(cudaErrorInvalidValue);
   const WindowArgs a{psi,     out,   w,      n_amps,
                      log_d,   log_b, flips,  nflips,
                      masks,   wants, phase,  nphases,
-                     static_cast<cudaStream_t>(stream), nullptr, particles};
+                     static_cast<cudaStream_t>(stream), nullptr, particles,
+                     scratch};
   switch (prec) {
     case F32: return launch<F32>(a);
     case BF16X3: return launch<BF16X3>(a);
@@ -259,6 +263,9 @@ extern "C" int qbot_window_apply(const float* psi, float* out, const float* w,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// the floats of the scratch qbot_window_apply takes
+extern "C" int qbot_window_scratch_floats() { return wg::SCRATCH_FLOATS; }
 
 extern "C" const char* qbot_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,7 +1,8 @@
 // The tensor-core window kernel (window_apply.cu describes its design) for
 // D = 8 .. 128, in both orientations (B > 1, and TRAIL: B == 1), with the
 // F32 tile's products (tc_tile.cuh: Prec F32; the reduced modes' window is
-// window_bf16.cuh).
+// window_bf16.cuh).  At D = 128 it serves the narrow pairs alone: the f32
+// window there is window_wg.cuh's.
 //
 // The narrow pair (D1 = 2, 4 of the template's D1; D1 = 1 is the window):
 // the pair of a narrow first window and a D = D2 >= 8 second one, W1 first
@@ -56,6 +57,9 @@ struct WindowArgs {
   cudaStream_t stream;
   const float* w1 = nullptr;  // the narrow pair's (2, D1, D1) W1
   int particles = 1;          // states of the launch (tc_tile.cuh)
+  // the f32 window at D = 128: window_wg.cuh's scratch of W's split parts
+  // (wg::SCRATCH_FLOATS floats, 16-byte aligned)
+  float* scratch = nullptr;
 };
 
 // The launcher of the tensor-core window (D1 = 1), or of the narrow pair
@@ -65,6 +69,8 @@ struct WindowArgs {
 // window_tc.cu, once per D1 and precision.
 template <int D1, int PREC>
 int window_tc_launch(const WindowArgs& args);
+
+#include "window_wg.cuh"
 
 namespace {
 
@@ -364,7 +370,9 @@ int launch_tc_trail(const WindowArgs& a) {
                       : launch_tc<D, false, PREC, D1>(a);
 }
 
-// the body of window_tc_launch<D1, PREC> for f32, in window_tc.cu
+// the body of window_tc_launch<D1, PREC> for f32, in window_tc.cu: the
+// window at D = 128 (D1 = 1) runs on the warpgroup products of
+// window_wg.cuh, every other D and the narrow pairs on the tile above
 template <int D1, int PREC>
 int launch_tc_d(const WindowArgs& a) {
   switch (a.log_d) {
@@ -372,7 +380,12 @@ int launch_tc_d(const WindowArgs& a) {
     case 4: return launch_tc_trail<16, PREC, D1>(a);
     case 5: return launch_tc_trail<32, PREC, D1>(a);
     case 6: return launch_tc_trail<64, PREC, D1>(a);
-    case 7: return launch_tc_trail<128, PREC, D1>(a);
+    case 7:
+      if constexpr (D1 == 1) {
+        return a.log_b == 0 ? launch_wg<true>(a) : launch_wg<false>(a);
+      } else {
+        return launch_tc_trail<128, PREC, D1>(a);
+      }
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -56,7 +56,9 @@ count their trailing launches (B = 1, the role of the TPU's
 pairs (D1 = 2, 4 with D2 >= 8, which run the window's tile) apart, the
 streaming FMA kernels of the narrow widths (windows at D = 2, 4, pairs at
 D1, D2 = 2, 4) apart, and the launches of each reduced mode apart, as
-``window_apply[bf16_3x]`` and so on.
+``window_apply[bf16_3x]`` and so on.  The f32 windows at D = 128, which
+run on Hopper's warpgroup products (``csrc/window_wg.cuh``), count once
+more under :data:`WG_COUNTER` in the program's counter table.
 """
 from __future__ import annotations
 
@@ -227,7 +229,7 @@ def _library():
     lib = ctypes.CDLL(str(build_kernels()))
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.qbot_window_apply.argtypes = [p, p, p, i64, i32, i32, i32, p, i32,
-                                      p, p, p, i32, i32, p]
+                                      p, p, p, i32, i32, p, p]
     lib.qbot_window_apply.restype = i32
     lib.qbot_pair_apply.argtypes = [p, p, p, p, i64, i32, i32, i32, i32,
                                     p, i32, p, p, p, i32, i32, p]
@@ -237,6 +239,8 @@ def _library():
     lib.qbot_reflect_update.argtypes = [p, p, p, p, p, p, i32, i64, i64,
                                         i64, i32, i32, p, p, p]
     lib.qbot_reflect_update.restype = i32
+    lib.qbot_window_scratch_floats.argtypes = []
+    lib.qbot_window_scratch_floats.restype = i32
     lib.qbot_error_string.argtypes = [i32]
     lib.qbot_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -281,6 +285,12 @@ LAUNCH_COUNTS = (
     *(f"{name}[{mode}]" for mode in REDUCED_MODES for name in _PRODUCT_COUNTS))
 # the launches are keys of the program's one counter table
 _launches = profiling.COUNTS
+# The f32 (and f32_mix) window launches at D = 128, which run the
+# warpgroup products of ``csrc/window_wg.cuh``: a counter of the program
+# (``profiling.count``) beside their ``window_apply`` or
+# ``window_apply_trailing`` count, not one of LAUNCH_COUNTS, so that no
+# launch counts twice there
+WG_COUNTER = "window_tc_d128"
 
 
 def reset_launch_counts() -> None:
@@ -531,15 +541,22 @@ def _window_launch(psi, n: int, start: int, width: int, w,
     _require(psi.data_ptr() % 16 == 0, "psi must be 16-byte aligned")
     lib = _library()
     out = torch.empty_like(psi)
+    # the f32 window at D = 128 splits W once into a scratch of its parts
+    wg = width == 7 and _PREC[_DOT_MODE] == 0
+    scratch = (torch.empty(lib.qbot_window_scratch_floats(),
+                           dtype=torch.float32, device=psi.device)
+               if wg else None)
     with torch.cuda.device(psi.device):
         rc = lib.qbot_window_apply(
             psi.data_ptr(), out.data_ptr(), w.data_ptr(), 2**n, P, width,
             n - start - width, diag.flips.data_ptr(), diag.flips.numel(),
             diag.mask.data_ptr(), diag.want.data_ptr(),
             diag.phase.data_ptr(), diag.mask.numel(), _PREC[_DOT_MODE],
-            _stream(psi))
+            None if scratch is None else scratch.data_ptr(), _stream(psi))
     _check_launch(lib, rc, "window_apply")
     _count(_COUNTER[launch_family(n, start, width), start + width == n])
+    if wg:
+        profiling.count(WG_COUNTER)
     return out
 
 

@@ -116,6 +116,139 @@ def test_window_kernel_needs_aligned_state(cuda):
                              kernels.fused_diagonals(n, device=cuda))
 
 
+# ---------------------------------------------------------------------------
+# the f32 window at D = 128 on Hopper's warpgroup products
+# (csrc/window_wg.cuh): every f32 and f32_mix launch of width 7
+# ---------------------------------------------------------------------------
+
+def _wg_launches():
+    from qbot_tpu_torch.utils import profiling
+
+    return profiling.counters().get(kernels.WG_COUNTER, 0)
+
+
+def _f64_window(psi, n, start, w, diag):
+    """The window of D = 128 on the diagonals' float64 product, in float64
+    on the card."""
+    x = kernels._apply_diagonals_ref(psi.double(), kernels.FusedDiagonals(
+        diag.flips, diag.mask, diag.want, diag.phase.double()))
+    return kernels.window_apply_ref(x, n, start, 7, w.double(),
+                                    kernels.fused_diagonals(n, device=x.device),
+                                    mode="f32")
+
+
+def _wg_diagonals(n, start, entries, rng, device):
+    """0, 3 or 13 flips and phases (13: past the kernel's 8-entry tables)."""
+    if entries == 0:
+        return kernels.fused_diagonals(n, device=device)
+    qubits = sorted({max(start - 1, 0), start, start + 6, n - 1})
+    phases = [(tuple(qubits), complex(np.exp(0.7j)), 1),
+              ((start,), -1.0 + 0j, 0)]
+    if entries == 13:
+        phases += [(tuple(int(q) for q in rng.choice(n, size=2,
+                                                     replace=False)),
+                    complex(np.exp(1j * rng.uniform(0, 6))),
+                    int(rng.integers(0, 4))) for _ in range(7)]
+    flips = tuple(int(m) for m in rng.integers(0, 2**n, size=entries
+                                                - len(phases)))
+    return kernels.fused_diagonals(n, flips, tuple(phases), device)
+
+
+# (n, start): B = 1, 8, 2^13 and 2^14
+WG_GEOMETRIES = [(20, 13), (20, 10), (20, 0), (21, 0)]
+
+
+@pytest.mark.parametrize("entries", [0, 3, 13])
+@pytest.mark.parametrize("particles", [1, 3])
+@pytest.mark.parametrize("geometry", WG_GEOMETRIES,
+                         ids=lambda g: "n{}_B{}".format(g[0], 2**(g[0] - g[1] - 7)))
+def test_wg_window_against_plain_and_float64(cuda, geometry, particles,
+                                             entries):
+    """The warpgroup window against its plain version (1e-5) and float64
+    (2e-6) in every orientation, batched or not, with 0, 3 and 13 flips and
+    phases; one launch, counted once under window_tc_d128; two launches
+    agree bit for bit, and a batch's particles are their own launches'."""
+    n, start = geometry
+    rng = np.random.default_rng(n + start + 7 * particles + entries)
+    psi = (_batch(n, rng, cuda, particles) if particles > 1
+           else _state(n, rng, cuda))
+    w = _unitary(128, rng, cuda)
+    diag = _wg_diagonals(n, start, entries, rng, cuda)
+    kernels.reset_launch_counts()
+    before = _wg_launches()
+    got = kernels.window_apply(psi, n, start, 7, w, diag)
+    assert _wg_launches() - before == 1
+    assert sum(kernels.launch_counts().values()) == 1
+    again = kernels.window_apply(psi, n, start, 7, w, diag)
+    assert torch.equal(got, again)
+    assert rel_l2(got, kernels.window_apply_ref(psi, n, start, 7, w,
+                                                diag)) <= TOL
+    assert rel_l2(got, _f64_window(psi, n, start, w, diag)) <= F64_TOL
+    if particles > 1:
+        for p in range(particles):
+            one = kernels.window_apply(psi[p].contiguous(), n, start, 7, w,
+                                       diag)
+            assert torch.equal(got[p], one), p
+
+
+@pytest.mark.parametrize("geometry", [(16, 2), (16, 9)],
+                         ids=["middle", "trailing"])
+def test_wg_window_backward(cuda, geometry):
+    """Through the W† backward the warpgroup window runs twice (forward, then
+    W† on the cotangent), and ψ̄, W̄ match autograd through the plain
+    versions."""
+    n, start = geometry
+    rng = np.random.default_rng(n + start)
+    psi, w = _state(n, rng, cuda), _unitary(128, rng, cuda)
+    diag = kernels.fused_diagonals(n, (5, 77), (((start,), np.exp(0.4j), -1),),
+                                   cuda)
+    cot = _state(n, rng, cuda)
+    before = _wg_launches()
+    got = _cotangents(
+        lambda p, m: kernels.window_apply(p, n, start, 7, m, diag),
+        (psi, w), cot)
+    assert _wg_launches() - before == 2
+    want = _cotangents(
+        lambda p, m: kernels.window_apply_ref(p, n, start, 7, m, diag),
+        (psi, w), cot)
+    for g, h in zip(got, want):
+        assert rel_l2(g, h) <= GRAD_TOL["f32"]
+
+
+@pytest.mark.parametrize("mode,launches", [("f32", 1), ("f32_mix", 1),
+                                           ("bf16_3x", 0), ("bf16", 0)])
+def test_wg_counter_counts_the_f32_d128_windows(cuda, mode, launches):
+    """window_tc_d128 counts the f32 and f32_mix windows of D = 128, and not
+    the reduced modes', the D = 64 window's or the narrow pairs' at
+    D2 = 128 (D1 = 2, 4, which keep the mma.sync tile)."""
+    n = 12
+    rng = np.random.default_rng(len(mode))
+    psi = _state(n, rng, cuda)
+    diag = kernels.fused_diagonals(n, device=cuda)
+    kernels.set_dot_mode(mode)
+    try:
+        for start in (0, 3, 5):
+            before = _wg_launches()
+            kernels.window_apply(psi, n, start, 7, _unitary(128, rng, cuda),
+                                 diag)
+            assert _wg_launches() - before == launches
+        before = _wg_launches()
+        kernels.window_apply(psi, n, 3, 6, _unitary(64, rng, cuda), diag)
+        # the narrow pairs, middle (B = 256) and trailing, at 16 qubits
+        n = 16
+        psi = _state(n, rng, cuda)
+        diag = kernels.fused_diagonals(n, device=cuda)
+        for width1 in (1, 2):
+            for start in (0, n - width1 - 7):
+                assert kernels.launch_family(n, start, width1,
+                                             7) == "pair_narrow"
+                kernels.pair_apply(psi, n, start, width1, 7,
+                                   _unitary(2**width1, rng, cuda),
+                                   _unitary(128, rng, cuda), diag)
+        assert _wg_launches() == before
+    finally:
+        kernels.set_dot_mode("f32")
+
 def _pair_inputs(n, start, width1, width2, rng, device):
     psi = _state(n, rng, device)
     w1 = _unitary(2**width1, rng, device)

@@ -25,6 +25,12 @@ its fragment map, its limits and its drift against the k8 tile's, and
 the order of products of the reduced FMA window (D <= 4) against
 ``window_apply_ref``.
 
+The f32 window at D = 128 (``csrc/window_wg.cuh``) runs the same split on
+``wgmma`` m64n128k8 products from shared memory: ``wg_product`` replays it
+with the parts read back through the stage's layout, each k-step's exact
+and cross sums added to nearest, and holds it to float64, to float32
+products, to ``window_apply_ref`` and to the mma.sync tile's truncation.
+
     PYTHONPATH=. python3 tests/test_torch_window_split.py
 
 prints the emulated relative L2 error against float64 at D = 8..128
@@ -799,6 +805,249 @@ def test_fma_pair_model_is_the_plain_version(geometry, mode):
     assert rel(got, want) <= tol
     assert rel(got, exact) <= f64_tol
 
+
+# ---------------------------------------------------------------------------
+# the f32 window at D = 128 (csrc/window_wg.cuh): wgmma m64n128k8 TF32, both
+# operands split by the producer into a stage of shared memory
+# ---------------------------------------------------------------------------
+
+# window_wg.cuh's stage: for each half tile of 64 columns, x's parts (re
+# hi, im hi, re lo, im lo, -im hi, -im lo), 64 rows x 8 k each, then W's
+# (re hi, im hi, re lo, im lo, re tf32, im tf32), 128 x 8;
+# a part is [k half][8-row group][row][4 k], its k halves WG_*_LBO bytes
+# apart, its 8-row groups WG_GROUP bytes apart (the descriptors' offsets)
+WG_A_LBO, WG_B_LBO, WG_GROUP = 1024 + 64, 2048, 128
+WG_A_PART, WG_B_PART = WG_A_LBO + 1024, 2 * 2048
+WG_COLS = 64          # state columns of a half tile: the products' 64 rows
+WG_HALVES = 2
+WG_X_HALF = 6 * WG_A_PART
+WG_W = WG_HALVES * WG_X_HALF  # the W parts' first byte
+WG_STAGE = WG_W + 6 * WG_B_PART
+# (A part, B part) of each plane's products in issue order: the exact sum
+# of the hi parts, then the cross terms x_hi W_lo + x_lo tf32(W); plane 0
+# takes -x_im, plane 1 W's planes swapped
+WG_PLAN = ((((0, 0), (4, 1)), ((0, 2), (4, 3), (2, 4), (5, 5))),
+           (((0, 1), (1, 0)), ((0, 3), (1, 2), (2, 5), (3, 4))))
+
+
+def _wg_offsets(rows: int, lbo: int):
+    """Byte offsets of a part's (row, k) elements from its start."""
+    r, k = np.meshgrid(np.arange(rows), np.arange(8), indexing="ij")
+    return (r >> 3) * WG_GROUP + (r & 7) * 16 + (k >> 2) * lbo + (k & 3) * 4
+
+
+def wg_stage(xparts, wparts):
+    """The words of one stage as the kernel fills it: ``xparts[h]`` the six
+    x parts of half h (the producer's), ``wparts`` the six W parts (the
+    split kernel's, bulk-copied)."""
+    st = np.zeros(WG_STAGE // 4, np.uint32)
+    for h, parts in enumerate(xparts):
+        for a, part in enumerate(parts):
+            st[(h * WG_X_HALF + a * WG_A_PART
+                + _wg_offsets(WG_COLS, WG_A_LBO)) // 4] = _bits(part)
+    for b, part in enumerate(wparts):
+        st[(WG_W + b * WG_B_PART + _wg_offsets(128, WG_B_LBO)) // 4] = \
+            _bits(part)
+    return st
+
+
+def wg_operand(st, base: int, lbo: int, rows: int):
+    """The (rows, 8) operand a descriptor at byte ``base`` reads."""
+    return st.view(F32)[(base + _wg_offsets(rows, lbo)) // 4]
+
+
+def _wg_sum(a_ops, b_ops, products, rounding):
+    """(the tensor cores' sum of the (A part, B part) products from a
+    zeroed accumulator, ``rounding`` after each; the exact sum)."""
+    d = np.zeros((WG_COLS, 128), F64)
+    whole = np.zeros_like(d)
+    for a, b in products:
+        term = _mm(a_ops[a], b_ops[b])
+        whole += term
+        d = rounding(d + term).astype(F64)
+    return d, whole
+
+
+def wg_product(xr, xi, wr, wi, rounding=None):
+    """(out_r, out_i, every exact sum exact) of out[c, n] = Σ_k x[c, k]
+    W[n, k] at D = 128 as window_wg.cuh computes it: per k-step of 8 j, x
+    and W split on their grids, the parts read back from the stage through
+    the descriptors' offsets; each plane's exact sum (two products from a
+    zeroed accumulator) and cross sum (four) on the tensor cores
+    (``rounding`` after each product, toward zero by default), each added
+    to the FP32 accumulators to nearest, exact sum first."""
+    rounding = _rz if rounding is None else rounding
+    cols = xr.shape[0]
+    # a tile's columns past the state's are copied in as zeros
+    pad = ((0, -cols % (WG_HALVES * WG_COLS)), (0, 0))
+    xr, xi = np.pad(xr, pad), np.pad(xi, pad)
+    acc = [np.zeros((xr.shape[0], 128), F32) for _ in range(2)]
+    exact = True
+    for s in range(16):
+        sl = slice(8 * s, 8 * s + 8)
+        mx = _grid(np.maximum(abs(xr[:, sl]), abs(xi[:, sl])).max(1))[:, None]
+        mw = _grid(np.maximum(abs(wr[:, sl]), abs(wi[:, sl])).max(1))[:, None]
+        (xrh, xrl), (xih, xil) = _split(xr[:, sl], mx), _split(xi[:, sl], mx)
+        (wrh, wrl), (wih, wil) = _split(wr[:, sl], mw), _split(wi[:, sl], mw)
+        wparts = [wrh, wih, wrl, wil, _tf32(wr[:, sl]), _tf32(wi[:, sl])]
+        for t0 in range(0, xr.shape[0], WG_HALVES * WG_COLS):
+            halves = [slice(t0 + h * WG_COLS, t0 + (h + 1) * WG_COLS)
+                      for h in range(WG_HALVES)]
+            st = wg_stage([[p[cs] for p in (xrh, xih, xrl, xil, -xih, -xil)]
+                           for cs in halves], wparts)
+            b_ops = [wg_operand(st, WG_W + b * WG_B_PART, WG_B_LBO, 128)
+                     for b in range(6)]
+            for h, cs in enumerate(halves):
+                a_ops = [wg_operand(st, h * WG_X_HALF + a * WG_A_PART,
+                                    WG_A_LBO, WG_COLS) for a in range(6)]
+                for p, sums in enumerate(WG_PLAN):
+                    for q, products in enumerate(sums):
+                        d, whole = _wg_sum(a_ops, b_ops, products, rounding)
+                        exact &= q > 0 or bool(np.all(d == whole))
+                        acc[p][cs] = (acc[p][cs] + d.astype(F32)).astype(F32)
+    return acc[0][:cols], acc[1][:cols], exact
+
+
+def tc_product_f32(xr, xi, wr, wi, rounding=None):
+    """(out_r, out_i) of the same product as the mma.sync tile of
+    tc_tile.cuh computes it at D = 128 (tc_products): each k-step's exact
+    sums added to nearest, the cross terms summed over a stage of 16 j on
+    the tensor cores (``rounding`` after each mma), then added."""
+    rounding = _rz if rounding is None else rounding
+    cols = xr.shape[0]
+    acc = [np.zeros((cols, 128), F32) for _ in range(2)]
+    # plane p: (A part, W part) of its two products, and their signs
+    terms = (((0, 0), (1, 1)), ((0, 1), (1, 0)))
+    signs = ((1, -1), (1, 1))
+    for s0 in range(0, 16, STAGE // 8):
+        cross = [np.zeros((cols, 128), F64) for _ in range(2)]
+        for s in range(s0, s0 + STAGE // 8):
+            sl = slice(8 * s, 8 * s + 8)
+            mx = _grid(np.maximum(abs(xr[:, sl]),
+                                  abs(xi[:, sl])).max(1))[:, None]
+            mw = _grid(np.maximum(abs(wr[:, sl]),
+                                  abs(wi[:, sl])).max(1))[:, None]
+            xh, xl = zip(_split(xr[:, sl], mx), _split(xi[:, sl], mx))
+            wh, wl = zip(_split(wr[:, sl], mw), _split(wi[:, sl], mw))
+            wt = (_tf32(wr[:, sl]), _tf32(wi[:, sl]))
+            for p in range(2):
+                (a0, w0), (a1, w1) = terms[p]
+                s_0, s_1 = signs[p]
+                e = rounding(s_0 * _mm(xh[a0], wh[w0])).astype(F64)
+                for a, part, w, sg in ((xh, wl, w0, s_0), (xl, wt, w0, s_0)):
+                    cross[p] = rounding(cross[p] + sg * _mm(a[a0], part[w]))
+                e = rounding(e + s_1 * _mm(xh[a1], wh[w1])).astype(F64)
+                acc[p] = (acc[p] + e.astype(F32)).astype(F32)
+                for a, part, w, sg in ((xh, wl, w1, s_1), (xl, wt, w1, s_1)):
+                    cross[p] = rounding(cross[p] + sg * _mm(a[a1], part[w]))
+        for p in range(2):
+            acc[p] = (acc[p] + cross[p].astype(F32)).astype(F32)
+    return acc[0], acc[1]
+
+
+@pytest.mark.parametrize("part", range(18))
+def test_wg_stage_reads_back_each_part(part):
+    """Every part written into a stage (each half's six x parts, then the
+    six W parts) is the operand its descriptor reads, and no two parts share
+    a byte of the stage."""
+    rng = np.random.default_rng(part)
+    nx = 6 * WG_HALVES
+    rows = WG_COLS if part < nx else 128
+    parts = [rng.normal(size=(WG_COLS if p < nx else 128, 8)).astype(F32)
+             for p in range(nx + 6)]
+    st = wg_stage([parts[6 * h:6 * h + 6] for h in range(WG_HALVES)],
+                  parts[nx:])
+    base, lbo = ((part // 6 * WG_X_HALF + part % 6 * WG_A_PART, WG_A_LBO)
+                 if part < nx else
+                 (WG_W + (part - nx) * WG_B_PART, WG_B_LBO))
+    np.testing.assert_array_equal(wg_operand(st, base, lbo, rows),
+                                  parts[part])
+    span = base + _wg_offsets(rows, lbo)
+    size = WG_A_PART if part < nx else WG_B_PART
+    assert span.min() == base and span.max() + 4 <= base + size
+    assert len(np.unique(span)) == rows * 8
+
+
+def _wg_case(seed: int, cols: int):
+    rng = np.random.default_rng(seed)
+    u = _unitary(128, rng)
+    wr, wi = u.real.astype(F32), u.imag.astype(F32)
+    xr, xi = _columns(128, cols, rng)
+    return xr, xi, wr, wi
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_wg_product_exact_sums_within_f32_limits(seed):
+    """The replay's exact sums are exact, and it lies within the f32
+    kernels' limits of float64 (F64_TOL) and of float32 products
+    (tests/test_torch_cuda.py: 1e-5)."""
+    xr, xi, wr, wi = _wg_case(seed, WG_HALVES * WG_COLS)
+    gr, gi, exact = wg_product(xr, xi, wr, wi)
+    assert exact
+    got = gr.astype(F64) + 1j * gi
+    want = (xr.astype(F64) + 1j * xi) @ (wr.astype(F64) + 1j * wi).T
+    plain = ((xr @ wr.T - xi @ wi.T).astype(F64)
+             + 1j * (xr @ wi.T + xi @ wr.T))
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) <= F64_TOL
+    assert np.linalg.norm(got - plain) / np.linalg.norm(want) <= 1e-5
+
+
+@pytest.mark.parametrize("start,n", [(0, 7), (1, 9), (2, 9)])
+def test_wg_product_is_the_plain_window(start, n):
+    """On a state with flips and phases past the 8-entry tables, applied as
+    the F32 kernels apply them, the replay is window_apply_ref's window at
+    D = 128 within 1e-5, in either orientation."""
+    import torch
+
+    from qbot_tpu_torch.tpu import kernels
+
+    rng = np.random.default_rng(10 * n + start)
+    psi = rng.normal(size=(2, 2**n)) * np.exp(rng.normal(size=(2, 2**n)))
+    psi = torch.tensor(psi / np.linalg.norm(psi), dtype=torch.float32)
+    u = _unitary(128, rng)
+    w = np.stack([u.real, u.imag]).astype(F32)
+    diag = _many_entries(n, rng)
+    x = kernel_phases(psi.numpy(), diag, combine=True)
+    B = 2 ** (n - start - 7)
+    # columns c = a B + b of x[plane, a, j, b]
+    cols = x.reshape(2, 2**start, 128, B).transpose(0, 1, 3, 2)
+    cols = cols.reshape(2, -1, 128)
+    gr, gi, exact = wg_product(cols[0], cols[1], w[0], w[1])
+    got = np.stack([gr, gi]).reshape(2, 2**start, B, 128)
+    got = got.transpose(0, 1, 3, 2).reshape(2, -1)
+    want = kernels.window_apply_ref(psi, n, start, 7, torch.from_numpy(w),
+                                    diag, mode="f32").numpy()
+    assert exact
+    assert (np.linalg.norm(got.astype(F64) - want)
+            / np.linalg.norm(want)) <= 1e-5
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_wg_truncation_no_worse_than_the_tile(seed):
+    """The tensor cores' sums rounded toward zero move the warpgroup
+    kernel's product less than the mma.sync tile's (its cross sums run over
+    8 j, the tile's over a stage of 16), and neither shrinks the norm of a
+    pass measurably: only cross terms, 2^-11 of the state and of random
+    sign against it, go through them (beside
+    test_truncating_sums_shrink_the_norm, where the bf16_3x sums do)."""
+    def rn(x):
+        return x.astype(F32)
+
+    xr, xi, wr, wi = _wg_case(seed, WG_HALVES * WG_COLS)
+    n0 = np.linalg.norm(xr.astype(F64)) ** 2 + np.linalg.norm(xi) ** 2
+    moved = {}
+    for name, product in (("wg", wg_product), ("tile", tc_product_f32)):
+        zr, zi = product(xr, xi, wr, wi, _rz)[:2]
+        nr, ni = product(xr, xi, wr, wi, rn)[:2]
+        shrink = (np.linalg.norm(nr.astype(F64)) ** 2 + np.linalg.norm(ni) ** 2
+                  - np.linalg.norm(zr.astype(F64)) ** 2
+                  - np.linalg.norm(zi) ** 2) / n0
+        assert abs(shrink) < 1e-9
+        moved[name] = np.sqrt((np.linalg.norm(zr.astype(F64) - nr) ** 2
+                               + np.linalg.norm(zi.astype(F64) - ni) ** 2)
+                              / n0)
+    assert moved["wg"] <= moved["tile"]
+
 if __name__ == "__main__":
     for d in (8, 16, 32, 64, 128):
         err, plain, exact = emulate(d)
@@ -815,6 +1064,12 @@ if __name__ == "__main__":
               f"{drift(64, mode, 16, _rz):.9f} (sums rounded toward zero)")
     print(f"bf16_3x k16 kernel: norm after 16 passes at D = 64 "
           f"{drift(64, 'bf16_3x', 16, _rz, product=tc_product_bf16_k16):.9f}")
+    xr, xi, wr, wi = _wg_case(0, WG_HALVES * WG_COLS)
+    gr, gi, exact = wg_product(xr, xi, wr, wi)
+    want = (xr.astype(F64) + 1j * xi) @ (wr.astype(F64) + 1j * wi).T
+    print(f"f32 D = 128 warpgroup kernel: emulated "
+          f"{np.linalg.norm(gr + 1j * gi.astype(F64) - want) / np.linalg.norm(want):.3e}"
+          f" relative L2 vs float64; exact sums {exact}")
     for n in (15, 16, 22, 23, 26):
         _, predicted, (narrow, wide) = split_drift(n, measure=False)
         print(f"bf16_3x brickwork {n}q x 256 layers: the split W predicts "
