@@ -36,6 +36,14 @@ relaxed check, the ``set_kernel_mode("off")`` around each local segment
 carrier branch of the sharded diagonal, and ``splan_cache_key`` (the key
 of the sharded ensemble's jit cache, which the port does not have).
 
+Spans and counters (:mod:`qbot_tpu_torch.utils.profiling`): each local
+segment runs inside the span ``qbot.shard.segment``, and each exchange of a
+Reshard or BitSwap inside ``qbot.shard.exchange``, whose range carries the
+bytes this rank sends to the others; the counters ``comm_bytes`` (those
+bytes) and ``num_reshards`` (one a Reshard or BitSwap run) count every
+exchange, so over one call of a runner on one state ``comm_bytes`` times K
+is ``ShardedPlan.comm_bytes()``.
+
 Several ranks on one card run under ``gloo``: ``nccl`` refuses two ranks of
 one communicator on one GPU ("Duplicate GPU detected").  gloo takes the
 CUDA shards of every exchange used here (``all_to_all_single``, also with
@@ -73,6 +81,7 @@ from qbot_tpu_torch.tpu.planar import (
     make_planar_runner,
 )
 from qbot_tpu_torch.tpu.sharding import QubitMesh
+from qbot_tpu_torch.utils import profiling
 
 __all__ = ["ShardedPlan", "compile_sharded", "make_sharded_planar_runner",
            "sharded_zero_state", "shard_planar", "gather_planar",
@@ -612,11 +621,18 @@ def _exchange(mesh: QubitMesh, send: torch.Tensor, splits=None
               ) -> torch.Tensor:
     """``all_to_all_single`` of a contiguous ``send``: its dim 0 in K equal
     chunks, or ``splits[r]`` elements to rank r (and as many from it).
-    Returns what arrived."""
+    Returns what arrived.  Counts one ``num_reshards`` and the bytes sent
+    to the other ranks as ``comm_bytes``."""
+    own = send.shape[0] // mesh.size if splits is None else splits[mesh.rank]
+    nbytes = (send.numel() - own * (send.numel() // send.shape[0])) \
+        * send.element_size()
+    profiling.count("num_reshards")
+    profiling.count("comm_bytes", nbytes)
     if mesh.size == 1:
         return send.clone()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, splits, splits, group=mesh.group)
+    with profiling.named_scope("qbot.shard.exchange", nbytes):
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, splits, splits, group=mesh.group)
     return recv
 
 
@@ -771,7 +787,12 @@ def _item_fn(item, n: int, k: int, mesh: QubitMesh):
     prepared on the rank's device."""
     n_local, device = n - k, mesh.device
     if isinstance(item, LocalSegment):
-        return make_planar_runner(item.plan)
+        run = make_planar_runner(item.plan)
+
+        def segment(psi, params):
+            with profiling.named_scope("qbot.shard.segment"):
+                return run(psi, params)
+        return segment
     if isinstance(item, Reshard):
         return _reshard_fn(item, n, k, mesh)
     if isinstance(item, BitSwap):

@@ -11,6 +11,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from qbot_tpu_torch.frontend.lowering import (
     _full_circuit,
@@ -19,9 +20,14 @@ from qbot_tpu_torch.frontend.lowering import (
 )
 from qbot_tpu_torch.tpu import circuit as torch_circuit
 from qbot_tpu_torch.tpu import sharded
+from qbot_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parent.parent
 
+# the plans run again with the program's spans on: reshards, a BitSwap
+# layout (the last), a plan without exchanges on 2 ranks ("h_layer")
+TRACED = ("random", "brickwork", "spanning", "h_layer", "to_identity")
+EXCHANGE_COUNTERS = ("comm_bytes", "num_reshards")
 # the marginals read: every qubit, and targets on sharded and local axes
 PROB_TARGETS = {"all": None, "ends": (0, -1), "mixed": (1, 2, -2)}
 # the statevector cases whose marginals are read
@@ -288,6 +294,56 @@ def run_rank(mesh, out_dir: str) -> None:
     for name, src in programs(k).items():
         probs, _, _ = run_lowered_sharded(lower_program(src), mesh=mesh)
         save(f"program_{name.replace('.', '_')}", probs=probs)
+
+    for name in TRACED:
+        splan, psi0 = traced_case(name, k, mesh)
+        save(f"traced_{name}", **traced_run(splan, psi0, mesh))
+
+
+def traced_case(name: str, k: int, mesh):
+    """(sharded plan, this rank's input shard) of a case of TRACED: a
+    statevector case's plan on a random state, or a layout case's items."""
+    layouts = layout_cases(k)
+    if name in layouts:
+        n, perm, kind, targets = layouts[name]
+        items, final = layout_items(sharded, kind, perm, n, k, targets)
+        splan = sharded.ShardedPlan(n=n, k=k, items=items, final_perm=final)
+    else:
+        circ, _ = state_cases(torch_circuit, k)[name]
+        splan = sharded.compile_sharded(circ, k)
+    return splan, sharded.shard_planar(random_state(splan.n, 5 + k), mesh)
+
+
+def traced_run(splan, psi0, mesh) -> dict:
+    """The runner once with spans off and once on, on the same shard: the
+    two results compared bit for bit, the input shard after both against a
+    copy, each rank's exchange counters over the traced call (gathered),
+    the spans' calls, and the plan's own counts."""
+    run = sharded.make_sharded_planar_runner(splan, mesh)
+    kept = psi0.clone()
+    plain = run(psi0)
+    profiling.reset_spans()
+    before = profiling.counters()
+    with profiling.tracing():
+        traced = run(psi0)
+    after = profiling.counters()
+    mine = [after.get(c, 0) - before.get(c, 0) for c in EXCHANGE_COUNTERS]
+    ranks = [None] * mesh.size
+    dist.all_gather_object(ranks, mine, group=mesh.group)
+    spans = profiling.span_totals()
+    profiling.reset_spans()
+
+    def calls(span):
+        return spans.get(span, {}).get("calls", 0)
+    return {"same": np.array(torch.equal(plain, traced)),
+            "untouched": np.array(torch.equal(psi0, kept)),
+            "counts": np.array(ranks),
+            "plan_comm_bytes": np.array(splan.comm_bytes()),
+            "plan_reshards": np.array(splan.num_reshards),
+            "segments": np.array(sum(isinstance(i, sharded.LocalSegment)
+                                     for i in splan.items)),
+            "exchange_calls": np.array(calls("qbot.shard.exchange")),
+            "segment_calls": np.array(calls("qbot.shard.segment"))}
 
 
 def fail_on_rank(mesh, rank: int) -> None:

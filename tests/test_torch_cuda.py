@@ -1471,3 +1471,86 @@ def test_particle_mesh_2x1_on_the_card(cuda):
                        if k.startswith(("window_apply", "pair_apply"))), \
                 counts
 
+
+
+# ---------------------------------------------------------------------------
+# 2^31 amplitudes a plane: the launch families of a 33-qubit register's
+# shard on one of four cards (portbench's sv33x4-brickwork), where the
+# imaginary plane starts past the reach of a 32-bit int
+# ---------------------------------------------------------------------------
+
+BIG_N = 31
+# (start, widths, launch family): every family the cell's plan launches,
+# with its B (2^17, 1, 2^13, 1)
+BIG_GEOMETRIES = {"window_d16_middle": (10, (4,), "window_tc"),
+                  "window_d128_trailing": (24, (7,), "window_tc"),
+                  "pair_16x16_middle": (10, (4, 4), "pair_tc_middle"),
+                  "pair_16x128_trailing": (20, (4, 7), "pair_tc_trailing")}
+# the modes the cell's limits are read in: its own and the control's
+BIG_MODES = {"f32": F64_TOL, "bf16_3x": MODE_TOL["bf16_3x"][2]}
+
+
+@pytest.fixture(scope="module")
+def big_state():
+    """A seeded (2, 2^31) float32 state on the card: 16 GiB."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    psi = torch.randn((2, 2**BIG_N), generator=gen, device="cuda")
+    yield psi
+    del psi
+    torch.cuda.empty_cache()
+
+
+def _big_columns(cols: int) -> list:
+    """Columns checked: the first, about the middle (their elements about
+    2^30) and the last (ending at element 2^31 − 1 of each plane)."""
+    return [0, 1, cols // 2 - 1, cols // 2, cols - 2, cols - 1]
+
+
+@pytest.mark.parametrize("mode", list(BIG_MODES))
+@pytest.mark.parametrize("name", list(BIG_GEOMETRIES))
+def test_launch_family_at_2_31_amplitudes(cuda, big_state, name, mode):
+    """Each launch family of the 33-qubit cell's plan, with a phase on the
+    register's first, a window and its last qubit, on a (2, 2^31) state: its
+    outputs at the first, middle and last columns of both planes (the
+    imaginary plane from flat element 2^31 on) against the product of
+    those columns' own inputs in float64."""
+    start, widths, family = BIG_GEOMETRIES[name]
+    assert kernels.launch_family(BIG_N, start, *widths) == family
+    rng = np.random.default_rng(len(name) + 7 * len(mode))
+    ws = [_unitary(2**w, rng, cuda) for w in widths]
+    end = start + sum(widths)
+    qubits = (0, start, end - 1, BIG_N - 1)
+    z = complex(np.exp(0.9j))
+    diag = kernels.fused_diagonals(BIG_N, (), ((qubits, z, -1),), cuda)
+    kernels.set_dot_mode(mode)
+    try:
+        if len(widths) == 1:
+            out = kernels.window_apply(big_state, BIG_N, start, widths[0],
+                                       ws[0], diag)
+        else:
+            out = kernels.pair_apply(big_state, BIG_N, start, *widths, *ws,
+                                     diag)
+    finally:
+        kernels.set_dot_mode("f32")
+    w = np.ones((1, 1), np.complex128)
+    for t in ws:
+        t = t.double().cpu().numpy()
+        w = np.kron(w, t[0] + 1j * t[1])
+    d, log_b = w.shape[0], BIG_N - end
+    mask, want = kernels.phase_bits(BIG_N, qubits, -1)
+    for c in _big_columns(2**BIG_N // d):
+        base = ((c >> log_b) << (log_b + int(np.log2(d)))) | \
+            (c & ((1 << log_b) - 1))
+        idx = torch.tensor([base + (j << log_b) for j in range(d)],
+                           device=cuda)
+        x = big_state[:, idx].double().cpu().numpy()
+        x = x[0] + 1j * x[1]
+        x = np.where((idx.cpu().numpy() & mask) == want, x * z, x)
+        ref = w @ x
+        got = out[:, idx].double().cpu().numpy()
+        got = got[0] + 1j * got[1]
+        err = np.linalg.norm(got - ref) / np.linalg.norm(ref)
+        assert err <= BIG_MODES[mode], (c, err)
+    del out

@@ -292,6 +292,32 @@ def test_run_lowered_sharded_matches_reference(group, K, name):
     np.testing.assert_allclose(got, np.asarray(want), atol=TOL)
 
 
+@pytest.mark.parametrize("K", SIZES)
+@pytest.mark.parametrize("name", cases.TRACED)
+def test_spans_leave_the_sharded_runner_unchanged(group, K, name):
+    """With the program's spans on, the runner gives the same state bit for
+    bit, and neither call writes the caller's shard."""
+    got = _load(group, K, f"traced_{name}")
+    assert got["same"] and got["untouched"]
+
+
+@pytest.mark.parametrize("K", SIZES)
+@pytest.mark.parametrize("name", cases.TRACED)
+def test_exchange_counters_match_the_plan(group, K, name):
+    """Over one call on every rank: ``comm_bytes`` times K is the plan's
+    ``comm_bytes()`` and ``num_reshards`` its ``num_reshards``; one
+    ``qbot.shard.exchange`` span an exchange and one
+    ``qbot.shard.segment`` a local segment."""
+    got = _load(group, K, f"traced_{name}")
+    comm, reshards = got["counts"].T
+    assert list(comm * K) == [int(got["plan_comm_bytes"])] * K
+    assert list(reshards) == [int(got["plan_reshards"])] * K
+    assert got["exchange_calls"] == got["plan_reshards"]
+    assert got["segment_calls"] == got["segments"]
+    if name in ("random", "to_identity"):
+        assert got["plan_reshards"] > 0
+
+
 def test_a_failing_rank_fails_the_run():
     with pytest.raises(RuntimeError, match="rank 1 of 2 failed"):
         launch(cases.fail_on_rank, 2, 1, device="cpu", timeout=120)
