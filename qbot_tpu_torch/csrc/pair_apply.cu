@@ -16,8 +16,11 @@
 // by geometry, before the launch, as tpu/kernels.py:launch_family names
 // it; a geometry is never retried on another kernel):
 // - D1 >= 8 and D2 >= 8, trailing or middle: on the tensor cores,
-//   pair_tc_kernel (pair_tc.cuh: 3xTF32 products) in f32 and f32_mix,
-//   pair_bf16_kernel (pair_bf16.cuh: BF16 m16n8k16) in bf16_3x and bf16;
+//   pair_tc_kernel (pair_tc.cuh: 3xTF32 mma.sync products) in f32 and
+//   f32_mix, but for the trailing pair at D2 = 128 with D1 = 64, 128, which
+//   runs pair_wg_kernel (pair_wg.cuh: 3xTF32 wgmma products, W1 and W2 split
+//   once into the caller's scratch); pair_bf16_kernel (pair_bf16.cuh: BF16
+//   m16n8k16) in bf16_3x and bf16;
 // - D1 in {2, 4} and D2 >= 8, the narrow pair of the brickwork at n = 1, 2
 //   (mod 7): the D2 window's tensor-core tile with W1 mixed into its
 //   operand as it is staged (window_tc.cuh in f32 and f32_mix,
@@ -70,10 +73,13 @@ int launch_pair(const float* psi, float* out, const float* w1,
                 const float* w2, int64_t n_amps, int particles, int log_d1,
                 int log_d2, int log_b, const int64_t* flips, int nflips,
                 const int64_t* masks, const int64_t* wants,
-                const float* phase, int nphases, cudaStream_t s) {
+                const float* phase, int nphases, float* scratch,
+                cudaStream_t s) {
   const PairArgs args{psi,   out,    w1,    w2,      n_amps, log_d2,
                       log_b, flips,  nflips, masks,  wants,  phase,
-                      nphases, s,    particles};
+                      nphases, s,    particles, scratch};
+  if (PREC == F32 && log_b == 0 && log_d2 == 7 && log_d1 >= 6)
+    return pair_wg_launch(log_d1, args);
   if (log_d1 >= 3 && log_d2 >= 3)
     return launch_tc_any<PREC>(log_d1, log_b != 0, args);
   if (log_d1 >= 3)  // D2 <= 4 under D1 >= 8: the caller runs two windows
@@ -93,17 +99,20 @@ int launch_pair(const float* psi, float* out, const float* w1,
 // psi, out: (particles, 2, n_amps) float32, 16-byte aligned, one launch for
 // all the particles (tc_tile.cuh: particle_offset); w1: (2, D1, D1), w2:
 // (2, D2, D2) float32, w2 16-byte aligned, with Di = 2^log_di; B = 2^log_b;
-// prec: the precision of the products (tc_tile.cuh: Prec).  B == 1 runs the
-// trailing pair, B >= 128 with D1 <= 32 the middle pair; other geometries,
-// and D1 >= 8 with D2 <= 4, are refused with cudaErrorInvalidValue (the
-// caller runs two windows).  Returns the launch's cudaGetLastError().
+// prec: the precision of the products (tc_tile.cuh: Prec); scratch:
+// qbot_pair_scratch_floats(log_d1) floats, 16-byte aligned, for the f32
+// trailing pair at D2 = 128 with D1 = 64, 128 (pair_wg.cuh), else unused.
+// B == 1 runs the trailing pair, B >= 128 with D1 <= 32 the middle pair;
+// other geometries, and D1 >= 8 with D2 <= 4, are refused with
+// cudaErrorInvalidValue (the caller runs two windows).  Returns the
+// launch's cudaGetLastError().
 extern "C" int qbot_pair_apply(const float* psi, float* out, const float* w1,
                                const float* w2, int64_t n_amps,
                                int particles, int log_d1, int log_d2,
                                int log_b, const int64_t* flips, int nflips,
                                const int64_t* masks, const int64_t* wants,
                                const float* phase, int nphases, int prec,
-                               void* stream) {
+                               float* scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (log_d1 < 1 || log_d1 > 7 || log_d2 < 1 || log_d2 > 7 ||
       (n_amps >> (log_d1 + log_d2 + log_b)) < 1 || particles < 1 ||
@@ -115,15 +124,15 @@ extern "C" int qbot_pair_apply(const float* psi, float* out, const float* w1,
     case F32:
       return launch_pair<F32>(psi, out, w1, w2, n_amps, particles, log_d1,
                               log_d2, log_b, flips, nflips, masks, wants,
-                              phase, nphases, s);
+                              phase, nphases, scratch, s);
     case BF16X3:
       return launch_pair<BF16X3>(psi, out, w1, w2, n_amps, particles, log_d1,
                                  log_d2, log_b, flips, nflips, masks, wants,
-                                 phase, nphases, s);
+                                 phase, nphases, scratch, s);
     case BF16:
       return launch_pair<BF16>(psi, out, w1, w2, n_amps, particles, log_d1,
                                log_d2, log_b, flips, nflips, masks, wants,
-                               phase, nphases, s);
+                               phase, nphases, scratch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -7,7 +7,8 @@
 //   out[a, i, l, b] = sum_{j,m} W1[i, j] * W2[l, m] * (Phi F p)[a, j, m, b]
 //
 // - the trailing pair (B == 1) replaces the TPU kernel _pair_b1
-//   (qbot_tpu/tpu/kernels.py:352);
+//   (qbot_tpu/tpu/kernels.py:352), but for D2 = 128 with D1 = 64, 128,
+//   which pair_wg.cuh's warpgroup products serve;
 // - the middle pair (MIDDLE: B >= 128, D1 <= 32) replaces _pair_bt
 //   (qbot_tpu/tpu/kernels.py:420).
 //
@@ -95,6 +96,10 @@ struct PairArgs {
   int nphases;
   cudaStream_t stream;
   int particles = 1;  // states of the launch (tc_tile.cuh)
+  // the f32 trailing pair at D2 = 128, D1 = 64, 128: pair_wg.cuh's scratch
+  // of W1's and W2's split parts (qbot_pair_scratch_floats, 16-byte
+  // aligned)
+  float* scratch = nullptr;
 };
 
 // The launcher of the tensor-core pair at one D1, orientation and
@@ -103,6 +108,12 @@ struct PairArgs {
 // another D2.  Defined in pair_tc.cu, once per variant.
 template <int D1, bool MIDDLE, int PREC>
 int pair_tc_launch(const PairArgs& args);
+
+// The launcher of the f32 trailing pair at D2 = 128 and D1 = 2^log_d1 =
+// 64, 128 on the warpgroup products (pair_wg.cuh); returns the launch's
+// cudaGetLastError(), cudaErrorInvalidValue for another D1.  Defined in
+// pair_wg.cu.
+int pair_wg_launch(int log_d1, const PairArgs& args);
 
 namespace {
 
@@ -475,7 +486,8 @@ int launch_tc(const PairArgs& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the body of pair_tc_launch<D1, MIDDLE, PREC>, in pair_tc.cu
+// the body of pair_tc_launch<D1, MIDDLE, PREC>, in pair_tc.cu; the
+// trailing pair at D2 = 128 and D1 >= 64 is pair_wg.cuh's
 template <int D1, bool MIDDLE, int PREC>
 int launch_tc_d2(const PairArgs& a) {
   switch (a.log_d2) {
@@ -483,7 +495,12 @@ int launch_tc_d2(const PairArgs& a) {
     case 4: return launch_tc<D1, 16, MIDDLE, PREC>(a);
     case 5: return launch_tc<D1, 32, MIDDLE, PREC>(a);
     case 6: return launch_tc<D1, 64, MIDDLE, PREC>(a);
-    case 7: return launch_tc<D1, 128, MIDDLE, PREC>(a);
+    case 7:
+      if constexpr (!MIDDLE && D1 >= 64) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      } else {
+        return launch_tc<D1, 128, MIDDLE, PREC>(a);
+      }
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

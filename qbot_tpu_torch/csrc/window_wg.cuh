@@ -72,7 +72,8 @@
 // before the halves shared it) and shared memory, which carries the
 // products' operands (72 KiB a k-step and half) beside the stage's
 // writes.  ptxas: 168 registers at launch (setmaxnreg 224 / 56), no
-// spills; the split kernel 38.
+// spills; the split kernel 38.  Its splits of W (split_w_row) and of x
+// (write_x_parts) also serve the trailing pair of pair_wg.cuh.
 #pragma once
 
 #include "tc_tile.cuh"
@@ -144,51 +145,116 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                "l"(src), "r"(valid ? 4 : 0));
 }
 
-// One thread a row i of W and k-step s (the block's 128 threads a k-step):
-// the grid of the row's 8 j, both planes; hi, lo on it; tf32(W); written
-// as the k-step's six parts of the scratch.
-template <int N = D>
-__global__ void __launch_bounds__(N)
-    window_wg_split_kernel(const float* __restrict__ w,
-                           float4* __restrict__ parts) {
-  const int i = threadIdx.x, s = blockIdx.x;
-  float4 v[2][2];  // [plane][k half]
+// One thread a row i of a (2, D, D) W and k-step s: the grid of the row's
+// 8 j, both planes; hi, lo on it; tf32(W); written at `step` as row r of
+// the k-step's six parts of a block of N rows (each part N rows x 8 k,
+// [k half][8-row group][row][4 k], its k halves N * 16 bytes apart).  The
+// k-step's j 8 s + k in k order, or PAIRED: 8 s + 2 k, then 8 s + 2 k + 1
+// (the order of an A fragment that holds a lane's two neighbouring j at k
+// = t and t + 4).  NEG: three parts more, -im hi, -im lo, -im tf32.  W is
+// read a float at a time: it needs no alignment.
+template <int D, int N, bool PAIRED = false, bool NEG = false>
+__device__ __forceinline__ void split_w_row(const float* __restrict__ w,
+                                            unsigned char* step, int i,
+                                            int r, int s) {
+  float v[2][2][4];  // [plane][k half][k]
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      v[p][h] = reinterpret_cast<const float4*>(w)[(p * D + i) * (D / 4) +
-                                                   2 * s + h];
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        v[p][h][q] = w[(p * D + i) * D + 8 * s +
+                       (PAIRED ? 2 * q + h : 4 * h + q)];
+    }
   }
   float a = 0.f;
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      a = fmaxf(a, fmaxf(fmaxf(fabsf(v[p][h].x), fabsf(v[p][h].y)),
-                         fmaxf(fabsf(v[p][h].z), fabsf(v[p][h].w))));
+#pragma unroll
+      for (int q = 0; q < 4; ++q) a = fmaxf(a, fabsf(v[p][h][q]));
     }
   }
   const float m = grid_of(__float_as_uint(a) >> 23);
-  unsigned char* wp = reinterpret_cast<unsigned char*>(parts) + s * W_STEP +
-                      i * 16;
+  constexpr int LBO = N * 16, PART = 2 * LBO;
+  unsigned char* wp = step + r * 16;
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float x[4] = {v[p][h].x, v[p][h].y, v[p][h].z, v[p][h].w};
       uint32_t hi[4], lo[4], t[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        split(x[q], m, hi[q], lo[q]);
-        t[q] = tf32(x[q]);
+        split(v[p][h][q], m, hi[q], lo[q]);
+        t[q] = tf32(v[p][h][q]);
       }
-      unsigned char* o = wp + h * B_LBO;
-      *reinterpret_cast<float4*>(o + p * B_PART) = bits4(hi);
-      *reinterpret_cast<float4*>(o + (2 + p) * B_PART) = bits4(lo);
-      *reinterpret_cast<float4*>(o + (4 + p) * B_PART) = bits4(t);
+      unsigned char* o = wp + h * LBO;
+      *reinterpret_cast<float4*>(o + p * PART) = bits4(hi);
+      *reinterpret_cast<float4*>(o + (2 + p) * PART) = bits4(lo);
+      *reinterpret_cast<float4*>(o + (4 + p) * PART) = bits4(t);
+      if (NEG && p == 1) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          hi[q] ^= 0x80000000u;
+          lo[q] ^= 0x80000000u;
+          t[q] ^= 0x80000000u;
+        }
+        *reinterpret_cast<float4*>(o + 6 * PART) = bits4(hi);
+        *reinterpret_cast<float4*>(o + 7 * PART) = bits4(lo);
+        *reinterpret_cast<float4*>(o + 8 * PART) = bits4(t);
+      }
     }
   }
+}
+
+// One thread a row i of W and k-step s (the block's 128 threads a k-step):
+// the k-step's six parts of the scratch.
+template <int N = D>
+__global__ void __launch_bounds__(N)
+    window_wg_split_kernel(const float* __restrict__ w,
+                           float4* __restrict__ parts) {
+  split_w_row<D, N>(w, reinterpret_cast<unsigned char*>(parts) +
+                           blockIdx.x * W_STEP,
+                    threadIdx.x, threadIdx.x, blockIdx.x);
+}
+
+// A producer thread's 4 elements of an operand's row xc at k = 4 xh + q
+// (both planes, phased): the grid of the row's 8 k (this lane's and its
+// pair lane's, xh ^ 1), hi and lo on it, written as the six parts (re hi,
+// im hi, re lo, im lo, -im hi, -im lo) of the operand at `half`, or as the
+// first four (!NEG), each part PART bytes, its k halves LBO bytes apart
+// (the 64-row A operand of a half's products by default).  Every lane of
+// the warp calls it (a shuffle).
+template <int LBO = A_LBO, int PART = A_PART, bool NEG = true>
+__device__ __forceinline__ void write_x_parts(unsigned char* half, int xc,
+                                              int xh, const float (&xr)[4],
+                                              const float (&xi)[4]) {
+  float a = 0.f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) a = fmaxf(a, fmaxf(fabsf(xr[q]), fabsf(xi[q])));
+  uint32_t e = __float_as_uint(a) >> 23;
+  e = max(e, __shfl_xor_sync(0xffffffffu, e, 1));
+  const float m = grid_of(e);
+  unsigned char* xp = half + xh * LBO + (xc >> 3) * GROUP + (xc & 7) * 16;
+  uint32_t hi[4], lo[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) split(xr[q], m, hi[q], lo[q]);
+  *reinterpret_cast<float4*>(xp) = bits4(hi);
+  *reinterpret_cast<float4*>(xp + 2 * PART) = bits4(lo);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) split(xi[q], m, hi[q], lo[q]);
+  *reinterpret_cast<float4*>(xp + PART) = bits4(hi);
+  *reinterpret_cast<float4*>(xp + 3 * PART) = bits4(lo);
+  if (!NEG) return;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    hi[q] ^= 0x80000000u;
+    lo[q] ^= 0x80000000u;
+  }
+  *reinterpret_cast<float4*>(xp + 4 * PART) = bits4(hi);
+  *reinterpret_cast<float4*>(xp + 5 * PART) = bits4(lo);
 }
 
 template <bool TRAIL>
@@ -310,31 +376,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                                 });
           }
         }
-        float a = 0.f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          a = fmaxf(a, fmaxf(fabsf(xr[q]), fabsf(xi[q])));
-        uint32_t e = __float_as_uint(a) >> 23;
-        e = max(e, __shfl_xor_sync(0xffffffffu, e, 1));
-        const float m = grid_of(e);
-        unsigned char* xp = st + h * X_HALF + xh * A_LBO +
-                            (xc >> 3) * GROUP + (xc & 7) * 16;
-        uint32_t hi[4], lo[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) split(xr[q], m, hi[q], lo[q]);
-        *reinterpret_cast<float4*>(xp) = bits4(hi);
-        *reinterpret_cast<float4*>(xp + 2 * A_PART) = bits4(lo);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) split(xi[q], m, hi[q], lo[q]);
-        *reinterpret_cast<float4*>(xp + A_PART) = bits4(hi);
-        *reinterpret_cast<float4*>(xp + 3 * A_PART) = bits4(lo);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          hi[q] ^= 0x80000000u;
-          lo[q] ^= 0x80000000u;
-        }
-        *reinterpret_cast<float4*>(xp + 4 * A_PART) = bits4(hi);
-        *reinterpret_cast<float4*>(xp + 5 * A_PART) = bits4(lo);
+        write_x_parts(st + h * X_HALF, xc, xh, xr, xi);
       }
       fence_async_smem();
       mbar_arrive(&full[slot]);

@@ -58,7 +58,9 @@ streaming FMA kernels of the narrow widths (windows at D = 2, 4, pairs at
 D1, D2 = 2, 4) apart, and the launches of each reduced mode apart, as
 ``window_apply[bf16_3x]`` and so on.  The f32 windows at D = 128, which
 run on Hopper's warpgroup products (``csrc/window_wg.cuh``), count once
-more under :data:`WG_COUNTER` in the program's counter table.
+more under :data:`WG_COUNTER` in the program's counter table, and the f32
+trailing pairs at D2 = 128 with D1 = 64, 128, which run them too
+(``csrc/pair_wg.cuh``), under :data:`PAIR_WG_COUNTER`.
 """
 from __future__ import annotations
 
@@ -232,7 +234,7 @@ def _library():
                                       p, p, p, i32, i32, p, p]
     lib.qbot_window_apply.restype = i32
     lib.qbot_pair_apply.argtypes = [p, p, p, p, i64, i32, i32, i32, i32,
-                                    p, i32, p, p, p, i32, i32, p]
+                                    p, i32, p, p, p, i32, i32, p, p]
     lib.qbot_pair_apply.restype = i32
     lib.qbot_reflect_dot.argtypes = [p, p, i64, i64, i64, i32, i32, p, p, p]
     lib.qbot_reflect_dot.restype = i32
@@ -241,6 +243,8 @@ def _library():
     lib.qbot_reflect_update.restype = i32
     lib.qbot_window_scratch_floats.argtypes = []
     lib.qbot_window_scratch_floats.restype = i32
+    lib.qbot_pair_scratch_floats.argtypes = [i32]
+    lib.qbot_pair_scratch_floats.restype = i32
     lib.qbot_error_string.argtypes = [i32]
     lib.qbot_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -291,6 +295,10 @@ _launches = profiling.COUNTS
 # ``window_apply_trailing`` count, not one of LAUNCH_COUNTS, so that no
 # launch counts twice there
 WG_COUNTER = "window_tc_d128"
+# The f32 (and f32_mix) trailing pair launches at D2 = 128 with D1 = 64,
+# 128, which run the warpgroup products of ``csrc/pair_wg.cuh``: beside
+# their ``pair_apply_trailing`` count, likewise
+PAIR_WG_COUNTER = "pair_tc_wg"
 
 
 def reset_launch_counts() -> None:
@@ -661,7 +669,9 @@ def _pair_launch(psi, n: int, start: int, width1: int, width2: int, w1, w2,
     :func:`launch_family` picks the kernel, or two :func:`window_apply`
     launches with the diagonals fused into the first (counted as window
     launches).  The trailing and middle pairs at D1, D2 >= 8 run on the
-    tensor cores (3xTF32, ``csrc/pair_tc.cuh``; in the reduced modes BF16
+    tensor cores (3xTF32, ``csrc/pair_tc.cuh``, the trailing pairs at
+    D2 = 128 with D1 = 64, 128 on the warpgroup products of
+    ``csrc/pair_wg.cuh``; in the reduced modes BF16
     ``mma.sync.m16n8k16``, ``csrc/pair_bf16.cuh``); the narrow pairs,
     D1 = 2, 4 with D2 >= 8, on the D2 window's tile with W1 mixed into its
     operand as it is staged (``csrc/window_tc.cuh``,
@@ -695,15 +705,25 @@ def _pair_launch(psi, n: int, start: int, width1: int, width2: int, w1, w2,
              "psi and w2 must be 16-byte aligned")
     lib = _library()
     out = torch.empty_like(psi)
+    # the f32 trailing pair at D2 = 128, D1 = 64, 128 splits W1 and W2 once
+    # into a scratch of their parts
+    wg = (family == "pair_tc_trailing" and width2 == 7 and width1 >= 6
+          and _PREC[_DOT_MODE] == 0)
+    scratch = (torch.empty(lib.qbot_pair_scratch_floats(width1),
+                           dtype=torch.float32, device=psi.device)
+               if wg else None)
     with torch.cuda.device(psi.device):
         rc = lib.qbot_pair_apply(
             psi.data_ptr(), out.data_ptr(), w1.data_ptr(), w2.data_ptr(),
             2**n, P, width1, width2, n - start - width1 - width2,
             diag.flips.data_ptr(), diag.flips.numel(), diag.mask.data_ptr(),
             diag.want.data_ptr(), diag.phase.data_ptr(), diag.mask.numel(),
-            _PREC[_DOT_MODE], _stream(psi))
+            _PREC[_DOT_MODE], None if scratch is None else scratch.data_ptr(),
+            _stream(psi))
     _check_launch(lib, rc, "pair_apply")
     _count(_COUNTER[family, start + width1 + width2 == n])
+    if wg:
+        profiling.count(PAIR_WG_COUNTER)
     return out
 
 

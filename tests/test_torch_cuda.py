@@ -316,6 +316,111 @@ def test_trailing_pair_within_f64(cuda, width1, width2):
     assert rel_l2(got, want) <= F64_TOL
 
 
+# ---------------------------------------------------------------------------
+# the f32 trailing pair at D2 = 128, D1 = 64 and 128, on Hopper's warpgroup
+# products (csrc/pair_wg.cuh)
+# ---------------------------------------------------------------------------
+
+def _pair_wg_launches():
+    from qbot_tpu_torch.utils import profiling
+
+    return profiling.counters().get(kernels.PAIR_WG_COUNTER, 0)
+
+
+# (n, width1): one slab (fewer units than blocks), 2^7 slabs, and more
+# slabs than the card has blocks (units taken several a block)
+PAIR_WG_GEOMETRIES = [(13, 6), (20, 6), (22, 6), (14, 7), (18, 7), (21, 7)]
+
+
+@pytest.mark.parametrize("entries", [0, 3, 13])
+@pytest.mark.parametrize("particles", [1, 3])
+@pytest.mark.parametrize("geometry", PAIR_WG_GEOMETRIES,
+                         ids=lambda g: "n{}_D1_{}".format(g[0], 2**g[1]))
+def test_wg_pair_against_plain_and_float64(cuda, geometry, particles,
+                                           entries):
+    """The warpgroup pair (trailing, D2 = 128) against its plain version
+    (1e-5) and float64 (2e-6), batched or not, with 0, 3 and 13 flips and
+    phases; one launch, counted once under pair_tc_wg beside its
+    pair_apply_trailing count; two launches agree bit for bit, and a
+    batch's particles are their own launches'."""
+    n, width1 = geometry
+    start = n - width1 - 7
+    rng = np.random.default_rng(n + width1 + 7 * particles + entries)
+    psi = (_batch(n, rng, cuda, particles) if particles > 1
+           else _state(n, rng, cuda))
+    w1, w2 = _unitary(2**width1, rng, cuda), _unitary(128, rng, cuda)
+    diag = _wg_diagonals(n, start, entries, rng, cuda)
+    kernels.reset_launch_counts()
+    before = _pair_wg_launches()
+    got = kernels.pair_apply(psi, n, start, width1, 7, w1, w2, diag)
+    assert _pair_wg_launches() - before == 1
+    assert kernels.launch_counts()["pair_apply_trailing"] == 1
+    assert sum(kernels.launch_counts().values()) == 1
+    again = kernels.pair_apply(psi, n, start, width1, 7, w1, w2, diag)
+    assert torch.equal(got, again)
+    assert rel_l2(got, kernels.pair_apply_ref(psi, n, start, width1, 7, w1,
+                                              w2, diag)) <= TOL
+    exact = kernels.pair_apply_ref(psi.double(), n, start, width1, 7,
+                                   w1.double(), w2.double(), diag, mode="f32")
+    assert rel_l2(got, exact) <= F64_TOL
+    if particles > 1:
+        for p in range(particles):
+            one = kernels.pair_apply(psi[p].contiguous(), n, start, width1, 7,
+                                     w1, w2, diag)
+            assert torch.equal(got[p], one), p
+
+
+@pytest.mark.parametrize("geometry",
+                         [g for g in PAIR_GEOMETRIES
+                          if g[3] == 7 and g[2] >= 6 and sum(g[1:]) == g[0]],
+                         ids=lambda g: "n{}_s{}_{}x{}".format(*g))
+def test_wg_pair_backward(cuda, geometry):
+    """Through the W† backward the warpgroup pair runs twice (forward, then
+    (W1†, W2†) on the cotangent), and ψ̄, W̄1, W̄2 match autograd through
+    the plain versions."""
+    n, start, width1, width2 = geometry
+    rng = np.random.default_rng(sum(geometry))
+    psi, w1, w2, diag = _pair_inputs(n, start, width1, width2, rng, cuda)
+    cot = _state(n, rng, cuda)
+    before = _pair_wg_launches()
+    got = _cotangents(
+        lambda p, a, b: kernels.pair_apply(p, n, start, width1, width2, a, b,
+                                           diag), (psi, w1, w2), cot)
+    assert _pair_wg_launches() - before == 2
+    want = _cotangents(
+        lambda p, a, b: kernels.pair_apply_ref(p, n, start, width1, width2,
+                                               a, b, diag),
+        (psi, w1, w2), cot)
+    for g, h in zip(got, want):
+        assert rel_l2(g, h) <= GRAD_TOL["f32"]
+
+
+@pytest.mark.parametrize("mode,launches", [("f32", 1), ("f32_mix", 1),
+                                           ("bf16_3x", 0), ("bf16", 0)])
+def test_pair_wg_counter_counts_the_f32_trailing_pairs(cuda, mode, launches):
+    """pair_tc_wg counts the f32 and f32_mix trailing pairs at D2 = 128 with
+    D1 = 64, 128, once a launch, and not the reduced modes', the (16, 128)
+    trailing pair's (the mma.sync tile) or the middle pairs'."""
+    rng = np.random.default_rng(len(mode))
+    kernels.set_dot_mode(mode)
+    try:
+        for n, start, width1, width2 in ((15, 2, 6, 7), (16, 2, 7, 7)):
+            psi, w1, w2, diag = _pair_inputs(n, start, width1, width2, rng,
+                                             cuda)
+            before = _pair_wg_launches()
+            kernels.pair_apply(psi, n, start, width1, width2, w1, w2, diag)
+            assert _pair_wg_launches() - before == launches
+        before = _pair_wg_launches()
+        for n, start, width1, width2 in ((13, 2, 4, 7), (18, 0, 4, 7),
+                                         (18, 2, 5, 4)):
+            psi, w1, w2, diag = _pair_inputs(n, start, width1, width2, rng,
+                                             cuda)
+            kernels.pair_apply(psi, n, start, width1, width2, w1, w2, diag)
+        assert _pair_wg_launches() == before
+    finally:
+        kernels.set_dot_mode("f32")
+
+
 @pytest.mark.parametrize("width2", range(3, 8))
 @pytest.mark.parametrize("width1", range(3, 6))
 def test_middle_pair_within_f64(cuda, width1, width2):
@@ -410,7 +515,7 @@ def test_pair_entry_refuses_wide_d1_narrow_d2(cuda, geometry):
         1, width1, width2, n - start - width1 - width2,
         diag.flips.data_ptr(), diag.flips.numel(), diag.mask.data_ptr(),
         diag.want.data_ptr(), diag.phase.data_ptr(), diag.mask.numel(), 0,
-        kernels._stream(psi))
+        None, kernels._stream(psi))
     torch.cuda.synchronize()
     assert rc == 1
     assert torch.all(out == 7.0)

@@ -181,6 +181,37 @@ def test_launch_family_names_each_kernel(geometry, family):
         assert family in tc.COSTS
 
 
+@pytest.mark.parametrize("geometry", [(13, 0, 6, 7), (26, 13, 6, 7),
+                                      (14, 0, 7, 7), (26, 12, 7, 7)],
+                         ids=lambda g: "n{}_s{}_{}x{}".format(*g))
+def test_wg_pairs_keep_route_family_and_counts(geometry):
+    """The trailing pairs at D2 = 128 with D1 = 64, 128, which the f32 modes
+    run on the warpgroup kernel, keep their route and cost family (so every
+    plan and launch count is as before); its counter, pair_tc_wg, sits
+    outside LAUNCH_COUNTS, as window_tc_d128 does, and a CPU run moves
+    neither."""
+    from qbot_tpu_torch.utils import profiling
+
+    assert tk.pair_route(*geometry) == "trailing"
+    assert tk.launch_family(*geometry) == "pair_tc_trailing"
+    assert tk.PAIR_WG_COUNTER == "pair_tc_wg"
+    assert {tk.PAIR_WG_COUNTER, tk.WG_COUNTER}.isdisjoint(tk.LAUNCH_COUNTS)
+    n, start, width1, width2 = geometry
+    if n > 14:
+        return
+    rng = np.random.default_rng(n + width1)
+    psi = torch.from_numpy(_rand_state(n, rng))
+    w1, w2 = (torch.from_numpy(np.stack([U.real, U.imag]).astype(np.float32))
+              for U in (_rand_unitary(2**width1, rng),
+                        _rand_unitary(128, rng)))
+    tk.reset_launch_counts()
+    before = profiling.counters().get(tk.PAIR_WG_COUNTER, 0)
+    tk.pair_apply(psi, n, start, width1, width2, w1, w2,
+                  tk.fused_diagonals(n))
+    assert profiling.counters().get(tk.PAIR_WG_COUNTER, 0) == before
+    assert tk.launch_counts() == dict.fromkeys(tk.LAUNCH_COUNTS, 0)
+
+
 @pytest.mark.parametrize("middle", [False, True])
 def test_pair_variants_follow_the_router(middle):
     """Every tensor-core pair that launch_family names has its variant in

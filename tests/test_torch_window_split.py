@@ -836,18 +836,19 @@ def _wg_offsets(rows: int, lbo: int):
     return (r >> 3) * WG_GROUP + (r & 7) * 16 + (k >> 2) * lbo + (k & 3) * 4
 
 
-def wg_stage(xparts, wparts):
+def wg_stage(xparts, wparts, w_base=WG_W, w_rows=128):
     """The words of one stage as the kernel fills it: ``xparts[h]`` the six
-    x parts of half h (the producer's), ``wparts`` the six W parts (the
-    split kernel's, bulk-copied)."""
+    x parts of half h (the producer's), ``wparts`` the six W parts of
+    ``w_rows`` rows from byte ``w_base`` (the split kernel's, bulk-copied;
+    each part's k halves w_rows * 16 bytes apart)."""
     st = np.zeros(WG_STAGE // 4, np.uint32)
     for h, parts in enumerate(xparts):
         for a, part in enumerate(parts):
             st[(h * WG_X_HALF + a * WG_A_PART
                 + _wg_offsets(WG_COLS, WG_A_LBO)) // 4] = _bits(part)
     for b, part in enumerate(wparts):
-        st[(WG_W + b * WG_B_PART + _wg_offsets(128, WG_B_LBO)) // 4] = \
-            _bits(part)
+        st[(w_base + b * 32 * w_rows
+            + _wg_offsets(w_rows, 16 * w_rows)) // 4] = _bits(part)
     return st
 
 
@@ -859,7 +860,7 @@ def wg_operand(st, base: int, lbo: int, rows: int):
 def _wg_sum(a_ops, b_ops, products, rounding):
     """(the tensor cores' sum of the (A part, B part) products from a
     zeroed accumulator, ``rounding`` after each; the exact sum)."""
-    d = np.zeros((WG_COLS, 128), F64)
+    d = np.zeros((WG_COLS, b_ops[0].shape[0]), F64)
     whole = np.zeros_like(d)
     for a, b in products:
         term = _mm(a_ops[a], b_ops[b])
@@ -1047,6 +1048,198 @@ def test_wg_truncation_no_worse_than_the_tile(seed):
                                + np.linalg.norm(zi.astype(F64) - ni) ** 2)
                               / n0)
     assert moved["wg"] <= moved["tile"]
+
+
+# ---------------------------------------------------------------------------
+# the f32 trailing pair at D2 = 128, D1 = 64 and 128 (csrc/pair_wg.cuh): the
+# window_wg products twice, W1 first, Y kept in FP32 and split anew
+# ---------------------------------------------------------------------------
+
+# pair_wg.cuh's stages: phase 1 X's four parts (the slab's 128 rows m, K =
+# j; k halves 2112 bytes apart), then W1's nine parts of a unit's 64 rows i
+# (k halves 1024 bytes apart), W1 the A operand; phase 2 W2's six parts as
+# the window's W from byte 0, the A operand Y's parts in registers
+PWG_NI = 64
+PWG_X_LBO = 128 * 16 + 64
+PWG_X_PART = PWG_X_LBO + 128 * 16
+PWG_W1 = 4 * PWG_X_PART
+PWG_STAGE = PWG_W1 + 9 * 2 * 16 * PWG_NI
+# phase 1's (X part, W1 part) products of each plane, exact sum then cross
+# terms: -W1_im's parts (6-8) take the place of -x_im's
+PWG_PLAN1 = ((((0, 0), (1, 6)), ((0, 2), (1, 7), (2, 4), (3, 8))),
+             (((0, 1), (1, 0)), ((0, 3), (1, 2), (2, 5), (3, 4))))
+# the paired order of a phase-2 k-step: its A fragment's k = t, t + 4 hold
+# a lane's m = 2t, 2t + 1, and W2's parts take its order
+PWG_PAIRED = np.array([0, 2, 4, 6, 1, 3, 5, 7])
+
+
+def _pwg_stage(blocks):
+    """The words of one stage: ``blocks`` of (first byte, bytes between
+    the k halves of a part, bytes between parts, the parts)."""
+    st = np.zeros(PWG_STAGE // 4, np.uint32)
+    for base, lbo, size, parts in blocks:
+        for b, part in enumerate(parts):
+            st[(base + b * size
+                + _wg_offsets(part.shape[0], lbo)) // 4] = _bits(part)
+    return st
+
+
+def _pwg_parts(x, w, kk):
+    """The six parts of x's k-step ``kk`` (re hi, im hi, re lo, im lo,
+    -im hi, -im lo) and the nine of W (re hi, im hi, re lo, im lo, re
+    tf32, im tf32, -im hi, -im lo, -im tf32), each on the grids of its
+    rows."""
+    xs, ws = x[:, :, kk], w[:, :, kk]
+    mx = _grid(np.maximum(abs(xs[0]), abs(xs[1])).max(1))[:, None]
+    mw = _grid(np.maximum(abs(ws[0]), abs(ws[1])).max(1))[:, None]
+    (xrh, xrl), (xih, xil) = _split(xs[0], mx), _split(xs[1], mx)
+    (wrh, wrl), (wih, wil) = _split(ws[0], mw), _split(ws[1], mw)
+    wt = _tf32(ws[1])
+    return ([xrh, xih, xrl, xil, -xih, -xil],
+            [wrh, wih, wrl, wil, _tf32(ws[0]), wt, -wih, -wil, -wt])
+
+
+def _pwg_phase(x_ops, w_ops, acc, plan, rounding):
+    """One k-step of a phase: each plane's exact sum and cross sum of the
+    (x part, W part) products of ``plan`` on the tensor cores
+    (``rounding`` after each, from a zeroed accumulator), added to
+    ``acc[plane][i, c]`` = Σ_k W[i, k] x[c, k] to nearest, exact sum
+    first; whether every exact sum was exact."""
+    exact = True
+    for p, sums in enumerate(plan):
+        for q, products in enumerate(sums):
+            d = np.zeros((w_ops[0].shape[0], x_ops[0].shape[0]), F64)
+            whole = np.zeros_like(d)
+            for a, b in products:
+                term = _mm(w_ops[b], x_ops[a])
+                whole += term
+                d = rounding(d + term).astype(F64)
+            exact &= q > 0 or bool(np.all(d == whole))
+            acc[p][:] = (acc[p] + d.astype(F32)).astype(F32)
+    return exact
+
+
+def pair_wg_product(x, w1, w2, rounding=None):
+    """(out, every exact sum exact) of one slab of the trailing pair, out[i,
+    l] = Σ_{j,m} W1[i, j] W2[l, m] x[j, m], as pair_wg.cuh computes it: x
+    (2, D1, 128) float32 (phased), W1 (2, D1, D1) and W2 (2, 128, 128); a
+    unit's 64 rows i at a time.  Phase 1: per k-step of j, X's four parts
+    (rows m) and W1's nine (the unit's rows i) written into a stage and read
+    back through the descriptors' offsets, Y[i, m] summed in FP32.  Phase
+    2: per k-step of m in the paired order, Y's parts on the grids of its
+    rows i (the A fragments in registers) and W2's read back from a
+    stage."""
+    rounding = _rz if rounding is None else rounding
+    d1 = x.shape[1]
+    xt = x.transpose(0, 2, 1)          # (2, m, j): X's rows m, K = j
+    out = np.zeros((2, d1, 128), F32)
+    exact = True
+    for h in range(d1 // PWG_NI):
+        w1h = w1[:, h * PWG_NI:(h + 1) * PWG_NI]
+        y = [np.zeros((PWG_NI, 128), F32) for _ in range(2)]
+        for s in range(d1 // 8):
+            xparts, wparts = _pwg_parts(xt, w1h, slice(8 * s, 8 * s + 8))
+            st = _pwg_stage([(0, PWG_X_LBO, PWG_X_PART, xparts[:4]),
+                             (PWG_W1, 16 * PWG_NI, 32 * PWG_NI, wparts)])
+            x_ops = [wg_operand(st, a * PWG_X_PART, PWG_X_LBO, 128)
+                     for a in range(4)]
+            w_ops = [wg_operand(st, PWG_W1 + b * 32 * PWG_NI, 16 * PWG_NI,
+                                PWG_NI) for b in range(9)]
+            exact &= _pwg_phase(x_ops, w_ops, y, PWG_PLAN1, rounding)
+        y = np.stack(y)                # (2, i, m): Y's rows i, K = m
+        acc = [np.zeros((128, PWG_NI), F32) for _ in range(2)]
+        for q in range(16):
+            kk = 8 * q + PWG_PAIRED
+            yparts, wparts = _pwg_parts(y, w2, kk)
+            st = _pwg_stage([(0, WG_B_LBO, WG_B_PART, wparts[:6])])
+            w_ops = [wg_operand(st, b * WG_B_PART, WG_B_LBO, 128)
+                     for b in range(6)]
+            exact &= _pwg_phase(yparts, w_ops, acc, WG_PLAN, rounding)
+        out[0, h * PWG_NI:(h + 1) * PWG_NI] = acc[0].T
+        out[1, h * PWG_NI:(h + 1) * PWG_NI] = acc[1].T
+    return out, exact
+
+
+def _pwg_case(d1, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, d1, 128)) * np.exp(rng.normal(size=(2, d1, 128)))
+    us = [_unitary(d, rng) for d in (d1, 128)]
+    w1, w2 = (np.stack([u.real, u.imag]).astype(F32) for u in us)
+    return (x / np.linalg.norm(x)).astype(F32), w1, w2
+
+
+@pytest.mark.parametrize("d1,seed", [(64, 0), (64, 1), (128, 2)])
+def test_pair_wg_product_exact_sums_within_f32_limits(d1, seed):
+    """The pair's replay: its exact sums are exact, and it lies within the
+    f32 kernels' limits of float64 (F64_TOL) and of the float32 products
+    of the plain version, W1 first (tests/test_torch_cuda.py: 1e-5)."""
+    x, w1, w2 = _pwg_case(d1, seed)
+    got, exact = pair_wg_product(x, w1, w2)
+    assert exact
+    xc = x[0].astype(F64) + 1j * x[1]
+    w1c, w2c = (w[0].astype(F64) + 1j * w[1] for w in (w1, w2))
+    want = w1c @ xc @ w2c.T
+    yr = (w1[0] @ x[0] - w1[1] @ x[1]).astype(F32)
+    yi = (w1[0] @ x[1] + w1[1] @ x[0]).astype(F32)
+    plain = ((yr @ w2[0].T - yi @ w2[1].T).astype(F64)
+             + 1j * (yr @ w2[1].T + yi @ w2[0].T).astype(F64))
+    gotc = got[0].astype(F64) + 1j * got[1]
+    assert np.linalg.norm(gotc - want) / np.linalg.norm(want) <= F64_TOL
+    assert np.linalg.norm(gotc - plain) / np.linalg.norm(want) <= 1e-5
+
+
+def test_pair_wg_stage_holds_each_part():
+    """A phase-1 stage holds X's four parts (128 rows) and then W1's nine
+    (a unit's 64 rows), a phase-2 stage W2's six (128 rows), each read back
+    by its descriptor's offsets, no two sharing a byte, within the stage."""
+    rng = np.random.default_rng(7)
+    layouts = ([(0, PWG_X_LBO, PWG_X_PART, 128, 4),
+                (PWG_W1, 16 * PWG_NI, 32 * PWG_NI, PWG_NI, 9)],
+               [(0, WG_B_LBO, WG_B_PART, 128, 6)])
+    for layout in layouts:
+        blocks = [(base, lbo, size,
+                   [rng.normal(size=(rows, 8)).astype(F32)
+                    for _ in range(parts)])
+                  for base, lbo, size, rows, parts in layout]
+        st = _pwg_stage(blocks)
+        spans = []
+        for base, lbo, size, parts in blocks:
+            for b, part in enumerate(parts):
+                np.testing.assert_array_equal(
+                    wg_operand(st, base + b * size, lbo, part.shape[0]), part)
+                spans.append(base + b * size
+                             + _wg_offsets(part.shape[0], lbo).ravel())
+        spans = np.concatenate(spans)
+        assert len(np.unique(spans)) == len(spans)
+        assert spans.max() + 4 <= PWG_STAGE
+
+
+@pytest.mark.parametrize("n,width1", [(13, 6), (14, 6), (14, 7)])
+def test_pair_wg_product_is_the_plain_pair(n, width1):
+    """On a state with flips and phases past the 8-entry tables, applied as
+    the F32 kernels apply them, the replay slab by slab is pair_apply_ref's
+    trailing pair at D2 = 128 within 1e-5."""
+    import torch
+
+    from qbot_tpu_torch.tpu import kernels
+
+    rng = np.random.default_rng(10 * n + width1)
+    psi = rng.normal(size=(2, 2**n)) * np.exp(rng.normal(size=(2, 2**n)))
+    psi = torch.tensor(psi / np.linalg.norm(psi), dtype=torch.float32)
+    d1 = 2**width1
+    w1, w2 = (np.stack([u.real, u.imag]).astype(F32)
+              for u in (_unitary(d1, rng), _unitary(128, rng)))
+    diag = _many_entries(n, rng)
+    x = kernel_phases(psi.numpy(), diag, combine=True).reshape(2, -1, d1, 128)
+    got = np.stack([pair_wg_product(x[:, a], w1, w2)[0]
+                    for a in range(x.shape[1])], axis=1).reshape(2, -1)
+    start = n - width1 - 7
+    want = kernels.pair_apply_ref(psi, n, start, width1, 7,
+                                  torch.from_numpy(w1), torch.from_numpy(w2),
+                                  diag, mode="f32").numpy()
+    assert (np.linalg.norm(got.astype(F64) - want)
+            / np.linalg.norm(want)) <= 1e-5
+
 
 if __name__ == "__main__":
     for d in (8, 16, 32, 64, 128):

@@ -10,8 +10,11 @@ in a process of its own, which imports that tree's ``qbot_tpu_torch`` and
 builds its kernels into the tree's own ``_build``.  The processes run in the
 order parent, change, change, parent; each times every shape in every dot
 mode (f32, whose kernels a change may leave as they are, shows the spread)
-as the mean of 20 launches after a warm-up, with CUDA events.  Prints, per
-shape and mode, each tree's mean of its two runs and their ratio, then the
+as the mean of 20 launches after a warm-up, with CUDA events, and the f32
+trailing pairs at D2 = 128 (``trailing``, ``density_columns``) also as the
+two window launches that could stand in for them (``two_windows``: the D1
+window with the flips and phases, then the D2 window).  Prints, per shape
+and mode, each tree's mean of its two runs and their ratio, then the
 card's name and power limit (``tools/window_ab.py`` runs the turns).
 """
 from __future__ import annotations
@@ -38,6 +41,8 @@ SHAPES = {"middle": (0, 5, 7), "trailing": (N - 14, 7, 7),
           "stream_2x2": (3, 2, 2), "stream_1x2": (0, 1, 2),
           "stream_1x1": (0, 1, 1), "stream_1x1_b128": (N - 9, 1, 1),
           "unreached_stream_trailing": (N - 4, 2, 2)}
+# the shapes also timed as their two-window route, in f32
+TWO_WINDOWS = ("trailing", "density_columns")
 
 
 def worker() -> None:
@@ -60,6 +65,20 @@ def worker() -> None:
         return torch.tensor(np.stack([u.real, u.imag]), dtype=torch.float32,
                             device=device)
 
+    def timed(fn) -> float:
+        """ms a call: the mean of 20 after a warm-up, by CUDA events."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(20):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / 20
+
+    nodiag = kernels.fused_diagonals(N, device=device)
     times = {}
     for label, (start, width1, width2) in SHAPES.items():
         w1, w2 = unitary(2**width1), unitary(2**width2)
@@ -73,18 +92,15 @@ def worker() -> None:
         diag = kernels.fused_diagonals(N, flips, phases, device)
         for mode in MODES:
             kernels.set_dot_mode(mode)
-            kernels.pair_apply(psi, N, start, width1, width2, w1, w2, diag)
-            torch.cuda.synchronize()
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            for _ in range(20):
-                kernels.pair_apply(psi, N, start, width1, width2, w1, w2,
-                                   diag)
-            t1.record()
-            torch.cuda.synchronize()
-            times[f"{label} {mode}"] = t0.elapsed_time(t1) / 20
-    kernels.set_dot_mode("f32")
+            times[f"{label} {mode}"] = timed(
+                lambda: kernels.pair_apply(psi, N, start, width1, width2, w1,
+                                           w2, diag))
+        kernels.set_dot_mode("f32")
+        if label in TWO_WINDOWS:
+            times[f"{label} two_windows f32"] = timed(
+                lambda: kernels.window_apply(
+                    kernels.window_apply(psi, N, start, width1, w1, diag), N,
+                    start + width1, width2, w2, nodiag))
     print(json.dumps(times))
 
 
